@@ -1,0 +1,204 @@
+"""repro_torch.engine — the single-device sort engine.
+
+``sort`` / ``sort_kv`` / ``argsort`` / ``topk`` accept any size: the
+planner (planner.py) either hands the rows to one registered backend or
+runs the hierarchy — tiled run generation (runs.py) and a tree of pairwise
+merges (merge.py).  On a CUDA device the runs are sorted by the bitonic
+kernel (by the radix kernels when the sort must be stable) and merged by
+the merge-path kernel.
+
+Every entry point takes ``device=`` (default ``"cuda"``), moves its input
+there and returns on it; ``device="cuda"`` without a card raises.
+``uint16``/``uint32`` keys ride the engine as order-preserving signed keys
+of the same width (torch has no comparisons or gathers for those dtypes on
+the CPU) and come back bit-exact.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import keycodec, sortspec
+from repro_torch.core.sortspec import index_rows
+from repro_torch.engine import merge as merge  # noqa: F401  (re-export)
+from repro_torch.engine import planner, runs
+from repro_torch.engine.merge import merge_pairs, merge_runs  # noqa: F401
+from repro_torch.engine.planner import (  # noqa: F401
+    Plan, choose, choose_cached, clear_plan_cache)
+from repro_torch.kernels.ops import _from_rows, _to_rows
+from repro_torch.obs import trace as _obs
+
+
+def _obs_finish(sp, op: str, plan: planner.Plan, n: int, batch: int,
+                k: Optional[int] = None) -> None:
+    """Pair a fenced span with its plan: a ``cost_observation`` event and
+    the ``planner.cost_model_error`` ratio.  No-op when tracing is off or
+    the span has no device time (CPU tensors)."""
+    if sp.device_ms is None:
+        return
+    predicted = plan.costs.get(plan.method)
+    if not predicted or predicted != predicted or predicted == float("inf"):
+        return
+    measured_ns = sp.device_ms * 1e6
+    error = measured_ns / predicted
+    _obs.record_event("cost_observation", op=op, n=n, batch=batch, k=k,
+                      method=plan.method, predicted_ns=predicted,
+                      measured_ns=measured_ns, error=error)
+    from repro_torch.obs import metrics as _metrics
+    _metrics.histogram("planner.cost_model_error").observe(error)
+
+
+def _rows_on(x, axis: int, device):
+    """(x moved to the device, its rows form, lead dims, axis)."""
+    dev = sortspec.resolve_device(device)
+    x = torch.as_tensor(x).to(dev)
+    x2, lead, ax = _to_rows(x, axis)
+    return x, keycodec.to_signed(x2), lead, ax
+
+
+# ---------------------------------------------------------------------------
+# merge pipeline over rows form — what the "merge" backend executes
+# ---------------------------------------------------------------------------
+
+def merge_sort_rows(x2: torch.Tensor, *, descending: bool,
+                    plan: planner.Plan) -> torch.Tensor:
+    """(rows, n) -> sorted rows via run generation + the merge tree, on
+    the tensor's own device."""
+    rg = runs.generate_runs(x2, plan.run_len, method=plan.run_method,
+                            descending=descending)
+    merged = merge_runs(rg, descending=descending,
+                        backend=plan.merge_backend)
+    return merged[:, :x2.shape[-1]]
+
+
+def merge_sort_rows_kv(k2: torch.Tensor, v2: torch.Tensor, *,
+                       descending: bool, plan: planner.Plan,
+                       stable: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Key-value merge pipeline.  ``stable=True`` sorts the runs with the
+    plan's stable run method (``torch`` on the CPU, the radix kernels on
+    the card), so the whole pipeline is stable (the merges are).
+    The kernels carry int32 payloads; any other payload rides as an index
+    payload and is gathered at the end (the same result: an index payload
+    is what every stable path orders by)."""
+    if v2.dtype != torch.int32:
+        _, order = merge_sort_rows_kv(k2, index_rows(k2),
+                                      descending=descending, plan=plan,
+                                      stable=stable)
+        order = order.to(torch.int64)
+        return k2.gather(-1, order), v2.gather(-1, order)
+    run_method = plan.stable_run_method if stable else plan.run_method
+    rk, rv = runs.generate_runs_kv(k2, v2, plan.run_len, method=run_method,
+                                   descending=descending)
+    mk, mv = merge_runs(rk, rv, descending=descending,
+                        backend=plan.merge_backend)
+    n = k2.shape[-1]
+    return mk[:, :n], mv[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# public entry points (any array size, planner-dispatched)
+# ---------------------------------------------------------------------------
+
+def sort(x, *, axis: int = -1, descending: bool = False,
+         method: str = "auto", run_len: Optional[int] = None,
+         device="cuda") -> torch.Tensor:
+    """Sort along ``axis``; sizes beyond one run go through runs + merges.
+    ``method`` is "auto", "merge" or any registered backend name."""
+    x, x2, lead, ax = _rows_on(x, axis, device)
+    batch, n = x2.shape
+    plan = planner.choose_cached(n, batch, x.dtype, requested=method,
+                                 run_len=run_len, device=x.device)
+    with _obs.trace("engine.sort", n=n, batch=batch, method=plan.method) as sp:
+        if plan.method == "merge":
+            out = merge_sort_rows(x2, descending=descending, plan=plan)
+        else:
+            out = sortspec.get_backend(plan.method).sort(
+                x2, descending=descending, plan=plan)
+        sp.fence(out)
+    _obs_finish(sp, "sort", plan, n, batch)
+    return _from_rows(keycodec.from_signed(out, x.dtype), lead, ax)
+
+
+def sort_kv(keys, values, *, axis: int = -1, descending: bool = False,
+            method: str = "auto", stable: bool = False,
+            run_len: Optional[int] = None, device="cuda"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort ``keys`` along ``axis`` carrying ``values`` with them;
+    ``stable=True`` forces a stable pipeline."""
+    keys, k2, lead, ax = _rows_on(keys, axis, device)
+    values, v2, _, _ = _rows_on(values, axis, device)
+    batch, n = k2.shape
+    plan = planner.choose_cached(n, batch, keys.dtype, requested=method,
+                                 run_len=run_len, device=keys.device)
+    with _obs.trace("engine.sort_kv", n=n, batch=batch,
+                    method=plan.method) as sp:
+        sk = sv = None
+        if plan.method != "merge":
+            be = sortspec.get_backend(plan.method)
+            if not stable or be.capabilities.stable:
+                sk, sv = be.sort_kv(k2, v2, descending=descending, plan=plan)
+        if sk is None:
+            sk, sv = merge_sort_rows_kv(k2, v2, descending=descending,
+                                        plan=plan, stable=stable)
+        sp.fence((sk, sv))
+    _obs_finish(sp, "sort_kv", plan, n, batch)
+    return (_from_rows(keycodec.from_signed(sk, keys.dtype), lead, ax),
+            _from_rows(keycodec.from_signed(sv, values.dtype), lead, ax))
+
+
+def argsort(x, *, axis: int = -1, descending: bool = False,
+            method: str = "auto", stable: bool = False,
+            run_len: Optional[int] = None, device="cuda") -> torch.Tensor:
+    """Sorting permutation along ``axis`` (int32); ties keep ascending
+    index order in both directions on every backend."""
+    x, x2, lead, ax = _rows_on(x, axis, device)
+    batch, n = x2.shape
+    plan = planner.choose_cached(n, batch, x.dtype, requested=method,
+                                 run_len=run_len, device=x.device)
+    with _obs.trace("engine.argsort", n=n, batch=batch,
+                    method=plan.method) as sp:
+        order = None
+        if plan.method != "merge":
+            be = sortspec.get_backend(plan.method)
+            if not stable or be.capabilities.stable:
+                order = be.argsort(x2, descending=descending, plan=plan)
+        if order is None:
+            _, order = merge_sort_rows_kv(x2, index_rows(x2),
+                                          descending=descending, plan=plan,
+                                          stable=stable)
+        sp.fence(order)
+    _obs_finish(sp, "argsort", plan, n, batch)
+    return _from_rows(order, lead, ax)
+
+
+def topk(x, k: int, *, method: str = "auto", run_len: Optional[int] = None,
+         device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis -> (values, int32 indices), descending;
+    the lower index first among equal keys.  Engine path: per-run top-k
+    candidates (only a run's first k can reach the top k), then a
+    key-value merge tree over the k-prefixes."""
+    x, x2, lead, _ = _rows_on(x, -1, device)
+    batch, n = x2.shape
+    if not 1 <= k <= n:
+        raise ValueError(
+            f"topk k must satisfy 1 <= k <= n (n={n}); got k={k}")
+    plan = planner.choose_cached(n, batch, x.dtype, requested=method,
+                                 run_len=run_len, k=k, device=x.device)
+    with _obs.trace("engine.topk", n=n, batch=batch, k=k,
+                    method=plan.method) as sp:
+        if plan.method != "merge":
+            v, i = sortspec.get_backend(plan.method).topk(x2, k, plan=plan)
+        else:
+            rk, rv = runs.generate_runs_kv(x2, index_rows(x2), plan.run_len,
+                                           method=plan.run_method,
+                                           descending=True)
+            kk = runs.next_pow2(min(k, rk.shape[-1]))
+            mk, mv = merge_runs(rk[..., :kk], rv[..., :kk], descending=True,
+                                backend=plan.merge_backend)
+            v, i = mk[:, :k], mv[:, :k]
+        sp.fence((v, i))
+    _obs_finish(sp, "topk", plan, n, batch, k)
+    v = keycodec.from_signed(v.contiguous(), x.dtype)
+    return v.reshape(*lead, k), i.reshape(*lead, k)
