@@ -13,15 +13,21 @@ Phases, each printed as one JSON line:
             bit for bit (signed zeros, ties and dtype extremes included);
 3. main     the port's entry points at the standard GPU sort benchmark's
             size (2^28 32-bit keys): sort, argsort (also stable), sort_kv,
-            the radix and cuda backends and an engine top-k, each held
-            bit-exactly against ``torch.sort(stable=True)`` (ties keep
-            ascending index in both directions).  Each call runs once with
-            the launch counts set to 0 just before and read just after,
-            then is timed with CUDA events over a few more calls;
+            the radix and cuda backends and an engine top-k; then top-k
+            through the select (K4) and cuda (K5) backends at the shapes of
+            vocabulary sampling, MoE routing and gradient compression, MoE
+            token grouping, a ragged segment sort and a padded-row sort.
+            Each is held bit-exactly against ``torch.sort(stable=True)``
+            (ties keep ascending index in both directions; the select
+            backend's top-k on the IEEE total order, +0.0 above -0.0).
+            Each call runs once with the launch counts set to 0 just before
+            and read just after, then is timed with CUDA events over a few
+            more calls;
 4. timing   each kernel at the main path's shapes: its output held bit for
             bit against its plain version on the same inputs (the
             ``max_abs_err`` of the kernel table), then CUDA-event times of
-            both beside ``torch.sort`` on the same rows.
+            both beside ``torch.sort`` (``torch.topk`` for K4 and K5) on
+            the same rows.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -44,6 +50,10 @@ MAIN_N = 1 << 28          # float32 keys of the merge sort (1 GiB)
 KV_N = 1 << 26            # int32 / uint32 keys of argsort, sort_kv, radix
 BATCH = (8192, 4096)      # rows of the cuda backend
 TOPK_N, TOPK_K = 1 << 24, 64
+VOCAB = (64, 128256)      # sampling rows over Llama 3's vocabulary, k=50
+ROUTER = (16384, 64)      # MoE routing: OLMoE's 64 experts, top-8
+GRAD_N = 1 << 26          # gradient compression at 1%: topk_budget
+SEGMENTS = 4096           # ragged segments of the 2^24-key segment sort
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -132,7 +142,9 @@ def phase_kernels(rng) -> dict:
     import torch
     from repro_torch.core import keycodec
     from repro_torch.kernels import bitonic_sort as bs
+    from repro_torch.kernels import bitonic_topk as btk
     from repro_torch.kernels import merge_path as mp
+    from repro_torch.kernels import radix_select as sel
     from repro_torch.kernels import radix_sort as rsk
 
     cases = 0
@@ -218,6 +230,48 @@ def phase_kernels(rng) -> dict:
             same_bits(sk1, pk[:, :m], f"K3 sort keys {carrier} {rows}x{m}")
             same_bits(sv1, pv[:, :m], f"K3 sort vals {carrier} {rows}x{m}")
             cases += 2
+
+    # K4: every pass of the refinement, the first (every key active) and
+    # the later ones under each row's k-th key as threshold prefix, on
+    # source keys (encoded in registers) and on encoded keys; 10007 keys
+    # leave a ragged last tile at either tile size
+    for dtype in dtypes:
+        x = _keys(rng, (5, 10007), dtype)
+        enc = keycodec.encode(x, descending=True)
+        nbits = 8 * x.element_size()
+        u = enc.to(torch.int64) & ((1 << nbits) - 1)
+        kth = torch.sort(u, dim=-1).values[:, 5000].contiguous()
+        for db, tile in ((8, 4096), (4, 1000)):
+            for thresh in (torch.zeros_like(kth), kth):
+                for shift in range(nbits - db, -1, -db):
+                    for keys, encode in ((x, True), (enc, False)):
+                        same_bits(
+                            sel.digit_hist(keys, thresh, shift, db, tile,
+                                           encode=encode),
+                            sel.digit_hist_plain(keys, thresh, shift, db,
+                                                 tile, encode=encode),
+                            f"K4 {dtype} db={db} shift={shift} "
+                            f"encode={encode}")
+                        cases += 1
+
+    # K5: short and chunk-long rows, a row at the sentinel and a row of
+    # signed zeros
+    for dtype in dtypes:
+        for n in (8, 64, 2048):
+            x = _keys(rng, (70, n), dtype)
+            if dtype.is_floating_point:
+                x[1] = float("-inf")
+                x[2] = 0.0
+                x[2, 0::3] = -0.0
+            else:
+                x[1] = torch.iinfo(dtype).min
+            for k in (1, 8, 50, n):
+                if k <= n:
+                    v1, i1 = btk.topk_blocks(x, k)
+                    v2, i2 = btk.topk_plain(x, k)
+                    same_bits(v1, v2, f"K5 values {dtype} n={n} k={k}")
+                    same_bits(i1, i2, f"K5 indices {dtype} n={n} k={k}")
+                    cases += 2
     torch.cuda.synchronize()
     return cases
 
@@ -240,6 +294,7 @@ def phase_main(rng) -> dict:
     import torch
     import repro_torch.sort as rsort
     from repro_torch import engine
+    from repro_torch.core import keycodec
     from repro_torch.kernels import _build
 
     launches: dict = {}
@@ -329,6 +384,114 @@ def phase_main(rng) -> dict:
     ref_v, ref_i = _ref_sort(xt, descending=True)
     same_bits(v, ref_v[:TOPK_K], "topk values")
     same_bits(i, ref_i[:TOPK_K], "topk indices")
+
+    # top-k through the selection (K4) and bitonic top-k (K5) backends.
+    # References: select ranks on the IEEE total order (+0.0 above -0.0,
+    # lax.top_k), cuda numerically; both take the lower index on ties.
+    for shape, k in (((TOPK_N,), TOPK_K), (VOCAB, 50), (ROUTER, 8),
+                     ((GRAD_N,), 671088)):
+        n, batch = shape[-1], (shape[0] if len(shape) == 2 else 1)
+        p = engine.choose(n, batch, torch.float32, k=k, device="cuda")
+        emit({"phase": "main", "auto_topk_plan": list(shape), "k": k,
+              "method": p.method, "costs_ns": p.costs})
+
+    def check_topk(name, x, k, method, got):
+        key = keycodec.total_order_key(x) if method == "select" else x
+        order = torch.sort(key, dim=-1, stable=True,
+                           descending=True).indices[..., :k]
+        same_bits(got[1], order.to(torch.int32), f"{name} indices")
+        same_bits(got[0], x.gather(-1, order), f"{name} values")
+
+    sel_k = ("select_digit_hist", "bitonic_sort_kv_blocks")
+    v_i = run(f"topk select k={TOPK_K} 2^24 float32",
+              lambda: rsort.topk(xt, TOPK_K, method="select"), sel_k)
+    check_topk("topk select 2^24", xt, TOPK_K, "select", v_i)
+    del xt
+
+    logits = torch.from_numpy(rng.standard_normal(VOCAB, dtype=np.float32)
+                              * 4).cuda()
+    v_i = run("topk select k=50 (64, 128256) float32",
+              lambda: rsort.topk(logits, 50, method="select"), sel_k)
+    check_topk("topk select vocab", logits, 50, "select", v_i)
+    k5_k1 = ("bitonic_topk_blocks", "bitonic_sort_kv_blocks")
+    v_i = run("topk cuda k=50 (64, 128256) float32",
+              lambda: rsort.topk(logits, 50, method="cuda"), k5_k1)
+    check_topk("topk cuda vocab", logits, 50, "cuda", v_i)
+    # padded vocabulary: the last 128 lanes masked to -inf, and row 0
+    # masked down to 10 finite lanes, fewer than k (the reference's top-k
+    # returned index -1 there)
+    masked = logits.clone()
+    masked[:, -128:] = float("-inf")
+    masked[0, 10:] = float("-inf")
+    for method, must in (("cuda", k5_k1), ("select", sel_k)):
+        v_i = run(f"topk {method} k=50 (64, 128256) float32 -inf masked",
+                  lambda: rsort.topk(masked, 50, method=method), must)
+        check_topk(f"topk {method} masked", masked, 50, method, v_i)
+        if int(v_i[1].min()) < 0:
+            raise AssertionError(f"topk {method}: negative index")
+    del logits, masked
+
+    router = torch.from_numpy(rng.standard_normal(ROUTER, dtype=np.float32)
+                              ).cuda()
+    v_i = run("topk cuda k=8 (16384, 64) float32",
+              lambda: rsort.topk(router, 8, method="cuda"),
+              ("bitonic_topk_blocks",))
+    check_topk("topk cuda router", router, 8, "cuda", v_i)
+    del router
+
+    # gradient compression: the top 1% of |g| (grad_compress.topk_budget)
+    g = torch.from_numpy(rng.standard_normal(GRAD_N, dtype=np.float32)
+                         ).cuda().abs()
+    gk = GRAD_N // 100
+    v_i = run(f"topk select k={gk} |g| of 2^26 float32",
+              lambda: rsort.topk(g, gk, method="select"),
+              ("select_digit_hist", "bitonic_sort_kv_blocks",
+               "merge_pairs_kv_blocks"))
+    check_topk("topk select grad", g, gk, "select", v_i)
+    del g, v_i
+
+    # MoE dispatch: 16384 tokens x top-8 expert ids, a stable grouping
+    ids = torch.from_numpy(rng.integers(0, 64, ROUTER[0] * 8)
+                           .astype(np.int32)).cuda()
+    p = engine.choose(ids.numel(), 1, torch.int32, device="cuda")
+    emit({"phase": "main", "auto_plan_group_tokens": p.method})
+    perm, splits = run("group_tokens_by_expert 131072 ids, 64 experts",
+                       lambda: engine.group_tokens_by_expert(ids, 64),
+                       ("radix_digit_hist", "radix_digit_scatter"))
+    same_bits(perm, _ref_sort(ids)[1], "group_tokens permutation")
+    counts = torch.bincount(ids.long(), minlength=64)
+    same_bits(splits, torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+              .to(torch.int32), "group_tokens row splits")
+    del ids, perm, splits
+
+    # ragged segments: 2^24 float32 over 4096 segments of random lengths
+    xs = torch.from_numpy(rng.standard_normal(TOPK_N, dtype=np.float32)
+                          ).cuda()
+    cuts = np.sort(rng.choice(np.arange(1, TOPK_N), SEGMENTS - 1,
+                              replace=False))
+    splits = torch.from_numpy(np.concatenate([[0], cuts, [TOPK_N]])
+                              .astype(np.int64)).cuda()
+    sv, ss = run(f"segment_sort 2^24 float32, {SEGMENTS} segments",
+                 lambda: rsort.segment_sort(xs, row_splits=splits),
+                 ("radix_digit_hist", "radix_digit_scatter"))
+    seg = engine.segment_ids_from_row_splits(splits, TOPK_N)
+    o1 = _ref_sort(xs)[1].long()
+    order = o1.gather(0, _ref_sort(seg.gather(0, o1))[1].long())
+    same_bits(sv, xs.gather(0, order), "segment_sort values")
+    same_bits(ss, seg.gather(0, order), "segment_sort segment ids")
+    del xs, splits, sv, ss, seg, o1, order
+
+    # padded rows: each row's valid prefix sorted, the tail filled
+    b = torch.from_numpy(rng.standard_normal(VOCAB, dtype=np.float32)).cuda()
+    lengths = torch.from_numpy(rng.integers(0, VOCAB[1] + 1, VOCAB[0])
+                               ).cuda()
+    out = run("sort(valid_lengths=...) (64, 128256) float32",
+              lambda: rsort.sort(b, valid_lengths=lengths, fill_value=-1.0),
+              ("radix_digit_hist", "radix_digit_scatter"))
+    valid = torch.arange(VOCAB[1], device="cuda")[None, :] < lengths[:, None]
+    want = torch.sort(torch.where(valid, b, float("inf")), dim=-1,
+                      stable=True).values
+    same_bits(out, torch.where(valid, want, -1.0), "valid_lengths sort")
     torch.cuda.synchronize()
     return {"launches": launches, "steps": steps}
 
@@ -347,8 +510,12 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
     plain version on the same inputs, then timed beside it and beside
     ``torch.sort`` on the same rows.  Inputs are made on the card."""
     import torch
+    from repro_torch.core import keycodec
     from repro_torch.kernels import bitonic_sort as bs
+    from repro_torch.kernels import bitonic_topk as btk
     from repro_torch.kernels import merge_path as mp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radix_select as sel
     from repro_torch.kernels import radix_sort as rsk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -473,6 +640,69 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
     emit({"phase": "timing", "name": "radix sort_kv_blocks 2^26 uint32",
           "ms": cuda_ms(lambda: rsk.sort_kv_blocks(keys, vals), 5)[0],
           "library_ms": cuda_ms(lambda: torch.sort(u, stable=True), 5)[0]})
+    del keys, vals, base, u
+
+    # K4: the first (all-active) pass over the 2^24 float32 row of the
+    # select top-k, and a later pass under the row's 64th key as prefix;
+    # torch.topk of the same row is the one library call for the function
+    x = torch.randn((1, TOPK_N), generator=gen, device="cuda")
+    nbits = 32
+    zero = torch.zeros(1, dtype=torch.int64, device="cuda")
+    hist_bytes = x.numel() * 4 + 8 + radix * 4
+    row("select_digit_hist", "src/repro_torch/csrc/radix_select.cu",
+        "src/repro/kernels/radix_select.py:128",
+        lambda: (sel.digit_hist(x, zero, nbits - digit_bits, digit_bits,
+                                radix_tile, encode=True),),
+        lambda: (sel.digit_hist_plain(x, zero, nbits - digit_bits,
+                                      digit_bits, radix_tile, encode=True),),
+        hist_bytes, x.numel(), lambda: torch.topk(x, TOPK_K))
+    enc = keycodec.encode(x, descending=True)
+    kth = torch.sort(enc.to(torch.int64) & 0xffffffff, dim=-1) \
+        .values[:, TOPK_K - 1].contiguous()
+    later = compare("select_digit_hist later pass",
+                    lambda: (sel.digit_hist(x, kth, 8, digit_bits,
+                                            radix_tile, encode=True),),
+                    lambda: (sel.digit_hist_plain(x, kth, 8, digit_bits,
+                                                  radix_tile, encode=True),))
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], later)
+    emit({"phase": "timing", "name": "select_digit_hist later pass",
+          "ms": cuda_ms(lambda: sel.digit_hist(x, kth, 8, digit_bits,
+                                               radix_tile, encode=True),
+                        10)[0]})
+    # the whole select top-k (4 passes, compaction, K1 order) and the
+    # cuda top-k (K5 chunks, K1 or the merge path) beside torch.topk
+    for name, fn in (("select", lambda: sel.select_topk(x, TOPK_K)),
+                     ("cuda", lambda: ops.bitonic_topk(x, TOPK_K))):
+        emit({"phase": "timing", "name": f"topk {name} k={TOPK_K} 2^24",
+              "ms": cuda_ms(fn, 5)[0],
+              "library_ms": cuda_ms(lambda: torch.topk(x, TOPK_K), 5)[0]})
+    del x, enc, kth
+    lg = torch.randn(VOCAB, generator=gen, device="cuda")
+    for name, fn in (("select", lambda: sel.select_topk(lg, 50)),
+                     ("cuda", lambda: ops.bitonic_topk(lg, 50))):
+        emit({"phase": "timing", "name": f"topk {name} k=50 (64, 128256)",
+              "ms": cuda_ms(fn, 10)[0],
+              "library_ms": cuda_ms(lambda: torch.topk(lg, 50), 10)[0]})
+    del lg
+
+    # K5: MoE routing rows, (16384, 64) float32, top-8
+    r = torch.randn(ROUTER, generator=gen, device="cuda")
+    n, kk = ROUTER[1], 8
+    lg5 = n.bit_length() - 1
+    row("bitonic_topk_blocks", "src/repro_torch/csrc/bitonic_topk.cu",
+        "src/repro/kernels/bitonic_topk.py:47",
+        lambda: btk.topk_blocks(r, kk), lambda: btk.topk_plain(r, kk),
+        r.numel() * 4 + ROUTER[0] * kk * 8,
+        ROUTER[0] * (n // 2) * lg5 * (lg5 + 1) // 2,
+        lambda: torch.topk(r, kk, dim=-1))
+    # and the per-chunk pass of the vocabulary top-k, (64 * 63, 2048), k=50
+    c = torch.randn((VOCAB[0] * 63, 2048), generator=gen, device="cuda")
+    emit({"phase": "timing", "name": "bitonic_topk_blocks (4032, 2048) k=50",
+          "ms": cuda_ms(lambda: btk.topk_blocks(c, 50), 10)[0],
+          "bound_ms": _bound(c.numel() * 4 + c.shape[0] * 50 * 8, 0)[0],
+          "max_abs_err": max(same_bits(g, w, "K5 vocab chunks vs plain")
+                             for g, w in zip(btk.topk_blocks(c, 50),
+                                             btk.topk_plain(c, 50)))})
     return rows
 
 

@@ -19,7 +19,8 @@ JAX_SCHEMA = "repro.tuning.profile/v1"
 _CONSTANTS = {
     "xla": "torch", "bitonic": "bitonic", "pallas": "cuda",
     "merge_run": "merge_run", "merge_level": "merge_level",
-    "radix": "radix", "pallas_interpret_penalty": "cuda_plain_penalty",
+    "radix": "radix", "select": "select",
+    "pallas_interpret_penalty": "cuda_plain_penalty",
 }
 
 
@@ -40,4 +41,6 @@ def profile_from_jax(d: dict) -> tuning.TuningProfile:
         radix_tile=int(d["radix_tile"]),
         run_len=int(d["run_len"]),
         spill_threshold_bytes=int(d["spill_threshold_bytes"]),
+        select_min_n=int(d.get("select_min_n",
+                               tuning.DEFAULT_SELECT_MIN_N)),
         source="converted")

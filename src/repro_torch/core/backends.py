@@ -3,7 +3,8 @@
 Backend names follow the JAX package except where a name says which
 substrate runs it: ``xla`` is ``torch`` here (``torch.sort``, the reference
 backend) and ``pallas`` is ``cuda`` (the hand-written whole-row bitonic
-kernel).  ``bitonic``, ``merge`` and ``radix`` keep their names.  Each
+kernel).  ``bitonic``, ``merge``, ``radix`` and ``select`` keep their
+names.  Each
 ``Capabilities`` states exactly what its code takes; the planner derives
 all auto-dispatch eligibility from them.  Kernel modules are imported
 inside the methods so importing the registry stays cheap.
@@ -117,12 +118,15 @@ class BitonicBackend(SortBackend):
 @register_backend
 class CudaBackend(SortBackend):
     """K1 through ``kernels/ops.py``: the key-value kernel with an index
-    payload, then a gather.  On a CPU tensor its plain version runs.
-    No top-k in this slice: the bitonic top-k kernel (K5) is not ported."""
+    payload, then a gather.  Top-k is K5 per row (per 2048-key chunk and
+    an ordering of the candidates for longer rows), at any n when asked
+    for by name; ``max_n`` caps only what ``auto`` hands it.  Keys compare
+    numerically: -0.0 and +0.0 tie and keep index order, as in the
+    reference's ``pallas`` top-k.  On a CPU tensor the plain versions
+    run."""
     name = "cuda"
     capabilities = Capabilities(dtypes=COMPARABLE_DTYPES, stable=False,
-                                max_n=MAX_CUDA_N, supports_topk=False,
-                                substrate="cuda")
+                                max_n=MAX_CUDA_N, substrate="cuda")
 
     def sort(self, rows, *, descending=False, plan=None):
         from repro_torch.kernels import ops
@@ -135,6 +139,10 @@ class CudaBackend(SortBackend):
     def sort_kv(self, keys, values, *, descending=False, plan=None):
         return _gather_kv(keys, values,
                           self.argsort(keys, descending=descending))
+
+    def topk(self, rows, k, *, plan=None):
+        from repro_torch.kernels import ops
+        return ops.bitonic_topk(rows, k)
 
 
 # ---------------------------------------------------------------------------
@@ -207,3 +215,34 @@ class RadixBackend(SortBackend):
             sk = _keycodec.decode(sk, keys.dtype, descending=descending)
             sp.fence((sk, sv))
         return sk, sv
+
+
+# ---------------------------------------------------------------------------
+# select — MSD radix select, the O(n) partial-sort mode
+# ---------------------------------------------------------------------------
+
+@register_backend
+class SelectBackend(SortBackend):
+    """MSD radix select (K4, ``kernels/radix_select.py``): top-k from
+    digit histograms and a threshold refinement, never a sort of the row.
+    Selection-only (``supports_sort=False``); the planner prices its top-k
+    with ``cost_model.selection_cost_ns`` and ``auto`` takes it from
+    ``select_min_n`` up where it is the cheapest.  Exact-k with
+    ``lax.top_k``'s rule: ties keep ascending index, +0.0 above -0.0."""
+    name = "select"
+    capabilities = Capabilities(dtypes=frozenset(_keycodec.SUPPORTED),
+                                stable=False, supports_kv=False,
+                                supports_segments=False, supports_sort=False,
+                                selection=True, substrate="cuda")
+
+    def topk(self, rows, k, *, plan=None):
+        from repro_torch.kernels import radix_select as _sel
+        from repro_torch.obs import trace as _obs
+        self.check_dtype(rows.dtype)
+        n = rows.shape[-1]
+        passes, tiles = _sel.pass_tile_counts(n, rows.dtype)
+        with _obs.trace("select.topk", n=n, k=k, passes=passes,
+                        tiles=tiles) as sp:
+            out = _sel.select_topk(rows, k)
+            sp.fence(out)
+        return out

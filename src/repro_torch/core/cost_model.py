@@ -1,7 +1,7 @@
 """Device cost model — what ``planner.choose`` prices the backends with.
 
 The part of the JAX package's cost model the single-device planner needs:
-closed-form ns estimates per backend, with fixed asymptotics and leading
+closed-form ns estimates per sort backend and for top-k selection, with fixed asymptotics and leading
 constants from the active tuning profile.  The constants are the JAX
 package's default seeds (``core/tuning.py``), not measurements on a CUDA
 card; they order candidates, they do not predict times.
@@ -53,3 +53,20 @@ def device_sort_cost_ns(method: str, n: int, batch: int = 1, *,
         levels = _log2(tiles) if tiles > 1 else 0.0
         return gen + c.merge_level * batch * padded * levels
     raise ValueError(f"no device cost model for method {method!r}")
+
+
+def selection_cost_ns(n: int, k: int, key_bits: int = 32, batch: int = 1, *,
+                      consts: Optional[DeviceSortConstants] = None,
+                      digit_bits: Optional[int] = None,
+                      tile: Optional[int] = None) -> float:
+    """Estimated ns for an exact top-k *selection* of ``(batch, n)`` rows:
+    ``ceil(b/digit_bits)`` MSD digit-refinement passes of O(n) counting
+    over the tile-padded row, plus the O(k log k) ordering of the k
+    survivors (priced as a ``torch`` sort of k)."""
+    prof = _tuning.active()
+    c = consts or prof.constants
+    digit_bits = prof.digit_bits if digit_bits is None else digit_bits
+    tile = prof.radix_tile if tile is None else tile
+    passes = -(-key_bits // digit_bits)
+    tiled = -(-n // tile) * tile
+    return c.select * batch * tiled * passes + c.torch * batch * k * _log2(k)

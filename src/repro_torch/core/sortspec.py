@@ -5,8 +5,9 @@ frozen :class:`SortSpec`, and every engine that can run one is a
 :class:`SortBackend` declaring what it can do in a :class:`Capabilities`
 record.  The planner derives eligibility from those records alone.
 
-Spec fields the port does not carry yet fail here, loudly, with the
-ROADMAP item that will bring them — never with a different answer.
+Spec fields the port does not carry yet (mesh, and the backends of
+``NOT_PORTED``) fail here, loudly, with the ROADMAP item that will bring
+them — never with a different answer.
 """
 from __future__ import annotations
 
@@ -29,7 +30,6 @@ __all__ = [
 # JAX backends without a port yet -> where the ROADMAP schedules them
 NOT_PORTED = {
     "spill": "ROADMAP Queue 1 item 9 (engine/spill.py)",
-    "select": "ROADMAP Queue 2 K4 (kernels/radix_select.py)",
     "imc": "ROADMAP Queue 1 item 10 (paper model + imc backend)",
     "distributed": "ROADMAP Queue 1 item 11 (distributed tier)",
 }
@@ -65,13 +65,20 @@ class Capabilities:
     padded row the planner may hand it under ``method="auto"``.
     ``substrate`` says where it runs: ``"host"`` (PyTorch ops),
     ``"cuda"`` (hand-written kernels) or ``"hierarchy"`` (the engine).
+
+    ``selection=True`` declares an O(n·passes) top-k selection engine: its
+    top-k is priced with ``cost_model.selection_cost_ns``, not as a full
+    sort.  ``supports_sort=False`` marks a selection-only engine: the spec
+    layer refuses it plain sorts and the planner never hands it one.
     """
     dtypes: Optional[FrozenSet[str]] = None
     stable: bool = False
     max_n: Optional[int] = None
     supports_kv: bool = True
     supports_topk: bool = True
+    supports_segments: bool = True
     supports_sort: bool = True
+    selection: bool = False
     auto_dispatch: bool = True
     substrate: str = "host"        # "host" | "cuda" | "hierarchy"
 
@@ -112,7 +119,14 @@ class SortBackend:
 
     def topk_cost_ns(self, n: int, k: int, batch: int, dtype, *,
                      run_len: int, consts=None, plain: bool = False) -> float:
-        """A sort backend's top-k is sort-prefix: its full sort cost."""
+        """A selection engine's top-k is priced by the O(n·passes)
+        selection model; a sort backend's is sort-prefix: its full sort
+        cost."""
+        if self.capabilities.selection:
+            from repro_torch.core import cost_model
+            kb = keycodec.key_bits(dtype) if keycodec.supports(dtype) else 32
+            return cost_model.selection_cost_ns(n, k, kb, batch,
+                                                consts=consts)
         return self.cost_ns(n, batch, dtype, run_len=run_len, consts=consts,
                             plain=plain)
 
@@ -254,7 +268,11 @@ def default(key: str):
 class SortSpec:
     """The full sort problem in one value (the JAX package's fields; the
     Pallas ``interpret`` knob has no counterpart — the device is chosen by
-    the caller of ``repro_torch.sort.run``)."""
+    the caller of ``repro_torch.sort.run``).
+
+    ``segment_ids``/``row_splits`` sort within ragged groups of a row;
+    ``valid_lengths`` sorts each row's valid prefix of a padded batch and
+    writes ``fill_value`` over the tail."""
     axis: int = -1
     descending: bool = False
     stable: bool = False
@@ -264,6 +282,7 @@ class SortSpec:
     segment_ids: Optional[torch.Tensor] = None
     row_splits: Optional[torch.Tensor] = None
     valid_lengths: Optional[torch.Tensor] = None
+    fill_value: Any = 0
     mesh: Any = None
     axis_name: Optional[str] = None
     method: Optional[str] = None
@@ -277,14 +296,6 @@ class SortSpec:
             raise NotImplementedError(
                 "mesh-distributed sorts (mesh/axis_name) are not ported yet: "
                 + NOT_PORTED["distributed"])
-        if self.segment_ids is not None or self.row_splits is not None:
-            raise NotImplementedError(
-                "segmented sorts (segment_ids/row_splits) are not ported "
-                "yet: ROADMAP Queue 1 item 6 (engine/segmented.py)")
-        if self.valid_lengths is not None:
-            raise NotImplementedError(
-                "padded-row sorts (valid_lengths) are not ported yet: "
-                "ROADMAP Queue 1 item 6 (engine/segmented.py)")
         ndim = x.dim()
         if ndim == 0:
             raise ValueError("cannot sort a 0-d array")
@@ -307,6 +318,16 @@ class SortSpec:
             if not 1 <= k <= n:
                 raise ValueError(
                     f"topk k must satisfy 1 <= k <= n (n={n}); got k={k}")
+        if self.segment_ids is not None and self.row_splits is not None:
+            raise ValueError("pass segment_ids or row_splits, not both")
+        ragged = self.segment_ids is not None or self.row_splits is not None
+        if self.valid_lengths is not None and ragged:
+            raise ValueError(
+                "valid_lengths (padded rows) and segment_ids/row_splits "
+                "(ragged) are mutually exclusive")
+        if k is not None and (ragged or self.valid_lengths is not None):
+            raise ValueError("top-k over segmented/padded specs is not "
+                             "supported; sort then slice per segment")
         if k is not None and (self.values is not None or self.indices
                               or self.stable):
             raise ValueError("top-k specs return (values, indices) on their "
@@ -327,12 +348,17 @@ class SortSpec:
                     f"(capabilities.supports_topk=False)")
             if k is None and not caps.supports_sort:
                 raise ValueError(
-                    f"{method} backend runs no full sort "
-                    f"(capabilities.supports_sort=False)")
+                    f"{method} backend is selection-only "
+                    f"(capabilities.supports_sort=False); it runs top-k "
+                    f"specs (k=...), not full sorts")
             if self.values is not None and not caps.supports_kv:
                 raise ValueError(
                     f"{method} backend does not support key-value payloads "
                     f"(capabilities.supports_kv=False)")
+            if ragged and not caps.supports_segments:
+                raise ValueError(
+                    f"{method} backend does not support segmented sorts "
+                    f"(capabilities.supports_segments=False)")
         run_len = self.run_len if self.run_len is not None \
             else default("run_len")
         # top-k is inherently a descending selection (largest k)

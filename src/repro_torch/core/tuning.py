@@ -3,10 +3,11 @@
 The port's copy of the JAX package's tuning layer: one frozen
 :class:`TuningProfile` holding the planner's per-element cost constants
 and the kernel shape parameters (radix ``digit_bits``, radix tile, engine
-``run_len``), keyed by a device fingerprint and schema-versioned for JSON.
-Every consumer (cost model, radix kernels, run generation) reads the
-*active* profile; :func:`set_active` bumps a generation counter the planner
-folds into its plan-cache keys, so swapping profiles re-plans.
+``run_len``, the selection switch-over ``select_min_n``), keyed by a
+device fingerprint and schema-versioned for JSON.  Every consumer (cost
+model, radix kernels, run generation, planner) reads the *active*
+profile; :func:`set_active` bumps a generation counter the planner folds
+into its plan-cache keys, so swapping profiles re-plans.
 
 Not carried yet: calibration (``calibrate``/``maybe_refresh``, ROADMAP
 Queue 1 item 7) and the persisted-profile search path.  Until then the
@@ -46,6 +47,7 @@ DEFAULT_CPU_RUN_LEN = 8192      # host tile (the JAX package's CPU default)
 # CPU's 256 would make it as large as the keys.
 CUDA_RUN_LEN = 4096
 CUDA_RADIX_TILE = 4096
+DEFAULT_SELECT_MIN_N = 1024     # auto never picks selection below this n
 # auto plans above this many key bytes belong to the spill tier (not ported)
 DEFAULT_SPILL_THRESHOLD_BYTES = 4 << 30
 MIN_SPILL_THRESHOLD_BYTES = 64
@@ -67,6 +69,7 @@ class DeviceSortConstants:
     merge_run: float = 6.0       # run generation: c * n log2 run_len
     merge_level: float = 12.0    # one merge level: c * n
     radix: float = 12.0          # LSD digit pass: c * n * passes
+    select: float = 15.0         # MSD select: c * n * passes (+ k log k)
     cuda_plain_penalty: float = 300.0
 
 
@@ -86,6 +89,7 @@ class TuningProfile:
     radix_tile: int = DEFAULT_RADIX_TILE
     run_len: int = DEFAULT_CPU_RUN_LEN
     spill_threshold_bytes: int = DEFAULT_SPILL_THRESHOLD_BYTES
+    select_min_n: int = DEFAULT_SELECT_MIN_N
     source: str = "default"
     schema: str = SCHEMA
 
@@ -106,6 +110,9 @@ class TuningProfile:
                 f"spill_threshold_bytes must be >= "
                 f"{MIN_SPILL_THRESHOLD_BYTES}, "
                 f"got {self.spill_threshold_bytes}")
+        if self.select_min_n < 0:
+            raise ProfileError(
+                f"select_min_n must be >= 0, got {self.select_min_n}")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

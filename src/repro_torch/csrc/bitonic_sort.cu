@@ -12,34 +12,25 @@
 //
 // Design: one CTA of 1024 threads owns max(n, 2048) elements -- one row, or
 // 2048 / n short rows -- loaded once into shared memory and stored once.
-// Substages with partner distance j >= 32 exchange through shared memory,
-// one pair per thread per step; the substages with j < 32 of every stage run
-// in registers with warp shuffles (a warp holds 32 consecutive elements).
 // The cap on n comes from shared memory (227 KB a block): with a 4-byte key
 // and a 4-byte payload 16384 elements fill 128 KB.
 //
-// Semantics are those of the reference network, bit for bit:
-//  * key-only: a chunk flagged descending takes (max, min), else (min, max),
-//    with XLA's min/max on floats (the minimum of -0.0 and +0.0 is -0.0);
-//  * key-value: the comparator is the composite (key in the requested
-//    direction, payload ascending on ties); the requested direction lives in
-//    the comparator and the chunk direction is XOR'd in.
-#include "keys.cuh"
+// The network itself, and its bit-for-bit semantics, are in bitonic_net.cuh
+// (shared with K5's top-k).
+#include "bitonic_net.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
 constexpr int kMinElems = 2048;   // elements a CTA owns at the least
 
 template <typename TR, bool KV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBitonicThreads)
 bitonic_kernel(const typename TR::S* __restrict__ kin,
                const int* __restrict__ vin, typename TR::S* __restrict__ kout,
                int* __restrict__ vout, long long rows, int log_n,
                int rows_per_cta, int descending) {
   typedef typename TR::S S;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int n = 1 << log_n;
   const int elems = rows_per_cta << log_n;
   S* sk = reinterpret_cast<S*>(smem);
   int* sv = reinterpret_cast<int*>(
@@ -51,7 +42,7 @@ bitonic_kernel(const typename TR::S* __restrict__ kin,
   const int valid = static_cast<int>(nrows << log_n);
   const long long off = row0 << log_n;
 
-  for (int i = threadIdx.x; i < elems; i += kThreads) {
+  for (int i = threadIdx.x; i < elems; i += kBitonicThreads) {
     if (i < valid) {
       sk[i] = kin[off + i];
       if (KV) sv[i] = vin[off + i];
@@ -62,63 +53,9 @@ bitonic_kernel(const typename TR::S* __restrict__ kin,
   }
   __syncthreads();
 
-  for (int k = 2; k <= n; k <<= 1) {
-    int j = k >> 1;
-    for (; j >= 32; j >>= 1) {
-      for (int p = threadIdx.x; p < (elems >> 1); p += kThreads) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const bool rev = ((i & (n - 1)) & k) != 0;
-        S a = sk[i], b = sk[i + j];
-        if (KV) {
-          const int va = sv[i], vb = sv[i + j];
-          const bool kf = descending ? key_lt<TR>(b, a) : key_lt<TR>(a, b);
-          const bool tie = !key_lt<TR>(a, b) && !key_lt<TR>(b, a);
-          const bool a_first = (kf || (tie && va < vb)) != rev;
-          if (!a_first) {
-            sk[i] = b; sk[i + j] = a;
-            sv[i] = vb; sv[i + j] = va;
-          }
-        } else {
-          const bool d = rev != (descending != 0);
-          sk[i] = d ? key_max<TR>(a, b) : key_min<TR>(a, b);
-          sk[i + j] = d ? key_min<TR>(a, b) : key_max<TR>(a, b);
-        }
-      }
-      __syncthreads();
-    }
-    // substages j < 32: the partner e ^ jj sits in the same warp
-    for (int e = threadIdx.x; e < elems; e += kThreads) {
-      S key = sk[e];
-      int val = KV ? sv[e] : 0;
-      const bool rev = ((e & (n - 1)) & k) != 0;
-      for (int jj = j; jj >= 1; jj >>= 1) {
-        const S pk = shfl_xor(key, jj);
-        const int pv = KV ? __shfl_xor_sync(0xffffffffu, val, jj) : 0;
-        const bool lower = (e & jj) == 0;
-        const S a = lower ? key : pk, b = lower ? pk : key;
-        if (KV) {
-          const int va = lower ? val : pv, vb = lower ? pv : val;
-          const bool kf = descending ? key_lt<TR>(b, a) : key_lt<TR>(a, b);
-          const bool tie = !key_lt<TR>(a, b) && !key_lt<TR>(b, a);
-          const bool a_first = (kf || (tie && va < vb)) != rev;
-          // the lower slot takes the first element, the upper the second
-          const bool take_a = a_first == lower;
-          key = take_a ? a : b;
-          val = take_a ? va : vb;
-        } else {
-          const bool d = rev != (descending != 0);
-          const S first = d ? key_max<TR>(a, b) : key_min<TR>(a, b);
-          const S second = d ? key_min<TR>(a, b) : key_max<TR>(a, b);
-          key = lower ? first : second;
-        }
-      }
-      sk[e] = key;
-      if (KV) sv[e] = val;
-    }
-    __syncthreads();
-  }
+  bitonic_network<TR, KV>(sk, sv, elems, log_n, descending);
 
-  for (int i = threadIdx.x; i < valid; i += kThreads) {
+  for (int i = threadIdx.x; i < valid; i += kBitonicThreads) {
     kout[off + i] = sk[i];
     if (KV) vout[off + i] = sv[i];
   }
@@ -131,14 +68,13 @@ int launch(const void* kin, const void* vin, void* kout, void* vout,
   const int n = 1 << log_n;
   const int rows_per_cta = n >= kMinElems ? 1 : kMinElems / n;
   const size_t elems = static_cast<size_t>(rows_per_cta) * n;
-  const size_t smem = ((elems * sizeof(S) + 15) / 16) * 16 +
-                      (KV ? elems * sizeof(int) : 0);
+  const size_t smem = bitonic_smem_bytes<S, KV>(elems);
   cudaError_t err = cudaFuncSetAttribute(
       bitonic_kernel<TR, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long grid = (rows + rows_per_cta - 1) / rows_per_cta;
-  bitonic_kernel<TR, KV><<<static_cast<unsigned>(grid), kThreads, smem,
+  bitonic_kernel<TR, KV><<<static_cast<unsigned>(grid), kBitonicThreads, smem,
                            stream>>>(
       static_cast<const S*>(kin), static_cast<const int*>(vin),
       static_cast<S*>(kout), static_cast<int*>(vout), rows, log_n,

@@ -109,3 +109,22 @@ __device__ __forceinline__ S shfl_xor(S v, int mask) {
   memcpy(&r, &u, sizeof(S));
   return r;
 }
+
+// The key codec of core/keycodec.py in registers: the b-bit unsigned key
+// (b = 8 * sizeof(S), zero-extended) whose unsigned order is the source
+// order.  Signed ints flip the sign bit; floats flip every bit of a negative
+// value and only the sign bit of a non-negative one (so -0.0 encodes below
+// +0.0); unsigned ints are their own key.  XOR the result with 2^b - 1 for
+// the descending code.
+template <typename TR>
+__device__ __forceinline__ uint32_t encode_key(typename TR::S s) {
+  typedef typename TR::S S;
+  constexpr int kBits = 8 * static_cast<int>(sizeof(S));
+  constexpr uint32_t kSign = 1u << (kBits - 1);
+  constexpr uint32_t kAll = kBits == 32 ? 0xffffffffu : (1u << kBits) - 1u;
+  uint32_t u = 0;
+  memcpy(&u, &s, sizeof(S));
+  if (TR::kFloat) return u ^ ((u & kSign) ? kAll : kSign);
+  if (static_cast<S>(-1) < static_cast<S>(0)) return u ^ kSign;
+  return u;
+}

@@ -5,7 +5,9 @@ planner (planner.py) either hands the rows to one registered backend or
 runs the hierarchy — tiled run generation (runs.py) and a tree of pairwise
 merges (merge.py).  On a CUDA device the runs are sorted by the bitonic
 kernel (by the radix kernels when the sort must be stable) and merged by
-the merge-path kernel.
+the merge-path kernel.  A top-k plan of the ``select`` backend runs the
+radix-select kernel (K4), one of ``cuda`` the bitonic top-k kernel (K5).
+Ragged and padded-row sorts (segmented.py) are two engine sorts each.
 
 Every entry point takes ``device=`` (default ``"cuda"``), moves its input
 there and returns on it; ``device="cuda"`` without a card raises.
@@ -26,6 +28,9 @@ from repro_torch.engine import planner, runs
 from repro_torch.engine.merge import merge_pairs, merge_runs  # noqa: F401
 from repro_torch.engine.planner import (  # noqa: F401
     Plan, choose, choose_cached, clear_plan_cache)
+from repro_torch.engine.segmented import (  # noqa: F401
+    group_tokens_by_expert, segment_ids_from_row_splits, segmented_argsort,
+    segmented_sort, sort_padded_rows)
 from repro_torch.kernels.ops import _from_rows, _to_rows
 from repro_torch.obs import trace as _obs
 
@@ -74,21 +79,27 @@ def merge_sort_rows(x2: torch.Tensor, *, descending: bool,
 
 def merge_sort_rows_kv(k2: torch.Tensor, v2: torch.Tensor, *,
                        descending: bool, plan: planner.Plan,
-                       stable: bool = False
+                       stable: bool = False, index_payload: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Key-value merge pipeline.  ``stable=True`` sorts the runs with the
     plan's stable run method (``torch`` on the CPU, the radix kernels on
     the card), so the whole pipeline is stable (the merges are).
-    The kernels carry int32 payloads; any other payload rides as an index
-    payload and is gathered at the end (the same result: an index payload
-    is what every stable path orders by)."""
-    if v2.dtype != torch.int32:
-        _, order = merge_sort_rows_kv(k2, index_rows(k2),
-                                      descending=descending, plan=plan,
-                                      stable=stable)
-        order = order.to(torch.int64)
-        return k2.gather(-1, order), v2.gather(-1, order)
+
+    ``index_payload=True`` says ``v2`` holds each key's position: the
+    runs' pads (payload n) then sort behind every genuine key, also one
+    equal to the pad key, under the network runs' (key, payload)
+    comparator.  Any other payload rides as an index payload and is
+    gathered at the end: the kernels carry int32 payloads only, and an
+    arbitrary int32 payload could tie or pass the pads' n and be cut off.
+    It is the same result as the stable runs': an index payload is what
+    every stable path orders by."""
     run_method = plan.stable_run_method if stable else plan.run_method
+    if v2.dtype != torch.int32 or not (
+            index_payload or run_method in ("torch", "radix")):
+        sk, order = merge_sort_rows_kv(k2, index_rows(k2),
+                                       descending=descending, plan=plan,
+                                       stable=stable, index_payload=True)
+        return sk, v2.gather(-1, order.to(torch.int64))
     rk, rv = runs.generate_runs_kv(k2, v2, plan.run_len, method=run_method,
                                    descending=descending)
     mk, mv = merge_runs(rk, rv, descending=descending,
@@ -167,7 +178,7 @@ def argsort(x, *, axis: int = -1, descending: bool = False,
         if order is None:
             _, order = merge_sort_rows_kv(x2, index_rows(x2),
                                           descending=descending, plan=plan,
-                                          stable=stable)
+                                          stable=stable, index_payload=True)
         sp.fence(order)
     _obs_finish(sp, "argsort", plan, n, batch)
     return _from_rows(order, lead, ax)

@@ -53,7 +53,10 @@ def choose(n: int, batch: int = 1, dtype=torch.float32, *,
     """Resolve ``requested`` ("auto" or a concrete method) into a Plan.
 
     With ``k`` set the workload is a top-k and candidates are priced with
-    ``SortBackend.topk_cost_ns`` (sort-prefix for every sort backend).
+    ``SortBackend.topk_cost_ns``: the selection model for a selection
+    backend (``select``), sort-prefix for every sort backend.  ``auto``
+    skips selection backends below the profile's ``select_min_n``, where
+    the counting passes never beat a small sort.
     An ``auto`` sort above the profile's ``spill_threshold_bytes`` of keys
     belongs to the spill tier, which is not ported: it raises rather than
     run a plan that does not fit.
@@ -87,6 +90,8 @@ def choose(n: int, batch: int = 1, dtype=torch.float32, *,
             caps = candidates[name].capabilities
             if not candidates[name].eligible(n, dtype, rl):
                 return False
+            if k is not None and caps.selection and n < prof.select_min_n:
+                return False
             return caps.supports_topk if k is not None \
                 else caps.supports_sort
         method = min((m for m in costs if _valid(m)),
@@ -94,7 +99,9 @@ def choose(n: int, batch: int = 1, dtype=torch.float32, *,
     else:
         method = requested
     # on the card every run and merge is a kernel: K1 runs (K3 when the
-    # sort must be stable, K1 is not) and K2 merges
+    # sort must be stable, K1 is not) and K2 merges; a top-k plan of the
+    # select or cuda backend runs K4 or K5 and orders its candidates with
+    # K1 (K1 runs and K2 merges past K1's cap)
     plan = Plan(method=method, run_len=rl,
                 run_method="cuda" if cuda else "torch",
                 merge_backend="cuda" if cuda else "torch", costs=costs,

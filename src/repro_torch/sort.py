@@ -9,7 +9,10 @@ one is ``run(spec, x, device=...)``.  The wrappers build the spec::
     rsort.sort(x, method="radix", descending=True)
     rsort.argsort(x, stable=True)
     rsort.topk(logits, 50)                         # (values, indices)
+    rsort.topk(logits, 50, method="select")        # radix select (K4)
     rsort.sort_kv(keys, payload, device="cpu")     # plain versions, CPU
+    rsort.segment_sort(x, segment_ids=seg)         # ragged groups
+    rsort.sort(batch, valid_lengths=lengths)       # padded rows
 
 Validation happens once, at the spec layer; execution is
 ``repro_torch.engine``'s.  Every entry point takes ``device=`` (default
@@ -22,19 +25,27 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import keycodec
 from repro_torch.core.sortspec import (  # noqa: F401  (public re-exports)
     Capabilities, SortBackend, SortSpec, backend_names, get_backend,
     register_backend, registered_backends, sort_defaults, unregister_backend)
 from repro_torch.engine.planner import clear_plan_cache  # noqa: F401
 
 __all__ = [
-    "run", "sort", "argsort", "topk", "sort_kv",
+    "run", "sort", "argsort", "topk", "sort_kv", "segment_sort",
     "SortSpec", "Capabilities", "SortBackend", "register_backend",
     "unregister_backend", "registered_backends", "backend_names",
     "get_backend", "sort_defaults", "clear_plan_cache",
 ]
 
 _T = torch.Tensor
+
+
+def _gather(t, order: _T) -> _T:
+    """``t`` permuted along its last axis by ``order``, on its device."""
+    t = torch.as_tensor(t).to(order.device)
+    out = keycodec.to_signed(t).gather(-1, order.to(torch.int64))
+    return keycodec.from_signed(out, t.dtype)
 
 
 def run(spec: SortSpec, x, *, device="cuda") -> Union[_T, Tuple[_T, _T]]:
@@ -44,10 +55,40 @@ def run(spec: SortSpec, x, *, device="cuda") -> Union[_T, Tuple[_T, _T]]:
       ``indices=True``     the sorting permutation (int32)
       ``values`` payload   (sorted keys, permuted payload)
       ``k`` set            (top-k values, int32 indices), descending
+      ``segment_ids`` /    (sorted values, grouped segment ids); with
+      ``row_splits``       ``indices``/``values`` as a plain sort does
+      ``valid_lengths``    padded rows, valid prefixes sorted
     """
     from repro_torch import engine
     x = torch.as_tensor(x)
     spec = spec.canonical(x)
+    if spec.valid_lengths is not None:
+        if spec.indices or spec.values is not None:
+            raise ValueError("valid_lengths supports value sorts only")
+        if x.dim() != 2 or spec.axis != 1:
+            raise ValueError("valid_lengths expects a padded (rows, L) "
+                             "batch sorted along the last axis")
+        return engine.sort_padded_rows(
+            x, spec.valid_lengths, descending=spec.descending,
+            method=spec.method, fill_value=spec.fill_value,
+            run_len=spec.run_len, device=device)
+    if spec.segment_ids is not None or spec.row_splits is not None:
+        if spec.axis != x.dim() - 1:
+            raise ValueError("segmented sort runs along the last axis")
+        seg = spec.segment_ids
+        if seg is None:
+            seg = engine.segment_ids_from_row_splits(
+                spec.row_splits, x.shape[spec.axis], device=device)
+        if spec.indices or spec.values is not None:
+            order = engine.segmented_argsort(
+                x, seg, descending=spec.descending, method=spec.method,
+                run_len=spec.run_len, device=device)
+            if spec.indices:
+                return order
+            return _gather(x, order), _gather(spec.values, order)
+        return engine.segmented_sort(
+            x, seg, descending=spec.descending, method=spec.method,
+            run_len=spec.run_len, device=device)
     if spec.k is not None:
         ax = spec.axis
         if ax != x.dim() - 1:
@@ -73,14 +114,17 @@ def run(spec: SortSpec, x, *, device="cuda") -> Union[_T, Tuple[_T, _T]]:
 
 def sort(x, *, axis: int = -1, descending: bool = False,
          method: Optional[str] = None, run_len: Optional[int] = None,
-         valid_lengths=None, mesh=None, axis_name: Optional[str] = None,
-         device="cuda") -> _T:
-    """Sort along ``axis``.  ``valid_lengths`` and ``mesh``/``axis_name``
-    are the JAX package's padded-row and distributed forms; they raise
-    ``NotImplementedError`` until their ROADMAP items land."""
+         valid_lengths=None, fill_value=0, mesh=None,
+         axis_name: Optional[str] = None, device="cuda") -> _T:
+    """Sort along ``axis``; with ``valid_lengths``, sort each row's valid
+    prefix of a padded (rows, L) batch and write ``fill_value`` over the
+    tail (the scheduler's fixed-shape buckets).  ``mesh``/``axis_name``
+    are the JAX package's distributed form; they raise
+    ``NotImplementedError`` until the distributed tier is ported."""
     return run(SortSpec(axis=axis, descending=descending, method=method,
                         run_len=run_len, valid_lengths=valid_lengths,
-                        mesh=mesh, axis_name=axis_name), x, device=device)
+                        fill_value=fill_value, mesh=mesh,
+                        axis_name=axis_name), x, device=device)
 
 
 def argsort(x, *, axis: int = -1, descending: bool = False,
@@ -98,7 +142,11 @@ def topk(x, k: int, *, axis: int = -1, method: Optional[str] = None,
          run_len: Optional[int] = None, mesh=None,
          axis_name: Optional[str] = None, device="cuda") -> Tuple[_T, _T]:
     """Top-k along ``axis`` -> (values, indices), descending, the lower
-    index first among equal keys; 1 <= k <= n or ValueError."""
+    index first among equal keys; 1 <= k <= n or ValueError.  The plan is
+    k-aware: ``auto`` weighs radix selection (``select``, K4) against
+    ``cuda``'s bitonic top-k (K5) and sort-prefix on the other backends.
+    ``select`` and ``torch`` rank +0.0 above -0.0 (``lax.top_k``);
+    ``cuda`` and the other network backends compare numerically."""
     return run(SortSpec(axis=axis, k=k, descending=True, method=method,
                         run_len=run_len, mesh=mesh, axis_name=axis_name),
                x, device=device)
@@ -114,3 +162,16 @@ def sort_kv(keys, values, *, axis: int = -1, descending: bool = False,
                         values=torch.as_tensor(values), method=method,
                         run_len=run_len, mesh=mesh, axis_name=axis_name),
                keys, device=device)
+
+
+def segment_sort(values, *, segment_ids=None, row_splits=None,
+                 descending: bool = False, method: Optional[str] = None,
+                 indices: bool = False, device="cuda"):
+    """Sort within ragged groups (flat values + segment ids or row
+    splits).  Returns (sorted values, grouped segment ids), or just the
+    grouping permutation with ``indices=True``."""
+    if segment_ids is None and row_splits is None:
+        raise ValueError("segment_sort needs segment_ids or row_splits")
+    return run(SortSpec(descending=descending, method=method,
+                        segment_ids=segment_ids, row_splits=row_splits,
+                        indices=indices), values, device=device)

@@ -11,7 +11,9 @@ import torch
 from repro_torch.core import keycodec
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitonic_sort as bs
+from repro_torch.kernels import bitonic_topk as btk
 from repro_torch.kernels import merge_path as mp
+from repro_torch.kernels import radix_select as sel
 from repro_torch.kernels import radix_sort as rsk
 
 # the condition is a string: evaluated when each test is set up, never
@@ -156,3 +158,124 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         bs.sort_blocks(torch.zeros(1, 1 << 15, device="cuda"))
     with pytest.raises(TypeError):
         bs.sort_blocks(torch.zeros(4, 8, dtype=torch.float64, device="cuda"))
+
+
+def _kth_encoded(enc, k):
+    """Each row's k-th smallest descending-encoded key, as an int64 of its
+    unsigned value: the threshold whose prefix every later pass uses."""
+    u = enc.to(torch.int64) & ((1 << (8 * enc.element_size())) - 1)
+    return torch.sort(u, dim=-1).values[:, k - 1].contiguous()
+
+
+@pytest.mark.parametrize("name", DTYPES)
+@pytest.mark.parametrize("digit_bits,tile", [(8, 4096), (4, 1000)])
+def test_k4_kernel_matches_plain(name, digit_bits, tile):
+    """Every pass of the refinement, the first (all active) and the later
+    ones under a threshold prefix, on source keys (encoded in registers)
+    and on encoded keys, with a ragged tail of the last tile."""
+    x = _keys((3, 5001), name, seed=digit_bits)
+    enc = keycodec.encode(x, descending=True)
+    bits = 8 * x.element_size()
+    for thresh in (torch.zeros(3, dtype=torch.int64, device="cuda"),
+                   _kth_encoded(enc, 2500)):
+        for shift in range(bits - digit_bits, -1, -digit_bits):
+            for keys, encode in ((x, True), (enc, False)):
+                _same(sel.digit_hist(keys, thresh, shift, digit_bits, tile,
+                                     encode=encode),
+                      sel.digit_hist_plain(keys, thresh, shift, digit_bits,
+                                           tile, encode=encode))
+
+
+@pytest.mark.parametrize("name", DTYPES)
+@pytest.mark.parametrize("n", [8, 64, 2048, 16384])
+def test_k5_kernel_matches_plain(name, n):
+    """Rows of ties, signed zeros and extremes, one row all at the
+    sentinel (-inf, the integer minimum)."""
+    x = _keys((37, n), name, seed=n)
+    dtype = getattr(torch, name)
+    x[1] = float("-inf") if dtype.is_floating_point \
+        else torch.iinfo(dtype).min
+    for k in (1, 8, 50, n):
+        if k <= n:
+            v1, i1 = btk.topk_blocks(x, k)
+            v2, i2 = btk.topk_plain(x, k)
+            _same(v1, v2)
+            _same(i1, i2)
+
+
+_NOT_ON_THE_CARD = ("sort", "argsort", "topk", "kthvalue", "msort")
+
+
+@pytest.mark.parametrize("method", ["select", "cuda"])
+@pytest.mark.parametrize("rows,n,k", [(2, 1 << 20, 64), (3, 128256, 50),
+                                      (4096, 64, 8), (1, 1 << 17, 20000)])
+def test_topk_on_the_card_runs_kernels_only(method, rows, n, k,
+                                            monkeypatch):
+    """``select`` and ``cuda`` top-k launch K4 or K5, order their
+    candidates with K1 (K1 runs and K2 merges past its cap) and call no
+    PyTorch sort or top-k.  Rows with a -inf tail and signed zeros hold
+    the reference's indices: the stable descending sort on the IEEE total
+    order for ``select``, on the numeric order for ``cuda``."""
+    import repro_torch.sort as rsort
+    g = torch.Generator(device="cuda").manual_seed(n + k)
+    x = torch.randn((rows, n), generator=g, device="cuda")
+    x[:, n // 2:] = x[:, n // 2:].round()          # ties and signed zeros
+    x[0, -(n // 3):] = float("-inf")
+    key = keycodec.total_order_key(x) if method == "select" else x
+    ref = torch.sort(key, dim=-1, stable=True, descending=True).indices[:, :k]
+    for name in _NOT_ON_THE_CARD:
+        monkeypatch.setattr(torch, name, _refuse_library_call(name))
+    _build.reset_launches()
+    v, i = rsort.topk(x, k, method=method)
+    counts = dict(_build.launches)
+    monkeypatch.undo()
+    first = "select_digit_hist" if method == "select" \
+        else "bitonic_topk_blocks"
+    assert counts.get(first, 0) > 0, counts
+    if method == "select" or n > 2048:
+        key_value = ("bitonic_sort_kv_blocks",)
+        if k > bs.MAX_N or (method == "cuda" and n // 2048 * min(k, 2048)
+                            > bs.MAX_N):
+            key_value += ("merge_pairs_kv_blocks",)
+        assert all(counts.get(c, 0) > 0 for c in key_value), counts
+    assert torch.equal(i.long(), ref)
+    _same(v, x.gather(-1, ref))
+
+
+def _refuse_library_call(name):
+    def refuse(*a, **kw):
+        raise AssertionError(f"torch.{name} called on the card's path")
+    return refuse
+
+
+def test_ragged_and_padded_sorts_on_the_card_match_the_cpu():
+    import repro_torch.sort as rsort
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(1 << 18, generator=g, device="cuda")
+    seg = torch.randint(0, 100, (1 << 18,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    for got, want in zip(rsort.segment_sort(x, segment_ids=seg),
+                         rsort.segment_sort(x.cpu(), segment_ids=seg.cpu(),
+                                            device="cpu")):
+        _same(got.cpu(), want)
+    b = torch.randn((64, 4000), generator=g, device="cuda")
+    lengths = torch.randint(0, 4001, (64,), generator=g, device="cuda")
+    _same(rsort.sort(b, valid_lengths=lengths, fill_value=-1.0).cpu(),
+          rsort.sort(b.cpu(), valid_lengths=lengths.cpu(), fill_value=-1.0,
+                     device="cpu"))
+
+
+@pytest.mark.parametrize("descending", [False, True])
+def test_sort_kv_on_the_card_keeps_payloads_past_n(descending):
+    """int32 payloads above n on keys equal to the runs' pad key survive
+    the card's merge path (they ride as positions), ties in index order."""
+    import repro_torch.sort as rsort
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1 << 16, generator=g, device="cuda")
+    x[-100:] = float("-inf") if descending else float("inf")
+    v = torch.randint(1 << 20, 1 << 30, (1 << 16,), generator=g,
+                      device="cuda", dtype=torch.int32)
+    sk, sv = rsort.sort_kv(x, v, method="merge", descending=descending)
+    order = torch.sort(x, stable=True, descending=descending).indices
+    _same(sk, x[order])
+    _same(sv, v[order])

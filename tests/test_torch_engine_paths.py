@@ -80,8 +80,16 @@ def test_topk_matches_reference(method, name, dist):
 
 
 def test_cuda_backend_has_no_topk_yet():
-    with pytest.raises(ValueError, match="top-k"):
-        tsort.topk(torch.zeros(8), 2, method="cuda", device="cpu")
+    """The ``cuda`` backend has a top-k since K5 was ported: explicit
+    requests run at any n (as the reference's ``pallas`` top-k), and
+    ``max_n`` caps only what ``auto`` hands it."""
+    from repro_torch.core.backends import MAX_CUDA_N
+    from repro_torch.core.sortspec import get_backend
+    assert get_backend("cuda").capabilities.supports_topk
+    v, i = tsort.topk(torch.tensor([3.0, 1.0, 4.0, 1.0, 5.0, 9.0, 2.0, 6.0]),
+                      2, method="cuda", device="cpu")
+    assert v.tolist() == [9.0, 6.0] and i.tolist() == [5, 7]
+    assert not get_backend("cuda").eligible(MAX_CUDA_N + 1, torch.float32)
 
 
 @pytest.mark.parametrize("kv", [False, True])
@@ -111,6 +119,29 @@ def test_card_route_plain_versions_match_pallas_route(kv):
                                           plan=jplan, interpret=True)
             assert_same(ref, tengine.merge_sort_rows(
                 to_torch(x), descending=desc, plan=tplan))
+
+
+@pytest.mark.parametrize("descending", [False, True])
+def test_card_route_keeps_payloads_past_n_on_sentinel_keys(descending):
+    """A key-value merge sort on the card's plan (K1 runs, K2 merges;
+    plain versions here): an int32 payload above n on a key equal to the
+    runs' pad key must survive.  K1 breaks key ties on the payload, so
+    riding the runs directly a pad (payload n) sorted ahead of it and the
+    slice to n cut it off; the payload now rides as positions, giving the
+    reference's CPU result (ties in index order)."""
+    sent = float("-inf") if descending else float("inf")
+    x = keys("float32", (2, 1000), "uniform", seed=29)
+    x[:, 990:] = sent
+    v = np.random.default_rng(29).integers(1000, 1 << 30, size=x.shape) \
+        .astype(np.int32)
+    tplan = tengine.Plan(method="merge", run_len=256, run_method="cuda",
+                         merge_backend="cuda", costs={})
+    rk, rv = jsort.sort_kv(jnp.asarray(x), jnp.asarray(v), method="merge",
+                           descending=descending, run_len=256)
+    gk, gv = tengine.merge_sort_rows_kv(to_torch(x), to_torch(v),
+                                        descending=descending, plan=tplan)
+    assert_same(rk, gk)
+    assert_same(rv, gv)
 
 
 @pytest.mark.parametrize("descending", [False, True])
@@ -210,7 +241,8 @@ def test_plans_route_kernels_by_device():
     assert (cpu.run_method, cpu.merge_backend) == ("torch", "torch")
     assert (gpu.run_method, gpu.merge_backend) == ("cuda", "cuda")
     assert (cpu.stable_run_method, gpu.stable_run_method) == ("torch", "radix")
-    assert set(gpu.costs) == {"torch", "bitonic", "cuda", "merge", "radix"}
+    assert set(gpu.costs) == {"torch", "bitonic", "cuda", "merge", "radix",
+                              "select"}
 
 
 @pytest.mark.parametrize("run_len", [None, 3000, 1 << 14, 1 << 15, 1 << 20])
@@ -281,17 +313,17 @@ def test_result_on_requested_device_from_numpy_input():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"valid_lengths": np.array([2])}, {"mesh": object()},
-    {"axis_name": "data"}, {"method": "spill"}, {"method": "select"}])
+    {"method": "imc"}, {"mesh": object()},
+    {"axis_name": "data"}, {"method": "spill"}, {"method": "distributed"}])
 def test_fields_not_ported_fail_loudly(kwargs):
+    """What the port does not carry yet raises, naming its ROADMAP item
+    (segments, padded rows and ``select`` are ported now)."""
     x = np.zeros((1, 4), np.float32)
-    if "valid_lengths" in kwargs:
-        kwargs = {"valid_lengths": torch.tensor([2])}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsort.sort(x, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsort.run(tsort.SortSpec(segment_ids=torch.zeros(4)), x,
-                  device="cpu")
+        tsort.run(tsort.SortSpec(segment_ids=torch.zeros(4), mesh=object()),
+                  x, device="cpu")
 
 
 def test_auto_above_the_spill_threshold_fails_loudly():
@@ -325,7 +357,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch, repro_torch.sort, repro_torch.engine, "
             "repro_torch.convert, repro_torch.obs\n"
             "from repro_torch.core import backends\n"
-            "from repro_torch.kernels import ops, radix_sort, merge_path\n"
+            "from repro_torch.kernels import ops, radix_sort, merge_path, "
+            "radix_select, bitonic_topk\n"
+            "from repro_torch.engine import segmented\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"

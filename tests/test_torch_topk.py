@@ -1,0 +1,148 @@
+"""Parity of the port's bitonic top-k (K5's plain version, which CPU
+tensors run, and ``kernels/ops.bitonic_topk`` over it) with the JAX
+package's ``kernels/bitonic_topk.py`` and ``kernels/ops.bitonic_topk`` in
+interpret mode, on the same seeded numpy inputs, bit for bit.
+
+The reference's top-k compares keys numerically (-0.0 == +0.0, taken in
+index order), unlike ``lax.top_k`` and the ``select`` backend; the port's
+``cuda`` backend follows it.  One fault of the reference is pinned here:
+its hierarchical path pads the candidates with index -1, which wins ties
+against genuine keys equal to the sentinel; the port pads with n and gives
+``lax.top_k``'s indices.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.sort as jsort
+import repro_torch.sort as tsort
+from _torch_parity import assert_same, keys, to_torch
+from repro.kernels import bitonic_topk as jbt
+from repro.kernels import ops as jops
+from repro_torch.kernels import _build
+from repro_torch.kernels import bitonic_topk as tbt
+from repro_torch.kernels import ops as tops
+
+
+@pytest.fixture(autouse=True)
+def _no_kernel_build(monkeypatch):
+    """CPU tensors must never reach a CUDA build or launch."""
+    def _refuse(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA kernel path")
+    monkeypatch.setattr(_build, "load", _refuse)
+
+
+@pytest.mark.parametrize("name,n,k", [
+    ("float32", 64, 8), ("bfloat16", 128, 50), ("int32", 32, 32),
+    ("uint32", 256, 1), ("int8", 16, 5), ("uint16", 64, 64),
+    ("float16", 8, 3)])
+def test_k5_topk_blocks_matches_pallas(name, n, k):
+    x = keys(name, (5, n), "mixed", seed=n + k)
+    rv, ri = jbt.topk_blocks(jnp.asarray(x), k, interpret=True)
+    gv, gi = tbt.topk_blocks(to_torch(x), k)
+    assert_same(rv, gv, f"K5 {name} values")
+    assert_same(ri, gi, f"K5 {name} indices")
+
+
+@pytest.mark.parametrize("name,dist", [("float32", "mixed"),
+                                       ("int32", "dup_heavy"),
+                                       ("bfloat16", "all_equal"),
+                                       ("uint8", "mixed")])
+@pytest.mark.parametrize("n,k,chunk", [
+    (50, 7, 2048),          # one padded K5 row
+    (300, 20, 64),          # per-chunk K5, then K1 over the candidates
+    (300, 200, 64),         # k past the chunk (short of the sentinel
+                            # keys, where the reference gives index -1)
+    (1000, 1, 128)])
+def test_bitonic_topk_matches_reference(name, dist, n, k, chunk):
+    x = keys(name, (2, n), dist, seed=n + k)
+    rv, ri = jops.bitonic_topk(jnp.asarray(x), k, chunk, True)
+    gv, gi = tops.bitonic_topk(to_torch(x), k, chunk)
+    assert_same(rv, gv, "values")
+    assert_same(ri, gi, "indices")
+
+
+def test_bitonic_topk_candidates_past_k1_cap_match_reference():
+    """625 chunks x 32 candidates = 20000 > 16384, K1's cap: the port
+    orders them with the merge path (K1 runs + K2 merges, plain versions
+    here), the reference with one whole-row network; same bits."""
+    x = keys("float32", (1, 40000), "mixed", seed=3)
+    rv, ri = jops.bitonic_topk(jnp.asarray(x), 32, 64, True)
+    gv, gi = tops.bitonic_topk(to_torch(x), 32, 64)
+    assert_same(rv, gv, "values")
+    assert_same(ri, gi, "indices")
+
+
+def test_signed_zeros_tie_in_index_order():
+    """The reference's top-k compares numerically: -0.0 and +0.0 tie and
+    come out in index order, where ``lax.top_k`` ranks +0.0 first."""
+    x = np.array([[-0.0, 0.0, -0.0, 0.0, -1.0, -2.0, -3.0, -4.0]],
+                 np.float32)
+    rv, ri = jops.bitonic_topk(jnp.asarray(x), 3, 2048, True)
+    gv, gi = tops.bitonic_topk(to_torch(x), 3)
+    assert np.asarray(ri).tolist() == [[0, 1, 2]]
+    assert jax.lax.top_k(jnp.asarray(x), 3)[1].tolist() == [[1, 3, 0]]
+    assert_same(rv, gv)
+    assert_same(ri, gi)
+
+
+@pytest.mark.parametrize("name", ["float32", "int32"])
+def test_reference_pads_candidates_with_minus_one_on_sentinel_rows(name):
+    """A (1, 6144) row at the sentinel (-inf, INT32_MIN) but for lanes 100
+    and 5000: the reference's hierarchical top-k returns index -1 in the
+    last two places (its candidate pads tie the genuine keys and win on
+    index -1); the port pads with n and returns ``lax.top_k``'s indices."""
+    sent = -np.inf if name == "float32" else np.iinfo(np.int32).min
+    x = np.full((1, 6144), sent, dtype=name)
+    x[0, 100], x[0, 5000] = 1, 2
+    ri = np.asarray(jops.bitonic_topk(jnp.asarray(x), 4, 2048, True)[1])
+    assert ri.tolist() == [[5000, 100, -1, -1]]
+    lv, li = jax.lax.top_k(jnp.asarray(x), 4)
+    gv, gi = tops.bitonic_topk(to_torch(x), 4)
+    assert gi.tolist() == [[5000, 100, 0, 1]]
+    assert_same(lv, gv)
+    assert_same(li, gi)
+    # the select backend gives the same on the same row
+    sv, si = tsort.topk(to_torch(x), 4, method="select", device="cpu")
+    assert_same(li, si)
+
+
+@pytest.mark.parametrize("n,chunk", [(40, 2048), (300, 64)])
+def test_topk_gradient_matches_jax_grad(n, chunk):
+    """The values' cotangent is scattered back to the selected indices,
+    as the reference's custom VJP does."""
+    x = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32)
+    w = np.random.default_rng(1).standard_normal((3, 9)).astype(np.float32)
+
+    def jloss(a):
+        return jnp.sum(jops.bitonic_topk(a, 9, chunk, True)[0] * w)
+
+    ref = jax.grad(jloss)(jnp.asarray(x))
+    xt = to_torch(x).requires_grad_(True)
+    (tops.bitonic_topk(xt, 9, chunk)[0] * to_torch(w)).sum().backward()
+    assert_same(ref, xt.grad)
+
+
+@pytest.mark.parametrize("name,dist", [("float32", "mixed"),
+                                       ("int16", "dup_heavy"),
+                                       ("uint32", "mixed")])
+def test_cuda_topk_through_the_front_door_matches_pallas(name, dist):
+    """``repro_torch.sort.topk(method="cuda")`` against the reference's
+    ``method="pallas"``, along an inner axis with leading dims."""
+    x = keys(name, (2, 700, 3), dist, seed=17)
+    rv, ri = jsort.topk(jnp.asarray(x), 40, axis=1, method="pallas")
+    gv, gi = tsort.topk(to_torch(x), 40, axis=1, method="cuda",
+                        device="cpu")
+    assert_same(rv, gv, "values")
+    assert_same(ri, gi, "indices")
+
+
+def test_topk_blocks_rejects_what_it_does_not_take():
+    with pytest.raises(ValueError, match="power-of-two"):
+        tbt.topk_blocks(torch.zeros(2, 6), 2)
+    with pytest.raises(ValueError, match="1 <= k <= n"):
+        tbt.topk_blocks(torch.zeros(2, 8), 9)
+    with pytest.raises(ValueError, match="1 <= k <= n"):
+        tops.bitonic_topk(torch.zeros(2, 8), 0)
