@@ -16,7 +16,13 @@ Phases, each printed as one JSON line:
             the radix and cuda backends and an engine top-k; then top-k
             through the select (K4) and cuda (K5) backends at the shapes of
             vocabulary sampling, MoE routing and gradient compression, MoE
-            token grouping, a ragged segment sort and a padded-row sort.
+            token grouping, a ragged segment sort and a padded-row sort;
+            then the paper's in-memory sorter and the imc backend, one K7
+            launch per network stage: 2^22 replicated 8-input 4-bit units
+            (``sort_in_memory``, 192 cycles), a (2^14, 1024) int32 sort at
+            W=32 both ways, a (2^16, 256) int8 argsort through the (key,
+            index) composite at W=16 both ways, and (2^12, 512) sorts of
+            uint8, int16, uint16 and uint32.
             Each is held bit-exactly against ``torch.sort(stable=True)``
             (ties keep ascending index in both directions; the select
             backend's top-k on the IEEE total order, +0.0 above -0.0).
@@ -26,8 +32,8 @@ Phases, each printed as one JSON line:
 4. timing   each kernel at the main path's shapes: its output held bit for
             bit against its plain version on the same inputs (the
             ``max_abs_err`` of the kernel table), then CUDA-event times of
-            both beside ``torch.sort`` (``torch.topk`` for K4 and K5) on
-            the same rows.
+            both beside ``torch.sort`` (``torch.topk`` for K4 and K5;
+            ``torch.minimum`` + ``torch.maximum`` for K7) on the same rows.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -54,9 +60,17 @@ VOCAB = (64, 128256)      # sampling rows over Llama 3's vocabulary, k=50
 ROUTER = (16384, 64)      # MoE routing: OLMoE's 64 experts, top-8
 GRAD_N = 1 << 26          # gradient compression at 1%: topk_budget
 SEGMENTS = 4096           # ragged segments of the 2^24-key segment sort
+IMC_UNITS = 1 << 22       # replicated paper units: 8 inputs, 4-bit words
+IMC_WIDE = (1 << 14, 1024)    # int32 rows of the W=32 imc sort
+IMC_ARG = (1 << 16, 256)      # int8 rows of the composite imc argsort
+IMC_DTYPES_SHAPE = (1 << 12, 512)
+CAS_PAIRS = 1 << 26       # K7 extra timing: pairs of one launch
+CAS_PLAIN_PAIRS = 1 << 24      # ... compared with the plain version here
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# H100 SXM INT32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def emit(obj) -> None:
@@ -139,11 +153,14 @@ def _keys(rng, shape, dtype):
 
 
 def phase_kernels(rng) -> dict:
+    import numpy as np
     import torch
     from repro_torch.core import keycodec
     from repro_torch.kernels import bitonic_sort as bs
     from repro_torch.kernels import bitonic_topk as btk
+    from repro_torch.kernels import bitserial_cas as bsc
     from repro_torch.kernels import merge_path as mp
+    from repro_torch.kernels import ops
     from repro_torch.kernels import radix_select as sel
     from repro_torch.kernels import radix_sort as rsk
 
@@ -272,8 +289,36 @@ def phase_kernels(rng) -> dict:
                     same_bits(v1, v2, f"K5 values {dtype} n={n} k={k}")
                     same_bits(i1, i2, f"K5 indices {dtype} n={n} k={k}")
                     cases += 2
+
+    # K7: every width, random pairs with equal operands, 0, 2^W - 1 and
+    # the top bit (bit 31 at W = 32), lengths off the 128 lanes; its own
+    # generator, so the inputs of the phases above and below stay as they
+    # were
+    krng = np.random.default_rng([SEED, 7])
+    for width in bsc.WIDTHS:
+        for n in (1, 127, 4096, 1000003):
+            a, b = cas_words(krng, n, width)
+            lo, hi = ops.bitserial_cas(a, b, width=width)
+            plo, phi = bsc.exec_program_plain(a, b, width)
+            same_bits(lo, plo, f"K7 min W={width} n={n}")
+            same_bits(hi, phi, f"K7 max W={width} n={n}")
+            cases += 2
     torch.cuda.synchronize()
     return cases
+
+
+def cas_words(rng, n, width):
+    """Two int32 tensors on the card of W-bit words: random, with equal
+    pairs, 0, 2^W - 1 and the top bit set mixed in."""
+    import numpy as np
+    import torch
+    w = rng.integers(0, 1 << width, size=(2, n), dtype=np.uint64)
+    w[1, ::5] = w[0, ::5]
+    w[0, 1::13] = 0
+    w[1, 2::13] = (1 << width) - 1
+    w[:, 3::13] |= 1 << (width - 1)
+    return tuple(torch.from_numpy(r.astype(np.uint32).view(np.int32)).cuda()
+                 for r in w)
 
 
 # ---------------------------------------------------------------------------
@@ -300,9 +345,11 @@ def phase_main(rng) -> dict:
     launches: dict = {}
     steps = []
 
-    def run(name, fn, must, reps=3):
+    def run(name, fn, must, reps=3, exact=None, library=None):
         """One counted call (counts set to 0 just before, read just after),
-        then ``reps`` more timed with CUDA events, the first as warm-up."""
+        then ``reps`` more timed with CUDA events, the first as warm-up.
+        ``exact``, if given, is the whole launch count the call must make;
+        ``library``, a PyTorch call on the same rows, is timed beside."""
         _build.reset_launches()
         torch.cuda.synchronize()
         out = fn()
@@ -312,12 +359,17 @@ def phase_main(rng) -> dict:
         if missing:
             raise AssertionError(f"{name}: kernels not launched: {missing} "
                                  f"(counts {counts})")
+        if exact is not None and counts != exact:
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{exact}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         ms = cuda_ms(fn, reps, warm=False)[0]
-        steps.append({"step": name, "ms": ms, "launches": counts})
-        emit({"phase": "main", "step": name, "ms": ms, "reps": reps,
-              "launches": counts})
+        step = {"step": name, "ms": ms, "launches": counts}
+        if library is not None:
+            step["library_ms"] = cuda_ms(library, reps)[0]
+        steps.append(step)
+        emit({"phase": "main", **step, "reps": reps})
         return out
 
     # 2^28 float32 through the merge engine: K1 runs + K2 merge tree
@@ -492,16 +544,103 @@ def phase_main(rng) -> dict:
     want = torch.sort(torch.where(valid, b, float("inf")), dim=-1,
                       stable=True).values
     same_bits(out, torch.where(valid, want, -1.0), "valid_lengths sort")
+    del b, lengths, out, valid, want
+
+    phase_imc(rng, run)
     torch.cuda.synchronize()
     return {"launches": launches, "steps": steps}
+
+
+def phase_imc(rng, run) -> None:
+    """The paper's in-memory sorter and the imc backend: every
+    compare-and-swap stage of the network one K7 launch, asserted; no
+    ``torch.sort`` inside a step (it only checks the results after)."""
+    import numpy as np
+    import torch
+    import repro_torch.sort as rsort
+    from repro_torch.core import cost_model, keycodec, network, sorter
+    from repro_torch.core.sortspec import next_pow2
+
+    k7 = ("bitserial_cas",)
+
+    def stages(n):
+        return {"bitserial_cas": network.n_stages(n)}
+
+    # the paper's unit (N=8, W=4), replicated: 2^22 independent units,
+    # six K7 launches of 2^24 compare-and-swaps each
+    units = torch.from_numpy(rng.integers(0, 16, (IMC_UNITS, 8))
+                             .astype(np.int32)).cuda()
+    res = run(f"sort_in_memory {IMC_UNITS}x8 W=4 (paper unit)",
+              lambda: sorter.sort_in_memory(units, width=4), k7,
+              exact=stages(8),
+              library=lambda: torch.sort(units, dim=-1))
+    same_bits(res.values, torch.sort(units, dim=-1).values, "paper units")
+    claims = cost_model.validate_claims()
+    if res.cycles != 192 or not claims.all_pass():
+        raise AssertionError(f"paper unit: cycles {res.cycles}, claims "
+                             f"{[r for r in claims.rows]}")
+    emit({"phase": "main", "paper_unit_cycles": res.cycles,
+          "compute_cycles": res.compute_cycles,
+          "movement_cycles": res.movement_cycles,
+          "validate_claims": claims.all_pass()})
+    del units, res
+
+    # full-width keys: int32 rows at W = 32, 55 stages of 2^23 pairs
+    rows, n = IMC_WIDE
+    x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, IMC_WIDE)
+                         .astype(np.int32)).cuda()
+    for desc in (False, True):
+        out = run(f"sort imc {rows}x{n} int32 W=32 desc={desc}",
+                  lambda: rsort.sort(x, method="imc", descending=desc), k7,
+                  exact=stages(n),
+                  library=lambda: torch.sort(x, dim=-1, descending=desc))
+        same_bits(out, torch.sort(x, dim=-1, descending=desc).values,
+                  f"imc int32 desc={desc}")
+    del x, out
+
+    # argsort through the (key, index) composite: int8 rows of heavy
+    # duplicates at n=256, 8 + 8 bits -> W = 16
+    rows, n = IMC_ARG
+    x = torch.from_numpy(rng.integers(-8, 8, IMC_ARG).astype(np.int8)).cuda()
+    width = next_pow2(keycodec.key_bits(x.dtype)
+                      + keycodec.composite_index_bits(n))
+    for desc in (False, True):
+        order = run(f"argsort imc {rows}x{n} int8 W={width} desc={desc}",
+                    lambda: rsort.argsort(x, method="imc", descending=desc),
+                    k7, exact=stages(n),
+                    library=lambda: torch.sort(x, dim=-1, stable=True,
+                                               descending=desc))
+        same_bits(order, torch.sort(x, dim=-1, stable=True, descending=desc)
+                  .indices.to(torch.int32), f"imc argsort desc={desc}")
+    del x, order
+
+    # the other key types at their own widths (8, 16, 16, 32)
+    rows, n = IMC_DTYPES_SHAPE
+    for name in ("uint8", "int16", "uint16", "uint32"):
+        info = np.iinfo(name)
+        raw = rng.integers(info.min, int(info.max) + 1, IMC_DTYPES_SHAPE,
+                           dtype=np.int64)
+        raw[:, 0], raw[:, 1] = info.min, info.max
+        x = torch.from_numpy(raw.astype(name).view(f"int{info.bits}")).cuda() \
+            .view(getattr(torch, name))
+        xs = keycodec.to_signed(x)
+        out = run(f"sort imc {rows}x{n} {name} W={info.bits}",
+                  lambda: rsort.sort(x, method="imc"), k7, exact=stages(n),
+                  library=lambda: torch.sort(xs, dim=-1))
+        same_bits(out, keycodec.from_signed(torch.sort(xs, dim=-1).values,
+                                            x.dtype), f"imc {name}")
+    del x, xs, out
 
 
 # ---------------------------------------------------------------------------
 # phase 4: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def _bound(nbytes: float, ops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the card's peak rate for their type (FP32 by
+    default; K7's logic ops are INT32)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -513,6 +652,7 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
     from repro_torch.core import keycodec
     from repro_torch.kernels import bitonic_sort as bs
     from repro_torch.kernels import bitonic_topk as btk
+    from repro_torch.kernels import bitserial_cas as bsc
     from repro_torch.kernels import merge_path as mp
     from repro_torch.kernels import ops
     from repro_torch.kernels import radix_select as sel
@@ -532,20 +672,20 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
                    for g, w in zip(kernel(), plain()))
 
     def row(name, source, replaces, kernel, plain, nbytes, ops, library,
-            err=0.0):
+            err=0.0, ops_per_s=FP32_OPS_PER_S, **extra):
         ms, got = cuda_ms(kernel, 10)
         plain_ms, want = cuda_ms(plain, 1)
         err = max([err] + [same_bits(g, w, f"{name} vs plain")
                            for g, w in zip(got, want)])
         del got, want
-        b, by = _bound(nbytes, ops)
+        b, by = _bound(nbytes, ops, ops_per_s)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": launches.get(name, 0),
                      "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      "library_ms": None if library is None
-                     else cuda_ms(library, 10)[0]})
+                     else cuda_ms(library, 10)[0], **extra})
         emit({"phase": "timing", **rows[-1]})
 
     # K1 key-only: the runs of the 2^28 float32 sort
@@ -703,6 +843,65 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
           "max_abs_err": max(same_bits(g, w, "K5 vocab chunks vs plain")
                              for g, w in zip(btk.topk_blocks(c, 50),
                                              btk.topk_plain(c, 50)))})
+    del r, c
+
+    # K7 at each stage shape of the main path's imc steps: the paper units
+    # (W=4, 2^24 pairs), the int32 sort (W=32, 2^23), the int8 argsort's
+    # composite (W=16, 2^23) and the other key types (W=8/16/32, 2^20).
+    # Each is held against its plain version on the same words, timed
+    # beside it, and beside torch.minimum + torch.maximum on the same words
+    # with the sign bit flipped (unsigned order in int32).  Bound: 16 B a
+    # pair against one INT32 logic op per gate and pair.
+    def words(width, pairs):
+        t = torch.randint(0, 1 << width, (pairs,), generator=gen,
+                          device="cuda", dtype=torch.int64)
+        return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
+
+    def k7_library(a, b):
+        sa, sb = a ^ (-(1 << 31)), b ^ (-(1 << 31))
+        return lambda: (torch.minimum(sa, sb), torch.maximum(sa, sb))
+
+    for width, pairs, step in ((4, IMC_UNITS * 4, "paper units"),
+                               (32, IMC_WIDE[0] * IMC_WIDE[1] // 2,
+                                "int32 sort"),
+                               (16, IMC_ARG[0] * IMC_ARG[1] // 2,
+                                "int8 argsort composite"),
+                               (8, IMC_DTYPES_SHAPE[0] * IMC_DTYPES_SHAPE[1]
+                                // 2, "uint8 sort"),
+                               (16, IMC_DTYPES_SHAPE[0] * IMC_DTYPES_SHAPE[1]
+                                // 2, "int16 / uint16 sort"),
+                               (32, IMC_DTYPES_SHAPE[0] * IMC_DTYPES_SHAPE[1]
+                                // 2, "uint32 sort")):
+        a, b = words(width, pairs), words(width, pairs)
+        n_ops = bsc.program_table(width).shape[0]
+        row("bitserial_cas", "src/repro_torch/csrc/bitserial_cas.cu",
+            "src/repro/kernels/bitserial_cas.py:84",
+            lambda: ops.bitserial_cas(a, b, width=width),
+            lambda: bsc.exec_program_plain(a, b, width),
+            16 * pairs, n_ops * pairs, k7_library(a, b),
+            ops_per_s=INT32_OPS_PER_S, width=width, pairs=pairs,
+            stage_of=step, gate_ops=n_ops)
+        del a, b
+
+    # extras, not in the kernels line: one launch over 2^26 pairs at W = 4
+    # and W = 32, compared with the plain version on the first 2^24 pairs
+    # (its bool planes hold W bytes a pair each)
+    for width in (4, 32):
+        a, b = words(width, CAS_PAIRS), words(width, CAS_PAIRS)
+        ms, got = cuda_ms(lambda: ops.bitserial_cas(a, b, width=width), 10)
+        pp = CAS_PLAIN_PAIRS
+        err = max(same_bits(g[:pp], w, f"bitserial_cas W={width} vs plain")
+                  for g, w in zip(got, bsc.exec_program_plain(a[:pp], b[:pp],
+                                                              width)))
+        del got
+        bnd, by = _bound(16 * CAS_PAIRS,
+                         bsc.program_table(width).shape[0] * CAS_PAIRS,
+                         INT32_OPS_PER_S)
+        emit({"phase": "timing", "name": f"bitserial_cas W={width} "
+              f"{CAS_PAIRS} pairs (extra)", "ms": ms, "max_abs_err": err,
+              "plain_pairs": pp, "bound_ms": bnd, "bound_by": by,
+              "library_ms": cuda_ms(k7_library(a, b), 10)[0]})
+        del a, b
     return rows
 
 

@@ -12,6 +12,8 @@ Backend names (the one mapping; the parity tests read it from here):
     ``bitonic``       ``bitonic``  the network in plain PyTorch ops
     ``merge``         ``merge``    runs + merge tree (merge-path kernel)
     ``radix``         ``radix``    LSD radix kernels over encoded keys
+    ``imc``           ``imc``      the 28-cycle gate program; on a card one
+                                   K7 launch per network stage
 
 ``Plan.run_method``/``Plan.merge_backend`` take ``"torch"``/``"cuda"`` where
 the JAX package has ``"xla"``/``"pallas"``.
@@ -25,4 +27,4 @@ PyTorch version; given a CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 BACKEND_NAMES = {"xla": "torch", "pallas": "cuda", "bitonic": "bitonic",
-                 "merge": "merge", "radix": "radix"}
+                 "merge": "merge", "radix": "radix", "imc": "imc"}

@@ -3,8 +3,8 @@
 Backend names follow the JAX package except where a name says which
 substrate runs it: ``xla`` is ``torch`` here (``torch.sort``, the reference
 backend) and ``pallas`` is ``cuda`` (the hand-written whole-row bitonic
-kernel).  ``bitonic``, ``merge``, ``radix`` and ``select`` keep their
-names.  Each
+kernel).  ``bitonic``, ``imc``, ``merge``, ``radix`` and ``select`` keep
+their names.  Each
 ``Capabilities`` states exactly what its code takes; the planner derives
 all auto-dispatch eligibility from them.  Kernel modules are imported
 inside the methods so importing the registry stays cheap.
@@ -25,6 +25,9 @@ MAX_BITONIC_N = 1 << 14
 COMPARABLE_DTYPES = frozenset({
     "float32", "bfloat16", "float16", "int32", "uint32",
     "int16", "uint16", "int8", "uint8"})
+
+_INT_DTYPES = frozenset({"int8", "int16", "int32",
+                         "uint8", "uint16", "uint32"})
 
 
 def _gather_kv(keys, values, order):
@@ -143,6 +146,55 @@ class CudaBackend(SortBackend):
     def topk(self, rows, k, *, plan=None):
         from repro_torch.kernels import ops
         return ops.bitonic_topk(rows, k)
+
+
+# ---------------------------------------------------------------------------
+# imc — the paper's bit-serial gate program
+# ---------------------------------------------------------------------------
+
+@register_backend
+class ImcBackend(SortBackend):
+    """The 28-cycle gate program of the 6T SRAM array: the cycle-accurate
+    simulator on the CPU, one K7 launch per network stage on a card.
+    Validation and benchmarking only (never auto-dispatched); keys go
+    through the order-preserving codec so signed ints sort correctly.
+    Rows must be a power of two long (the network is not padded)."""
+    name = "imc"
+    capabilities = Capabilities(dtypes=_INT_DTYPES, stable=False,
+                                supports_kv=False, supports_topk=False,
+                                supports_segments=False, auto_dispatch=False,
+                                substrate="sram")
+
+    def sort(self, rows, *, descending=False, plan=None):
+        from repro_torch.core import sorter
+        self.check_dtype(rows.dtype)
+        bits = _keycodec.key_bits(rows.dtype)
+        res = sorter.sort_in_memory(_keycodec.encode(rows), width=bits,
+                                    device=rows.device)
+        # the W-bit words (in [0, 2^W)) back into the same-width carrier,
+        # flipped there: torch has no flip for uint16/uint32 on the CPU
+        enc = res.values
+        if bits < 32:
+            sign = 1 << (bits - 1)
+            enc = (enc ^ sign) - sign
+        enc = enc.to(_keycodec.key_dtype(rows.dtype))
+        if descending:
+            enc = enc.flip(-1)
+        return _keycodec.decode(enc, rows.dtype)
+
+    def argsort(self, rows, *, descending=False, plan=None):
+        """Argsort on the bit-serial sorter via
+        ``keycodec.argsort_composite``: unique composites give the
+        (unstable) network the engine's tie convention — ties keep
+        ascending index order in both directions."""
+        from repro_torch.core import sorter
+        self.check_dtype(rows.dtype)
+        comp, idx_bits = _keycodec.argsort_composite(rows,
+                                                     descending=descending)
+        # the CAS gate program is built for power-of-two word widths
+        width = next_pow2(_keycodec.key_bits(rows.dtype) + idx_bits)
+        res = sorter.sort_in_memory(comp, width=width, device=rows.device)
+        return res.values & ((1 << idx_bits) - 1)
 
 
 # ---------------------------------------------------------------------------

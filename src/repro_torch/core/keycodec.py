@@ -156,3 +156,49 @@ def total_order_key(x: torch.Tensor) -> torch.Tensor:
     if kind != "f":
         return x
     return encode(x) ^ _masks(bits)[0]
+
+
+# ---------------------------------------------------------------------------
+# argsort composites: (encoded key, index) in one 32-bit word
+# ---------------------------------------------------------------------------
+
+def composite_index_bits(n: int) -> int:
+    """Index bits an argsort composite needs for row length ``n``."""
+    return max(1, (n - 1).bit_length())
+
+
+def composite_fits(dtype, n: int) -> bool:
+    """Can an (encoded key, index) composite for ``dtype`` rows of length
+    ``n`` pack into one 32-bit word?"""
+    return key_bits(dtype) + composite_index_bits(n) <= 32
+
+
+def argsort_composite(x: torch.Tensor, *, descending: bool = False):
+    """Pack ``x`` into unique (encoded key << idx_bits) | index composites
+    -> ``(composite, idx_bits)``, the composite an int32 tensor carrying
+    the 32-bit word's bits.
+
+    Sorting the composites ascending as unsigned words yields the engine's
+    argsort tie convention on any *unstable* value sorter — ties keep
+    ascending index order in both directions, because ``descending``
+    complements only the key bits while the index bits always ascend.  The
+    sorted composite's low bits are the permutation.
+    """
+    n = x.shape[-1]
+    idx_bits = composite_index_bits(n)
+    if not composite_fits(x.dtype, n):
+        raise ValueError(
+            f"argsort (key, index) composite packs into one 32-bit word: "
+            f"key_bits({dtype_name(x.dtype)})={key_bits(x.dtype)} + "
+            f"index bits({n})={idx_bits} exceeds 32; use a narrower key "
+            f"dtype or a smaller n")
+    bits = key_bits(x.dtype)
+    enc = encode(x, descending=descending).to(torch.int64) & ((1 << bits) - 1)
+    idx = torch.arange(n, dtype=torch.int64, device=x.device)
+    return wrap_int32((enc << idx_bits) | idx), idx_bits
+
+
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [-2^31, 2^32) -> the int32 carrier of their low 32
+    bits (a 32-bit word with bit 31 set is a negative carrier)."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)

@@ -30,7 +30,6 @@ __all__ = [
 # JAX backends without a port yet -> where the ROADMAP schedules them
 NOT_PORTED = {
     "spill": "ROADMAP Queue 1 item 9 (engine/spill.py)",
-    "imc": "ROADMAP Queue 1 item 10 (paper model + imc backend)",
     "distributed": "ROADMAP Queue 1 item 11 (distributed tier)",
 }
 
@@ -64,7 +63,9 @@ class Capabilities:
     (``None``: any comparable dtype).  ``max_n`` caps the power-of-two
     padded row the planner may hand it under ``method="auto"``.
     ``substrate`` says where it runs: ``"host"`` (PyTorch ops),
-    ``"cuda"`` (hand-written kernels) or ``"hierarchy"`` (the engine).
+    ``"cuda"`` (hand-written kernels), ``"hierarchy"`` (the engine) or
+    ``"sram"`` (the paper's gate program on the simulated IMC array, K7
+    on a card).
 
     ``selection=True`` declares an O(n·passes) top-k selection engine: its
     top-k is priced with ``cost_model.selection_cost_ns``, not as a full
@@ -80,7 +81,7 @@ class Capabilities:
     supports_sort: bool = True
     selection: bool = False
     auto_dispatch: bool = True
-    substrate: str = "host"        # "host" | "cuda" | "hierarchy"
+    substrate: str = "host"   # "host" | "cuda" | "hierarchy" | "sram"
 
 
 # ---------------------------------------------------------------------------

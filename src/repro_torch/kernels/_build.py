@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 import torch
 
 SOURCES = ("bitonic_sort", "merge_path", "radix_sort", "radix_select",
-           "bitonic_topk")
+           "bitonic_topk", "bitserial_cas")
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # src/repro_torch/kernels/_build.py -> <repo>/build/kernels

@@ -12,6 +12,7 @@ from repro_torch.core import keycodec
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitonic_sort as bs
 from repro_torch.kernels import bitonic_topk as btk
+from repro_torch.kernels import bitserial_cas as bsc
 from repro_torch.kernels import merge_path as mp
 from repro_torch.kernels import radix_select as sel
 from repro_torch.kernels import radix_sort as rsk
@@ -279,3 +280,90 @@ def test_sort_kv_on_the_card_keeps_payloads_past_n(descending):
     order = torch.sort(x, stable=True, descending=descending).indices
     _same(sk, x[order])
     _same(sv, v[order])
+
+
+# ---------------------------------------------------------------------------
+# K7 and the imc path
+# ---------------------------------------------------------------------------
+
+def _cas_words(n, width, seed):
+    """int32 carriers of W-bit words: random, 0, 2^W - 1, the top bit
+    (bit 31 at W = 32) and equal operand pairs."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << width, size=(2, n), dtype=np.uint64)
+    w[0, 1::13], w[1, 2::13] = 0, (1 << width) - 1
+    w[:, 3::13] |= 1 << (width - 1)
+    w[1, ::5] = w[0, ::5]
+    a, b = (torch.from_numpy(r.astype(np.uint32).view(np.int32)).cuda()
+            for r in w)
+    return a, b
+
+
+@pytest.mark.parametrize("width", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("n", [1, 127, 128, 1000, 1 << 20])
+def test_k7_kernel_matches_plain(width, n):
+    """One K7 launch against the plain gate program on the same words,
+    lengths that are not a multiple of the 128 lanes included."""
+    from repro_torch.kernels import ops
+    a, b = _cas_words(n, width, seed=width * 7 + n)
+    _build.reset_launches()
+    lo, hi = ops.bitserial_cas(a, b, width=width)
+    assert dict(_build.launches) == {"bitserial_cas": 1}
+    plo, phi = bsc.exec_program_plain(a, b, width)
+    _same(lo, plo)
+    _same(hi, phi)
+    ua, ub = (t.to(torch.int64) & 0xFFFFFFFF for t in (a, b))
+    assert torch.equal(lo.to(torch.int64) & 0xFFFFFFFF, torch.minimum(ua, ub))
+    assert torch.equal(hi.to(torch.int64) & 0xFFFFFFFF, torch.maximum(ua, ub))
+
+
+IMC_DTYPES = ["int8", "uint8", "int16", "uint16", "int32", "uint32"]
+
+
+@pytest.mark.parametrize("name", IMC_DTYPES)
+@pytest.mark.parametrize("descending", [False, True])
+def test_imc_on_the_card_matches_the_cpu(name, descending):
+    """The card's imc sort and argsort (K7 per stage) give the CPU
+    simulator's bits; 32-bit keys have no argsort composite."""
+    import repro_torch.sort as rsort
+    x = _keys((16, 256), name, seed=len(name))
+    _same(rsort.sort(x, method="imc", descending=descending).cpu(),
+          rsort.sort(x.cpu(), method="imc", descending=descending,
+                     device="cpu"))
+    if x.element_size() <= 2:
+        _same(rsort.argsort(x, method="imc", descending=descending).cpu(),
+              rsort.argsort(x.cpu(), method="imc", descending=descending,
+                            device="cpu"))
+
+
+def test_imc_launches_one_k7_per_stage(monkeypatch):
+    """Every compare-and-swap stage of the network on the card is one K7
+    launch, and no PyTorch sort runs: the paper's unit (N=8, W=4: 6
+    stages, 192 cycles) and the front door at n=64 (21 stages)."""
+    import repro_torch.sort as rsort
+    from repro_torch.core import sorter
+    g = torch.Generator(device="cuda").manual_seed(7)
+    unit = torch.randint(0, 16, (4096, 8), generator=g, device="cuda",
+                         dtype=torch.int32)
+    x = torch.randint(-128, 128, (512, 64), generator=g, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    for name in _NOT_ON_THE_CARD:
+        monkeypatch.setattr(torch, name, _refuse_library_call(name))
+    _build.reset_launches()
+    res = sorter.sort_in_memory(unit, width=4)
+    unit_counts = dict(_build.launches)
+    _build.reset_launches()
+    out = rsort.sort(x, method="imc")
+    sort_counts = dict(_build.launches)
+    _build.reset_launches()
+    order = rsort.argsort(x, method="imc", descending=True)
+    arg_counts = dict(_build.launches)
+    monkeypatch.undo()
+    assert unit_counts == {"bitserial_cas": 6}
+    assert (res.cycles, res.compute_cycles, res.movement_cycles) == \
+        (192, 168, 24)
+    assert sort_counts == arg_counts == {"bitserial_cas": 21}
+    _same(res.values, torch.sort(unit, dim=-1).values)
+    _same(out, torch.sort(x, dim=-1).values)
+    want = torch.sort(x, dim=-1, stable=True, descending=True).indices
+    assert torch.equal(order.long(), want)

@@ -313,11 +313,11 @@ def test_result_on_requested_device_from_numpy_input():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"method": "imc"}, {"mesh": object()},
+    {"mesh": object()},
     {"axis_name": "data"}, {"method": "spill"}, {"method": "distributed"}])
 def test_fields_not_ported_fail_loudly(kwargs):
     """What the port does not carry yet raises, naming its ROADMAP item
-    (segments, padded rows and ``select`` are ported now)."""
+    (segments, padded rows, ``select`` and ``imc`` are ported now)."""
     x = np.zeros((1, 4), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsort.sort(x, device="cpu", **kwargs)
@@ -358,8 +358,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.convert, repro_torch.obs\n"
             "from repro_torch.core import backends\n"
             "from repro_torch.kernels import ops, radix_sort, merge_path, "
-            "radix_select, bitonic_topk\n"
+            "radix_select, bitonic_topk, bitserial_cas\n"
             "from repro_torch.engine import segmented\n"
+            "from repro_torch.core import imc_array, gates, network, cas, "
+            "sorter, cost_model, sort_api\n"
+            "from repro_torch.configs import adsimc_paper\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
