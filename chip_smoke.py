@@ -11,6 +11,9 @@ Phases, each printed as one JSON line:
             into ``build/kernels/``;
 2. kernels  every kernel against its plain PyTorch version on the card,
             bit for bit (signed zeros, ties and dtype extremes included);
+            K6 (flash attention) within 1e-4 in float32 and 2e-2 in bf16,
+            and each query's output within 2^-16 (float32) and 2^-6 (bf16)
+            of the plain one's norm;
 3. main     the port's entry points at the standard GPU sort benchmark's
             size (2^28 32-bit keys): sort, argsort (also stable), sort_kv,
             the radix and cuda backends and an engine top-k; then top-k
@@ -23,17 +26,31 @@ Phases, each printed as one JSON line:
             W=32 both ways, a (2^16, 256) int8 argsort through the (key,
             index) composite at W=16 both ways, and (2^12, 512) sorts of
             uint8, int16, uint16 and uint32.
-            Each is held bit-exactly against ``torch.sort(stable=True)``
+            Each sort is held bit-exactly against ``torch.sort(stable=True)``
             (ties keep ascending index in both directions; the select
             backend's top-k on the IEEE total order, +0.0 above -0.0).
             Each call runs once with the launch counts set to 0 just before
             and read just after, then is timed with CUDA events over a few
             more calls;
-4. timing   each kernel at the main path's shapes: its output held bit for
-            bit against its plain version on the same inputs (the
-            ``max_abs_err`` of the kernel table), then CUDA-event times of
-            both beside ``torch.sort`` (``torch.topk`` for K4 and K5;
-            ``torch.minimum`` + ``torch.maximum`` for K7) on the same rows.
+4. serve    minitron-4b at full width and depth (32 layers, d=3072, 4.2 B
+            parameters in bf16, random weights from a seeded generator)
+            through ``repro_torch.launch.serve.serve`` with the prefill's
+            attention on K6: 16 requests in batches of 8, prompts up to
+            1023 tokens, 32 tokens each by top-k (k=50) sampling.  The
+            counts are set to 0 just before and read just after: K6 must
+            launch once a layer and prefill batch.  Then the same batches'
+            prefill logits with K6 against the einsum attention (within
+            0.2, the argmax equal on most rows, the served first tokens
+            replayed; a float32 einsum prefill as the control of what bf16
+            alone moves), and K6 against its plain version at each served
+            batch's shape;
+5. timing   each kernel at the main path's shapes: its output held against
+            its plain version on the same inputs (the ``max_abs_err`` of the
+            kernel table; bit for bit but for K6, which is held to the
+            limits of phase 2), then CUDA-event times of both beside
+            ``torch.sort`` (``torch.topk`` for K4 and K5; ``torch.minimum`` +
+            ``torch.maximum`` for K7; ``scaled_dot_product_attention`` for
+            K6) on the same rows.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -66,11 +83,24 @@ IMC_ARG = (1 << 16, 256)      # int8 rows of the composite imc argsort
 IMC_DTYPES_SHAPE = (1 << 12, 512)
 CAS_PAIRS = 1 << 26       # K7 extra timing: pairs of one launch
 CAS_PLAIN_PAIRS = 1 << 24      # ... compared with the plain version here
+SERVE = dict(n_requests=16, batch_size=8, decode_steps=32, topk=50,
+             max_len=4096)        # prompts of 4 to 1023 tokens
+ATTN_SHAPES = ((8, 1024), (1, 32768))    # (B, S) of K6's rows: the serve's
+ATTN_HEADS = (24, 8, 128)                # prefill batch and prefill_32k
+K6_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # max |kernel - plain|
+# ... and the largest |kernel - plain|_2 / |plain|_2 over query rows: an
+# absolute limit is loose where outputs are small (a row that sees n keys
+# of randn values is ~n^-1/2), so K6 is also held to its values.  bf16:
+# rounding P and the output gives ~2^-8, a 64-key tile dropped at n = 32K
+# ~2^-4.5; float32: FMA order and expf, ~2^-20
+K6_ROW_REL = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -6}
+PREFILL_LOGITS_TOL = 0.2     # max |flash - einsum| of the served prefill
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # H100 SXM INT32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 
 
 def emit(obj) -> None:
@@ -303,8 +333,82 @@ def phase_kernels(rng) -> dict:
             same_bits(lo, plo, f"K7 min W={width} n={n}")
             same_bits(hi, phi, f"K7 max W={width} n={n}")
             cases += 2
+
+    cases += check_k6()
     torch.cuda.synchronize()
     return cases
+
+
+def check_k6() -> int:
+    """K6 against its plain version: float32 and bf16, G = 1 and 3
+    (minitron's), causal with and without a window, non-causal, an
+    absolute offset past T's start, and lengths off the 64-row blocks; its
+    own generator, as K7's.  Emits the largest errors; returns the number
+    of cases."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases, worst = 0, {}
+    for name in K6_TOL:
+        for g in (1, 3):
+            for s, t, off, causal, window in (
+                    (1000, 1000, 0, True, 0), (1000, 1000, 0, True, 256),
+                    (77, 77, 0, True, 0), (300, 1300, 1000, True, 0),
+                    (300, 1300, 1000, True, 100), (200, 333, 0, False, 0)):
+                q, k, v = attn_rows(gen, 4, g, s, t, 128, getattr(torch, name))
+                errs = attn_within(
+                    fa.flash_rows(q, k, v, off, causal=causal, window=window),
+                    fa.flash_rows_plain(q, k, v, off, causal=causal,
+                                        window=window),
+                    f"K6 {name} g={g} s={s} t={t} off={off} "
+                    f"causal={causal} window={window}")
+                worst[name] = [max(a, b) for a, b in
+                               zip(worst.get(name, (0.0, 0.0)), errs)]
+                cases += 1
+    emit({"phase": "kernels", "k6_max_abs_err_and_row_rel_err": worst,
+          "limits": [K6_TOL, K6_ROW_REL]})
+    return cases
+
+
+def attn_rows(gen, rk, g, s, t, h, dtype):
+    """K6's rows on the card: q (rk * g, s, h), k and v (rk, t, h)."""
+    import torch
+    q = torch.randn((rk * g, s, h), generator=gen, device="cuda")
+    k = torch.randn((rk, t, h), generator=gen, device="cuda")
+    v = torch.randn((rk, t, h), generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def attn_within(x, y, what: str):
+    """K6 against its plain version: ``within`` at ``K6_TOL``, and the
+    largest |x - y|_2 / |y|_2 over the last axis (one query's output) at
+    most ``K6_ROW_REL``; returns (max |x - y|, that ratio)."""
+    name = str(y.dtype).removeprefix("torch.")
+    err = within(x, y, K6_TOL[name], what)
+    if not x.numel():
+        return err, 0.0
+    y32 = y.float()
+    rel = ((x.float() - y32).norm(dim=-1)
+           / y32.norm(dim=-1).clamp(min=1e-30)).max().item()
+    if rel > K6_ROW_REL[name]:
+        raise AssertionError(f"{what}: max row |diff|/|plain| {rel} > "
+                             f"{K6_ROW_REL[name]}")
+    return err, rel
+
+
+def within(x, y, tol: float, what: str) -> float:
+    """Fail unless x and y have one shape and dtype, are finite and differ
+    by at most ``tol``; return max |x - y|."""
+    import torch
+    if x.shape != y.shape or x.dtype != y.dtype:
+        raise AssertionError(f"{what}: {tuple(x.shape)} {x.dtype} vs "
+                             f"{tuple(y.shape)} {y.dtype}")
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err = (x.float() - y.float()).abs().max().item() if x.numel() else 0.0
+    if err > tol:
+        raise AssertionError(f"{what}: max |diff| {err} > {tol}")
+    return err
 
 
 def cas_words(rng, n, width):
@@ -633,7 +737,218 @@ def phase_imc(rng, run) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing at the main path's shapes
+# phase 4: serving minitron-4b at full width
+# ---------------------------------------------------------------------------
+
+def phase_serve() -> dict:
+    """``serve`` of minitron-4b, the prefill's attention on K6, with the
+    launch counts set to 0 just before and read just after; then the same
+    batches' prefill through K6 and through the einsum attention, and the
+    time splits of a prefill and a decode step.  Returns the counts."""
+    import dataclasses
+    import torch
+    from repro_torch import engine
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import model_zoo
+
+    cfg = get_config("minitron-4b")
+    bsz, steps, n_req = (SERVE["batch_size"], SERVE["decode_steps"],
+                         SERVE["n_requests"])
+    plan = engine.choose(cfg.padded_vocab, bsz, torch.float32,
+                         k=SERVE["topk"], device="cuda")
+    emit({"phase": "serve", "model": cfg.name, "n_params": cfg.n_params(),
+          "sampling_topk_rows": [bsz, cfg.padded_vocab],
+          "k": SERVE["topk"], "sampling_topk_plan": plan.method,
+          "costs_ns": plan.costs})
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, stats = srv.serve("minitron-4b", smoke=False, seed=SEED,
+                            device="cuda", flash_prefill=True, **SERVE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    k6 = counts.get("flash_attention_fwd", 0)
+    if k6 != cfg.n_layers * stats["batches"]:
+        raise AssertionError(f"serve: K6 launched {k6} times, expected "
+                             f"{cfg.n_layers} x {stats['batches']} batches "
+                             f"(counts {counts})")
+    if len(done) != n_req or sorted(r.rid for r in done) != \
+            list(range(n_req)):
+        raise AssertionError(f"serve: {len(done)} of {n_req} answered")
+    for r in done:
+        if r.out is None or len(r.out) != steps or not (
+                (r.out >= 0) & (r.out < cfg.vocab_size)).all():
+            raise AssertionError(f"serve: request {r.rid} got {r.out}")
+    emit({"phase": "serve", "requests": len(done),
+          "batches": stats["batches"], "launches": counts,
+          "prompt_lens": sorted(len(r.prompt) for r in done),
+          "padding_waste": stats["padding_waste"],
+          "prefill_ms": stats["prefill_ms"],
+          "decode_tok_s": stats["decode_tps"], "seconds": seconds})
+    first = {r.rid: int(r.out[0]) for r in done}
+    del done, stats
+
+    # the same batches (same requests, same scheduler) through both
+    # attentions on the same weights (same seed, same card)
+    einsum = model_zoo.build(cfg, device="cuda")
+    flash = model_zoo.build(dataclasses.replace(cfg, flash_prefill=True),
+                            device="cuda")
+    params = einsum.init(torch.Generator(device="cuda").manual_seed(SEED))
+    # the control: the einsum path in float32 on the same weights, how far
+    # bf16 alone moves the logits
+    wide = model_zoo.build(dataclasses.replace(cfg, dtype="float32"),
+                           device="cuda")
+    params32 = as_float(params)
+    sched = srv.LengthSortedScheduler(bsz, method=cfg.sort_method,
+                                      device="cuda")
+    for r in srv.make_requests(cfg.vocab_size, n_req, SERVE["max_len"],
+                               steps, SEED):
+        sched.submit(r)
+    errs, control, decided, replayed, k6_errs = [], [], 0, 0, []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    while True:
+        batch = sched.next_batch()
+        if not batch:
+            break
+        toks = torch.from_numpy(srv.left_pad(batch)).cuda()
+        # K6 against its plain version at this batch's attention shape
+        q, k, v = attn_rows(gen, bsz * cfg.n_kv_heads,
+                            cfg.n_heads // cfg.n_kv_heads, toks.shape[1],
+                            toks.shape[1], cfg.resolved_head_dim,
+                            torch.bfloat16)
+        k6_errs.append(attn_within(fa.flash_rows(q, k, v),
+                                   fa.flash_rows_plain(q, k, v),
+                                   f"K6 at the serve's shape "
+                                   f"{tuple(q.shape)}"))
+        del q, k, v
+        lf, state = flash.prefill(params, {"tokens": toks},
+                                  max_len=toks.shape[1])
+        le, _ = einsum.prefill(params, {"tokens": toks},
+                               max_len=toks.shape[1])
+        err = within(lf, le, PREFILL_LOGITS_TOL, "serve prefill logits")
+        l32, _ = wide.prefill(params32, {"tokens": toks},
+                              max_len=toks.shape[1])
+        control.append(within(l32, le.float(), float("inf"),
+                              "float32 control logits"))
+        del l32
+        top2 = le.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        if not bool((lf.argmax(-1) == le.argmax(-1))[sure].all()):
+            raise AssertionError(f"serve: flash and einsum prefill argmax "
+                                 f"differ where the margin exceeds 2 x {err}")
+        errs.append(err)
+        decided += int(sure.sum())
+        replayed += sum(int(t) == first[r.rid]
+                        for t, r in zip(lf.argmax(-1).tolist(), batch))
+    del params32
+    emit({"phase": "serve", "flash_vs_einsum_logits_max_abs_err": errs,
+          "limit": PREFILL_LOGITS_TOL,
+          "float32_vs_bf16_einsum_logits_max_abs_err": control,
+          "logits_max_abs": le.abs().max().item(),
+          "argmax_checked_rows": decided, "rows": n_req,
+          "first_tokens_replayed": replayed,
+          "k6_vs_plain_max_abs_and_row_rel_err_at_served_shapes": k6_errs})
+    if 2 * decided <= n_req or replayed != n_req:
+        raise AssertionError(f"serve: argmax checked on {decided} of {n_req} "
+                             f"rows (needs most), {replayed} of {n_req} "
+                             f"first tokens replayed by the prefill")
+    prefill_split(flash, params, toks)
+    del state
+    decode_split(flash, params, toks, SERVE["max_len"])
+    del params
+    torch.cuda.synchronize()
+    return counts
+
+
+def as_float(tree):
+    """A copy of a parameter tree (dicts and lists of tensors) in float32."""
+    if isinstance(tree, dict):
+        return {k: as_float(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(as_float(v) for v in tree)
+    return tree.float()
+
+
+def prefill_split(model, params, toks) -> None:
+    """Where a prefill batch's time goes: the whole prefill (K6 on), its
+    weight products (each layer's six, at the batch's token count, times
+    the depth) and its K6 launches (times the depth), CUDA events; the
+    rest is glue (norms, rope, casts, reshapes, the cache fill, launch
+    gaps)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    cfg = model.cfg
+    b, s = toks.shape
+    d, f, n, r = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads
+    h = cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = torch.randn((b * s, d), generator=gen, device="cuda").bfloat16()
+    u = torch.randn((b * s, f), generator=gen, device="cuda").bfloat16()
+    o = torch.randn((b * s, n * h), generator=gen, device="cuda").bfloat16()
+    lp = {k: v[0] for k, v in params["body"]["mixer"].items()}
+    ffn = {k: v[0] for k, v in params["body"]["ffn"].items()}
+
+    def products():
+        return (x @ lp["wq"], x @ lp["wk"], x @ lp["wv"], o @ lp["wo"],
+                x @ ffn["wi"], u @ ffn["wo"])
+
+    q, k, v = attn_rows(gen, b * r, n // r, s, s, h, torch.bfloat16)
+    total = cuda_ms(lambda: model.prefill(params, {"tokens": toks},
+                                          max_len=s), 3)[0]
+    gemm = cuda_ms(products, 10)[0] * cfg.n_layers
+    k6 = cuda_ms(lambda: fa.flash_rows(q, k, v), 10)[0] * cfg.n_layers
+    emit({"phase": "serve", "prefill_split_batch": [b, s], "ms": total,
+          "weight_products_ms": gemm, "k6_ms": k6,
+          "glue_ms": total - gemm - k6,
+          "weight_product_tflop_s": 2 * b * s * (2 * d * n * h + 2 * d * r * h
+                                                 + 2 * d * f)
+          * cfg.n_layers / gemm / 1e9})
+
+
+def decode_split(model, params, toks, max_len) -> None:
+    """A decode step of the batch (its cache ``max_len`` deep, as served)
+    timed two ways: as served (eager, host clock over 10 synchronised
+    steps) and as one CUDA-graph replay of the same step (CUDA events), the
+    card's own time without the host's launch overhead.  Bound: the layer
+    and unembedding weights and the whole cache, each read once."""
+    import torch
+    _, st = model.prefill(params, {"tokens": toks}, max_len=max_len)
+    tok = toks[:, -1:].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        model.decode_step(params, tok, st)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / 10
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            model.decode_step(params, tok, st)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        model.decode_step(params, tok, st)
+    device = cuda_ms(graph.replay, 20)[0]
+    del graph
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in (params["body"]["mixer"] | params["body"]["ffn"])
+                 .values()) \
+        + params["unembed"]["unembedding"].numel() * 2 \
+        + 2 * st["body"].k.numel() * 2
+    emit({"phase": "serve", "decode_step_batch": list(toks.shape),
+          "cache_len": max_len, "eager_ms": host, "graph_replay_ms": device,
+          "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+          "eager_tok_s": toks.shape[0] / host * 1e3})
+
+
+# ---------------------------------------------------------------------------
+# phase 5: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
 def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -672,11 +987,18 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
                    for g, w in zip(kernel(), plain()))
 
     def row(name, source, replaces, kernel, plain, nbytes, ops, library,
-            err=0.0, ops_per_s=FP32_OPS_PER_S, **extra):
+            err=0.0, ops_per_s=FP32_OPS_PER_S, check=None, **extra):
+        """Kernel and plain outputs bit for bit, unless ``check(got, want,
+        what)``: K6's comparison of its one output, returning (max
+        |kernel - plain|, max row relative error)."""
         ms, got = cuda_ms(kernel, 10)
         plain_ms, want = cuda_ms(plain, 1)
-        err = max([err] + [same_bits(g, w, f"{name} vs plain")
-                           for g, w in zip(got, want)])
+        if check is not None:
+            err, extra["max_row_rel_err"] = check(got[0], want[0],
+                                                  f"{name} vs plain")
+        else:
+            err = max([err] + [same_bits(g, w, f"{name} vs plain")
+                               for g, w in zip(got, want)])
         del got, want
         b, by = _bound(nbytes, ops, ops_per_s)
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -902,7 +1224,34 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
               "plain_pairs": pp, "bound_ms": bnd, "bound_by": by,
               "library_ms": cuda_ms(k7_library(a, b), 10)[0]})
         del a, b
+
+    time_k6(row, gen)
     return rows
+
+
+def time_k6(row, gen) -> None:
+    """K6's kernel-table rows: the serve's prefill batch, (8, 1024) x 24/8
+    heads of 128, and prefill_32k's length at batch 1, bf16; beside SDPA on
+    the same (B, N, S, H) tensors (causal from position 0: S = T).  Bound:
+    the causal half of QK^T and PV over the bf16 tensor rate, against q, k,
+    v and o read or written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    n, r, h = ATTN_HEADS
+    for b, s in ATTN_SHAPES:
+        q, k, v = attn_rows(gen, b * r, n // r, s, s, h, torch.bfloat16)
+        q4, k4, v4 = (x.view(b, -1, s, h) for x in (q, k, v))
+        row("flash_attention_fwd", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:101",
+            lambda: (fa.flash_rows(q, k, v),),
+            lambda: (fa.flash_rows_plain(q, k, v),),
+            (2 * q.numel() + 2 * k.numel()) * 2, 2 * 2 * s * s / 2 * h * n * b,
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                   enable_gqa=True),
+            ops_per_s=BF16_OPS_PER_S, check=attn_within,
+            shape=[b, s, n, r, h], dtype="bfloat16")
+        del q, k, v, q4, k4, v4
 
 
 def card() -> str:
@@ -924,6 +1273,9 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import tuning
     from repro_torch.kernels import _build
+    # float32 products in full float32 (the K6 float32 comparisons)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     smi = card()
@@ -938,6 +1290,7 @@ def main() -> int:
     tk = time.perf_counter()
     cases = phase_kernels(rng)
     emit({"phase": "kernels", "cases": cases, "bit_exact": True,
+          "k6_limits": {"max_abs_err": K6_TOL, "max_row_rel_err": K6_ROW_REL},
           "seconds": time.perf_counter() - tk})
 
     prof = tuning.active()
@@ -946,8 +1299,15 @@ def main() -> int:
     emit({"phase": "main", "total_launches": main_res["launches"],
           "seconds": time.perf_counter() - tm})
 
+    ts = time.perf_counter()
+    serve_launches = phase_serve()
+    emit({"phase": "serve", "seconds": time.perf_counter() - ts})
+    launches = dict(main_res["launches"])
+    for k, v in serve_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
     tt = time.perf_counter()
-    rows = phase_timing(main_res["launches"], prof.run_len, prof.radix_tile,
+    rows = phase_timing(launches, prof.run_len, prof.radix_tile,
                         prof.digit_bits)
     emit({"phase": "timing", "seconds": time.perf_counter() - tt})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

@@ -1,7 +1,13 @@
-"""repro_torch — the ADS-IMC sort engine on PyTorch and hand-written CUDA.
+"""repro_torch — ADS-IMC on PyTorch and hand-written CUDA.
 
 The port of the JAX package ``repro``, module by module.  It imports
-``torch`` and never ``jax`` or ``repro``.
+``torch`` and never ``jax`` or ``repro``.  It carries the sort engine
+(``sort``, ``engine``, ``core``), the paper's in-memory sorter (``core``'s
+``sorter`` and the ``imc`` backend), and the serving path of one model
+(``configs``, ``models``, ``launch``: minitron-4b, its prefill attention on
+the flash-attention kernel).  Every TPU kernel of the JAX package has a
+hand-written counterpart in ``csrc/`` beside its plain PyTorch version in
+``kernels/``.
 
 Backend names (the one mapping; the parity tests read it from here):
 
@@ -19,8 +25,9 @@ Backend names (the one mapping; the parity tests read it from here):
 the JAX package has ``"xla"``/``"pallas"``.
 
 Device rule: every public entry point (``repro_torch.sort.*``,
-``repro_torch.engine.*``) takes ``device=`` (default ``"cuda"``), moves its
-input there and returns on it.  ``device="cuda"`` without a card raises
+``repro_torch.engine.*``, ``models.build``, ``launch.serve.serve``) takes
+``device=`` (default ``"cuda"``) and runs there; the sorts move their input
+there and return on it.  ``device="cuda"`` without a card raises
 ``RuntimeError``.  A kernel wrapper given a CPU tensor runs its plain
 PyTorch version; given a CUDA tensor it launches its kernel or raises.
 """

@@ -1,2 +1,7 @@
-"""repro_torch.configs — workload configurations of the port (the paper's
-sorting unit; model configurations arrive with the model stack)."""
+"""repro_torch.configs — workload configurations of the port: the paper's
+sorting unit (``adsimc_paper``), the model configurations (one module per
+architecture, ``minitron_4b`` so far) and the shape registry."""
+from repro_torch.configs.adsimc_paper import PAPER_UNIT, SortUnitConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    ALIASES, SHAPES, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig,
+    ShapeSpec, get_config, get_smoke_config)

@@ -1,5 +1,12 @@
 """State carried across from the JAX package.
 
+Model weights: :func:`params_from_jax` takes the JAX package's parameter
+tree (nested dicts and lists of numpy arrays, ``np.asarray`` of each JAX
+leaf) and returns the port's tree on a given device and dtype.  The two
+layouts are the same leaf for leaf — matmul weights ``(d_in, d_out)``
+applied as ``x @ w``, the stacked ``body`` leaves with their leading layer
+axis — so no leaf is transposed.
+
 A sort has no weights: what decides both packages' bits is the tuning
 profile — ``run_len`` sets the run boundaries (and so the bits of every
 unstable path, e.g. the -0.0/+0.0 order of a key-only bitonic run), while
@@ -10,7 +17,14 @@ under the port's backend names.
 """
 from __future__ import annotations
 
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tuning
+from repro_torch.core.sortspec import resolve_device
 
 JAX_SCHEMA = "repro.tuning.profile/v1"
 
@@ -44,3 +58,30 @@ def profile_from_jax(d: dict) -> tuning.TuningProfile:
         select_min_n=int(d.get("select_min_n",
                                tuning.DEFAULT_SELECT_MIN_N)),
         source="converted")
+
+
+def _leaf(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))           # a writable copy
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_jax(params: Any, cfg: ModelConfig, *, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Any:
+    """The port's parameter tree for ``cfg`` from the JAX package's (nested
+    dicts/lists of numpy arrays): every leaf a tensor of ``dtype`` (default
+    ``cfg.param_dtype()``) on ``device`` (default ``"cuda"``)."""
+    dev = resolve_device(device)
+    dtype = dtype or cfg.param_dtype()
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
+        return _leaf(tree, dtype, dev)
+
+    return conv(params)

@@ -23,6 +23,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
 import threading
 from typing import Optional
 
@@ -31,7 +32,7 @@ import torch
 __all__ = [
     "SCHEMA", "DeviceSortConstants", "TuningProfile", "ProfileError",
     "device_fingerprint", "default_profile", "active", "set_active",
-    "generation", "save", "load",
+    "generation", "profile_path", "save", "load",
 ]
 
 SCHEMA = "repro_torch.tuning.profile/v1"
@@ -170,6 +171,15 @@ def default_profile() -> TuningProfile:
                              run_len=CUDA_RUN_LEN,
                              radix_tile=CUDA_RADIX_TILE, source="default")
     return TuningProfile(fingerprint=device_fingerprint(), source="default")
+
+
+def profile_path(directory: os.PathLike,
+                 fingerprint: Optional[str] = None) -> pathlib.Path:
+    """The file of a fingerprint's profile (default: this machine's) in
+    ``directory``, named as the JAX package names it."""
+    fp = fingerprint or device_fingerprint()
+    return pathlib.Path(directory) / (re.sub(r"[^A-Za-z0-9._-]+", "_", fp)
+                                      + ".json")
 
 
 def save(profile: TuningProfile, path: os.PathLike) -> pathlib.Path:

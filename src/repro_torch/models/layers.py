@@ -1,0 +1,172 @@
+"""Shared neural building blocks, as plain functions on tensors.
+
+The port of the JAX package's ``models/layers.py``.  Parameters are nested
+dicts of tensors in the JAX package's layout — a matmul weight is
+``(d_in, d_out)`` and applied as ``x @ w`` — so a JAX parameter tree
+carries over leaf for leaf (``repro_torch.convert.params_from_jax``).  Every
+``*_init`` takes an explicit ``torch.Generator`` and makes its tensors on
+that generator's device; there are no partition specs (the port is
+single-device until the sharding item).
+
+Numerics follow the reference: norms compute in float32 and cast back, the
+norm scale is ``1 + scale``, ``rope_freqs`` is ``1 / theta ** (arange(half)
+/ half)`` in float32, logits are cast to float32 after the product and
+padded vocabulary slots are set to -1e30.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def truncnorm_init(gen: torch.Generator, shape, std: float,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """A normal of ``std`` truncated to two standard deviations (the
+    reference's ``truncated_normal(-2, 2)``), drawn in float32 on the
+    generator's device by the inverse CDF."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    u.uniform_(lo, 1.0 - lo, generator=gen)
+    x = u.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0))
+    return x.clamp_(-2.0, 2.0).mul_(std).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, std: Optional[float] = None,
+               lead=()) -> torch.Tensor:
+    """A ``(*lead, d_in, d_out)`` weight; ``lead`` stacks layers."""
+    std = std if std is not None else 1.0 / math.sqrt(d_in)
+    return truncnorm_init(gen, (*lead, d_in, d_out), std, dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device, lead=()):
+    return {"scale": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    nx = x32 * torch.rsqrt(var + eps)
+    return (nx * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device, lead=()):
+    return {"scale": torch.zeros((*lead, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)    # jnp.var: ddof=0
+    nx = (x32 - mu) * torch.rsqrt(var + eps)
+    out = nx * (1.0 + params["scale"].float()) + params["bias"].float()
+    return out.to(x.dtype)
+
+
+def make_norm(norm_type: str, d: int, dtype, device, lead=()):
+    """(params, apply) of the configured norm."""
+    if norm_type == "rmsnorm":
+        return rmsnorm_init(d, dtype, device, lead), rmsnorm
+    return layernorm_init(d, dtype, device, lead), layernorm
+
+
+def norm_fn(norm_type: str):
+    return rmsnorm if norm_type == "rmsnorm" else layernorm
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, N, H); positions: (B, S) int."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)    # (half,)
+    ang = positions[..., None].float() * freqs                 # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+_ACTS = {
+    "swiglu": F.silu,
+    "geglu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
+
+def mlp_init(gen: torch.Generator, d: int, f: int, mlp_type: str, dtype,
+             lead=()):
+    params = {"wi": dense_init(gen, d, f, dtype, lead=lead)}
+    if mlp_type in ("swiglu", "geglu"):
+        params["wg"] = dense_init(gen, d, f, dtype, lead=lead)
+    params["wo"] = dense_init(gen, f, d, dtype, lead=lead)
+    return params
+
+
+def mlp_apply(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    act = _ACTS[mlp_type]
+    h = x @ params["wi"]
+    if "wg" in params:
+        h = act(x @ params["wg"]) * h
+    else:
+        h = act(h)
+    return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / logits
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype):
+    """Input embedding table (V, D)."""
+    return {"embedding": truncnorm_init(gen, (vocab, d), 0.02, dtype)}
+
+
+def embed(params, tokens: torch.Tensor, scale: bool, d: int) -> torch.Tensor:
+    x = params["embedding"][tokens.long()]
+    if scale:
+        x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+    return x
+
+
+def unembed_init(gen: torch.Generator, vocab: int, d: int, dtype):
+    return {"unembedding": truncnorm_init(gen, (d, vocab),
+                                          1.0 / math.sqrt(d), dtype)}
+
+
+def logits_from_hidden(x: torch.Tensor, emb_params, unemb_params, tie: bool,
+                       softcap: float = 0.0,
+                       true_vocab: int = 0) -> torch.Tensor:
+    if tie:
+        logits = x @ emb_params["embedding"].T          # (V_pad, D)
+    else:
+        logits = x @ unemb_params["unembedding"]
+    logits = logits.float()
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    if true_vocab and true_vocab < logits.shape[-1]:
+        logits[..., true_vocab:] = -1e30
+    return logits

@@ -367,3 +367,111 @@ def test_imc_launches_one_k7_per_stage(monkeypatch):
     _same(out, torch.sort(x, dim=-1).values)
     want = torch.sort(x, dim=-1, stable=True, descending=True).indices
     assert torch.equal(order.long(), want)
+
+
+# ---------------------------------------------------------------------------
+# K6 and the serving path
+# ---------------------------------------------------------------------------
+
+# max |kernel - plain| by input dtype: float32 FMA in either order; bf16 /
+# fp16 round P to the input type for the tensor-core product
+K6_ATOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
+# ... and the largest |kernel - plain|_2 / |plain|_2 over query rows, which
+# holds small outputs (long rows) to their own size: rounding P and the
+# output costs ~2^-8 in bf16 and ~2^-11 in fp16
+K6_ROW_REL = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -6,
+              "float16": 2.0 ** -9}
+
+
+def _row_rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).norm(dim=-1)
+            / want.norm(dim=-1).clamp(min=1e-30)).max().item()
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("h", [16, 32, 64, 128])
+@pytest.mark.parametrize("g,s,t,q_offset,causal,window", [
+    (1, 64, 64, 0, True, 0),
+    (3, 100, 100, 0, True, 0),        # S not a multiple of the block
+    (1, 200, 200, 0, True, 24),       # windowed
+    (3, 130, 130, 0, False, 0),
+    (3, 70, 200, 130, True, 0),       # absolute positions from q_offset
+    (1, 96, 160, 64, True, 40),
+])
+def test_k6_kernel_matches_plain(name, h, g, s, t, q_offset, causal,
+                                 window):
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(s + t + h)
+    dtype = getattr(torch, name)
+    q = torch.randn((2 * 2 * g, s, h), generator=gen, device="cuda") \
+        .to(dtype)
+    k = torch.randn((2 * 2, t, h), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((2 * 2, t, h), generator=gen, device="cuda").to(dtype)
+    _build.reset_launches()
+    got = fa.flash_rows(q, k, v, q_offset, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_fwd": 1}
+    want = fa.flash_rows_plain(q, k, v, q_offset, causal=causal,
+                               window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K6_ATOL[name], err
+    rel = _row_rel_err(got, want)
+    assert rel <= K6_ROW_REL[name], rel
+
+
+def test_k6_rows_that_see_no_key_match_plain():
+    """The -1e30 arithmetic on the card: a window that holds no key of
+    the tiles visited gives the plain version's average, not NaN."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((2, 64, 32), generator=gen, device="cuda")
+    k = torch.randn((1, 100, 32), generator=gen, device="cuda")
+    v = torch.randn((1, 100, 32), generator=gen, device="cuda")
+    got = fa.flash_rows(q, k, v, 300, causal=True, window=8)
+    want = fa.flash_rows_plain(q, k, v, 300, causal=True, window=8)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_k6_wrapper_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.zeros(2, 64, 48, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_rows(x, x[:1], x[:1])
+    x = torch.zeros(2, 64, 32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_rows(x.transpose(0, 1), x[:1], x[:1])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_rows(x.requires_grad_(), x.detach(), x.detach())
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_model_prefill_on_the_card_flash_on_vs_off(name):
+    """Two layers of minitron-4b's widths (d=3072, 24/8 heads of 128):
+    the prefill's logits and caches with K6 against the einsum path, and
+    one K6 launch a layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    cfg = dataclasses.replace(get_config("minitron-4b"), n_layers=2,
+                              vocab_size=4096, dtype=name)
+    model = model_zoo.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 4096, (2, 300), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    out = {}
+    for flash in (False, True):
+        m = model_zoo.build(dataclasses.replace(cfg, flash_prefill=flash))
+        _build.reset_launches()
+        out[flash] = m.prefill(params, {"tokens": tokens}, max_len=512)
+        torch.cuda.synchronize()
+        assert _build.launches.get("flash_attention_fwd", 0) == \
+            (2 if flash else 0)
+    (l0, s0), (l1, s1) = out[False], out[True]
+    tol = 1e-3 if name == "float32" else 0.25
+    assert (l0 - l1).abs().max().item() <= tol
+    for a, b in ((s0["body"].k, s1["body"].k), (s0["body"].v, s1["body"].v)):
+        assert (a.float() - b.float()).abs().max().item() <= tol

@@ -362,7 +362,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "from repro_torch.engine import segmented\n"
             "from repro_torch.core import imc_array, gates, network, cas, "
             "sorter, cost_model, sort_api\n"
-            "from repro_torch.configs import adsimc_paper\n"
+            "from repro_torch.configs import adsimc_paper, base, "
+            "minitron_4b\n"
+            "from repro_torch.kernels import flash_attention\n"
+            "from repro_torch.models import layers, attention, transformer, "
+            "model_zoo\n"
+            "from repro_torch.launch import steps, serve\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
