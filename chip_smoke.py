@@ -8,9 +8,18 @@ Run from the repository root with no arguments::
 Phases, each printed as one JSON line:
 
 1. build    compile every kernel (one ``nvcc`` per source, all at once)
-            into ``build/kernels/``;
+            into ``build/kernels/``, and print what ``ptxas -v`` said of
+            K7's and K3's kernels (registers, stack frame, spills): every
+            K7 kernel must keep its rows in registers (no stack, no
+            spills).  Then K7's machine code (``cuobjdump -sass``): the
+            instructions of each kernel's main loop by pipe, and the INT32
+            ALU instructions a pair costs (the ops of K7's bound); no K7
+            kernel may hold a min/max instruction;
 2. kernels  every kernel against its plain PyTorch version on the card,
-            bit for bit (signed zeros, ties and dtype extremes included);
+            bit for bit (signed zeros, ties and dtype extremes included; K7's
+            pair and stage kernels at every width, K3's onesweep histogram
+            and passes for 1-, 2- and 4-byte carriers and every digit
+            width);
             K6 (flash attention) within 1e-4 in float32 and 2e-2 in bf16,
             and each query's output within 2^-16 (float32) and 2^-6 (bf16)
             of the plain one's norm;
@@ -20,8 +29,10 @@ Phases, each printed as one JSON line:
             through the select (K4) and cuda (K5) backends at the shapes of
             vocabulary sampling, MoE routing and gradient compression, MoE
             token grouping, a ragged segment sort and a padded-row sort;
-            then the paper's in-memory sorter and the imc backend, one K7
-            launch per network stage: 2^22 replicated 8-input 4-bit units
+            then the paper's CAS block (``cas.run_cas``, one launch of K7's
+            pair kernel over 2^24 pairs), its in-memory sorter and the imc
+            backend, one launch of K7's stage kernel per network stage
+            (asserted exactly), 2^22 replicated 8-input 4-bit units
             (``sort_in_memory``, 192 cycles), a (2^14, 1024) int32 sort at
             W=32 both ways, a (2^16, 256) int8 argsort through the (key,
             index) composite at W=16 both ways, and (2^12, 512) sorts of
@@ -31,7 +42,9 @@ Phases, each printed as one JSON line:
             backend's top-k on the IEEE total order, +0.0 above -0.0).
             Each call runs once with the launch counts set to 0 just before
             and read just after, then is timed with CUDA events over a few
-            more calls;
+            more calls; each K3 sort in it must be one onesweep histogram and
+            one pass a digit (1 + 4 launches for 32-bit keys), and no
+            retired kernel may run;
 4. serve    minitron-4b at full width and depth (32 layers, d=3072, 4.2 B
             parameters in bf16, random weights from a seeded generator)
             through ``repro_torch.launch.serve.serve`` with the prefill's
@@ -49,8 +62,11 @@ Phases, each printed as one JSON line:
             kernel table; bit for bit but for K6, which is held to the
             limits of phase 2), then CUDA-event times of both beside
             ``torch.sort`` (``torch.topk`` for K4 and K5; ``torch.minimum`` +
-            ``torch.maximum`` for K7; ``scaled_dot_product_attention`` for
-            K6) on the same rows.
+            ``torch.maximum`` for K7's pair kernel; nothing for K3's
+            histogram and pass or K7's stage kernel, which no one call
+            computes; ``scaled_dot_product_attention`` for K6) on the same
+            rows; K3's whole 2^26 sort beside ``torch.sort`` and its bound,
+            its launches counted on one call.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -101,18 +117,26 @@ FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # H100 SXM INT32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+# the card's head start a timed call (~0.2 ms at 1.98 GHz) in the kernel
+# timings: more than a wrapper's host time, so the queue never runs dry
+LEAD_CYCLES_PER_CALL = 400_000
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int, warm: bool = True):
+def cuda_ms(fn, reps: int, warm: bool = True, lead: bool = False):
     """(mean ms of ``fn`` over ``reps`` calls, timed with CUDA events, and
-    the output of the warm-up call that precedes them, if ``warm``)."""
+    the output of the warm-up call that precedes them, if ``warm``).  With
+    ``lead`` the card first sleeps while the host queues the calls, so a
+    call shorter than its Python wrapper is timed at the card's rate, not
+    the host's."""
     import torch
     out = fn() if warm else None
     torch.cuda.synchronize()
+    if lead:
+        torch.cuda._sleep(LEAD_CYCLES_PER_CALL * reps)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -185,7 +209,7 @@ def _keys(rng, shape, dtype):
 def phase_kernels(rng) -> dict:
     import numpy as np
     import torch
-    from repro_torch.core import keycodec
+    from repro_torch.core import keycodec, network
     from repro_torch.kernels import bitonic_sort as bs
     from repro_torch.kernels import bitonic_topk as btk
     from repro_torch.kernels import bitserial_cas as bsc
@@ -244,39 +268,36 @@ def phase_kernels(rng) -> dict:
             same_bits(v1, v2, f"K2 kv vals {dtype} {rows}x{l}")
             cases += 3
 
-    # K3: one pass of each kernel, then whole kv sorts, 8/16/32-bit keys
+    # K3: the onesweep histogram, every pass, then the whole kv sort (one
+    # look-back scratch for all its passes) against the plain pass loop,
+    # 1-, 2- and 4-byte carriers, every digit width the wrappers take, rows
+    # that end in a partial tile
     for carrier in (torch.int8, torch.int16, torch.int32):
         nbits = carrier.itemsize * 8
-        for rows, m, tile, db in ((3, 4096, 256, 8), (2, 1 << 16, 4096, 8),
-                                  (4, 3000, 1000, 4), (1, 1 << 20, 4096, 8)):
+        for rows, m, db in ((3, 4096, 8), (2, 1 << 16, 8), (4, 3000, 4),
+                            (1, 1 << 20, 8), (2, 70001, 2), (2, 9000, 1)):
             raw = rng.integers(0, 1 << nbits, size=(rows, m))
             raw[:, 1::2] = raw[:, 0::2][:, :raw[:, 1::2].shape[1]]
             keys = torch.from_numpy(raw.astype(f"uint{nbits}")
                                     .view(f"int{nbits}")).cuda()
             vals = torch.arange(m, dtype=torch.int32, device="cuda") \
                 .expand(rows, m).contiguous()
+            what = f"{carrier} {rows}x{m} db={db}"
+            hist = rsk.onesweep_hist(keys, db)
+            same_bits(hist, rsk.onesweep_hist_plain(keys, db),
+                      f"K3 onesweep hist {what}")
+            k1, v1 = keys, vals
             for shift in range(0, nbits, db):
-                h1 = rsk.digit_hist(keys, shift, db, tile)
-                h2 = rsk.digit_hist_plain(keys, shift, db, tile)
-                same_bits(h1, h2, f"K3 hist {carrier} {rows}x{m} s{shift}")
-                base = rsk.tile_bases(h1, rows)
-                k1, v1 = rsk.digit_scatter(keys, vals, base, shift, db, tile)
-                k2, v2 = rsk.digit_scatter_plain(keys, vals, base, shift, db,
-                                                 tile)
-                same_bits(k1, k2, f"K3 scatter keys {carrier} s{shift}")
-                same_bits(v1, v2, f"K3 scatter vals {carrier} s{shift}")
-                cases += 3
-            # whole sort: kernels vs the plain pass loop
-            sk1, sv1 = rsk.sort_kv_blocks(keys, vals, tile=tile,
-                                          digit_bits=db)
-            pk, pv, t = rsk._padded(keys, vals, tile)
-            for shift in range(0, nbits, db):
-                hb = rsk.tile_bases(rsk.digit_hist_plain(pk, shift, db, t),
-                                    rows)
-                pk, pv = rsk.digit_scatter_plain(pk, pv, hb, shift, db, t)
-            same_bits(sk1, pk[:, :m], f"K3 sort keys {carrier} {rows}x{m}")
-            same_bits(sv1, pv[:, :m], f"K3 sort vals {carrier} {rows}x{m}")
-            cases += 2
+                k2, v2 = rsk.onesweep_pass_plain(k1, v1, hist, shift, db)
+                k1, v1 = rsk.onesweep_pass(k1, v1, hist, shift, db)
+                same_bits(k1, k2, f"K3 onesweep pass keys {what} s{shift}")
+                same_bits(v1, v2, f"K3 onesweep pass vals {what} s{shift}")
+                cases += 2
+            sk1, sv1 = rsk.sort_kv_blocks(keys, vals, digit_bits=db)
+            pk, pv = rsk.onesweep_sort_kv_plain(keys, vals, db)
+            same_bits(sk1, pk, f"K3 sort keys {what}")
+            same_bits(sv1, pv, f"K3 sort vals {what}")
+            cases += 3
 
     # K4: every pass of the refinement, the first (every key active) and
     # the later ones under each row's k-th key as threshold prefix, on
@@ -321,9 +342,10 @@ def phase_kernels(rng) -> dict:
                     cases += 2
 
     # K7: every width, random pairs with equal operands, 0, 2^W - 1 and
-    # the top bit (bit 31 at W = 32), lengths off the 128 lanes; its own
-    # generator, so the inputs of the phases above and below stay as they
-    # were
+    # the top bit (bit 31 at W = 32), lengths off the 16-byte vectors; then
+    # the stage kernel over every stage of rows of 2 to 16384 words; its
+    # own generator, so the inputs of the phases above and below stay as
+    # they were
     krng = np.random.default_rng([SEED, 7])
     for width in bsc.WIDTHS:
         for n in (1, 127, 4096, 1000003):
@@ -333,6 +355,14 @@ def phase_kernels(rng) -> dict:
             same_bits(lo, plo, f"K7 min W={width} n={n}")
             same_bits(hi, phi, f"K7 max W={width} n={n}")
             cases += 2
+        for batch, n in ((300, 2), (64, 8), (16, 256), (2, 1 << 14)):
+            a, b = cas_words(krng, batch * n // 2, width)
+            v = torch.cat([a, b]).view(batch, n).contiguous()
+            for k, j in network.stage_schedule(n):
+                want = bsc.stage_plain(v, k, j, width)
+                same_bits(bsc.cas_stages(v, [(k, j)], width), want,
+                          f"K7 stage ({k}, {j}) W={width} {batch}x{n}")
+                cases += 1
 
     cases += check_k6()
     torch.cuda.synchronize()
@@ -438,6 +468,26 @@ def _ref_sort(x, descending=False):
     return keycodec.from_signed(s.values, x.dtype), s.indices.to(torch.int32)
 
 
+K3 = ("radix_onesweep_hist", "radix_onesweep_pass")
+# kernels that left the port: no path may reach them
+RETIRED = ("radix_digit_hist", "radix_digit_scatter")
+
+
+def check_k3_sorts(name, counts, passes) -> None:
+    """Fail if a retired kernel ran, or, where ``passes`` is given, unless
+    the K3 launches are one onesweep histogram and ``passes`` passes a
+    sort, at least one sort."""
+    gone = [k for k in RETIRED if counts.get(k, 0)]
+    if gone:
+        raise AssertionError(f"{name}: retired kernels launched: {gone}")
+    if passes is None:
+        return
+    hist = counts.get("radix_onesweep_hist", 0)
+    if hist == 0 or counts.get("radix_onesweep_pass", 0) != passes * hist:
+        raise AssertionError(f"{name}: K3 launches {counts}, expected 1 "
+                             f"histogram and {passes} passes a sort")
+
+
 def phase_main(rng) -> dict:
     import numpy as np
     import torch
@@ -449,11 +499,14 @@ def phase_main(rng) -> dict:
     launches: dict = {}
     steps = []
 
-    def run(name, fn, must, reps=3, exact=None, library=None):
+    def run(name, fn, must, reps=3, exact=None, library=None,
+            k3_passes=None):
         """One counted call (counts set to 0 just before, read just after),
         then ``reps`` more timed with CUDA events, the first as warm-up.
         ``exact``, if given, is the whole launch count the call must make;
-        ``library``, a PyTorch call on the same rows, is timed beside."""
+        ``k3_passes``, if given, the digit passes of each of its K3 sorts
+        (one onesweep histogram and that many passes a sort); ``library``,
+        a PyTorch call on the same rows, is timed beside."""
         _build.reset_launches()
         torch.cuda.synchronize()
         out = fn()
@@ -466,6 +519,7 @@ def phase_main(rng) -> dict:
         if exact is not None and counts != exact:
             raise AssertionError(f"{name}: launches {counts}, expected "
                                  f"{exact}")
+        check_k3_sorts(name, counts, k3_passes)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         ms = cuda_ms(fn, reps, warm=False)[0]
@@ -508,8 +562,7 @@ def phase_main(rng) -> dict:
         order = run(f"argsort stable merge 2^26 int32 desc={desc}",
                     lambda: rsort.argsort(k, method="merge", stable=True,
                                           descending=desc),
-                    ("radix_digit_hist", "radix_digit_scatter",
-                     "merge_pairs_kv_blocks"))
+                    K3 + ("merge_pairs_kv_blocks",), k3_passes=4)
         same_bits(order, ref_i, f"stable argsort desc={desc}")
     del k, order, sk, sv, ref_k, ref_i
 
@@ -517,8 +570,10 @@ def phase_main(rng) -> dict:
     u = torch.from_numpy(rng.integers(0, 1 << 32, KV_N, dtype=np.uint32)
                          .view(np.int32)).cuda().view(torch.uint32)
     sk, sv = run("sort_kv radix 2^26 uint32",
-                 lambda: rsort.sort_kv(u, payload, method="radix"),
-                 ("radix_digit_hist", "radix_digit_scatter"))
+                 lambda: rsort.sort_kv(u, payload, method="radix"), K3,
+                 exact={"radix_onesweep_hist": 1, "radix_onesweep_pass": 4},
+                 library=lambda: torch.sort(u.view(torch.int32) ^ -(1 << 31),
+                                            stable=True))
     ref_k, ref_i = _ref_sort(u)
     same_bits(sk, ref_k, "radix keys")
     same_bits(sv, ref_i, "radix payload")
@@ -613,7 +668,7 @@ def phase_main(rng) -> dict:
     emit({"phase": "main", "auto_plan_group_tokens": p.method})
     perm, splits = run("group_tokens_by_expert 131072 ids, 64 experts",
                        lambda: engine.group_tokens_by_expert(ids, 64),
-                       ("radix_digit_hist", "radix_digit_scatter"))
+                       K3, k3_passes=4)
     same_bits(perm, _ref_sort(ids)[1], "group_tokens permutation")
     counts = torch.bincount(ids.long(), minlength=64)
     same_bits(splits, torch.cat([counts.new_zeros(1), counts.cumsum(0)])
@@ -629,7 +684,7 @@ def phase_main(rng) -> dict:
                               .astype(np.int64)).cuda()
     sv, ss = run(f"segment_sort 2^24 float32, {SEGMENTS} segments",
                  lambda: rsort.segment_sort(xs, row_splits=splits),
-                 ("radix_digit_hist", "radix_digit_scatter"))
+                 K3, k3_passes=4)
     seg = engine.segment_ids_from_row_splits(splits, TOPK_N)
     o1 = _ref_sort(xs)[1].long()
     order = o1.gather(0, _ref_sort(seg.gather(0, o1))[1].long())
@@ -643,7 +698,7 @@ def phase_main(rng) -> dict:
                                ).cuda()
     out = run("sort(valid_lengths=...) (64, 128256) float32",
               lambda: rsort.sort(b, valid_lengths=lengths, fill_value=-1.0),
-              ("radix_digit_hist", "radix_digit_scatter"))
+              K3, k3_passes=4)
     valid = torch.arange(VOCAB[1], device="cuda")[None, :] < lengths[:, None]
     want = torch.sort(torch.where(valid, b, float("inf")), dim=-1,
                       stable=True).values
@@ -656,19 +711,36 @@ def phase_main(rng) -> dict:
 
 
 def phase_imc(rng, run) -> None:
-    """The paper's in-memory sorter and the imc backend: every
-    compare-and-swap stage of the network one K7 launch, asserted; no
-    ``torch.sort`` inside a step (it only checks the results after)."""
+    """The paper's CAS block (K7's pair kernel), in-memory sorter and the
+    imc backend: every compare-and-swap stage of the network one launch of
+    K7's stage kernel, asserted; no ``torch.sort`` inside a step (it only
+    checks the results after)."""
     import numpy as np
     import torch
     import repro_torch.sort as rsort
-    from repro_torch.core import cost_model, keycodec, network, sorter
+    from repro_torch.core import cas, cost_model, keycodec, network, sorter
     from repro_torch.core.sortspec import next_pow2
 
-    k7 = ("bitserial_cas",)
+    k7 = ("bitserial_cas_stage",)
 
     def stages(n):
-        return {"bitserial_cas": network.n_stages(n)}
+        return {"bitserial_cas_stage": network.n_stages(n)}
+
+    # the paper's CAS block itself: 2^24 pairs of 4-bit words through
+    # ``cas.run_cas``, one launch of the pair kernel
+    a = torch.from_numpy(rng.integers(0, 16, IMC_UNITS * 4)
+                         .astype(np.int32)).cuda()
+    b = torch.from_numpy(rng.integers(0, 16, IMC_UNITS * 4)
+                         .astype(np.int32)).cuda()
+    res = run(f"run_cas {IMC_UNITS * 4} pairs W=4 (CAS block)",
+              lambda: cas.run_cas(a, b, width=4), ("bitserial_cas",),
+              exact={"bitserial_cas": 1},
+              library=lambda: (torch.minimum(a, b), torch.maximum(a, b)))
+    same_bits(res.lo, torch.minimum(a, b), "run_cas min")
+    same_bits(res.hi, torch.maximum(a, b), "run_cas max")
+    if res.cycles != 28:
+        raise AssertionError(f"run_cas: {res.cycles} cycles, not 28")
+    del a, b, res
 
     # the paper's unit (N=8, W=4), replicated: 2^22 independent units,
     # six K7 launches of 2^24 compare-and-swaps each
@@ -777,6 +849,11 @@ def phase_serve() -> dict:
         raise AssertionError(f"serve: K6 launched {k6} times, expected "
                              f"{cfg.n_layers} x {stats['batches']} batches "
                              f"(counts {counts})")
+    # the sampling top-k and the scheduler's argsort sort 4-byte keys: a
+    # K3 sort among them is one histogram and 4 passes
+    check_k3_sorts("serve", counts,
+                   4 if plan.method == "radix" or
+                   counts.get("radix_onesweep_hist") else None)
     if len(done) != n_req or sorted(r.rid for r in done) != \
             list(range(n_req)):
         raise AssertionError(f"serve: {len(done)} of {n_req} answered")
@@ -951,6 +1028,12 @@ def decode_split(model, params, toks, max_len) -> None:
 # phase 5: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def kernel_ms(fn, reps: int):
+    """:func:`cuda_ms` with the card's head start: a kernel table row's
+    time is the card's."""
+    return cuda_ms(fn, reps, lead=True)
+
+
 def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(least ms, what bounds it): bytes over the memory rate against
     operations over the card's peak rate for their type (FP32 by
@@ -959,12 +1042,13 @@ def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def phase_timing(launches, run_len, radix_tile, digit_bits):
+def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops):
     """Each kernel at the main path's shapes: held bit for bit against its
     plain version on the same inputs, then timed beside it and beside
     ``torch.sort`` on the same rows.  Inputs are made on the card."""
     import torch
-    from repro_torch.core import keycodec
+    from repro_torch.core import keycodec, network
+    from repro_torch.kernels import _build
     from repro_torch.kernels import bitonic_sort as bs
     from repro_torch.kernels import bitonic_topk as btk
     from repro_torch.kernels import bitserial_cas as bsc
@@ -991,8 +1075,8 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
         """Kernel and plain outputs bit for bit, unless ``check(got, want,
         what)``: K6's comparison of its one output, returning (max
         |kernel - plain|, max row relative error)."""
-        ms, got = cuda_ms(kernel, 10)
-        plain_ms, want = cuda_ms(plain, 1)
+        ms, got = kernel_ms(kernel, 10)
+        plain_ms, want = kernel_ms(plain, 1)
         if check is not None:
             err, extra["max_row_rel_err"] = check(got[0], want[0],
                                                   f"{name} vs plain")
@@ -1007,7 +1091,7 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
                      "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      "library_ms": None if library is None
-                     else cuda_ms(library, 10)[0], **extra})
+                     else kernel_ms(library, 10)[0], **extra})
         emit({"phase": "timing", **rows[-1]})
 
     # K1 key-only: the runs of the 2^28 float32 sort
@@ -1077,32 +1161,51 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
         lambda: torch.sort(flat, dim=-1, stable=True), err=last)
     del a, b, va, vb, flat
 
-    # K3: one pass of the 2^26 uint32 radix sort_kv
+    # K3 at the 2^26 uint32 radix sort_kv of the main path: the histogram
+    # of all passes, one pass (each launch on a fresh look-back scratch,
+    # made before the clock starts: the kernel alone), then the whole sort
+    # beside torch.sort
     keys = torch.randint(-(1 << 31), 1 << 31, (1, KV_N), generator=gen,
                          device="cuda", dtype=torch.int64).to(torch.int32)
     vals = torch.arange(KV_N, dtype=torch.int32, device="cuda").view(1, -1)
     radix = 1 << digit_bits
-    tiles = KV_N // radix_tile
-    base = rsk.tile_bases(rsk.digit_hist_plain(keys, 0, digit_bits,
-                                               radix_tile), 1)
-    row("radix_digit_hist", "src/repro_torch/csrc/radix_sort.cu",
+    passes = 32 // digit_bits
+    kv_bytes = 2 * keys.numel() * 8            # read + write key, payload
+    row("radix_onesweep_hist", "src/repro_torch/csrc/radix_sort.cu",
         "src/repro/kernels/radix_sort.py:123",
-        lambda: (rsk.digit_hist(keys, 0, digit_bits, radix_tile),),
-        lambda: (rsk.digit_hist_plain(keys, 0, digit_bits, radix_tile),),
-        keys.numel() * 4 + tiles * radix * 4, keys.numel(), None)
-    row("radix_digit_scatter", "src/repro_torch/csrc/radix_sort.cu",
+        lambda: (rsk.onesweep_hist(keys, digit_bits),),
+        lambda: (rsk.onesweep_hist_plain(keys, digit_bits),),
+        keys.numel() * 4 + passes * radix * 4, passes * keys.numel(), None,
+        passes=passes)
+    hist = rsk.onesweep_hist(keys, digit_bits)
+    scratch = iter([rsk._scratch(keys, digit_bits) for _ in range(11)])
+    row("radix_onesweep_pass", "src/repro_torch/csrc/radix_sort.cu",
         "src/repro/kernels/radix_sort.py:141",
-        lambda: rsk.digit_scatter(keys, vals, base, 0, digit_bits,
-                                  radix_tile),
-        lambda: rsk.digit_scatter_plain(keys, vals, base, 0, digit_bits,
-                                        radix_tile),
-        2 * keys.numel() * 8 + tiles * radix * 4, keys.numel(), None)
-    # the whole K3 sort (all passes + the cumsum scans) beside torch.sort
-    u = keys.view(-1)
-    emit({"phase": "timing", "name": "radix sort_kv_blocks 2^26 uint32",
-          "ms": cuda_ms(lambda: rsk.sort_kv_blocks(keys, vals), 5)[0],
-          "library_ms": cuda_ms(lambda: torch.sort(u, stable=True), 5)[0]})
-    del keys, vals, base, u
+        lambda: rsk._pass(keys, vals, hist, 0, digit_bits, next(scratch)),
+        lambda: rsk.onesweep_pass_plain(keys, vals, hist, 0, digit_bits),
+        kv_bytes + passes * radix * 4, keys.numel(), None,
+        tile=rsk.ONESWEEP_TILE)
+    del scratch
+    # the whole sort (1 histogram, the passes and the scratch's memset)
+    # against the plain pass loop on the card, beside torch.sort of the
+    # same keys in their unsigned order; its launches counted on one call
+    u = keys.view(-1) ^ -(1 << 31)
+    _build.reset_launches()
+    got = rsk.sort_kv_blocks(keys, vals)
+    sort_launches = dict(_build.launches)
+    plain_ms, want = kernel_ms(
+        lambda: rsk.onesweep_sort_kv_plain(keys, vals, digit_bits), 1)
+    err = max(same_bits(g, w, "radix sort_kv_blocks vs plain")
+              for g, w in zip(got, want))
+    del got, want
+    ms = kernel_ms(lambda: rsk.sort_kv_blocks(keys, vals), 10)[0]
+    b, by = _bound(keys.numel() * 4 + passes * kv_bytes, 0)
+    emit({"phase": "timing", "name": "radix sort_kv_blocks 2^26 uint32 "
+          "(whole K3 sort)", "ms": ms, "plain_ms": plain_ms,
+          "max_abs_err": err, "bound_ms": b, "bound_by": by,
+          "launches": sort_launches,
+          "library_ms": kernel_ms(lambda: torch.sort(u, stable=True), 10)[0]})
+    del keys, vals, hist, u
 
     # K4: the first (all-active) pass over the 2^24 float32 row of the
     # select top-k, and a later pass under the row's 64th key as prefix;
@@ -1128,7 +1231,7 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
                                                   radix_tile, encode=True),))
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], later)
     emit({"phase": "timing", "name": "select_digit_hist later pass",
-          "ms": cuda_ms(lambda: sel.digit_hist(x, kth, 8, digit_bits,
+          "ms": kernel_ms(lambda: sel.digit_hist(x, kth, 8, digit_bits,
                                                radix_tile, encode=True),
                         10)[0]})
     # the whole select top-k (4 passes, compaction, K1 order) and the
@@ -1136,15 +1239,15 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
     for name, fn in (("select", lambda: sel.select_topk(x, TOPK_K)),
                      ("cuda", lambda: ops.bitonic_topk(x, TOPK_K))):
         emit({"phase": "timing", "name": f"topk {name} k={TOPK_K} 2^24",
-              "ms": cuda_ms(fn, 5)[0],
-              "library_ms": cuda_ms(lambda: torch.topk(x, TOPK_K), 5)[0]})
+              "ms": kernel_ms(fn, 5)[0],
+              "library_ms": kernel_ms(lambda: torch.topk(x, TOPK_K), 5)[0]})
     del x, enc, kth
     lg = torch.randn(VOCAB, generator=gen, device="cuda")
     for name, fn in (("select", lambda: sel.select_topk(lg, 50)),
                      ("cuda", lambda: ops.bitonic_topk(lg, 50))):
         emit({"phase": "timing", "name": f"topk {name} k=50 (64, 128256)",
-              "ms": cuda_ms(fn, 10)[0],
-              "library_ms": cuda_ms(lambda: torch.topk(lg, 50), 10)[0]})
+              "ms": kernel_ms(fn, 10)[0],
+              "library_ms": kernel_ms(lambda: torch.topk(lg, 50), 10)[0]})
     del lg
 
     # K5: MoE routing rows, (16384, 64) float32, top-8
@@ -1160,7 +1263,7 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
     # and the per-chunk pass of the vocabulary top-k, (64 * 63, 2048), k=50
     c = torch.randn((VOCAB[0] * 63, 2048), generator=gen, device="cuda")
     emit({"phase": "timing", "name": "bitonic_topk_blocks (4032, 2048) k=50",
-          "ms": cuda_ms(lambda: btk.topk_blocks(c, 50), 10)[0],
+          "ms": kernel_ms(lambda: btk.topk_blocks(c, 50), 10)[0],
           "bound_ms": _bound(c.numel() * 4 + c.shape[0] * 50 * 8, 0)[0],
           "max_abs_err": max(same_bits(g, w, "K5 vocab chunks vs plain")
                              for g, w in zip(btk.topk_blocks(c, 50),
@@ -1173,7 +1276,9 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
     # Each is held against its plain version on the same words, timed
     # beside it, and beside torch.minimum + torch.maximum on the same words
     # with the sign bit flipped (unsigned order in int32).  Bound: 16 B a
-    # pair against one INT32 logic op per gate and pair.
+    # pair against the INT32 ALU instructions a pair costs in the built
+    # SASS (``k7_ops``, from check_k7_sass: nvcc merges gates, so fewer
+    # than the program's gates).
     def words(width, pairs):
         t = torch.randint(0, 1 << width, (pairs,), generator=gen,
                           device="cuda", dtype=torch.int64)
@@ -1195,34 +1300,74 @@ def phase_timing(launches, run_len, radix_tile, digit_bits):
                                (32, IMC_DTYPES_SHAPE[0] * IMC_DTYPES_SHAPE[1]
                                 // 2, "uint32 sort")):
         a, b = words(width, pairs), words(width, pairs)
-        n_ops = bsc.program_table(width).shape[0]
         row("bitserial_cas", "src/repro_torch/csrc/bitserial_cas.cu",
             "src/repro/kernels/bitserial_cas.py:84",
             lambda: ops.bitserial_cas(a, b, width=width),
             lambda: bsc.exec_program_plain(a, b, width),
-            16 * pairs, n_ops * pairs, k7_library(a, b),
+            16 * pairs, k7_ops[width] * pairs, k7_library(a, b),
             ops_per_s=INT32_OPS_PER_S, width=width, pairs=pairs,
-            stage_of=step, gate_ops=n_ops)
+            stage_of=step, gate_ops=int(bsc.program_table(width).shape[0]),
+            sass_ops_per_pair=k7_ops[width])
         del a, b
+
+    # the stage kernel at each imc step's (batch, n) and width: the
+    # middle stage of the network held against its plain version on the
+    # same words, then every stage of the network timed, one launch each,
+    # in place; ms is a launch's mean.  Bound: the stage reads and writes
+    # every word once (8 B a word) against the compiled program's INT32
+    # instructions a pair (``k7_ops``; the stage's own index arithmetic
+    # is not counted).
+    for width, (batch, n), step in ((4, (IMC_UNITS, 8), "paper units"),
+                                    (32, IMC_WIDE, "int32 sort"),
+                                    (16, IMC_ARG, "int8 argsort composite"),
+                                    (8, IMC_DTYPES_SHAPE, "uint8 sort"),
+                                    (16, IMC_DTYPES_SHAPE,
+                                     "int16 / uint16 sort"),
+                                    (32, IMC_DTYPES_SHAPE, "uint32 sort")):
+        v = words(width, batch * n).view(batch, n)
+        sched = network.stage_schedule(n)
+        k, j = sched[len(sched) // 2]
+        plain_ms, want = kernel_ms(lambda: bsc.stage_plain(v, k, j, width), 1)
+        err = same_bits(bsc.cas_stages(v, [(k, j)], width), want,
+                        f"bitserial_cas_stage ({k}, {j}) W={width} vs plain")
+        del want
+
+        ms = kernel_ms(lambda: bsc.cas_stages(v, sched, width), 5)[0] \
+            / len(sched)
+        pairs = batch * n // 2
+        b_, by = _bound(8 * batch * n, k7_ops[width] * pairs,
+                        INT32_OPS_PER_S)
+        rows.append({"name": "bitserial_cas_stage",
+                     "route": "cuda", "source":
+                     "src/repro_torch/csrc/bitserial_cas.cu",
+                     "replaces": "src/repro/kernels/bitserial_cas.py:84",
+                     "launches": launches.get("bitserial_cas_stage", 0),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_, "bound_by": by, "library_ms": None,
+                     "width": width, "shape": [batch, n], "stages":
+                     len(sched), "stage_of": step,
+                     "gate_ops": int(bsc.program_table(width).shape[0]),
+                     "sass_ops_per_pair": k7_ops[width]})
+        emit({"phase": "timing", **rows[-1]})
+        del v
 
     # extras, not in the kernels line: one launch over 2^26 pairs at W = 4
     # and W = 32, compared with the plain version on the first 2^24 pairs
     # (its bool planes hold W bytes a pair each)
     for width in (4, 32):
         a, b = words(width, CAS_PAIRS), words(width, CAS_PAIRS)
-        ms, got = cuda_ms(lambda: ops.bitserial_cas(a, b, width=width), 10)
+        ms, got = kernel_ms(lambda: ops.bitserial_cas(a, b, width=width), 10)
         pp = CAS_PLAIN_PAIRS
         err = max(same_bits(g[:pp], w, f"bitserial_cas W={width} vs plain")
                   for g, w in zip(got, bsc.exec_program_plain(a[:pp], b[:pp],
                                                               width)))
         del got
-        bnd, by = _bound(16 * CAS_PAIRS,
-                         bsc.program_table(width).shape[0] * CAS_PAIRS,
+        bnd, by = _bound(16 * CAS_PAIRS, k7_ops[width] * CAS_PAIRS,
                          INT32_OPS_PER_S)
         emit({"phase": "timing", "name": f"bitserial_cas W={width} "
               f"{CAS_PAIRS} pairs (extra)", "ms": ms, "max_abs_err": err,
               "plain_pairs": pp, "bound_ms": bnd, "bound_by": by,
-              "library_ms": cuda_ms(k7_library(a, b), 10)[0]})
+              "library_ms": kernel_ms(k7_library(a, b), 10)[0]})
         del a, b
 
     time_k6(row, gen)
@@ -1252,6 +1397,114 @@ def time_k6(row, gen) -> None:
             ops_per_s=BF16_OPS_PER_S, check=attn_within,
             shape=[b, s, n, r, h], dtype="bfloat16")
         del q, k, v, q4, k4, v4
+
+
+def check_ptxas(_build) -> None:
+    """Print what ``ptxas -v`` said of K7's and K3's kernels (registers,
+    stack frame, spills), one line a kernel; fail unless every K7 kernel
+    keeps its rows in registers: no stack frame, no spills."""
+    for name in ("bitserial_cas", "radix_sort"):
+        for u in _build.ptxas_usage(name):
+            emit({"phase": "build", "ptxas": name, **u})
+            if name == "bitserial_cas" and (
+                    u.get("stack") != 0 or u.get("spill_stores") != 0
+                    or u.get("spill_loads") != 0):
+                raise AssertionError(f"K7 kernel {u['kernel']} has a stack "
+                                     f"frame or spills: {u}")
+
+
+# SASS opcodes by the pipe they issue to: memory and control take no
+# logic slot; IMAD and friends issue to the FMA pipe; the rest (LOP3, SHF,
+# LEA, SEL, IADD3, ISETP, ...) to the INT32 ALU pipe that bounds K7
+SASS_MEMORY = ("LD", "ST", "ATOM", "RED")
+SASS_CONTROL = ("BRA", "EXIT", "NOP", "BSSY", "BSYNC", "WARPSYNC", "YIELD",
+                "BAR", "CALL", "RET")
+SASS_FMA = ("IMAD", "IMUL", "FFMA", "FMUL", "FADD")
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` text -> {mangled kernel: [(address, opcode,
+    instruction)]}, predicates stripped from the opcode."""
+    import re
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    out = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        ins = []
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body):
+            t = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2))
+            ins.append((int(m.group(1), 16), t.split()[0].split(".")[0], t))
+        out[name] = ins
+    return out
+
+
+def sass_loops(ins):
+    """The loops of one kernel: [(first, last) address of each backward
+    branch's body]."""
+    import re
+    loops = []
+    for addr, op, t in ins:
+        m = re.search(r"BRA (0x[0-9a-f]+)", t)
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    return loops
+
+
+def pipe_counts(ins) -> dict:
+    """Instructions by the pipe they issue to (``alu``, ``fma``,
+    ``memory``, ``control``)."""
+    n = {"alu": 0, "fma": 0, "memory": 0, "control": 0}
+    for _, op, _ in ins:
+        kind = ("memory" if op.startswith(SASS_MEMORY)
+                else "control" if op in SASS_CONTROL
+                else "fma" if op in SASS_FMA else "alu")
+        n[kind] += 1
+    return n
+
+
+def check_k7_sass(_build) -> dict:
+    """What a K7 pair costs in the built machine code: for each width, the
+    INT32 ALU instructions of the pair kernel's 4-pair loop (16-byte loads)
+    over 4 -- the gate program as nvcc compiled it, with its share of the
+    loop's index arithmetic -- beside the program's gates.  Prints a line
+    a width and fails if any K7 kernel holds a min/max instruction.
+    Returns {W: ALU instructions a pair}, the ops of K7's bound."""
+    import re
+    from repro_torch.kernels import bitserial_cas as bsc
+    funcs = sass_functions(_build.sass("bitserial_cas"))
+    per_pair = {}
+    for name, ins in funcs.items():
+        mnmx = sorted({op for _, op, _ in ins if "MNMX" in op})
+        if mnmx:
+            raise AssertionError(f"K7 kernel {name} holds {mnmx}: the "
+                                 f"gate program was compiled into a min/max")
+        m = re.search(r"cas_(pairs|stage)ILi(\d+)E", name)
+        if m is None:
+            raise AssertionError(f"unexpected K7 kernel {name}")
+        kernel, width = m.group(1), int(m.group(2))
+        bodies = [[x for x in ins if lo <= x[0] <= hi]
+                  for lo, hi in sass_loops(ins)]
+        if kernel == "pairs":
+            bodies = [b for b in bodies
+                      if any(t.startswith("LDG.E.128") for _, _, t in b)]
+        if len(bodies) != 1:
+            raise AssertionError(f"K7 {kernel} W={width}: expected one "
+                                 f"main loop in the SASS, found "
+                                 f"{len(bodies)}")
+        # a pair is two loads (a and b, or v[i] and v[i ^ j]); a 16-byte
+        # load carries four pairs' words
+        loads = [t for _, op, t in bodies[0] if op == "LDG"]
+        pairs = sum(4 if ".128" in t else 1 for t in loads) // 2
+        counts = pipe_counts(bodies[0])
+        if kernel == "pairs":
+            per_pair[width] = counts["alu"] / pairs
+        emit({"phase": "build", "sass": f"cas_{kernel}<{width}>",
+              "gates": int(bsc.program_table(width).shape[0]),
+              "loop_pairs": pairs, "loop_instructions": len(bodies[0]),
+              **counts, "alu_per_pair": counts["alu"] / pairs,
+              "min_max_instructions": 0})
+    if sorted(per_pair) != [2, 4, 8, 16, 32]:
+        raise AssertionError(f"K7 pair kernels in the SASS: {per_pair}")
+    return per_pair
 
 
 def card() -> str:
@@ -1285,6 +1538,8 @@ def main() -> int:
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - tb,
           "dir": str(_build.BUILD_DIR.relative_to(ROOT))})
+    check_ptxas(_build)
+    k7_ops = check_k7_sass(_build)
 
     rng = np.random.default_rng(SEED)
     tk = time.perf_counter()
@@ -1308,7 +1563,7 @@ def main() -> int:
 
     tt = time.perf_counter()
     rows = phase_timing(launches, prof.run_len, prof.radix_tile,
-                        prof.digit_bits)
+                        prof.digit_bits, k7_ops)
     emit({"phase": "timing", "seconds": time.perf_counter() - tt})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi)

@@ -78,6 +78,16 @@ def bitonic_stages(n: int) -> List[List[CASPair]]:
     return stages
 
 
+def stage_schedule(n: int) -> List[Tuple[int, int]]:
+    """The (k, j) of every stage of :func:`bitonic_stages` in its order:
+    stage (k, j) pairs each i with ``i & j == 0`` with ``i ^ j``,
+    ascending where ``i & k == 0``."""
+    if not is_pow2(n) or n < 2:
+        raise ValueError(f"bitonic network requires power-of-two n >= 2, got {n}")
+    return [(1 << a, 1 << b) for a in range(1, n.bit_length())
+            for b in range(a - 1, -1, -1)]
+
+
 def apply_network(values: Sequence, stages: List[List[CASPair]]) -> list:
     """Reference (python-level) execution of the network — test oracle glue."""
     v = list(values)

@@ -13,11 +13,14 @@ row pair at once, so the partitions advance in lock-step — identical to
 batching independent 22 x W arrays.  Cycle accounting therefore charges each
 stage ONE CAS program (28 cycles at W=4), not N/2 of them.
 
-Each stage gathers its (i, j) operands, runs ``cas.run_cas`` on them — the
-simulator on the CPU, one K7 launch on a CUDA card — selects (lo, hi) or
-(hi, lo) by the pair's direction and puts both back.  The stage index and
-direction tensors are built once per (n, device), and the partition plan
-once per n.
+On a CUDA card every stage (k, j) is one launch of K7's stage kernel
+(``kernels/bitserial_cas.cas_stages``), which runs the gate program on
+each pair of the stage and writes (min, max) back in the pair's direction
+in place.  On the CPU each stage gathers its (i, j) operands, runs
+``cas.run_cas`` on the cycle-accurate simulator, selects (lo, hi) or
+(hi, lo) by the pair's direction and puts both back; its index and
+direction tensors are built once per n.  The partition plan is built once
+per n.
 """
 from __future__ import annotations
 
@@ -59,8 +62,9 @@ def _plan(n: int) -> network.PartitionPlan:
     return network.plan_partitions(n)
 
 
-# one stage on a device: (i indices, j indices, ascending mask, the inverse
-# of cat(i, j)) -- the last scatters a stage's outputs back by one gather
+# one stage of the CPU path: (i indices, j indices, ascending mask, the
+# inverse of cat(i, j)) -- the last scatters a stage's outputs back by one
+# gather
 _Stage = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 _STAGES: Dict[Tuple[int, str], List[_Stage]] = {}
 
@@ -87,8 +91,8 @@ def sort_in_memory(values, width: int = 4, *, device="cuda") -> SortResult:
     unit, on ``device`` (default the card; ``"cpu"`` runs the simulator).
 
     Every CAS in the schedule runs the full gate program (28 cycles at
-    W=4): as K7 on a CUDA card, on the simulated 6T SRAM array on the
-    CPU.  Results are bit-exact against any comparison sort of the W-bit
+    W=4): as K7's stage kernel on a CUDA card (one launch a stage), on the
+    simulated 6T SRAM array on the CPU.  Results are bit-exact against any comparison sort of the W-bit
     words; the values come back as int32 words on ``device``.  ``n`` must
     be a power of two >= 2 (ValueError otherwise: the network is not
     padded).
@@ -100,24 +104,31 @@ def sort_in_memory(values, width: int = 4, *, device="cuda") -> SortResult:
     batch, n = v.shape
     plan = _plan(n)
     prog = cas.cached_program(width)
-    stages = _stages(n, v.device)
+    schedule = network.stage_schedule(n)
 
-    for ii, jj, asc, inv in stages:
-        res = cas.run_cas(v.index_select(1, ii).reshape(-1),
-                          v.index_select(1, jj).reshape(-1), width=width,
-                          device=v.device)
-        lo = res.lo.view(batch, -1)
-        hi = res.hi.view(batch, -1)
-        out = torch.cat([torch.where(asc, lo, hi), torch.where(asc, hi, lo)],
-                        dim=1)
-        v = out.index_select(1, inv)
+    if v.is_cuda:
+        from repro_torch.kernels import bitserial_cas as _bc
+        # the stage kernel works in place on a copy: the caller's words
+        # stay as they were
+        v = _bc.cas_stages(v.clone(memory_format=torch.contiguous_format),
+                           schedule, width)
+    else:
+        for ii, jj, asc, inv in _stages(n, v.device):
+            res = cas.run_cas(v.index_select(1, ii).reshape(-1),
+                              v.index_select(1, jj).reshape(-1),
+                              width=width, device=v.device)
+            lo = res.lo.view(batch, -1)
+            hi = res.hi.view(batch, -1)
+            out = torch.cat([torch.where(asc, lo, hi),
+                             torch.where(asc, hi, lo)], dim=1)
+            v = out.index_select(1, inv)
 
-    compute = len(stages) * prog.total_cycles
+    compute = len(schedule) * prog.total_cycles
     movement = plan.extra_cycles
     geom = array_geometry(n, width)
     counter_ops = cas.static_op_counts(width).as_dict()
     counter_ops.pop("total")
-    counter_ops = {k: c * len(stages) for k, c in counter_ops.items()}
+    counter_ops = {k: c * len(schedule) for k, c in counter_ops.items()}
     # movement ops are COPY-class (temp-row reads/writes)
     counter_ops["COPY"] += movement
     counter_ops["total"] = compute + movement

@@ -1,175 +1,360 @@
-// K3: one digit pass of a stable LSD radix sort over keycodec keys.
+// K3: stable LSD radix sort over keycodec keys, onesweep.
 //
 // Replaces the Pallas kernels of src/repro/kernels/radix_sort.py:
 // _digit_stats (pallas_call at :123, body _digit_stats_kernel :90-95) and
-// _global_pos (pallas_call at :141, body _global_pos_kernel :98-102), plus
-// the XLA scatter that _pass_permutation (:155-179) runs after them.  The
-// pass loop, padding and the cross-tile prefix sum stay in PyTorch
-// (kernels/radix_sort.py), as jnp.cumsum stays outside Pallas in the
-// reference.
+// _global_pos (pallas_call at :141, body _global_pos_kernel :98-102), with
+// the cross-tile prefix sum between them (jnp.cumsum, :170-172) and the
+// XLA scatter that _pass_permutation (:155-179) runs after them.
 //
-// Bound on the H100, per pass over n keys of b bytes in tiles of T with
-// radix R: the upsweep reads n*b bytes and writes (n/T)*R*4; the downsweep
-// reads n*b (+4n payload) and the (n/T)*R*4 bases and writes n*b (+4n).
-// A 2^26-key uint32 key-value pass at T=4096, R=256 moves 1.28 GiB, 0.41 ms.
+// A sort of (rows, m) keys of b bytes with d-bit digits is 1 + 8b/d
+// launches and no glue:
+//  * radix_onesweep_hist: one read of the keys counts the digits of every
+//    pass of every row, (rows, passes, 2^d) int32: per-CTA shared-memory
+//    counts (8 copies, lane & 7 picks one, so lanes with one digit do not
+//    serialise 32 deep; 4 loads a thread in flight before their counts),
+//    then one global atomic per nonzero bin;
+//  * radix_onesweep_pass, once a digit pass: each CTA takes the next tile
+//    id (rows x ceil(m / 4096) tiles, row-major) from an atomic counter, so
+//    a tile waits only on tiles whose CTAs have started.  It loads 4096
+//    keys (and payloads) into registers, 16 a thread, warp-striped, and
+//    ranks each stably by position: per warp, __match_any_sync finds the
+//    lanes of one digit, the lowest of them bumps the warp's count of that
+//    digit, and the rank is that count plus the peers below the lane.  The
+//    tile publishes its per-digit counts with decoupled look-back: a 64-bit
+//    status word per (tile, digit), the count in the low half and
+//    (pass + 1) << 2 | flag in the high half (flag 1 the tile's own count,
+//    2 the inclusive prefix of the row up to it), so one zeroed array
+//    serves every pass of a sort without clearing.  The first tile of a
+//    row publishes its prefix at once; a later one walks back over its
+//    row's tiles, adding counts until it meets a prefix.  The digit's base
+//    in the row is the exclusive scan of the histogram, done in the CTA.
+//    Then the tile is reordered by digit in shared memory and written out
+//    so that consecutive threads write consecutive addresses of one
+//    digit's run: a warp's 32 stores fill whole sectors, not 32 sectors.
+//    The last tile of a row is partial; its missing items take no rank.
 //
-// Design:
-//  * upsweep, one CTA of 256 threads per tile: digit histogram with
-//    shared-memory atomics (a count does not depend on arrival order);
-//  * downsweep, one CTA per tile: the stable in-tile rank of each element is
-//    recomputed by position, never by atomics (their order is arbitrary).
-//    The tile is walked 256 elements at a time; in each step a warp finds
-//    the lanes that share its digit with __match_any_sync, ranks a lane by
-//    the peers below it, adds the counts of that digit in the warps before
-//    it, and adds the running count of the digit from earlier steps.  The
-//    element goes straight to base[tile][digit] + rank, which fuses the
-//    reference's position kernel with its scatter.  Key and payload move in
-//    one write each.
-#include "keys.cuh"
+// Bound on the H100 (3.35 TB/s), 2^26 uint32 keys with int32 payloads, 8-bit
+// digits: the histogram reads the keys once (268 MB, 0.080 ms), each of the
+// 4 passes reads and writes key and payload (1.07 GB, 0.32 ms): 1.36 ms a
+// sort.
+#include <cstdint>
+#include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 16;
+constexpr int kTile = kThreads * kItems;      // kernels/radix_sort.py
+                                              // ONESWEEP_TILE
 constexpr int kMaxRadix = 256;
+constexpr int kMaxBins = 1024;                // passes x radix, at most
+constexpr int kParts = 8;
+constexpr int kPartStride = kMaxBins + 1;     // copy q of bin b: bank q + b
+constexpr long long kHistCtas = 132 * 8;
+constexpr int kHistLoads = 4;
+
+constexpr uint32_t kAggregate = 1u, kPrefix = 2u;
+
+__device__ __forceinline__ void publish(unsigned long long* p, uint32_t tag,
+                                        int count) {
+  *reinterpret_cast<volatile unsigned long long*>(p) =
+      (static_cast<unsigned long long>(tag) << 32) |
+      static_cast<uint32_t>(count);
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// exclusive prefix sum of x over the CTA's threads; every thread calls it
+__device__ __forceinline__ int block_excl_scan(int x, int* s_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) s_sum[warp] = inc;
+  __syncthreads();
+  int pre = 0;
+  for (int w = 0; w < warp; ++w) pre += s_sum[w];
+  return pre + inc - x;
+}
 
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
-hist_kernel(const U* __restrict__ keys, int* __restrict__ hist, int m,
-            int tile, int tiles_per_row, int shift, int radix) {
-  __shared__ int h[kMaxRadix];
-  for (int i = threadIdx.x; i < radix; i += kThreads) h[i] = 0;
-  __syncthreads();
-  const long long blk = blockIdx.x;
-  const long long row = blk / tiles_per_row;
-  const int t = static_cast<int>(blk % tiles_per_row);
-  const U* kr = keys + row * m + static_cast<long long>(t) * tile;
-  for (int i = threadIdx.x; i < tile; i += kThreads) {
-    atomicAdd(&h[(static_cast<uint32_t>(kr[i]) >> shift) & (radix - 1)], 1);
+hist_kernel(const U* __restrict__ keys, int* __restrict__ hist, long long m,
+            long long span, int chunks, int passes, int digit_bits) {
+  __shared__ int bins[kParts * kPartStride];
+  const int radix = 1 << digit_bits;
+  const int nb = passes * radix;
+  const uint32_t dmask = radix - 1;
+  for (int i = threadIdx.x; i < kParts * kPartStride; i += kThreads) {
+    bins[i] = 0;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < radix; i += kThreads) {
-    hist[blk * radix + i] = h[i];
+  const long long row = blockIdx.x / chunks;
+  const long long lo = (blockIdx.x % chunks) * span;
+  const long long hi = lo + span < m ? lo + span : m;
+  const U* kr = keys + row * m;
+  int* part = bins + (threadIdx.x & (kParts - 1)) * kPartStride;
+  // kHistLoads keys a thread in flight before their counts
+  long long i = lo + threadIdx.x;
+  for (; i + (kHistLoads - 1) * kThreads < hi; i += kHistLoads * kThreads) {
+    uint32_t u[kHistLoads];
+#pragma unroll
+    for (int q = 0; q < kHistLoads; ++q) {
+      u[q] = static_cast<uint32_t>(kr[i + q * kThreads]);
+    }
+#pragma unroll
+    for (int q = 0; q < kHistLoads; ++q) {
+      for (int p = 0; p < passes; ++p) {
+        atomicAdd(&part[p * radix + ((u[q] >> (p * digit_bits)) & dmask)],
+                  1);
+      }
+    }
+  }
+  for (; i < hi; i += kThreads) {
+    const uint32_t u = static_cast<uint32_t>(kr[i]);
+    for (int p = 0; p < passes; ++p) {
+      atomicAdd(&part[p * radix + ((u >> (p * digit_bits)) & dmask)], 1);
+    }
+  }
+  __syncthreads();
+  int* hr = hist + row * nb;
+  for (int b = threadIdx.x; b < nb; b += kThreads) {
+    int s = 0;
+    for (int q = 0; q < kParts; ++q) s += bins[q * kPartStride + b];
+    if (s != 0) atomicAdd(&hr[b], s);
   }
 }
 
 template <typename U, bool KV>
 __global__ void __launch_bounds__(kThreads)
-scatter_kernel(const U* __restrict__ kin, const int* __restrict__ vin,
-               U* __restrict__ kout, int* __restrict__ vout,
-               const int* __restrict__ base, int m, int tile,
-               int tiles_per_row, int shift, int radix) {
-  __shared__ int run[kMaxRadix];
-  __shared__ int wc[kWarps][kMaxRadix];
-  const long long blk = blockIdx.x;
-  const long long row = blk / tiles_per_row;
-  const int t = static_cast<int>(blk % tiles_per_row);
-  const long long rowoff = row * m;
-  const long long toff = rowoff + static_cast<long long>(t) * tile;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  for (int i = threadIdx.x; i < radix; i += kThreads) {
-    run[i] = base[blk * radix + i];
+pass_kernel(const U* __restrict__ kin, const int* __restrict__ vin,
+            U* __restrict__ kout, int* __restrict__ vout,
+            const int* __restrict__ hist,
+            unsigned long long* __restrict__ status,
+            unsigned long long* __restrict__ counter, long long m,
+            int tiles_per_row, int pass, int passes, int digit_bits) {
+  __shared__ int s_tile;
+  __shared__ int s_whist[kWarps][kMaxRadix];
+  __shared__ int s_start[kMaxRadix];
+  __shared__ int s_dst[kMaxRadix];
+  __shared__ int s_sum[2][kWarps];
+  __shared__ U s_keys[kTile];
+  __shared__ int s_vals[KV ? kTile : 1];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int radix = 1 << digit_bits;
+  const int shift = pass * digit_bits;
+  const uint32_t dmask = radix - 1;
+  const uint32_t epoch = static_cast<uint32_t>(pass + 1) << 2;
+
+  if (threadIdx.x == 0) {
+    s_tile = static_cast<int>(atomicAdd(counter + pass, 1ULL));
   }
-  for (int s = 0; s < tile; s += kThreads) {
-    for (int i = threadIdx.x; i < kWarps * kMaxRadix; i += kThreads) {
-      (&wc[0][0])[i] = 0;
-    }
-    __syncthreads();
-    const int i = s + threadIdx.x;
-    const bool valid = i < tile;
-    const U key = valid ? kin[toff + i] : U(0);
-    const int val = (KV && valid) ? vin[toff + i] : 0;
-    // invalid lanes carry digit -1 and so only match each other
-    const int d = valid
-        ? static_cast<int>((static_cast<uint32_t>(key) >> shift) & (radix - 1))
-        : -1;
+  for (int i = threadIdx.x; i < kWarps * kMaxRadix; i += kThreads) {
+    (&s_whist[0][0])[i] = 0;
+  }
+  __syncthreads();
+  const int g = s_tile;
+  // a tile id past the grid means the counter (and so the look-back words)
+  // came from an earlier sort: stop the launch with an error rather than
+  // leave the output unwritten or read stale prefixes
+  if (static_cast<unsigned>(g) >= gridDim.x) __trap();
+  const long long row = g / tiles_per_row;
+  const int t = g - static_cast<int>(row) * tiles_per_row;
+  const long long tile0 = static_cast<long long>(t) * kTile;
+  const int n_valid = m - tile0 < kTile ? static_cast<int>(m - tile0)
+                                        : kTile;
+
+  // load: item i of lane l of warp w is element w * 512 + i * 32 + l
+  const U* kr = kin + row * m + tile0;
+  const int* vr = KV ? vin + row * m + tile0 : nullptr;
+  const int e0 = warp * (32 * kItems) + lane;
+  uint32_t key[kItems];
+  int val[kItems];
+  int rank[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int e = e0 + i * 32;
+    key[i] = e < n_valid ? static_cast<uint32_t>(kr[e]) : 0u;
+    if (KV) val[i] = e < n_valid ? vr[e] : 0;
+  }
+
+  // stable rank within the warp's elements of one digit, in element order
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const bool valid = e0 + i * 32 < n_valid;
+    // missing items carry digit -1 and so only match each other
+    const int d = valid ? static_cast<int>((key[i] >> shift) & dmask) : -1;
     const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int lrank = __popc(peers & below);
-    if (valid && lrank == 0) wc[warp][d] = __popc(peers);
-    __syncthreads();
-    if (valid) {
-      int pos = run[d] + lrank;
-      for (int w = 0; w < warp; ++w) pos += wc[w][d];
-      kout[rowoff + pos] = key;
-      if (KV) vout[rowoff + pos] = val;
+    const int leader = __ffs(peers) - 1;
+    int before = 0;
+    if (valid && lane == leader) {
+      before = s_whist[warp][d];
+      s_whist[warp][d] = before + __popc(peers);
     }
-    __syncthreads();
-    for (int dd = threadIdx.x; dd < radix; dd += kThreads) {
-      int c = 0;
-      for (int w = 0; w < kWarps; ++w) c += wc[w][dd];
-      run[dd] += c;
+    before = __shfl_sync(0xffffffffu, before, leader);
+    rank[i] = before + __popc(peers & below);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // per digit: the warps' counts -> exclusive offsets, the tile's count
+  const int d = threadIdx.x;
+  int count = 0;
+  unsigned long long* mine = status + static_cast<long long>(g) * radix + d;
+  if (d < radix) {
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_whist[w][d];
+      s_whist[w][d] = count;
+      count += c;
     }
-    __syncthreads();
+    publish(mine, epoch | (t == 0 ? kPrefix : kAggregate), count);
+  }
+  const int start = block_excl_scan(count, s_sum[0]);
+  const int row_base = block_excl_scan(
+      d < radix ? hist[(row * passes + pass) * radix + d] : 0, s_sum[1]);
+
+  // decoupled look-back over the earlier tiles of this row
+  if (d < radix) {
+    int excl = 0;
+    if (t > 0) {
+      const unsigned long long* prev = mine - radix;
+      while (true) {
+        const unsigned long long w = peek(prev);
+        const uint32_t tag = static_cast<uint32_t>(w >> 32);
+        if ((tag & ~3u) != epoch) continue;        // not published yet
+        excl += static_cast<int>(static_cast<uint32_t>(w));
+        if ((tag & 3u) == kPrefix) break;
+        prev -= radix;
+      }
+      publish(mine, epoch | kPrefix, excl + count);
+    }
+    s_start[d] = start;
+    // slot s of the reordered tile, of digit d, goes to s_dst[d] + s
+    s_dst[d] = row_base + excl - start;
+  }
+  __syncthreads();
+
+  // reorder by digit in shared memory
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    if (e0 + i * 32 < n_valid) {
+      const int dd = static_cast<int>((key[i] >> shift) & dmask);
+      const int slot = s_start[dd] + s_whist[warp][dd] + rank[i];
+      s_keys[slot] = static_cast<U>(key[i]);
+      if (KV) s_vals[slot] = val[i];
+    }
+  }
+  __syncthreads();
+
+  // write out: consecutive threads, consecutive addresses of a digit's run
+  U* ko = kout + row * m;
+  int* vo = KV ? vout + row * m : nullptr;
+  for (int s = threadIdx.x; s < n_valid; s += kThreads) {
+    const U k = s_keys[s];
+    const int dd = static_cast<int>((static_cast<uint32_t>(k) >> shift) &
+                                    dmask);
+    const int dst = s_dst[dd] + s;
+    ko[dst] = k;
+    if (KV) vo[dst] = s_vals[s];
   }
 }
 
 template <typename U>
-int launch_hist(const void* keys, void* hist, long long rows, int m,
-                int tile, int shift, int digit_bits, cudaStream_t stream) {
-  const int tiles_per_row = m / tile;
-  hist_kernel<U><<<static_cast<unsigned>(rows * tiles_per_row), kThreads, 0,
+int launch_hist(const void* keys, void* hist, long long rows, long long m,
+                int digit_bits, cudaStream_t stream) {
+  const int passes = static_cast<int>(sizeof(U)) * 8 / digit_bits;
+  long long chunks = (kHistCtas + rows - 1) / rows;
+  const long long most = (m + kTile - 1) / kTile;
+  if (chunks > most) chunks = most;
+  if (chunks < 1) chunks = 1;
+  const long long span = (m + chunks - 1) / chunks;
+  hist_kernel<U><<<static_cast<unsigned>(rows * chunks), kThreads, 0,
                    stream>>>(static_cast<const U*>(keys),
-                             static_cast<int*>(hist), m, tile, tiles_per_row,
-                             shift, 1 << digit_bits);
+                             static_cast<int*>(hist), m, span,
+                             static_cast<int>(chunks), passes, digit_bits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename U, bool KV>
-int launch_scatter(const void* kin, const void* vin, void* kout, void* vout,
-                   const void* base, long long rows, int m, int tile,
-                   int shift, int digit_bits, cudaStream_t stream) {
-  const int tiles_per_row = m / tile;
-  scatter_kernel<U, KV><<<static_cast<unsigned>(rows * tiles_per_row),
-                          kThreads, 0, stream>>>(
+int launch_pass(const void* kin, const void* vin, void* kout, void* vout,
+                const void* hist, void* status, long long rows, long long m,
+                int pass, int digit_bits, cudaStream_t stream) {
+  const int passes = static_cast<int>(sizeof(U)) * 8 / digit_bits;
+  const long long tiles_per_row = (m + kTile - 1) / kTile;
+  const long long tiles = rows * tiles_per_row;
+  unsigned long long* st = static_cast<unsigned long long*>(status);
+  pass_kernel<U, KV><<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
       static_cast<const U*>(kin), static_cast<const int*>(vin),
       static_cast<U*>(kout), static_cast<int*>(vout),
-      static_cast<const int*>(base), m, tile, tiles_per_row, shift,
-      1 << digit_bits);
+      static_cast<const int*>(hist), st, st + tiles * (1LL << digit_bits),
+      m, static_cast<int>(tiles_per_row), pass, passes, digit_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+inline bool bad_shape(long long rows, long long m, int digit_bits) {
+  const long long tiles = rows * ((m + kTile - 1) / kTile);
+  return rows < 0 || m < 0 || m >= (1LL << 31) || tiles >= (1LL << 31) ||
+         (digit_bits != 1 && digit_bits != 2 && digit_bits != 4 &&
+          digit_bits != 8);
 }
 
 }  // namespace
 
-// Upsweep: hist[(row * m/tile + t) * 2^digit_bits + d] = count of digit d
-// (bits [shift, shift + digit_bits) of the unsigned key) in tile t of row
-// `row` of the contiguous (rows, m) key array; m is a multiple of tile.
-extern "C" int radix_digit_hist(int key_bytes, const void* keys, void* hist,
-                                long long rows, int m, int tile, int shift,
-                                int digit_bits, void* stream) {
+// hist[row][p][d] += the count of digit d (bits [p * digit_bits, (p + 1) *
+// digit_bits) of the unsigned key) in row `row` of the contiguous (rows, m)
+// keys, for every pass p; hist must be zeroed.
+extern "C" int radix_onesweep_hist(int key_bytes, const void* keys,
+                                   void* hist, long long rows, long long m,
+                                   int digit_bits, void* stream) {
+  if (bad_shape(rows, m, digit_bits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0 || m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (key_bytes) {
-    case 1: return launch_hist<uint8_t>(keys, hist, rows, m, tile, shift,
-                                        digit_bits, s);
-    case 2: return launch_hist<uint16_t>(keys, hist, rows, m, tile, shift,
-                                         digit_bits, s);
-    case 4: return launch_hist<uint32_t>(keys, hist, rows, m, tile, shift,
-                                         digit_bits, s);
+    case 1: return launch_hist<uint8_t>(keys, hist, rows, m, digit_bits, s);
+    case 2: return launch_hist<uint16_t>(keys, hist, rows, m, digit_bits, s);
+    case 4: return launch_hist<uint32_t>(keys, hist, rows, m, digit_bits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Downsweep: every element of tile t goes to slot base[t][digit] + its
-// stable rank among the tile's elements of that digit, within its row.
+// Digit pass `pass` of each row: every element to the row's count of
+// smaller digits (from hist, (rows, passes, 2^digit_bits) int32) plus its
+// stable rank among the row's elements of its digit.  status: rows x
+// ceil(m / 4096) x 2^digit_bits look-back words, then one tile counter a
+// pass, all zeroed before the first pass of a sort and not touched between
+// its passes (a counter that was not zeroed traps: the launch fails).
 // vin/vout null -> keys only.
-extern "C" int radix_digit_scatter(int key_bytes, const void* kin,
+extern "C" int radix_onesweep_pass(int key_bytes, const void* kin,
                                    const void* vin, void* kout, void* vout,
-                                   const void* base, long long rows, int m,
-                                   int tile, int shift, int digit_bits,
-                                   void* stream) {
+                                   const void* hist, void* status,
+                                   long long rows, long long m, int pass,
+                                   int digit_bits, void* stream) {
+  if (bad_shape(rows, m, digit_bits) || pass < 0 ||
+      pass >= key_bytes * 8 / digit_bits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0 || m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool kv = vin != nullptr;
-#define RADIX_SCATTER(U)                                                    \
-  return kv ? launch_scatter<U, true>(kin, vin, kout, vout, base, rows, m, \
-                                      tile, shift, digit_bits, s)          \
-            : launch_scatter<U, false>(kin, vin, kout, vout, base, rows, m,\
-                                       tile, shift, digit_bits, s)
+#define ONESWEEP_PASS(U)                                                    \
+  return kv ? launch_pass<U, true>(kin, vin, kout, vout, hist, status,     \
+                                   rows, m, pass, digit_bits, s)           \
+            : launch_pass<U, false>(kin, vin, kout, vout, hist, status,    \
+                                    rows, m, pass, digit_bits, s)
   switch (key_bytes) {
-    case 1: RADIX_SCATTER(uint8_t);
-    case 2: RADIX_SCATTER(uint16_t);
-    case 4: RADIX_SCATTER(uint32_t);
+    case 1: ONESWEEP_PASS(uint8_t);
+    case 2: ONESWEEP_PASS(uint16_t);
+    case 4: ONESWEEP_PASS(uint32_t);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef RADIX_SCATTER
+#undef ONESWEEP_PASS
 }

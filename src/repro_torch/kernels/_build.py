@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds.  Libraries land in
 ``<repo>/build/kernels/`` under a name that carries a hash of the source,
-so an edited source is rebuilt and a stale library is never loaded.  The
-first use builds; :func:`build_all` starts one ``nvcc`` per source at once
-so a cold process pays for the slowest file, not the sum.
+so an edited source is rebuilt and a stale library is never loaded;
+``ptxas -v``'s report of each build is kept beside its library
+(:func:`ptxas_usage` reads it; :func:`sass` lists the machine code).
+The first use builds; :func:`build_all` starts one ``nvcc`` per source at
+once so a cold process pays for the slowest file, not the sum.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines with no ``nvcc`` and no card.
@@ -17,10 +19,11 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 import torch
 
@@ -32,7 +35,7 @@ _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype -> code of csrc/keys.cuh's KEY_DISPATCH
 KEY_CODES = {
@@ -101,6 +104,7 @@ def _finish(name: str, job) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)        # atomic: a concurrent loader sees all or none
 
 
@@ -132,6 +136,46 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+def ptxas_usage(name: str) -> List[dict]:
+    """What ``ptxas -v`` said of each kernel of ``csrc/<name>.cu`` when it
+    was built: its (demangled) name, registers, stack frame and spill
+    bytes.  Builds the library if needed."""
+    build_all([name])
+    log = _lib_path(name).with_suffix(".log").read_text()
+    usage: List[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            usage.append({"kernel": m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and usage:
+            usage[-1].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and usage:
+            usage[-1]["registers"] = int(m.group(1))
+    filt = pathlib.Path(_nvcc()).with_name("cu++filt")
+    if usage and filt.is_file():
+        names = subprocess.run([str(filt)], input="\n".join(
+            u["kernel"] for u in usage), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+        for u, readable in zip(usage, names):
+            u["kernel"] = readable
+    return usage
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the library of ``csrc/<name>.cu``: the
+    machine code of each of its kernels.  Builds the library if needed."""
+    build_all([name])
+    tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

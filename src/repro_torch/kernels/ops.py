@@ -191,24 +191,16 @@ def bitonic_topk(x: torch.Tensor, k: int, chunk: int = _TOPK_CHUNK):
 # bit-serial CAS (faithful mode, K7)
 # ---------------------------------------------------------------------------
 
-_CAS_LANES = 128
-
-
 def bitserial_cas(a: torch.Tensor, b: torch.Tensor, *, width: int = 4):
     """Elementwise (min, max) of W-bit words via the paper's gate program
-    (K7 on a card): any equal shapes of int32 words, flattened and padded
-    with zeros into 128-lane rows as the reference does, returned in the
+    (K7's pair kernel on a card): any equal shapes of int32 words, handed
+    over flat (the reference's padding into 128-lane rows is a tiling of
+    the TPU's; the result does not depend on it), returned in the
     operands' shape."""
     from repro_torch.kernels import bitserial_cas as _bc
-    shape = a.shape
-    flat_a, flat_b = a.reshape(-1), b.reshape(-1)
-    n = flat_a.shape[0]
-    lanes = _CAS_LANES if n >= _CAS_LANES else max(n, 1)
-    m = -(-n // lanes) * lanes
-    if m != n:
-        flat_a = torch.nn.functional.pad(flat_a, (0, m - n))
-        flat_b = torch.nn.functional.pad(flat_b, (0, m - n))
-    lo, hi = _bc.cas_blocks(flat_a.reshape(-1, lanes).contiguous(),
-                            flat_b.reshape(-1, lanes).contiguous(),
-                            width=width)
-    return lo.reshape(-1)[:n].reshape(shape), hi.reshape(-1)[:n].reshape(shape)
+    if a.shape != b.shape:
+        raise ValueError(f"bitserial_cas: operand shapes differ, "
+                         f"{tuple(a.shape)} vs {tuple(b.shape)}")
+    lo, hi = _bc.cas_blocks(a.reshape(-1).contiguous(),
+                            b.reshape(-1).contiguous(), width=width)
+    return lo.view(a.shape), hi.view(a.shape)

@@ -1,23 +1,26 @@
 """K3 — stable LSD radix sort over keycodec keys: the CUDA kernels, their
-plain versions, and the pass loop that runs either.
+plain versions, and the pass loops that run them.
 
 Keys arrive encoded (``core/keycodec.py``: carrier ints holding unsigned
-keys whose order is the source order).  Each digit pass is the classic
-three-phase LSD structure:
+keys whose order is the source order).  A stable sort has one result, so
+the tile size does not change any output; the digit width sets only the
+number of passes.
 
-  upsweep     per-tile digit histogram            ``digit_hist``
-  scan        digit-major exclusive prefix sum    ``torch.cumsum`` (here)
-              across the tiles of a row -> base[tile, digit]
-  downsweep   stable in-tile rank of each element ``digit_scatter``
-              and one scatter to base + rank
+:func:`sort_kv_blocks` is a onesweep sort (``csrc/radix_sort.cu``), 1 + P
+launches for P digit passes on a CUDA tensor:
 
-On a CUDA tensor ``digit_hist`` and ``digit_scatter`` launch the kernels of
-``csrc/radix_sort.cu``; on a CPU tensor they run the plain versions, which
-are the reference's per-tile functions (``digit_stats``, ``global_pos``)
-written in PyTorch.  A stable sort has one result, so the tile size does
-not change any output; the digit width sets only the number of passes.
-Pads carry the maximum key and payload ``n``: stability parks them behind
-every genuine element, even one equal to the pad key.
+  ``onesweep_hist``   one read of the keys counts the digits of every pass
+                      of every row: (rows, passes, 2^digit_bits) int32
+  ``onesweep_pass``   once a pass: each 4096-key tile ranks its elements
+                      stably by position, learns the counts of the earlier
+                      tiles of its row by decoupled look-back, and writes
+                      its keys and payloads out grouped by digit
+
+On a CPU tensor the same loop runs the kernels' plain versions,
+``onesweep_hist_plain`` and ``onesweep_pass_plain``.  ``digit_stats``,
+``global_pos``, ``digit_hist_plain``, ``digit_scatter_plain`` and
+``tile_bases`` are the reference's per-tile functions in PyTorch, held
+against it by the tests; the plain pass ranks with ``digit_stats``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import torch
 
 from repro_torch.core import keycodec
 from repro_torch.kernels import _build
+
+ONESWEEP_TILE = 4096      # csrc/radix_sort.cu kTile
 
 
 def _resolve(tile: Optional[int], digit_bits: Optional[int]
@@ -41,14 +46,12 @@ def _resolve(tile: Optional[int], digit_bits: Optional[int]
     return tile, digit_bits
 
 
-def pass_tile_counts(n: int, dtype, tile: Optional[int] = None,
-                     digit_bits: Optional[int] = None) -> Tuple[int, int]:
-    """(digit passes, tiles per row) that ``sort_blocks`` runs at this
-    shape, from the shape alone."""
-    tile, digit_bits = _resolve(tile, digit_bits)
-    bits = keycodec.key_bits(dtype)
-    tile = min(tile, max(8, n))
-    return -(-bits // digit_bits), -(-n // tile)
+def pass_tile_counts(n: int, dtype, digit_bits: Optional[int] = None
+                     ) -> Tuple[int, int]:
+    """(digit passes, 4096-key tiles per row) that ``sort_blocks`` runs at
+    this shape, from the shape alone."""
+    digit_bits = _resolve(None, digit_bits)[1]
+    return -(-keycodec.key_bits(dtype) // digit_bits), -(-n // ONESWEEP_TILE)
 
 
 def _digits(keys: torch.Tensor, shift: int, radix: int) -> torch.Tensor:
@@ -90,7 +93,8 @@ def global_pos(d: torch.Tensor, base: torch.Tensor,
 
 def digit_hist_plain(keys: torch.Tensor, shift: int, digit_bits: int,
                      tile: int) -> torch.Tensor:
-    """Plain version of the upsweep kernel (any device)."""
+    """(rows, m) keys -> (rows * m/tile, 2^digit_bits) int32 digit counts
+    per tile (the reference's upsweep)."""
     rows, m = keys.shape
     radix = 1 << digit_bits
     d = _digits(keys, shift, radix).reshape(rows * (m // tile), tile)
@@ -100,12 +104,84 @@ def digit_hist_plain(keys: torch.Tensor, shift: int, digit_bits: int,
 def digit_scatter_plain(keys: torch.Tensor, vals: Optional[torch.Tensor],
                         base: torch.Tensor, shift: int, digit_bits: int,
                         tile: int):
-    """Plain version of the downsweep kernel (any device)."""
+    """Move every element of tile t to base[t, digit] + its stable rank
+    among its tile's elements of that digit, row-local (the reference's
+    downsweep and scatter)."""
     rows, m = keys.shape
     radix = 1 << digit_bits
     d = _digits(keys, shift, radix).reshape(rows * (m // tile), tile)
     _, rank = digit_stats(d, radix)
     pos = global_pos(d, base, rank).reshape(rows, m).to(torch.int64)
+    kout = torch.empty_like(keys).scatter_(1, pos, keys)
+    vout = None if vals is None else \
+        torch.empty_like(vals).scatter_(1, pos, vals)
+    return kout, vout
+
+
+def tile_bases(hist: torch.Tensor, rows: int) -> torch.Tensor:
+    """Digit-major exclusive prefix sum across a row's tiles: every element
+    with a smaller digit anywhere in the row, or the same digit in an
+    earlier tile, precedes you.  (rows*tiles, radix) -> same shape."""
+    radix = hist.shape[-1]
+    tiles = hist.shape[0] // rows
+    flat = hist.view(rows, tiles, radix).transpose(1, 2).reshape(rows, -1)
+    excl = torch.cumsum(flat, dim=-1, dtype=torch.int32) - flat
+    return excl.view(rows, radix, tiles).transpose(1, 2).reshape(
+        rows * tiles, radix).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the onesweep kernels
+# ---------------------------------------------------------------------------
+
+def _passes(keys: torch.Tensor, digit_bits: int) -> int:
+    return keys.element_size() * 8 // digit_bits
+
+
+def onesweep_hist_plain(keys: torch.Tensor, digit_bits: int
+                        ) -> torch.Tensor:
+    """(rows, m) keys -> (rows, passes, 2^digit_bits) int32: the count of
+    every digit of every pass in each row."""
+    rows, m = keys.shape
+    radix = 1 << digit_bits
+    passes = _passes(keys, digit_bits)
+    hist = torch.zeros((rows, passes, radix), dtype=torch.int32,
+                       device=keys.device)
+    ones = torch.ones((1, 1), dtype=torch.int32,
+                      device=keys.device).expand(rows, m)
+    for p in range(passes):
+        d = _digits(keys, p * digit_bits, radix).to(torch.int64)
+        hist[:, p].scatter_add_(1, d, ones)
+    return hist
+
+
+def onesweep_pass_plain(keys: torch.Tensor, vals: Optional[torch.Tensor],
+                        hist: torch.Tensor, shift: int, digit_bits: int):
+    """Plain version of one onesweep pass: every element of a row goes to
+    the row's count of smaller digits (the exclusive scan of ``hist``'s
+    pass) plus the count of its digit in the row's earlier tiles (the
+    look-back) plus its stable rank in its own tile.  The tiles are the
+    kernel's, the last one of a row partial (a row shorter than a tile is
+    one tile of its own length)."""
+    rows, m = keys.shape
+    if keys.numel() == 0:
+        return keys.clone(), None if vals is None else vals.clone()
+    radix = 1 << digit_bits
+    tile = min(ONESWEEP_TILE, m)
+    tiles = -(-m // tile)
+    d = _digits(keys, shift, radix)
+    # the missing items of the last tile take an extra digit of their own
+    dp = torch.full((rows, tiles * tile), radix, dtype=torch.int32,
+                    device=keys.device)
+    dp[:, :m] = d
+    counts, rank = digit_stats(dp.view(rows * tiles, tile), radix + 1)
+    counts = counts.view(rows, tiles, radix + 1)[..., :radix]
+    lookback = torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
+    h = hist[:, shift // digit_bits]
+    row_base = torch.cumsum(h, dim=-1, dtype=torch.int32) - h
+    base = (row_base[:, None, :] + lookback).view(rows * tiles, radix)
+    dt = dp.view(rows * tiles, tile).clamp(max=radix - 1)
+    pos = global_pos(dt, base, rank).view(rows, -1)[:, :m].to(torch.int64)
     kout = torch.empty_like(keys).scatter_(1, pos, keys)
     vout = None if vals is None else \
         torch.empty_like(vals).scatter_(1, pos, vals)
@@ -124,16 +200,16 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("radix_sort")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.radix_digit_hist.argtypes = [i, vp, vp, ll, i, i, i, i, vp]
-        lib.radix_digit_hist.restype = i
-        lib.radix_digit_scatter.argtypes = [i, vp, vp, vp, vp, vp, ll, i, i,
-                                            i, i, vp]
-        lib.radix_digit_scatter.restype = i
+        lib.radix_onesweep_hist.argtypes = [i, vp, vp, ll, ll, i, vp]
+        lib.radix_onesweep_hist.restype = i
+        lib.radix_onesweep_pass.argtypes = [i, vp, vp, vp, vp, vp, vp, ll,
+                                            ll, i, i, vp]
+        lib.radix_onesweep_pass.restype = i
         _lib_handle = lib
     return _lib_handle
 
 
-def _check_keys(keys, tile: int, digit_bits: int, name: str) -> int:
+def _check_keys(keys, digit_bits: int, name: str) -> None:
     if keys.dim() != 2 or keys.element_size() not in (1, 2, 4) \
             or keys.is_floating_point():
         raise ValueError(f"{name} takes (rows, m) integer keys of 1, 2 or 4 "
@@ -143,113 +219,124 @@ def _check_keys(keys, tile: int, digit_bits: int, name: str) -> int:
     if m >= 1 << 31:
         raise ValueError(f"{name}: row length {m} overflows the kernels' "
                          f"int32 positions")
-    if tile < 1 or m % tile:
-        raise ValueError(f"{name}: row length {m} is not a multiple of the "
-                         f"tile {tile}")
+    if keys.shape[0] * -(-m // ONESWEEP_TILE) >= 1 << 31:
+        raise ValueError(f"{name}: {keys.shape[0]} rows of {m} keys are too "
+                         f"many tiles for the kernels' int32 tile ids")
     if digit_bits not in (1, 2, 4, 8):
         raise ValueError(f"{name}: digit_bits must be 1, 2, 4 or 8")
-    return m // tile
+    if not keys.is_cuda and keys.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {keys.device}")
 
 
-def digit_hist(keys: torch.Tensor, shift: int, digit_bits: int,
-               tile: int) -> torch.Tensor:
-    """Upsweep: (rows, m) keys -> (rows * m/tile, 2^digit_bits) int32
-    digit counts per tile."""
-    tiles = _check_keys(keys, tile, digit_bits, "digit_hist")
+def _scratch(keys: torch.Tensor, digit_bits: int) -> torch.Tensor:
+    """Zeroed look-back words and tile counters for one onesweep sort of
+    ``keys``: rows x tiles x 2^digit_bits status words, then one counter a
+    pass.  Each pass of one sort uses it once; it is never handed out."""
     rows, m = keys.shape
-    radix = 1 << digit_bits
+    tiles = rows * -(-m // ONESWEEP_TILE)
+    return torch.zeros(tiles * (1 << digit_bits) + _passes(keys, digit_bits),
+                       dtype=torch.int64, device=keys.device)
+
+
+def onesweep_hist(keys: torch.Tensor, digit_bits: int) -> torch.Tensor:
+    """(rows, m) keys -> (rows, passes, 2^digit_bits) int32 digit counts
+    of every pass: one launch of ``radix_onesweep_hist`` for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    _check_keys(keys, digit_bits, "onesweep_hist")
     if not keys.is_cuda:
-        return digit_hist_plain(keys, shift, digit_bits, tile)
+        return onesweep_hist_plain(keys, digit_bits)
     if not keys.is_contiguous():
-        raise ValueError("digit_hist: keys must be contiguous")
-    hist = torch.empty((rows * tiles, radix), dtype=torch.int32,
-                       device=keys.device)
+        raise ValueError("onesweep_hist: keys must be contiguous")
+    rows, m = keys.shape
+    hist = torch.zeros((rows, _passes(keys, digit_bits), 1 << digit_bits),
+                       dtype=torch.int32, device=keys.device)
     if keys.numel() == 0:
         return hist
     with torch.cuda.device(keys.device):
-        status = _lib().radix_digit_hist(
+        status = _lib().radix_onesweep_hist(
             keys.element_size(), _build.ptr(keys), _build.ptr(hist), rows, m,
-            tile, shift, digit_bits, _build.stream_of(keys))
-    _build.check(status, "radix_digit_hist")
-    _build.count_launch("radix_digit_hist")
+            digit_bits, _build.stream_of(keys))
+    _build.check(status, "radix_onesweep_hist")
+    _build.count_launch("radix_onesweep_hist")
     return hist
 
 
-def digit_scatter(keys: torch.Tensor, vals: Optional[torch.Tensor],
-                  base: torch.Tensor, shift: int, digit_bits: int,
-                  tile: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Downsweep: move every element of tile t to base[t, digit] + its
-    stable rank among its tile's elements of that digit (row-local)."""
-    tiles = _check_keys(keys, tile, digit_bits, "digit_scatter")
+def onesweep_pass(keys: torch.Tensor, vals: Optional[torch.Tensor],
+                  hist: torch.Tensor, shift: int, digit_bits: int
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Digit pass ``shift`` of a onesweep sort of each row: one launch of
+    ``radix_onesweep_pass`` (on a look-back scratch of its own) for a CUDA
+    tensor, the plain version for a CPU tensor.  ``hist`` is
+    :func:`onesweep_hist` of the sort's input."""
+    return _pass(keys, vals, hist, shift, digit_bits, None)
+
+
+def _pass(keys, vals, hist, shift, digit_bits, scratch):
+    """:func:`onesweep_pass` on the sort's ``scratch`` (a fresh one if
+    None); a scratch serves each pass of one sort once."""
+    _check_keys(keys, digit_bits, "onesweep_pass")
     rows, m = keys.shape
-    radix = 1 << digit_bits
-    if base.shape != (rows * tiles, radix) or base.dtype != torch.int32:
-        raise ValueError("digit_scatter: base must be int32 "
-                         f"({rows * tiles}, {radix})")
-    if not keys.is_cuda:
-        return digit_scatter_plain(keys, vals, base, shift, digit_bits, tile)
+    radix, passes = 1 << digit_bits, _passes(keys, digit_bits)
+    if shift % digit_bits or not 0 <= shift < passes * digit_bits:
+        raise ValueError(f"onesweep_pass: shift {shift} is not a digit of "
+                         f"{passes} x {digit_bits} bits")
+    if hist.shape != (rows, passes, radix) or hist.dtype != torch.int32:
+        raise ValueError(f"onesweep_pass: hist must be int32 "
+                         f"({rows}, {passes}, {radix})")
     if vals is not None and (vals.dtype != torch.int32
                              or vals.shape != keys.shape
-                             or not vals.is_contiguous()):
-        raise ValueError("digit_scatter: the payload must be a contiguous "
-                         "int32 tensor of the keys' shape")
-    if not (keys.is_contiguous() and base.is_contiguous()):
-        raise ValueError(f"digit_scatter: keys {tuple(keys.shape)} strides "
-                         f"{keys.stride()} and base {tuple(base.shape)} "
-                         f"strides {base.stride()} must be contiguous")
+                             or vals.device != keys.device):
+        raise ValueError("onesweep_pass: the payload must be an int32 "
+                         "tensor of the keys' shape and device")
+    if not keys.is_cuda:
+        return onesweep_pass_plain(keys, vals, hist, shift, digit_bits)
+    if not all(t.is_contiguous() for t in (keys, hist)) or \
+            (vals is not None and not vals.is_contiguous()):
+        raise ValueError("onesweep_pass: keys, payload and hist must be "
+                         "contiguous")
     kout = torch.empty_like(keys)
     vout = None if vals is None else torch.empty_like(vals)
     if keys.numel() == 0:
         return kout, vout
+    if scratch is None:
+        scratch = _scratch(keys, digit_bits)
     with torch.cuda.device(keys.device):
-        status = _lib().radix_digit_scatter(
+        status = _lib().radix_onesweep_pass(
             keys.element_size(), _build.ptr(keys), _build.ptr(vals),
-            _build.ptr(kout), _build.ptr(vout), _build.ptr(base), rows, m,
-            tile, shift, digit_bits, _build.stream_of(keys))
-    _build.check(status, "radix_digit_scatter")
-    _build.count_launch("radix_digit_scatter")
+            _build.ptr(kout), _build.ptr(vout), _build.ptr(hist),
+            _build.ptr(scratch), rows, m, shift // digit_bits, digit_bits,
+            _build.stream_of(keys))
+    _build.check(status, "radix_onesweep_pass")
+    _build.count_launch("radix_onesweep_pass")
     return kout, vout
 
 
 # ---------------------------------------------------------------------------
-# pass loop
+# pass loops
 # ---------------------------------------------------------------------------
 
-def tile_bases(hist: torch.Tensor, rows: int) -> torch.Tensor:
-    """Digit-major exclusive prefix sum across a row's tiles: every element
-    with a smaller digit anywhere in the row, or the same digit in an
-    earlier tile, precedes you.  (rows*tiles, radix) -> same shape."""
-    radix = hist.shape[-1]
-    tiles = hist.shape[0] // rows
-    flat = hist.view(rows, tiles, radix).transpose(1, 2).reshape(rows, -1)
-    excl = torch.cumsum(flat, dim=-1, dtype=torch.int32) - flat
-    return excl.view(rows, radix, tiles).transpose(1, 2).reshape(
-        rows * tiles, radix).contiguous()
+def onesweep_sort_kv(keys: torch.Tensor, vals: Optional[torch.Tensor],
+                     digit_bits: int):
+    """The onesweep sort of each row of (rows, m) carrier keys: one
+    histogram of every pass, then the passes, least significant digit
+    first, all on one look-back scratch.  The kernels on a CUDA tensor,
+    their plain versions on a CPU tensor."""
+    keys = keys.contiguous()
+    vals = None if vals is None else vals.contiguous()
+    hist = onesweep_hist(keys, digit_bits)
+    scratch = _scratch(keys, digit_bits) if keys.is_cuda else None
+    for shift in range(0, keys.element_size() * 8, digit_bits):
+        keys, vals = _pass(keys, vals, hist, shift, digit_bits, scratch)
+    return keys, vals
 
 
-def radix_pass(keys: torch.Tensor, vals: Optional[torch.Tensor], shift: int,
-               tile: int, digit_bits: int):
-    """One stable digit pass over (rows, m) keys (m a multiple of tile)."""
-    hist = digit_hist(keys, shift, digit_bits, tile)
-    base = tile_bases(hist, keys.shape[0])
-    return digit_scatter(keys, vals, base, shift, digit_bits, tile)
-
-
-def _padded(keys, vals, tile):
-    rows, n = keys.shape
-    tile = min(tile, max(8, n))
-    m = -(-n // tile) * tile
-    if m != n:
-        # the carrier's all-ones pattern is the maximum unsigned key
-        pad = torch.full((rows, m - n), -1, dtype=keys.dtype,
-                         device=keys.device)
-        keys = torch.cat([keys, pad], dim=1)
-        if vals is not None:
-            vals = torch.cat([vals, torch.full((rows, m - n), n,
-                                               dtype=vals.dtype,
-                                               device=vals.device)], dim=1)
-    return keys.contiguous(), \
-        None if vals is None else vals.contiguous(), tile
+def onesweep_sort_kv_plain(keys: torch.Tensor, vals: Optional[torch.Tensor],
+                           digit_bits: int):
+    """Plain version of :func:`onesweep_sort_kv`, on any device."""
+    hist = onesweep_hist_plain(keys, digit_bits)
+    for shift in range(0, keys.element_size() * 8, digit_bits):
+        keys, vals = onesweep_pass_plain(keys, vals, hist, shift, digit_bits)
+    return keys, vals
 
 
 def _check_carrier(keys):
@@ -260,21 +347,15 @@ def _check_carrier(keys):
 
 
 def sort_kv_blocks(keys: torch.Tensor, vals: Optional[torch.Tensor], *,
-                   tile: Optional[int] = None,
                    digit_bits: Optional[int] = None):
     """Stable ascending LSD radix sort of each row of carrier keys, with an
-    optional payload riding every pass.  ``tile``/``digit_bits`` default to
-    the active tuning profile."""
+    optional payload riding every pass (:func:`onesweep_sort_kv`).
+    ``digit_bits`` defaults to the active tuning profile's."""
     _check_carrier(keys)
-    tile, digit_bits = _resolve(tile, digit_bits)
-    n = keys.shape[-1]
-    keys, vals, tile = _padded(keys, vals, tile)
-    for shift in range(0, keys.element_size() * 8, digit_bits):
-        keys, vals = radix_pass(keys, vals, shift, tile, digit_bits)
-    return keys[:, :n], None if vals is None else vals[:, :n]
+    return onesweep_sort_kv(keys, vals, _resolve(None, digit_bits)[1])
 
 
-def sort_blocks(keys: torch.Tensor, *, tile: Optional[int] = None,
+def sort_blocks(keys: torch.Tensor, *,
                 digit_bits: Optional[int] = None) -> torch.Tensor:
     """Key-only variant of :func:`sort_kv_blocks`."""
-    return sort_kv_blocks(keys, None, tile=tile, digit_bits=digit_bits)[0]
+    return sort_kv_blocks(keys, None, digit_bits=digit_bits)[0]

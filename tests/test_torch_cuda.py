@@ -83,9 +83,12 @@ def test_k2_kernel_matches_plain(name, rows, l):
 
 
 @pytest.mark.parametrize("bits_", [8, 16, 32])
-@pytest.mark.parametrize("rows,m,tile,digit_bits", [
-    (3, 4096, 256, 8), (4, 3000, 1000, 4), (1, 1 << 20, 4096, 8)])
-def test_k3_kernels_match_plain(bits_, rows, m, tile, digit_bits):
+@pytest.mark.parametrize("rows,m,digit_bits", [
+    (3, 4096, 8), (4, 3000, 4), (1, 1 << 20, 8)])
+def test_k3_kernels_match_plain(bits_, rows, m, digit_bits):
+    """The onesweep histogram and every pass against their plain versions
+    on the same inputs, then the whole sort (one look-back scratch for
+    all its passes) against the plain pass loop; bit for bit."""
     rng = np.random.default_rng(bits_ + m)
     raw = rng.integers(0, 1 << bits_, size=(rows, m))
     raw[:, 1::2] = raw[:, 0::2][:, :raw[:, 1::2].shape[1]]
@@ -93,22 +96,66 @@ def test_k3_kernels_match_plain(bits_, rows, m, tile, digit_bits):
                             .view(f"int{bits_}")).cuda()
     vals = torch.arange(m, dtype=torch.int32, device="cuda") \
         .expand(rows, m).contiguous()
-    pk, pv = keys, vals
+    hist = rsk.onesweep_hist(keys, digit_bits)
+    _same(hist, rsk.onesweep_hist_plain(keys, digit_bits))
+    k1, v1 = keys, vals
     for shift in range(0, bits_, digit_bits):
-        hist = rsk.digit_hist(keys, shift, digit_bits, tile)
-        _same(hist, rsk.digit_hist_plain(keys, shift, digit_bits, tile))
-        base = rsk.tile_bases(hist, rows)
-        k1, v1 = rsk.digit_scatter(keys, vals, base, shift, digit_bits, tile)
-        k2, v2 = rsk.digit_scatter_plain(keys, vals, base, shift,
-                                         digit_bits, tile)
+        k2, v2 = rsk.onesweep_pass_plain(k1, v1, hist, shift, digit_bits)
+        k1, v1 = rsk.onesweep_pass(k1, v1, hist, shift, digit_bits)
         _same(k1, k2)
         _same(v1, v2)
-        pk, pv = rsk.digit_scatter_plain(
-            pk, pv, rsk.tile_bases(rsk.digit_hist_plain(
-                pk, shift, digit_bits, tile), rows), shift, digit_bits, tile)
-    sk, sv = rsk.sort_kv_blocks(keys, vals, tile=tile, digit_bits=digit_bits)
+    sk, sv = rsk.sort_kv_blocks(keys, vals, digit_bits=digit_bits)
+    pk, pv = rsk.onesweep_sort_kv_plain(keys, vals, digit_bits)
     _same(sk, pk)
     _same(sv, pv)
+    _same(rsk.sort_blocks(keys, digit_bits=digit_bits), pk)
+
+
+def test_k3_pass_on_a_used_scratch_fails_loudly():
+    """A look-back scratch serves one sort: a pass handed one whose tile
+    counter has run traps, and the process sees a CUDA error instead of
+    unwritten output.  Run in a child process (a trap ends its context)."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels import radix_sort as rsk\n"
+        "keys = torch.randint(0, 1 << 30, (2, 9000), device='cuda',\n"
+        "                     dtype=torch.int32)\n"
+        "hist = rsk.onesweep_hist(keys, 8)\n"
+        "scratch = rsk._scratch(keys, 8)\n"
+        "first = rsk._pass(keys, None, hist, 0, 8, scratch)[0]\n"
+        "torch.cuda.synchronize()\n"
+        "again = rsk._pass(keys, None, hist, 0, 8, scratch)[0]\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error', torch.equal(first, again))\n")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0, r.stdout
+    assert "no error" not in r.stdout
+    assert "CUDA" in r.stderr or "cuda" in r.stderr, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("name,digit_bits", [("int8", 8), ("int16", 4),
+                                             ("int32", 8), ("int32", 1)])
+def test_k3_sort_is_one_hist_and_a_pass_a_digit(name, digit_bits):
+    """A card sort is 1 + P launches: the histogram of every pass, then P
+    passes; none of the tiled kernels' names."""
+    x = torch.randint(-100, 100, (5, 9000), device="cuda",
+                      dtype=torch.int64).to(getattr(torch, name))
+    _build.reset_launches()
+    out = rsk.sort_blocks(x, digit_bits=digit_bits)
+    passes = x.element_size() * 8 // digit_bits
+    assert dict(_build.launches) == {"radix_onesweep_hist": 1,
+                                     "radix_onesweep_pass": passes}
+    u = x.to(torch.int64) & ((1 << 8 * x.element_size()) - 1)
+    assert torch.equal(out.to(torch.int64) & ((1 << 8 * x.element_size())
+                                              - 1),
+                       torch.sort(u, dim=-1).values)
 
 
 def test_main_path_goes_through_the_kernels():
@@ -143,7 +190,7 @@ def test_merge_runs_stay_on_the_kernels(descending):
         _build.reset_launches()
         order = rsort.argsort(x, method="merge", descending=descending, **kw)
         counts = dict(_build.launches)
-        assert counts.get("radix_digit_scatter", 0) > 0, counts
+        assert counts.get("radix_onesweep_pass", 0) > 0, counts
         assert counts.get("merge_pairs_kv_blocks", 0) > 0, counts
         assert counts.get("bitonic_sort_kv_blocks", 0) == 0, counts
         assert torch.equal(order.long(), ref.indices)
@@ -303,7 +350,8 @@ def _cas_words(n, width, seed):
 @pytest.mark.parametrize("n", [1, 127, 128, 1000, 1 << 20])
 def test_k7_kernel_matches_plain(width, n):
     """One K7 launch against the plain gate program on the same words,
-    lengths that are not a multiple of the 128 lanes included."""
+    lengths that are not a multiple of 4 (the kernel's 16-byte vectors)
+    included."""
     from repro_torch.kernels import ops
     a, b = _cas_words(n, width, seed=width * 7 + n)
     _build.reset_launches()
@@ -315,6 +363,31 @@ def test_k7_kernel_matches_plain(width, n):
     ua, ub = (t.to(torch.int64) & 0xFFFFFFFF for t in (a, b))
     assert torch.equal(lo.to(torch.int64) & 0xFFFFFFFF, torch.minimum(ua, ub))
     assert torch.equal(hi.to(torch.int64) & 0xFFFFFFFF, torch.maximum(ua, ub))
+
+
+@pytest.mark.parametrize("width", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("batch,n", [(300, 2), (64, 8), (16, 256),
+                                     (2, 1 << 14)])
+def test_k7_stage_kernel_matches_plain(width, batch, n):
+    """Every stage of the network, one launch of the stage kernel each, in
+    place, against ``stage_plain`` on the same words; the rows end sorted
+    and the caller's words of ``sort_in_memory`` stay as they were."""
+    from repro_torch.core import network, sorter
+    a, b = _cas_words(batch * n // 2, width, seed=width + n)
+    v = torch.cat([a, b]).view(batch, n).contiguous()
+    words = v.clone()
+    for k, j in network.stage_schedule(n):
+        want = bsc.stage_plain(v, k, j, width)
+        _build.reset_launches()
+        assert bsc.cas_stages(v, [(k, j)], width) is v
+        assert dict(_build.launches) == {"bitserial_cas_stage": 1}
+        _same(v, want)
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(v.to(torch.int64) & 0xFFFFFFFF,
+                       torch.sort(u, dim=-1).values)
+    res = sorter.sort_in_memory(words, width=width)
+    _same(res.values, v)
+    assert torch.equal(words, torch.cat([a, b]).view(batch, n))
 
 
 IMC_DTYPES = ["int8", "uint8", "int16", "uint16", "int32", "uint32"]
@@ -359,10 +432,10 @@ def test_imc_launches_one_k7_per_stage(monkeypatch):
     order = rsort.argsort(x, method="imc", descending=True)
     arg_counts = dict(_build.launches)
     monkeypatch.undo()
-    assert unit_counts == {"bitserial_cas": 6}
+    assert unit_counts == {"bitserial_cas_stage": 6}
     assert (res.cycles, res.compute_cycles, res.movement_cycles) == \
         (192, 168, 24)
-    assert sort_counts == arg_counts == {"bitserial_cas": 21}
+    assert sort_counts == arg_counts == {"bitserial_cas_stage": 21}
     _same(res.values, torch.sort(unit, dim=-1).values)
     _same(out, torch.sort(x, dim=-1).values)
     want = torch.sort(x, dim=-1, stable=True, descending=True).indices

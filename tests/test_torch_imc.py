@@ -207,7 +207,8 @@ def test_k7_plain_matches_reference_kernel_in_interpret_mode(width, n):
     """``ops.bitserial_cas`` on CPU tensors (K7's plain version) against
     the reference's Pallas kernel run in interpret mode, as
     ``tests/test_kernels.py`` runs it; lengths that are not a multiple of
-    the 128 lanes are padded by both."""
+    the 128 lanes included, which the reference pads and the port does
+    not."""
     rng = np.random.default_rng(width * 1000 + n)
     a, b = _words(rng, (n,), width), _words(rng, (n,), width)
     a[3::11] = b[3::11]
@@ -238,9 +239,9 @@ def test_k7_plain_matches_reference_exec_program(width):
 
 
 def _emulate_k7(table, a, b, width):
-    """The arithmetic of ``csrc/bitserial_cas.cu`` in Python integers: one
-    uint32 row mask per SRAM row, column c at bit W-1-c, every op read
-    from the int32 table the kernel is handed."""
+    """The kernels' bit layout in Python integers: one uint32 row mask per
+    SRAM row, column c at bit W-1-c, every op read from the int32 table
+    that ``csrc/cas_programs.cuh`` is generated from."""
     mask = (1 << width) - 1
     top = 1 << (width - 1)
     lo, hi = [], []
@@ -263,13 +264,12 @@ def _emulate_k7(table, a, b, width):
 
 @pytest.mark.parametrize("width", WIDTHS)
 def test_k7_op_table_runs_the_gate_program(width):
-    """The op table the kernel gets encodes the program (constant rows as
-    NOT's and COPY's second input), and the kernel's bit layout, emulated
-    here, computes (min, max)."""
+    """The op table the kernels' code is generated from encodes the
+    program (constant rows as NOT's and COPY's second input), and the
+    kernels' bit layout, emulated here, computes (min, max)."""
     prog, table = tgates.build_cas_program(width), tbc.program_table(width)
     assert table.dtype == torch.int32
     assert table.shape == (len(prog.ops), 7)
-    assert len(prog.ops) <= tbc.MAX_OPS and prog.n_rows <= tbc.MAX_ROWS
     const = {"NOT": tarr.ROW_ZERO, "COPY": tarr.ROW_ONE}
     kinds = {"NOR": 0, "AND": 1, "NOT": 2, "COPY": 3}
     moves = {"same": 0, "shift_right": 1, "bcast_last": 2, "bcast_col": 3}
@@ -293,6 +293,142 @@ def test_k7_wrapper_rejects_what_the_kernel_does_not_take():
         tbc.cas_blocks(a.long(), a.long(), width=4)
     with pytest.raises(ValueError, match="shapes"):
         tbc.cas_blocks(a, a[:4], width=4)
+    v = torch.zeros(2, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="width"):
+        tbc.cas_stages(v, [(2, 1)], 3)
+    with pytest.raises(TypeError, match="int32"):
+        tbc.cas_stages(v.long(), [(2, 1)], 4)
+    for k, j in ((4, 4), (16, 1), (6, 2), (4, 3)):
+        with pytest.raises(ValueError, match="powers of two"):
+            tbc.cas_stages(v, [(k, j)], 4)
+    with pytest.raises(ValueError, match="powers of two"):
+        tbc.cas_stages(torch.zeros(2, 6, dtype=torch.int32), [(2, 1)], 4)
+
+
+# ---------------------------------------------------------------------------
+# K7's generated gate programs and its stage kernel (plain version)
+# ---------------------------------------------------------------------------
+
+def _header_section(text, width):
+    """The lines of one width's ``cas_program`` in the header text."""
+    lines = text.splitlines()
+    first = lines.index(f"// W = {width}: "
+                        f"{len(tgates.build_cas_program(width).ops)} ops on "
+                        f"{tgates.build_cas_program(width).n_rows} rows")
+    return lines[first:lines.index("}", first) + 1]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_k7_header_is_generated_from_the_programs(width):
+    """The checked-in ``csrc/cas_programs.cuh`` is ``program_header()``
+    byte for byte: the card runs the programs of ``core/gates.py``.
+    Regenerate with ``python -m repro_torch.kernels.bitserial_cas``."""
+    text = tbc.HEADER.read_text()
+    assert _header_section(text, width) == \
+        _header_section(tbc.program_header(), width)
+    assert text == tbc.program_header()
+
+
+def _run_header(text, width, a, b):
+    """Execute one width's straight-line C as Python integers: the C
+    operators used (~ | & >> << ?:) read the same in both once the
+    ternaries are turned round and the ``u`` suffixes dropped."""
+    import re
+    env = {"a": 0, "b": 0}
+    body = []
+    for line in _header_section(text, width)[3:-1]:
+        code = line.split("//")[0].strip().rstrip(";")
+        code = re.sub(r"\b(0x[0-9A-F]+|\d+)u\b", r"\1", code)
+        code = re.sub(r"^(?:constexpr|const) uint32_t ", "", code)
+        code = re.sub(r"= (.*) \? m : 0$", r"= (m if \1 else 0)", code)
+        body += code.split(", ") if code.startswith(("r0", "r2")) \
+            else [code]
+    if body[-1] != "b = " + body[-1][4:] or not body[-2].startswith("a = "):
+        raise AssertionError(body[-2:])
+    lo, hi = [], []
+    for x, y in zip(a.tolist(), b.tolist()):
+        env.update(a=x, b=y)
+        for stmt in body:
+            exec(stmt, {}, env)
+        lo.append(env["a"])
+        hi.append(env["b"])
+    return np.array(lo, np.uint32), np.array(hi, np.uint32)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_k7_header_code_computes_min_max(width):
+    """The generated straight-line code, run as written (every gate, no
+    comparison of a with b), gives (min, max) of W-bit words; each of its
+    ops is one or two logic operations."""
+    text = tbc.HEADER.read_text()
+    code = _header_section(text, width)
+    assert len([c for c in code if c.startswith("  const uint32_t o")]) == \
+        len(tgates.build_cas_program(width).ops)
+    import re
+    ops = "\n".join(c.split("//")[0] for c in code[3:])
+    assert not re.search(r"[^<]<[^<]|[^>]>[^>]|<=|>=|==|min|max", ops)
+    rng = np.random.default_rng(width + 11)
+    a, b = _words(rng, (300,), width), _words(rng, (300,), width)
+    a[::7] = b[::7]
+    lo, hi = _run_header(text, width, a, b)
+    np.testing.assert_array_equal(lo, np.minimum(a, b))
+    np.testing.assert_array_equal(hi, np.maximum(a, b))
+
+
+@pytest.mark.parametrize("n", [2, 8, 64, 256])
+def test_stage_pairs_match_the_network(n):
+    """The stage kernel's pair arithmetic (i with i & j == 0, its partner
+    i ^ j, ascending where i & k == 0) over ``network.stage_schedule(n)``
+    is ``network.bitonic_stages(n)``, stage for stage and pair for pair."""
+    schedule = tnet.stage_schedule(n)
+    stages = jnet.bitonic_stages(n)
+    assert len(schedule) == len(stages) == tnet.n_stages(n)
+    for (k, j), pairs in zip(schedule, stages):
+        i, p, asc = tbc.stage_pairs(n, k, j)
+        assert list(zip(i.tolist(), p.tolist(), asc.tolist())) == \
+            [tuple(q) for q in pairs]
+        assert sorted(i.tolist() + p.tolist()) == list(range(n))
+
+
+def _reference_stage(v, stage, width):
+    """One stage of the reference's loop (``src/repro/core/sorter.py``
+    :67-80), its compare-and-swap through the reference's Pallas K7
+    (``kernels/ops.bitserial_cas`` -> ``cas_blocks``) in interpret mode."""
+    batch = v.shape[0]
+    idx_i = np.array([p[0] for p in stage])
+    idx_j = np.array([p[1] for p in stage])
+    asc = jnp.asarray(np.array([p[2] for p in stage]))[None, :]
+    lo, hi = jops.bitserial_cas(v[:, idx_i].reshape(-1),
+                                v[:, idx_j].reshape(-1), width=width,
+                                interpret=True)
+    lo, hi = lo.reshape(batch, -1), hi.reshape(batch, -1)
+    return v.at[:, idx_i].set(jnp.where(asc, lo, hi)) \
+        .at[:, idx_j].set(jnp.where(asc, hi, lo))
+
+
+@pytest.mark.parametrize("n", [2, 8, 64])
+@pytest.mark.parametrize("width", WIDTHS)
+def test_stage_plain_matches_reference_stage_loop(n, width):
+    """``stage_plain`` (the stage kernel's plain version) over every stage
+    of the network, and ``cas_stage`` in place on the CPU, against the
+    reference's stage loop on the same seeded words, stage by stage; bit
+    for bit.  The end is the sorted rows."""
+    rng = np.random.default_rng(n * 100 + width)
+    x = _words(rng, (3, n), width)
+    x[1, ::2] = x[1, 0]                       # ties
+    jv = jnp.asarray(x.view(np.int32))
+    tv = _t(x).clone()
+    inplace = tv.clone()
+    for (k, j), stage in zip(tnet.stage_schedule(n), jnet.bitonic_stages(n)):
+        jv = _reference_stage(jv, stage, width)
+        tv = tbc.stage_plain(tv, k, j, width)
+        assert_same(np.array(jv), tv, f"stage ({k}, {j})")
+        assert tbc.cas_stages(inplace, [(k, j)], width) is inplace
+        assert torch.equal(inplace, tv)
+    assert_same(np.sort(x, axis=-1), tv)
+    whole = _t(x).clone()
+    assert tbc.cas_stages(whole, tnet.stage_schedule(n), width) is whole
+    assert torch.equal(whole, tv)
 
 
 # ---------------------------------------------------------------------------

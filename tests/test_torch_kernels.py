@@ -5,6 +5,8 @@ K1 bitonic sort, K2 merge path, K3 LSD radix sort: same seeded numpy
 inputs to both, bit-exact results.  Interpret-mode shapes are kept few:
 each costs a second or more to trace.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -198,7 +200,9 @@ def test_k2_strided_pair_views_merge_like_contiguous_runs():
 @pytest.mark.parametrize("bits_,digit_bits", [(32, 8), (16, 4), (8, 8)])
 def test_k3_pass_kernels_match_pallas(bits_, digit_bits):
     """Per pass: histogram + stable rank (_digit_stats) and global
-    positions (_global_pos) of the reference, against the plain versions."""
+    positions (_global_pos) of the reference, against the plain versions,
+    and the whole tiled pass (``digit_hist_plain``, ``tile_bases``,
+    ``digit_scatter_plain``) against ``_pass_permutation``."""
     rng = np.random.default_rng(bits_)
     tile, tiles = 64, 6
     radix = 1 << digit_bits
@@ -219,6 +223,22 @@ def test_k3_pass_kernels_match_pallas(bits_, digit_bits):
                                 radix, True)
         assert_same(pos_j, trs.global_pos(dt, torch.from_numpy(base),
                                           rank_t), f"pos shift={shift}")
+        # the whole pass as rows of tiles: the per-tile histograms, then
+        # every key and payload moved as the reference's permutation moves
+        # them
+        rows_u = u.reshape(2, tiles * tile // 2)
+        rows_t = carrier.reshape(2, -1)
+        vals = torch.arange(rows_u.size, dtype=torch.int32).reshape(2, -1)
+        hist_r = trs.digit_hist_plain(rows_t, shift, digit_bits, tile)
+        assert_same(hist_j, hist_r, f"tile hist shift={shift}")
+        inv = jrs._pass_permutation(jnp.asarray(rows_u), shift, tile,
+                                    digit_bits, True)
+        kt, vt = trs.digit_scatter_plain(
+            rows_t, vals, trs.tile_bases(hist_r, 2), shift, digit_bits, tile)
+        assert_same(np.take_along_axis(rows_u, np.asarray(inv), axis=-1)
+                    .view(f"int{bits_}"), kt, f"pass keys shift={shift}")
+        assert_same(np.take_along_axis(vals.numpy(), np.asarray(inv),
+                                       axis=-1), vt, f"pass vals shift={shift}")
 
 
 @pytest.mark.parametrize("name", ["uint8", "uint16", "uint32"])
@@ -232,10 +252,10 @@ def test_k3_sort_blocks_match_pallas(name):
     carrier = to_torch(u.view(f"int{bits_}"))
     ref = jrs.sort_blocks(jnp.asarray(u), tile=256, digit_bits=8,
                           interpret=True)
-    assert_same(ref, trs.sort_blocks(carrier, tile=256, digit_bits=8))
+    assert_same(ref, trs.sort_blocks(carrier, digit_bits=8))
     rk, rv = jrs.sort_kv_blocks(jnp.asarray(u), jnp.asarray(v), tile=256,
                                 digit_bits=8, interpret=True)
-    gk, gv = trs.sort_kv_blocks(carrier, to_torch(v), tile=256, digit_bits=8)
+    gk, gv = trs.sort_kv_blocks(carrier, to_torch(v), digit_bits=8)
     assert_same(rk, gk, "K3 kv keys")
     assert_same(rv, gv, "K3 kv payload")
 
@@ -253,9 +273,12 @@ def test_k3_through_the_codec_matches_reference():
 
 
 def test_k3_pass_tile_counts_match():
-    for n, name in ((5000, "float32"), (100, "int16"), (3, "uint8")):
-        assert trs.pass_tile_counts(n, getattr(torch, name), 256, 8) == \
-            jrs.pass_tile_counts(n, name, 256, 8)
+    """The port's passes run the onesweep kernels' tiles: the reference's
+    counts at that tile."""
+    for n, name in ((5000, "float32"), (100, "int16"), (3, "uint8"),
+                    (0, "int32")):
+        assert trs.pass_tile_counts(n, getattr(torch, name), 8) == \
+            jrs.pass_tile_counts(n, name, trs.ONESWEEP_TILE, 8)
 
 
 def test_k3_wrappers_reject_rows_past_int32_positions():
@@ -263,7 +286,115 @@ def test_k3_wrappers_reject_rows_past_int32_positions():
     keys is refused, not overflowed.  The expanded view holds no memory."""
     keys = torch.zeros(1, 1, dtype=torch.int8).expand(1, 1 << 31)
     with pytest.raises(ValueError, match="int32 positions"):
-        trs.digit_hist(keys, 0, 8, 256)
-    base = torch.zeros(1, 1, dtype=torch.int32).expand(1 << 23, 256)
+        trs.onesweep_hist(keys, 8)
+    hist = torch.zeros(1, 1, 256, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32 positions"):
-        trs.digit_scatter(keys, None, base, 0, 8, 256)
+        trs.onesweep_pass(keys, None, hist, 0, 8)
+    many = torch.zeros(1, 1, dtype=torch.int8).expand(1 << 20, 1 << 23)
+    with pytest.raises(ValueError, match="int32 tile ids"):
+        trs.onesweep_hist(many, 8)
+
+
+def test_k3_onesweep_wrappers_reject_what_the_kernels_do_not_take():
+    keys = torch.zeros(2, 100, dtype=torch.int16)
+    hist = trs.onesweep_hist(keys, 4)
+    assert hist.shape == (2, 4, 16) and hist.dtype == torch.int32
+    with pytest.raises(ValueError, match="digit_bits"):
+        trs.onesweep_hist(keys, 3)
+    with pytest.raises(ValueError, match="not a digit"):
+        trs.onesweep_pass(keys, None, hist, 2, 4)
+    with pytest.raises(ValueError, match="not a digit"):
+        trs.onesweep_pass(keys, None, hist, 16, 4)
+    with pytest.raises(ValueError, match="hist must be"):
+        trs.onesweep_pass(keys, None, hist[:, :2], 0, 4)
+    with pytest.raises(ValueError, match="payload"):
+        trs.onesweep_pass(keys, keys.int()[:1], hist, 0, 4)
+    with pytest.raises(ValueError, match="integer keys"):
+        trs.onesweep_hist(keys.float(), 4)
+
+
+def test_k3_pass_tile_counts_on_a_card_name_the_onesweep_tile():
+    """Every device runs the kernels' (or their plain versions') 4096-key
+    tiles, whatever the profile's ``radix_tile`` (K4's tile)."""
+    from repro_torch.core import tuning
+    before = tuning.active()
+    tuning.set_active(dataclasses.replace(before, radix_tile=256,
+                                          digit_bits=4))
+    try:
+        for n, name in ((5000, "float32"), (100, "int16"),
+                        (1 << 20, "uint8")):
+            dtype = getattr(torch, name)
+            assert trs.pass_tile_counts(n, dtype) == \
+                (-(-dtype.itemsize * 8 // 4), -(-n // trs.ONESWEEP_TILE))
+    finally:
+        tuning.set_active(before)
+
+
+def _onesweep_keys(bits_, rows, m, seed):
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 1 << bits_, size=(rows, m))
+    raw[:, 1::3] = raw[:, ::3][:, :raw[:, 1::3].shape[1]]
+    raw[0, -5:] = (1 << bits_) - 1              # genuine keys at the pad key
+    return raw.astype(f"uint{bits_}")
+
+
+@pytest.mark.parametrize("bits_,digit_bits", [(8, 8), (8, 2), (16, 4),
+                                              (16, 8), (32, 8), (32, 1)])
+def test_k3_onesweep_hist_plain_matches_reference_digit_stats(bits_,
+                                                              digit_bits):
+    """The onesweep histogram of every pass is, row by row, the sum over
+    the reference's tiles of its ``_digit_stats`` histogram (interpret
+    mode), bit for bit."""
+    rows, tile = 3, 256
+    u = _onesweep_keys(bits_, rows, 6 * tile, bits_ * 10 + digit_bits)
+    radix = 1 << digit_bits
+    got = trs.onesweep_hist_plain(to_torch(u.view(f"int{bits_}")),
+                                  digit_bits)
+    assert got.shape == (rows, bits_ // digit_bits, radix)
+    for p in range(bits_ // digit_bits):
+        d = ((u.astype(np.int64) >> (p * digit_bits)) & (radix - 1)) \
+            .astype(np.int32).reshape(rows * 6, tile)
+        hist_j, _ = jrs._digit_stats(jnp.asarray(d), radix, True)
+        want = np.asarray(hist_j).reshape(rows, 6, radix) \
+            .sum(1, dtype=np.int32)
+        assert_same(want, got[:, p], f"pass {p}")
+
+
+def _reference_pass(u, vals, shift, digit_bits):
+    """One digit pass of the reference (``_pass_permutation`` in interpret
+    mode, then its gathers) over rows padded to its 256-key tile; the pads
+    carry the maximum key, so a stable pass leaves them last."""
+    rows, m = u.shape
+    jk, jv, tile = jrs._padded(jnp.asarray(u), jnp.asarray(vals), 256)
+    inv = jrs._pass_permutation(jk, shift, tile, digit_bits, True)
+    return (np.asarray(jnp.take_along_axis(jk, inv, axis=-1))[:, :m],
+            np.asarray(jnp.take_along_axis(jv, inv, axis=-1))[:, :m])
+
+
+@pytest.mark.parametrize("bits_,digit_bits,m", [
+    (8, 8, 5000), (16, 8, 4096), (16, 4, 700), (32, 8, 9000)])
+def test_k3_onesweep_pass_plain_matches_reference(bits_, digit_bits, m):
+    """Each onesweep pass (plain version, the kernels' 4096-key tiles, the
+    last one of a row partial) against the reference's pass on the same
+    keys, and the whole onesweep loop against the reference's
+    ``sort_kv_blocks``; bit for bit, keys and payloads."""
+    rows = 2
+    u = _onesweep_keys(bits_, rows, m, m + bits_)
+    vals = np.arange(rows * m, dtype=np.int32).reshape(rows, m)
+    carrier = to_torch(u.view(f"int{bits_}"))
+    hist = trs.onesweep_hist_plain(carrier, digit_bits)
+    tk, tv = carrier, to_torch(vals)
+    ju, jv = u, vals
+    for shift in range(0, bits_, digit_bits):
+        tk, tv = trs.onesweep_pass_plain(tk, tv, hist, shift, digit_bits)
+        ju, jv = _reference_pass(ju, jv, shift, digit_bits)
+        assert_same(ju.view(f"int{bits_}"), tk, f"keys shift={shift}")
+        assert_same(jv, tv, f"payload shift={shift}")
+    rk, rv = jrs.sort_kv_blocks(jnp.asarray(u), jnp.asarray(vals), tile=256,
+                                digit_bits=digit_bits, interpret=True)
+    gk, gv = trs.onesweep_sort_kv(carrier, to_torch(vals), digit_bits)
+    assert_same(np.asarray(rk).view(f"int{bits_}"), gk, "sort keys")
+    assert_same(rv, gv, "sort payload")
+    assert_same(np.asarray(rk).view(f"int{bits_}"),
+                trs.onesweep_sort_kv(carrier, None, digit_bits)[0],
+                "key-only sort")
