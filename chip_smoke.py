@@ -9,12 +9,17 @@ Phases, each printed as one JSON line:
 
 1. build    compile every kernel (one ``nvcc`` per source, all at once)
             into ``build/kernels/``, and print what ``ptxas -v`` said of
-            K7's and K3's kernels (registers, stack frame, spills): every
-            K7 kernel must keep its rows in registers (no stack, no
-            spills).  Then K7's machine code (``cuobjdump -sass``): the
-            instructions of each kernel's main loop by pipe, and the INT32
-            ALU instructions a pair costs (the ops of K7's bound); no K7
-            kernel may hold a min/max instruction;
+            K7's, K3's, K1's, K5's and K6's kernels (registers, stack
+            frame, spills) and K6's build warnings: no K7, K1, K5 or K6
+            kernel may have a stack frame or spills, and ptxas may not
+            serialise K6's wgmma products.  Then the machine code
+            (``cuobjdump -sass``): the instructions of each K7 kernel's main
+            loop by pipe, and the INT32 ALU instructions a pair costs (the
+            ops of K7's bound), no K7 kernel holding a min/max instruction;
+            K6's bf16 H = 128 kernel must hold ``HGMMA`` and ``UTMALDG``
+            (wgmma fed by TMA); K1's ALU instructions a compare-exchange,
+            counted in the in-thread merge that closes each stage (the ops
+            of K1's bound);
 2. kernels  every kernel against its plain PyTorch version on the card,
             bit for bit (signed zeros, ties and dtype extremes included; K7's
             pair and stage kernels at every width, K3's onesweep histogram
@@ -44,7 +49,9 @@ Phases, each printed as one JSON line:
             and read just after, then is timed with CUDA events over a few
             more calls; each K3 sort in it must be one onesweep histogram and
             one pass a digit (1 + 4 launches for 32-bit keys), and no
-            retired kernel may run;
+            retired kernel may run.  A ``torch.profiler`` trace of one
+            2^26 argsort each way says where the descending one's extra
+            time goes (kernels and aten ops by device ms);
 4. serve    minitron-4b at full width and depth (32 layers, d=3072, 4.2 B
             parameters in bf16, random weights from a seeded generator)
             through ``repro_torch.launch.serve.serve`` with the prefill's
@@ -372,7 +379,7 @@ def phase_kernels(rng) -> dict:
 def check_k6() -> int:
     """K6 against its plain version: float32 and bf16, G = 1 and 3
     (minitron's), causal with and without a window, non-causal, an
-    absolute offset past T's start, and lengths off the 64-row blocks; its
+    absolute offset past T's start, and lengths off the 128-row blocks; its
     own generator, as K7's.  Emits the largest errors; returns the number
     of cases."""
     import torch
@@ -488,6 +495,34 @@ def check_k3_sorts(name, counts, passes) -> None:
                              f"histogram and {passes} passes a sort")
 
 
+def trace_summary(fn, top: int = 8) -> dict:
+    """One warm call of ``fn`` under ``torch.profiler``: the card's busy
+    ms (the kernels' own times summed), the kernels and the aten ops that
+    took most of it, ms each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        own = getattr(e, "self_device_time_total", 0) / 1e3
+        total = getattr(e, "device_time_total", 0) / 1e3
+        if (own > 0 and e.device_type == DeviceType.CUDA
+                and not e.key.startswith("Activity Buffer")):
+            kernels.append((e.key[:80], e.count, own))
+        if e.key.startswith("aten::") and total > 0:
+            ops.append((e.key, e.count, total))
+    kernels.sort(key=lambda x: -x[2])
+    ops.sort(key=lambda x: -x[2])
+    return {"device_ms": sum(x[2] for x in kernels),
+            "kernels_ms": kernels[:top], "aten_ops_ms": ops[:top]}
+
+
 def phase_main(rng) -> dict:
     import numpy as np
     import torch
@@ -564,6 +599,12 @@ def phase_main(rng) -> dict:
                                           descending=desc),
                     K3 + ("merge_pairs_kv_blocks",), k3_passes=4)
         same_bits(order, ref_i, f"stable argsort desc={desc}")
+    # where a descending argsort's extra time goes: a profiler trace of
+    # one call each way
+    emit({"phase": "main", "trace": "argsort merge 2^26 int32",
+          **{f"desc={desc}": trace_summary(
+              lambda: rsort.argsort(k, method="merge", descending=desc))
+             for desc in (False, True)}})
     del k, order, sk, sv, ref_k, ref_i
 
     # 2^26 uint32 through the radix backend (K3)
@@ -1042,7 +1083,7 @@ def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops):
+def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
     """Each kernel at the main path's shapes: held bit for bit against its
     plain version on the same inputs, then timed beside it and beside
     ``torch.sort`` on the same rows.  Inputs are made on the card."""
@@ -1094,7 +1135,9 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops):
                      else kernel_ms(library, 10)[0], **extra})
         emit({"phase": "timing", **rows[-1]})
 
-    # K1 key-only: the runs of the 2^28 float32 sort
+    # K1 key-only: the runs of the 2^28 float32 sort.  Ops: the network's
+    # compare-exchanges times the INT32 ALU instructions one costs in the
+    # built SASS (``k1_ops``, from check_k1_sass)
     n = run_len
     lg = n.bit_length() - 1
     cas = lambda r: r * (n // 2) * lg * (lg + 1) // 2  # noqa: E731
@@ -1102,8 +1145,9 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops):
     row("bitonic_sort_blocks", "src/repro_torch/csrc/bitonic_sort.cu",
         "src/repro/kernels/bitonic_sort.py:144",
         lambda: (bs.sort_blocks(t),), lambda: (bs.apply_network(t, False),),
-        2 * t.numel() * 4, cas(t.shape[0]),
-        lambda: torch.sort(t, dim=-1))
+        2 * t.numel() * 4, cas(t.shape[0]) * k1_ops["key"],
+        lambda: torch.sort(t, dim=-1), ops_per_s=INT32_OPS_PER_S,
+        sass_alu_per_compare_exchange=k1_ops["key"])
     del t
     # K1 key-value: the runs of the 2^26 int32 argsort
     t = ints((KV_N // n, n), 4096)
@@ -1113,8 +1157,10 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops):
         "src/repro/kernels/bitonic_sort.py:172",
         lambda: bs.sort_kv_blocks(t, idx),
         lambda: bs.apply_network_kv(t, idx, False),
-        2 * t.numel() * 8, cas(t.shape[0]),
-        lambda: torch.sort(t, dim=-1, stable=True))
+        2 * t.numel() * 8, cas(t.shape[0]) * k1_ops["kv"],
+        lambda: torch.sort(t, dim=-1, stable=True),
+        ops_per_s=INT32_OPS_PER_S,
+        sass_alu_per_compare_exchange=k1_ops["kv"])
     del t, idx
 
     def sorted_pairs(pairs):
@@ -1399,18 +1445,113 @@ def time_k6(row, gen) -> None:
         del q, k, v, q4, k4, v4
 
 
+# sources whose kernels must keep everything in registers: no stack frame,
+# no spills (K7's rows, K1's and K5's 16 keys a thread, K6's accumulators)
+NO_SPILLS = ("bitserial_cas", "bitonic_sort", "bitonic_topk",
+             "flash_attention")
+
+
 def check_ptxas(_build) -> None:
-    """Print what ``ptxas -v`` said of K7's and K3's kernels (registers,
-    stack frame, spills), one line a kernel; fail unless every K7 kernel
-    keeps its rows in registers: no stack frame, no spills."""
-    for name in ("bitserial_cas", "radix_sort"):
+    """Print what ``ptxas -v`` said of the K7, K3, K1, K5 and K6 kernels
+    (registers, stack frame, spills), one line a kernel, and K6's build
+    warnings and performance notes; fail unless every kernel of
+    ``NO_SPILLS`` has no stack frame and no spills, and if ptxas
+    serialised K6's wgmma products (its C7520 note: the products then run
+    one after another with nothing overlapping them)."""
+    bad = []
+    for name in ("bitserial_cas", "radix_sort") + NO_SPILLS[1:]:
         for u in _build.ptxas_usage(name):
             emit({"phase": "build", "ptxas": name, **u})
-            if name == "bitserial_cas" and (
+            if name in NO_SPILLS and (
                     u.get("stack") != 0 or u.get("spill_stores") != 0
                     or u.get("spill_loads") != 0):
-                raise AssertionError(f"K7 kernel {u['kernel']} has a stack "
-                                     f"frame or spills: {u}")
+                bad.append(u["kernel"])
+    log = _build._lib_path("flash_attention").with_suffix(".log")
+    warnings = [ln.strip() for ln in log.read_text().splitlines()
+                if "warning" in ln.lower() or "Performance Loss" in ln]
+    emit({"phase": "build", "ptxas_warnings": "flash_attention",
+          "lines": warnings})
+    if bad:
+        raise AssertionError(f"kernels with a stack frame or spills: {bad}")
+    serial = [ln for ln in warnings if "serialized" in ln]
+    if serial:
+        raise AssertionError(f"K6's wgmma products are serialised: {serial}")
+
+
+def check_k6_sass(_build) -> None:
+    """K6's bf16 H = 128 kernel, the serve's, must run its products on
+    ``wgmma`` (``HGMMA`` in the SASS) fed by TMA (``UTMALDG``); prints
+    both counts for every wgmma kernel."""
+    funcs = sass_functions(_build.sass("flash_attention"))
+    found = False
+    for name, ins in funcs.items():
+        if "flash_wgmma_kernel" not in name:
+            continue
+        ops = [op for _, op, _ in ins]
+        counts = {"HGMMA": ops.count("HGMMA"), "UTMALDG": ops.count("UTMALDG")}
+        emit({"phase": "build", "sass": name, **counts})
+        if "__nv_bfloat16" in name and "Li128E" in name:
+            found = True
+            if not all(counts.values()):
+                raise AssertionError(f"K6 bf16 H=128 kernel {name}: "
+                                     f"{counts}, needs HGMMA and UTMALDG")
+    if not found:
+        raise AssertionError(f"no bf16 H=128 wgmma kernel among "
+                             f"{sorted(funcs)}")
+
+
+def check_k1_sass(_build) -> dict:
+    """What a K1 compare-exchange costs in the built machine code: in each
+    kernel's stage loop (the outermost loop holding the shuffles), the
+    longest run of instructions free of memory, shuffles and branches is
+    the in-thread merge that closes every stage (E keys a thread: log2(E)
+    substages of E / 2 compare-exchanges); its ALU instructions over those
+    compare-exchanges.  Returns {"key": float32 key-only, "kv": int32
+    key-value} ALU instructions a compare-exchange at E = 16 (the main
+    path's rows of 4096), the ops of K1's bound."""
+    import re
+    funcs = sass_functions(_build.sass("bitonic_sort"))
+    out = {}
+    for name, ins in funcs.items():
+        m = re.search(r"bitonic_kernelI(\w+?)Lb([01])ELi(\d+)ELi(\d+)E",
+                      name)
+        if m is None:
+            raise AssertionError(f"unexpected K1 kernel {name}")
+        e = int(m.group(3))                 # keys a thread
+        if e != 16:          # the key-value rows of 16384: no shuffles
+            continue
+        loops = [(lo, hi) for lo, hi in sass_loops(ins)
+                 if any(op == "SHFL" and lo <= a <= hi for a, op, _ in ins)]
+        if not loops:
+            raise AssertionError(f"K1 {name}: no stage loop in the SASS")
+        lo, hi = max(loops, key=lambda r: r[1] - r[0])
+        inner = [r for r in sass_loops(ins)
+                 if lo <= r[0] and r[1] < hi and r != (lo, hi)]
+        body = [x for x in ins if lo <= x[0] <= hi
+                and not any(a <= x[0] <= b for a, b in inner)]
+        best, run = [], []
+        for x in body + [(0, "BRA", "")]:
+            op = x[1]
+            if (op.startswith(SASS_MEMORY) or op in SASS_CONTROL
+                    or op == "SHFL"):
+                if pipe_counts(run)["alu"] > pipe_counts(best)["alu"]:
+                    best = run
+                run = []
+            else:
+                run.append(x)
+        counts = pipe_counts(best)
+        per_cx = counts["alu"] / (e // 2 * (e.bit_length() - 1))
+        emit({"phase": "build", "sass": f"bitonic_kernel<{m.group(1)}, "
+              f"kv={m.group(2)}, E={e}, T={m.group(4)}>",
+              "merge_instructions": len(best), **counts,
+              "alu_per_compare_exchange": per_cx})
+        if e == 16 and (m.group(1), m.group(2)) == ("4KF32", "0"):
+            out["key"] = per_cx
+        if e == 16 and (m.group(1), m.group(2)) == ("4KIntIiE", "1"):
+            out["kv"] = per_cx
+    if sorted(out) != ["key", "kv"] or min(out.values()) < 1:
+        raise AssertionError(f"K1 compare-exchange costs in the SASS: {out}")
+    return out
 
 
 # SASS opcodes by the pipe they issue to: memory and control take no
@@ -1540,6 +1681,8 @@ def main() -> int:
           "dir": str(_build.BUILD_DIR.relative_to(ROOT))})
     check_ptxas(_build)
     k7_ops = check_k7_sass(_build)
+    check_k6_sass(_build)
+    k1_ops = check_k1_sass(_build)
 
     rng = np.random.default_rng(SEED)
     tk = time.perf_counter()
@@ -1563,7 +1706,7 @@ def main() -> int:
 
     tt = time.perf_counter()
     rows = phase_timing(launches, prof.run_len, prof.radix_tile,
-                        prof.digit_bits, k7_ops)
+                        prof.digit_bits, k7_ops, k1_ops)
     emit({"phase": "timing", "seconds": time.perf_counter() - tt})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi)

@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Where K6's time goes: variants of its bf16 wgmma kernel, built and
+timed side by side on one CUDA card.
+
+Run from the repository root on a machine with the card and the CUDA
+toolkit::
+
+    python3 scripts/k6_ablation.py
+
+Each variant is ``src/repro_torch/csrc/flash_attention.cu`` with a few
+textual edits, compiled with the port's own ``nvcc`` flags into
+``build/k6_ablation/`` and called through its C entry point.  Most drop a
+part of the work, so their outputs are wrong by design and only timed:
+
+  kernel          the kernel as it is (its output held to K6's limits)
+  no_kv_loads     the producer issues no K/V loads (the barriers still run)
+  no_softmax      the online softmax skipped (P is the raw scores)
+  no_products     no wgmma issued: softmax, barriers and glue alone
+  two_stages      a K/V ring of 2 stages instead of 3 (correct output)
+  wait_in_fence   the V wait moved between wgmma.fence and the products
+                  (correct output; ptxas then serialises every wgmma)
+
+One JSON line a (shape, variant): mean ms over 10 launches with the card
+held back while the host queues them (``chip_smoke.kernel_ms``), the
+shapes of ``chip_smoke.ATTN_SHAPES`` beside SDPA, and the ptxas notes on
+serialised wgmma of each build.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+SOURCE = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu"
+OUT = ROOT / "build" / "k6_ablation"
+
+_QK = ("    Wgmma<T>::qk(s, sw128_desc(qa + off, 16, 1024),",
+       "    if (qa == 0xffffffffu)\n"
+       "    Wgmma<T>::qk(s, sw128_desc(qa + off, 16, 1024),")
+_PV = ("    Wgmma<T>::pv(acc, pa[kk],",
+       "    if (va == 0xffffffffu)\n    Wgmma<T>::pv(acc, pa[kk],")
+_V_WAIT = "      mbar_wait(vfull0 + 8 * st, (c / kStages) & 1);\n"
+_FENCE = ("      turn_wait(my_turn);\n      wgmma_fence();\n"
+          "      issue_qk<T, H>(s, qa, kv0 + nst * 2 * L::kKVBytes);\n")
+
+VARIANTS = {
+    "kernel": [],
+    "no_kv_loads": [
+        ("        mbar_expect_tx(full, L::kKVBytes);",
+         "        mbar_expect_tx(full, 0);\n        if (false)"),
+        ("        mbar_expect_tx(vfull, L::kKVBytes);",
+         "        mbar_expect_tx(vfull, 0);\n        if (false)"),
+    ],
+    "no_softmax": [
+        ("    auto softmax = [&](int k0) {\n",
+         "    auto softmax = [&](int k0) {\n"
+         "      if (k0 >= 0) { corr[0] = corr[1] = 1.f; return; }\n"),
+    ],
+    "no_products": [_QK, _PV],
+    "two_stages": [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+    "wait_in_fence": [
+        (_V_WAIT + _FENCE, _FENCE.replace(
+            "      issue_qk", _V_WAIT + "      issue_qk", 1)),
+    ],
+}
+
+
+def variant_source(edits) -> str:
+    src = SOURCE.read_text()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"variant edit no longer matches the "
+                               f"source: {old[:60]!r}")
+        src = src.replace(old, new, 1)
+    return src
+
+
+def build(names):
+    """Compile every variant at once; {name: (library, serialised notes)}."""
+    from repro_torch.kernels import _build
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        cu = OUT / f"{name}.cu"
+        cu.write_text(variant_source(VARIANTS[name]))
+        jobs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(SOURCE.parent),
+             "-o", str(OUT / f"{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+        vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+        lib.flash_attention_fwd.argtypes = [i, i, vp, vp, vp, vp, ll, i, i,
+                                            i, i, i, i, f, vp]
+        lib.flash_attention_fwd.restype = i
+        libs[name] = (lib, sum("serialized" in ln for ln in log.splitlines()))
+    return libs
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_attention as fa
+    if not torch.cuda.is_available():
+        print("k6_ablation: no CUDA device", file=sys.stderr)
+        return 2
+    names = sys.argv[1:] or list(VARIANTS)
+    libs = build(names)
+    print(cs.card(), flush=True)
+
+    def run(lib, q, k, v):
+        out = torch.empty_like(q)
+        rq, s, h = q.shape
+        status = lib.flash_attention_fwd(
+            1, h, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            rq, s, k.shape[1], rq // k.shape[0], 0, 1, 0, 1.0 / math.sqrt(h),
+            torch.cuda.current_stream().cuda_stream)
+        if status:
+            raise RuntimeError(f"launch failed: cudaError_t {status}")
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    n, r, h = cs.ATTN_HEADS
+    for b, s in cs.ATTN_SHAPES:
+        q, k, v = cs.attn_rows(gen, b * r, n // r, s, s, h, torch.bfloat16)
+        q4, k4, v4 = (x.view(b, -1, s, h) for x in (q, k, v))
+        sdpa = cs.kernel_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), 10)[0]
+        want = fa.flash_rows_plain(q, k, v)
+        for name in names:
+            lib, serialised = libs[name]
+            got = run(lib, q, k, v)
+            err = None
+            if name in ("kernel", "two_stages", "wait_in_fence"):
+                err = cs.attn_within(got, want, f"K6 {name}")
+            del got
+            ms = cs.kernel_ms(lambda: run(lib, q, k, v), 10)[0]
+            print(json.dumps({"shape": [b, s, n, r, h], "variant": name,
+                              "ms": ms, "sdpa_ms": sdpa,
+                              "serialised_notes": serialised,
+                              "max_abs_and_row_rel_err": err}), flush=True)
+        del q, k, v, q4, k4, v4, want
+    return 0
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    sys.exit(main())

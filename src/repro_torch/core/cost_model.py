@@ -158,7 +158,9 @@ def device_sort_cost_ns(method: str, n: int, batch: int = 1, *,
                         key_bits: int = 32) -> float:
     """Estimated ns to sort ``batch`` rows of ``n`` with one backend.
 
-    ``n`` is priced at the padded size each backend executes.  ``plain``
+    ``n`` is priced at the padded size each backend executes (``radix``
+    pads nothing: K3 runs fixed tiles and ends a row's last, partial one
+    inside the kernel, and its plain pass pads nothing either).  ``plain``
     says the kernel backends (``cuda``, ``radix``) would run their plain
     versions (a CPU tensor) and pays ``cuda_plain_penalty``.  ``key_bits``
     is the encoded key width; only the radix pass count depends on it.
@@ -175,8 +177,7 @@ def device_sort_cost_ns(method: str, n: int, batch: int = 1, *,
         return pen * c.cuda * batch * m * _log2(m) ** 2
     if method == "radix":
         passes = -(-key_bits // prof.digit_bits)
-        tiled = -(-n // prof.radix_tile) * prof.radix_tile
-        return pen * c.radix * batch * tiled * passes
+        return pen * c.radix * batch * n * passes
     if method == "merge":
         run_len = min(run_len if run_len is not None else prof.run_len, m)
         tiles = 1 << max(0, (-(-n // run_len) - 1).bit_length())

@@ -1,4 +1,4 @@
-// K1: whole-row Batcher bitonic sort in shared memory.
+// K1: whole-row Batcher bitonic sort, the row in registers.
 //
 // Replaces the Pallas kernels of src/repro/kernels/bitonic_sort.py:
 // sort_blocks (pallas_call at :144, body _apply_network :55-68) and
@@ -7,90 +7,100 @@
 // Bound on the H100: the function must read each row once and write it once,
 // 2 * rows * n * (key bytes [+ 4 payload bytes]) over 3.35 TB/s of device
 // memory; e.g. 65536 rows x 4096 float32 keys = 2 GiB moved, 0.64 ms.  The
-// n/2 * log2(n) * (log2(n) + 1) / 2 compare-exchanges per row run out of
-// shared memory and registers, off the device-memory path.
+// n/2 * log2(n) * (log2(n) + 1) / 2 compare-exchanges a row are the other
+// bound: at 4096 keys 78 a key, each a few integer instructions, so the
+// ALU pipe bounds a wide sort as much as the bytes do.
 //
-// Design: one CTA of 1024 threads owns max(n, 2048) elements -- one row, or
-// 2048 / n short rows -- loaded once into shared memory and stored once.
-// The cap on n comes from shared memory (227 KB a block): with a 4-byte key
-// and a 4-byte payload 16384 elements fill 128 KB.
-//
-// The network itself, and its bit-for-bit semantics, are in bitonic_net.cuh
-// (shared with K5's top-k).
-#include "bitonic_net.cuh"
+// Design: one CTA of max(n, 2048) / E threads owns max(n, 2048) elements
+// -- one row, or 2048 / n short rows -- E = 16 consecutive elements a
+// thread (32 for key-value rows of 16384), loaded and stored once as
+// 16-byte vectors; the network runs in registers, in warp shuffles and,
+// for partner distances of 512 and more, in a few shared-memory round
+// trips (bitonic_reg.cuh, shared with K5's top-k).  The cap on n comes from
+// the 1024 threads a CTA may have: 16384 elements.
+#include "bitonic_reg.cuh"
 
 namespace {
 
 constexpr int kMinElems = 2048;   // elements a CTA owns at the least
 
-template <typename TR, bool KV>
-__global__ void __launch_bounds__(kBitonicThreads)
+template <typename TR, bool KV, int E, int T>
+__global__ void __launch_bounds__(T, 1)
 bitonic_kernel(const typename TR::S* __restrict__ kin,
                const int* __restrict__ vin, typename TR::S* __restrict__ kout,
                int* __restrict__ vout, long long rows, int log_n,
-               int rows_per_cta, int descending) {
-  typedef typename TR::S S;
-  extern __shared__ __align__(16) unsigned char smem[];
+               int rows_per_cta, int descending, int vec) {
+  extern __shared__ __align__(16) uint32_t smem[];
   const int elems = rows_per_cta << log_n;
-  S* sk = reinterpret_cast<S*>(smem);
-  int* sv = reinterpret_cast<int*>(
-      smem + ((static_cast<size_t>(elems) * sizeof(S) + 15) / 16) * 16);
+  uint32_t* sk = smem;
+  int* sv = reinterpret_cast<int*>(smem + elems + elems / 32);
 
   const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_cta;
-  const long long nrows = min(static_cast<long long>(rows_per_cta),
-                              rows - row0);
-  const int valid = static_cast<int>(nrows << log_n);
+  const int valid = static_cast<int>(
+      min(static_cast<long long>(rows_per_cta), rows - row0) << log_n);
   const long long off = row0 << log_n;
+  const int base = threadIdx.x * E;
 
-  for (int i = threadIdx.x; i < elems; i += kBitonicThreads) {
-    if (i < valid) {
-      sk[i] = kin[off + i];
-      if (KV) sv[i] = vin[off + i];
-    } else {            // rows past the end: sorted, never stored
-      sk[i] = S(0);
-      if (KV) sv[i] = 0;
-    }
-  }
-  __syncthreads();
-
-  bitonic_network<TR, KV>(sk, sv, elems, log_n, descending);
-
-  for (int i = threadIdx.x; i < valid; i += kBitonicThreads) {
-    kout[off + i] = sk[i];
-    if (KV) vout[off + i] = sv[i];
-  }
+  BitonicLane<TR, KV, E> lane;
+  lane.desc = descending != 0;
+  lane.load(kin + off, KV ? vin + off : nullptr, base, valid, vec != 0);
+  lane.sort(log_n, threadIdx.x, blockDim.x, sk, sv);
+  // the row's place again, not held in registers through the network
+  const long long row1 =
+      static_cast<long long>(opaque(blockIdx.x)) * rows_per_cta;
+  const long long off1 = row1 << log_n;
+  const int valid1 = static_cast<int>(
+      min(static_cast<long long>(rows_per_cta), rows - row1) << log_n);
+  lane.store(kout + off1, KV ? vout + off1 : nullptr,
+             opaque(threadIdx.x) * E, valid1, vec != 0);
 }
 
-template <typename TR, bool KV>
+template <typename TR, bool KV, int E, int T>
 int launch(const void* kin, const void* vin, void* kout, void* vout,
            long long rows, int log_n, int descending, cudaStream_t stream) {
   typedef typename TR::S S;
   const int n = 1 << log_n;
   const int rows_per_cta = n >= kMinElems ? 1 : kMinElems / n;
-  const size_t elems = static_cast<size_t>(rows_per_cta) * n;
-  const size_t smem = bitonic_smem_bytes<S, KV>(elems);
+  const int elems = rows_per_cta * n;
+  const size_t smem = bitonic_smem_bytes(elems, log_n, E, KV);
   cudaError_t err = cudaFuncSetAttribute(
-      bitonic_kernel<TR, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      bitonic_kernel<TR, KV, E, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long grid = (rows + rows_per_cta - 1) / rows_per_cta;
-  bitonic_kernel<TR, KV><<<static_cast<unsigned>(grid), kBitonicThreads, smem,
-                           stream>>>(
+  bitonic_kernel<TR, KV, E, T><<<static_cast<unsigned>(grid), elems / E,
+                                 smem, stream>>>(
       static_cast<const S*>(kin), static_cast<const int*>(vin),
       static_cast<S*>(kout), static_cast<int*>(vout), rows, log_n,
-      rows_per_cta, descending);
+      rows_per_cta, descending, bitonic_vec_ok(kin, vin, kout, vout));
   return static_cast<int>(cudaGetLastError());
+}
+
+// the shapes of bitonic_shape, and no other instantiated
+template <typename TR, bool KV>
+int launch(const void* kin, const void* vin, void* kout, void* vout,
+           long long rows, int log_n, int descending, cudaStream_t stream) {
+  if constexpr (!KV)
+    return launch<TR, false, 16, 1024>(kin, vin, kout, vout, rows, log_n,
+                                       descending, stream);
+  else if (bitonic_shape(true, log_n) == kPairs16x512)
+    return launch<TR, true, 16, 512>(kin, vin, kout, vout, rows, log_n,
+                                     descending, stream);
+  else
+    return launch<TR, true, 32, 512>(kin, vin, kout, vout, rows, log_n,
+                                     descending, stream);
 }
 
 }  // namespace
 
-// Sort each row of a contiguous (rows, 2^log_n) key array; with vin/vout
-// non-null the int32 payload rides the composite comparator.  Returns the
-// cudaError_t of the launch.
+// Sort each row of a contiguous (rows, 2^log_n) key array, 2^log_n <=
+// 16384; with vin/vout non-null the int32 payload rides the composite
+// comparator.  Returns the cudaError_t of the launch.
 extern "C" int bitonic_sort_blocks(int code, const void* kin, const void* vin,
                                    void* kout, void* vout, long long rows,
                                    int log_n, int descending, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (log_n < 0 || log_n > 14) return static_cast<int>(cudaErrorInvalidValue);
   if (vin != nullptr) {
     KEY_DISPATCH(code, TR,
                  return launch<TR, true>(kin, vin, kout, vout, rows, log_n,

@@ -13,31 +13,56 @@
 // out of device memory is the S x T score matrix: scores, probabilities,
 // the running max m, the normaliser l and the accumulator live in registers.
 //
-// Design (first version; wgmma, TMA and warp specialisation are later
-// work): one CTA of 4 warps per (query row, 64-query block); the heaviest
-// causal blocks are scheduled first.  K/V tiles of 64 keys stream through
-// shared memory, double-buffered with cp.async (zero-filled past T); rows
-// are padded by 16 bytes so the fragment loads hit 32 distinct banks.
-// bf16/fp16: each warp owns 16 queries; QK^T and PV run on the tensor cores
-// as mma.sync m16n8k16 with float32 accumulation (Q's fragments stay in
-// registers, V's come in with ldmatrix.trans), the scores are scaled by
-// 1/sqrt(H) in float32 after the product, P is rounded to the input type
-// for the PV product.  float32: the same tiles with plain FMA, q scaled in
-// float32 first, the score and probability tile in shared memory.
-// Masking uses -1e30 as the reference does (not -inf), so a query that sees
-// no key in the tiles it visits averages those tiles' values, as there.
+// Blocks: every kernel visits, for the queries of a 128-query block
+// (kQBlock), the 128-key tiles (kKBlock) below the block's causal bound
+// (kpos < min(T, block start + q_offset + 128)); kernels with smaller tiles
+// walk the same key slots.  Masking uses -1e30 as the reference does (not
+// -inf), so a query that sees no key in those tiles averages their values
+// (keys past T count as zero vectors), as there.
+//
+// bf16 / fp16 at H = 64 and 128 (the serve's path), designed for Hopper:
+// one CTA of three warpgroups a (query row, 128-query block), the heaviest
+// causal blocks first.  Warpgroup 2 is the producer: one thread issues TMA
+// loads (descriptors from cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so no libcuda link) of the Q tile once and of
+// K/V tiles of 128 keys into a ring of 3 stages in 128-byte swizzle,
+// guarded by mbarriers (K landed, V landed, stage free); it gives its
+// registers up with setmaxnreg.  Warpgroups 0 and 1 each own 64 queries:
+// S = Q K^T runs as wgmma m64n128k16 from shared memory; the softmax stays
+// in registers, exp2 (one MUFU.EX2) with scale * log2(e) folded into one
+// FFMA; P is rounded to the input type in registers and is the register A
+// operand of the PV wgmma (V read transposed from its swizzled tile); O
+// accumulates in float32 registers.  S of tile c + 1 and PV of tile c go
+// to the tensor cores together, and the softmax of tile c + 1 runs while
+// PV of tile c still does; the two warpgroups take turns (named
+// barriers), so one's products also run while the other's softmax does.
+// The mask is evaluated only on tiles that need it (the diagonal, the
+// window's lower edge, the tile past T).
+//
+// bf16 / fp16 at H = 16 and 32 (first version): one CTA of 4 warps per
+// (query row, 64-query tile), K/V tiles of 64 keys double-buffered with
+// cp.async (zero-filled past T), rows padded by 16 bytes; QK^T and PV as
+// mma.sync m16n8k16 with float32 accumulation.  float32: the same tiles
+// with plain FMA, q scaled in float32 first, the score and probability
+// tile in shared memory (TF32 tensor cores would miss its 1e-4 limit).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kQBlock = 64;
-constexpr int kKBlock = 64;
+constexpr int kQBlock = 128;          // queries of a block (Q_BLOCK)
+constexpr int kKBlock = 128;          // keys of a tile (K_BLOCK)
+constexpr int kTile = 64;             // the mma.sync / float32 kernels' tiles
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -100,7 +125,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           int n) {
   constexpr int kChunks = H * static_cast<int>(sizeof(T)) / 16;
   constexpr int kElems = 16 / static_cast<int>(sizeof(T));
-  for (int i = threadIdx.x; i < kKBlock * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i - r * kChunks;
     const bool ok = row0 + r < n;
     const T* s = ok ? src + (static_cast<size_t>(row0 + r) * H + c * kElems)
@@ -122,6 +147,15 @@ struct Args {
   float scale;
 };
 
+// 64-key tiles a 64-query tile at q0 visits: every key slot below its
+// 128-query block's causal bound, rounded up to whole 128-key tiles (the
+// tiles past T are zero-filled and masked)
+__device__ __forceinline__ int visited_tiles(int q0, const Args& a) {
+  const int block_start = q0 / kQBlock * kQBlock + a.q_offset;
+  const int hi = a.causal ? min(a.t, block_start + kQBlock) : a.t;
+  return hi > 0 ? (hi + kKBlock - 1) / kKBlock * (kKBlock / kTile) : 0;
+}
+
 // ---------------------------------------------------------------------------
 // bf16 / fp16: tensor cores
 // ---------------------------------------------------------------------------
@@ -135,8 +169,8 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int NT = H / 8;              // n-tiles of PV
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kQBlock * LD;             // 2 buffers
-  T* vs = ks + 2 * kKBlock * LD;         // 2 buffers
+  T* ks = qs + kTile * LD;             // 2 buffers
+  T* vs = ks + 2 * kTile * LD;         // 2 buffers
 
   const int row = blockIdx.x;
   const int j = gridDim.y - 1 - blockIdx.y;       // heaviest blocks first
@@ -146,10 +180,9 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vg = v + static_cast<size_t>(kv_row) * a.t * H;
   T* og = o + static_cast<size_t>(row) * a.s * H;
 
-  const int q0 = j * kQBlock;
+  const int q0 = j * kTile;
   const int q_start = q0 + a.q_offset;
-  const int hi = a.causal ? min(a.t, q_start + kQBlock) : a.t;
-  const int n_kv = hi > 0 ? (hi + kKBlock - 1) / kKBlock : 0;
+  const int n_kv = visited_tiles(q0, a);
 
   load_tile<T, H, LD>(qs, qg, q0, a.s);
   if (n_kv > 0) {
@@ -173,10 +206,10 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < n_kv; ++c) {
     const int buf = c & 1;
     if (c + 1 < n_kv) {
-      load_tile<T, H, LD>(ks + (buf ^ 1) * kKBlock * LD, kg,
-                          (c + 1) * kKBlock, a.t);
-      load_tile<T, H, LD>(vs + (buf ^ 1) * kKBlock * LD, vg,
-                          (c + 1) * kKBlock, a.t);
+      load_tile<T, H, LD>(ks + (buf ^ 1) * kTile * LD, kg,
+                          (c + 1) * kTile, a.t);
+      load_tile<T, H, LD>(vs + (buf ^ 1) * kTile * LD, vg,
+                          (c + 1) * kTile, a.t);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -193,8 +226,8 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
       }
     }
-    const T* kb = ks + buf * kKBlock * LD;
-    const T* vb = vs + buf * kKBlock * LD;
+    const T* kb = ks + buf * kTile * LD;
+    const T* vb = vs + buf * kTile * LD;
 
     // S = Q K^T: 8 n-tiles of 8 keys
     float s[8][4];
@@ -210,7 +243,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // scale, mask, row max over the quad that shares a row
-    const int k0 = c * kKBlock;
+    const int k0 = c * kTile;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -254,7 +287,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // O += P V: P's accumulator layout is the A fragment of the next mma
 #pragma unroll
-    for (int kk = 0; kk < kKBlock / 16; ++kk) {
+    for (int kk = 0; kk < kTile / 16; ++kk) {
       uint32_t pa[4];
       pa[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
       pa[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
@@ -306,16 +339,16 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   Args a) {
   constexpr int LDK = H + 1;             // K rows read across a warp
-  constexpr int LDP = kKBlock + 1;
+  constexpr int LDP = kTile + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);   // (64, H), pre-scaled
-  float* ks = qs + kQBlock * H;                  // (64, LDK)
-  float* vs = ks + kKBlock * LDK;                // (64, H)
-  float* ps = vs + kKBlock * H;                  // (64, LDP)
-  float* os = ps + kQBlock * LDP;                // (64, H)
-  float* ms = os + kQBlock * H;                  // (64,)
-  float* ls = ms + kQBlock;                      // (64,)
-  float* cs = ls + kQBlock;                      // (64,)
+  float* ks = qs + kTile * H;                  // (64, LDK)
+  float* vs = ks + kTile * LDK;                // (64, H)
+  float* ps = vs + kTile * H;                  // (64, LDP)
+  float* os = ps + kTile * LDP;                // (64, H)
+  float* ms = os + kTile * H;                  // (64,)
+  float* ls = ms + kTile;                      // (64,)
+  float* cs = ls + kTile;                      // (64,)
 
   const int row = blockIdx.x;
   const int j = gridDim.y - 1 - blockIdx.y;
@@ -324,26 +357,25 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kg = k + static_cast<size_t>(kv_row) * a.t * H;
   const float* vg = v + static_cast<size_t>(kv_row) * a.t * H;
   float* og = o + static_cast<size_t>(row) * a.s * H;
-  const int q0 = j * kQBlock;
+  const int q0 = j * kTile;
   const int q_start = q0 + a.q_offset;
-  const int hi = a.causal ? min(a.t, q_start + kQBlock) : a.t;
-  const int n_kv = hi > 0 ? (hi + kKBlock - 1) / kKBlock : 0;
+  const int n_kv = visited_tiles(q0, a);
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < kQBlock * H; i += kThreads) {
+  for (int i = tid; i < kTile * H; i += kThreads) {
     const int r = i / H;
     qs[i] = q0 + r < a.s ? qg[static_cast<size_t>(q0) * H + i] * a.scale
                          : 0.f;
     os[i] = 0.f;
   }
-  if (tid < kQBlock) {
+  if (tid < kTile) {
     ms[tid] = kNegInf;
     ls[tid] = 0.f;
   }
   for (int c = 0; c < n_kv; ++c) {
-    const int k0 = c * kKBlock;
+    const int k0 = c * kTile;
     __syncthreads();
-    for (int i = tid; i < kKBlock * H; i += kThreads) {
+    for (int i = tid; i < kTile * H; i += kThreads) {
       const int r = i / H, d = i - r * H;
       const bool ok = k0 + r < a.t;
       const size_t gi = static_cast<size_t>(k0) * H + i;
@@ -351,8 +383,8 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       vs[i] = ok ? vg[gi] : 0.f;
     }
     __syncthreads();
-    for (int i = tid; i < kQBlock * kKBlock; i += kThreads) {
-      const int r = i / kKBlock, kc = i - r * kKBlock;
+    for (int i = tid; i < kTile * kTile; i += kThreads) {
+      const int r = i / kTile, kc = i - r * kTile;
       float x = 0.f;
 #pragma unroll 8
       for (int d = 0; d < H; ++d) x = fmaf(qs[r * H + d], ks[kc * LDK + d], x);
@@ -361,12 +393,12 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                                                  : kNegInf;
     }
     __syncthreads();
-    if (tid < kQBlock) {
+    if (tid < kTile) {
       float* pr = ps + tid * LDP;
       float mx = ms[tid];
-      for (int kc = 0; kc < kKBlock; ++kc) mx = fmaxf(mx, pr[kc]);
+      for (int kc = 0; kc < kTile; ++kc) mx = fmaxf(mx, pr[kc]);
       float sum = 0.f;
-      for (int kc = 0; kc < kKBlock; ++kc) {
+      for (int kc = 0; kc < kTile; ++kc) {
         const float p = expf(pr[kc] - mx);
         pr[kc] = p;
         sum += p;
@@ -377,37 +409,519 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ms[tid] = mx;
     }
     __syncthreads();
-    for (int i = tid; i < kQBlock * H; i += kThreads) {
+    for (int i = tid; i < kTile * H; i += kThreads) {
       const int r = i / H, d = i - r * H;
       const float* pr = ps + r * LDP;
       float x = 0.f;
 #pragma unroll 8
-      for (int kc = 0; kc < kKBlock; ++kc) x = fmaf(pr[kc], vs[kc * H + d], x);
+      for (int kc = 0; kc < kTile; ++kc) x = fmaf(pr[kc], vs[kc * H + d], x);
       os[i] = os[i] * cs[r] + x;
     }
   }
   __syncthreads();
-  for (int i = tid; i < kQBlock * H; i += kThreads) {
+  for (int i = tid; i < kTile * H; i += kThreads) {
     const int r = i / H;
     if (q0 + r < a.s)
       og[static_cast<size_t>(q0) * H + i] = os[i] / fmaxf(ls[r], 1e-20f);
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / fp16 at H = 64 and 128: warp-specialised, TMA + wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 3;             // K/V ring depth: 224 KB at H = 128
+constexpr int kConsumers = 2;          // warpgroups of 64 queries
+constexpr int kWsThreads = (kConsumers + 1) * 128;
+constexpr int kProducerRegs = 40;      // setmaxnreg: 40 x 128 + 232 x 256
+constexpr int kConsumerRegs = 232;     // = 64512 of the SM's 65536
+
+// Shared memory from a 1024-byte aligned base: the Q tile, kStages x (K
+// tile, V tile), the barriers (K full[kStages], V full[kStages],
+// empty[kStages], q).  A tile
+// of R rows and H columns is H / 64 regions of R rows x 128 bytes (64
+// columns), each as TMA writes it in 128-byte swizzle.
+template <int H>
+struct WsLayout {
+  static constexpr int kRegions = H / 64;
+  static constexpr int kQRegion = kQBlock * 128;
+  static constexpr int kKRegion = kKBlock * 128;
+  static constexpr int kQBytes = kRegions * kQRegion;
+  static constexpr int kKVBytes = kRegions * kKRegion;
+  static constexpr int kBars = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (3 * kStages + 1);
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spin until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// TMA: the (64 columns, rows, 1) box at (col, row, mat) of a 3-d map into
+// shared memory at dst; completes `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, int mat,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(mat),
+      "r"(bar)
+      : "memory");
+}
+// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// 2^x as the one MUFU.EX2 instruction (exp2f adds three an element for
+// results below 2^-126, which a probability in [0, 1] can lose)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers 1 and 2 (0 is __syncthreads) between the two consumer
+// warpgroups: each waits for its turn on the tensor cores, then hands it on
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+// after a wait: the accumulators changed under the compiler's feet
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma m64nNk16 with float32 accumulators d.  QK^T reads A (Q) and B (K)
+// from shared memory, both K-major; PV takes A (P) from registers and B
+// (V) transposed, MN-major.  scale_d = 0 overwrites d.
+#define WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_D32(i)                                                          \
+  WG_D4(i), WG_D4(i + 4), WG_D4(i + 8), WG_D4(i + 12), WG_D4(i + 16),      \
+      WG_D4(i + 20), WG_D4(i + 24), WG_D4(i + 28)
+#define WG_R32                                                             \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31"
+#define WG_R64                                                             \
+  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63"
+// S = Q K^T step: m64n128k16, d[64]
+#define WGMMA_SS_N128(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY     \
+               " {" WG_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"              \
+               : WG_D32(0), WG_D32(32)                                     \
+               : "l"(da), "l"(db), "r"(scale_d))
+// O += P V step: m64n128k16 (d[64]) or m64n64k16 (d[32])
+#define WGMMA_RS_N128(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY     \
+               " {" WG_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+               : WG_D32(0), WG_D32(32)                                     \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(scale_d))
+#define WGMMA_RS_N64(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY      \
+               " {" WG_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+               : WG_D32(0)                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(scale_d))
+
+template <typename T>
+struct Wgmma;
+
+#define WGMMA_TYPE(T, TY)                                                  \
+  template <>                                                              \
+  struct Wgmma<T> {                                                        \
+    static __device__ __forceinline__ void qk(float (&d)[64], uint64_t da, \
+                                              uint64_t db, int scale_d) {  \
+      WGMMA_SS_N128(TY);                                                   \
+    }                                                                      \
+    static __device__ __forceinline__ void pv(float (&d)[64],              \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t db) {               \
+      const int scale_d = 1;                                               \
+      WGMMA_RS_N128(TY);                                                   \
+    }                                                                      \
+    static __device__ __forceinline__ void pv(float (&d)[32],              \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t db) {               \
+      const int scale_d = 1;                                               \
+      WGMMA_RS_N64(TY);                                                    \
+    }                                                                      \
+  };
+WGMMA_TYPE(__nv_bfloat16, "bf16")
+WGMMA_TYPE(__half, "f16")
+
+// S (64 queries x 128 keys) = Q K^T over H in k-steps of 16 columns: step
+// kk reads region kk / 4 of both tiles at byte kk % 4 * 32 of each row;
+// 8-row groups 1024 bytes apart
+template <typename T, int H>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t qa,
+                                         uint32_t ka) {
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * (kQBlock * 128) + (kk & 3) * 32;
+    const uint32_t koff = (kk >> 2) * (kKBlock * 128) + (kk & 3) * 32;
+    Wgmma<T>::qk(s, sw128_desc(qa + off, 16, 1024),
+           sw128_desc(ka + koff, 16, 1024), kk > 0);
+  }
+}
+
+// O (64 x H) += P (64 x 128 keys) V in k-steps of 16 keys: V's rows
+// 16 kk .. 16 kk + 15 (2048 bytes a step), its 64-column regions LBO apart
+template <typename T, int H>
+__device__ __forceinline__ void issue_pv(float (&acc)[H / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         uint32_t va) {
+#pragma unroll
+  for (int kk = 0; kk < kKBlock / 16; ++kk)
+    Wgmma<T>::pv(acc, pa[kk],
+           sw128_desc(va + kk * 2048, kKBlock * 128, 1024));
+}
+
+template <typename T, int H>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   T* __restrict__ o, Args a) {
+  typedef WsLayout<H> L;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base;
+  const uint32_t kv0 = base + L::kQBytes;        // stage st: K, then V
+  const uint32_t full0 = base + L::kBars;           // K of stage st landed
+  const uint32_t vfull0 = full0 + 8 * kStages;      // V of stage st landed
+  const uint32_t empty0 = vfull0 + 8 * kStages;
+  const uint32_t qbar = empty0 + 8 * kStages;
+
+  const int row = blockIdx.x;
+  const int j = gridDim.y - 1 - blockIdx.y;       // heaviest blocks first
+  const int kv_row = row / a.g;
+  const int q0 = j * kQBlock;
+  const int q_start = q0 + a.q_offset;
+  const int hi = a.causal ? min(a.t, q_start + kQBlock) : a.t;
+  const int n_kv = hi > 0 ? (hi + kKBlock - 1) / kKBlock : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(vfull0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, kConsumers * 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == kConsumers) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128 && n_kv > 0) {
+      mbar_expect_tx(qbar, L::kQBytes);
+      for (int r = 0; r < L::kRegions; ++r)
+        tma_load(qs + r * L::kQRegion, &tq, 64 * r, q0, row, qbar);
+      for (int c = 0; c < n_kv; ++c) {
+        const int st = c % kStages;
+        if (c >= kStages) mbar_wait(empty0 + 8 * st, (c / kStages - 1) & 1);
+        const uint32_t full = full0 + 8 * st, vfull = vfull0 + 8 * st;
+        const uint32_t kst = kv0 + st * 2 * L::kKVBytes;
+        mbar_expect_tx(full, L::kKVBytes);        // K first: S needs it a
+        for (int r = 0; r < L::kRegions; ++r)     // tile before PV needs V
+          tma_load(kst + r * L::kKRegion, &tk, 64 * r, c * kKBlock, kv_row,
+                   full);
+        mbar_expect_tx(vfull, L::kKVBytes);
+        for (int r = 0; r < L::kRegions; ++r)
+          tma_load(kst + L::kKVBytes + r * L::kKRegion, &tv, 64 * r,
+                   c * kKBlock, kv_row, vfull);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: queries q0 + 64 wg .. q0 + 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x & 127, lane = tid & 31;
+    const int r0 = wg * 64 + (tid >> 5) * 16 + (lane >> 2);  // rows r0, r0+8
+    const int col = 2 * (lane & 3);
+    const int lo_pos = q_start + wg * 64, hi_pos = lo_pos + 63;
+    const float sl2 = a.scale * kLog2e;       // scores to log2 units
+    const uint32_t qa = qs + wg * 64 * 128;
+    float acc[H / 2];
+#pragma unroll
+    for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float s[64], corr[2];
+    uint32_t pa[8][4];
+
+    // the online softmax of tile k0's scores, in place: s becomes
+    // 2^(s * sl2 - m) with the running max m (log2 units) raised to the
+    // tile's, l takes the tile's sum, corr the factor for the earlier O.
+    // Only a tile with a key past T, above a query or below a window
+    // evaluates the mask.
+    auto softmax = [&](int k0) {
+      const bool edge = k0 + kKBlock > a.t ||
+                        (a.causal && k0 + kKBlock - 1 > lo_pos) ||
+                        (a.window && k0 <= hi_pos - a.window);
+      float mx[2] = {kNegInf, kNegInf};
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int kpos = k0 + (i >> 2) * 8 + col + (i & 1);
+          const int qpos = q_start + r0 + ((i >> 1) & 1) * 8;
+          const float x = visible(kpos, qpos, a.t, a.causal, a.window)
+                              ? s[i] * sl2
+                              : kNegInf;
+          s[i] = x;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          mx[r] = fmaxf(m[r], mx[r]);
+          corr[r] = ex2(m[r] - mx[r]);
+          m[r] = mx[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          mx[r] = fmaxf(m[r], mx[r] * sl2);
+          corr[r] = ex2(m[r] - mx[r]);
+          m[r] = mx[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          s[i] = ex2(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) rs[(i >> 1) & 1] += s[i];
+      // l stays per thread (this thread's columns) until the end
+      l[0] = l[0] * corr[0] + rs[0];
+      l[1] = l[1] * corr[1] + rs[1];
+    };
+    // P's accumulator layout is the A fragment of the PV product
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[kk][0] = Mma<T>::pack(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = Mma<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = Mma<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = Mma<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+
+    // The two warpgroups take turns on the tensor cores: burst b of
+    // warpgroup 1 follows burst b of warpgroup 0, burst b + 1 of 0 follows
+    // burst b of 1.  Burst c + 1 issues S of tile c + 1 and PV of tile c;
+    // the softmax of tile c + 1 then runs while PV of tile c still does.
+    // Every wait comes before the wgmma.fence and the products follow it
+    // with no branch between (the last burst's S repeats tile c's and is
+    // dropped): a branch or a spin loop there makes ptxas insert its own
+    // fence on that path and serialise every wgmma of the kernel.
+    const int my_turn = 1 + wg, other_turn = 2 - wg;
+    if (n_kv > 0) {
+      if (wg == 1) turn_pass(1);      // warpgroup 0 goes first
+      mbar_wait(qbar, 0);
+      mbar_wait(full0, 0);
+      turn_wait(my_turn);
+      wgmma_fence();
+      issue_qk<T, H>(s, qa, kv0);
+      wgmma_commit();
+      turn_pass(other_turn);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(0);
+      pack_p();
+    }
+    for (int c = 0; c < n_kv; ++c) {
+      const int st = c % kStages;
+      const bool next = c + 1 < n_kv;
+      const int nst = next ? (c + 1) % kStages : st;
+      if (next) mbar_wait(full0 + 8 * nst, ((c + 1) / kStages) & 1);
+      mbar_wait(vfull0 + 8 * st, (c / kStages) & 1);
+      turn_wait(my_turn);
+      wgmma_fence();
+      issue_qk<T, H>(s, qa, kv0 + nst * 2 * L::kKVBytes);
+      wgmma_commit();
+      issue_pv<T, H>(acc, pa, kv0 + st * 2 * L::kKVBytes + L::kKVBytes);
+      wgmma_commit();
+      if (wg == 0 || next) turn_pass(other_turn);   // none unmatched
+      wgmma_wait<1>();               // S of tile c + 1 is in
+      fence_regs(s);
+      if (next) softmax((c + 1) * kKBlock);
+      wgmma_wait<0>();               // and PV of tile c
+      fence_regs(acc);
+      mbar_arrive(empty0 + 8 * st);
+      if (next) {
+#pragma unroll
+        for (int i = 0; i < H / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+        pack_p();
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / fmaxf(l[r], 1e-20f);
+    }
+    T* og = o + static_cast<size_t>(row) * a.s * H;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + r0 + 8 * r;
+      if (qi >= a.s) continue;
+      T* dst = og + static_cast<size_t>(qi) * H + col;
+#pragma unroll
+      for (int d = 0; d < H / 8; ++d)
+        *reinterpret_cast<uint32_t*>(dst + d * 8) = Mma<T>::pack(
+            acc[4 * d + 2 * r] * l[r], acc[4 * d + 2 * r + 1] * l[r]);
+    }
+  }
+}
+
 template <typename T, int H>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                long long rows, const Args& a, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kQBlock + 4 * kKBlock) * (H + 8) *
+  const size_t smem = static_cast<size_t>(kTile + 4 * kTile) * (H + 8) *
                       sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(rows),
-                  static_cast<unsigned>((a.s + kQBlock - 1) / kQBlock));
+                  static_cast<unsigned>((a.s + kTile - 1) / kTile));
   flash_mma_kernel<T, H><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
+// -lcuda); null where it cannot be found
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a contiguous (mats, len, H) tensor of 2-byte values as a 3-d map of
+// (64 columns, box_rows rows, 1) boxes in 128-byte swizzle; rows past len
+// load as zeros
+bool tensor_map(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType dt,
+                const void* p, long long mats, int len, int h,
+                int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(mats)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(h) * 2,
+                                 static_cast<cuuint64_t>(len) * h * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, dt, 3, const_cast<void*>(p), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int H>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 long long rows, const Args& a, cudaStream_t stream) {
+  typedef WsLayout<H> L;
+  const CUtensorMapDataType dt = std::is_same<T, __nv_bfloat16>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  memset(&tk, 0, sizeof(tk));
+  memset(&tv, 0, sizeof(tv));
+  if (!tensor_map(enc, &tq, dt, q, rows, a.s, H, kQBlock))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.t > 0 &&      // t == 0: no block visits a tile, the maps go unread
+      (!tensor_map(enc, &tk, dt, k, rows / a.g, a.t, H, kKBlock) ||
+       !tensor_map(enc, &tv, dt, v, rows / a.g, a.t, H, kKBlock)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(rows),
+                  static_cast<unsigned>((a.s + kQBlock - 1) / kQBlock));
+  flash_wgmma_kernel<T, H><<<grid, kWsThreads, L::kSmem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -415,15 +929,15 @@ template <int H>
 int launch_fp32(const void* q, const void* k, const void* v, void* o,
                 long long rows, const Args& a, cudaStream_t stream) {
   const size_t smem =
-      (static_cast<size_t>(kQBlock) * H * 2 + kKBlock * (H + 1) +
-       kKBlock * H + kQBlock * (kKBlock + 1) + 3 * kQBlock) *
+      (static_cast<size_t>(kTile) * H * 2 + kTile * (H + 1) +
+       kTile * H + kTile * (kTile + 1) + 3 * kTile) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fp32_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(rows),
-                  static_cast<unsigned>((a.s + kQBlock - 1) / kQBlock));
+                  static_cast<unsigned>((a.s + kTile - 1) / kTile));
   flash_fp32_kernel<H><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), a);
@@ -435,8 +949,16 @@ int launch(int code, const void* q, const void* k, const void* v, void* o,
            long long rows, const Args& a, cudaStream_t stream) {
   switch (code) {
     case 0: return launch_fp32<H>(q, k, v, o, rows, a, stream);
-    case 1: return launch_mma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
-    case 2: return launch_mma<__half, H>(q, k, v, o, rows, a, stream);
+    case 1:
+      if constexpr (H >= 64)
+        return launch_wgmma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
+      else
+        return launch_mma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
+    case 2:
+      if constexpr (H >= 64)
+        return launch_wgmma<__half, H>(q, k, v, o, rows, a, stream);
+      else
+        return launch_mma<__half, H>(q, k, v, o, rows, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,10 @@
 """K1 — whole-row bitonic sort: the CUDA kernel and its plain version.
 
-The kernel (``csrc/bitonic_sort.cu``) runs the entire Batcher network on
-each row in shared memory, reading the row once and writing it once.  The
-plain version here is the same network in PyTorch, addressed with the
+The kernel (``csrc/bitonic_sort.cu`` over ``csrc/bitonic_reg.cuh``) runs
+the entire Batcher network on each row in registers, reading the row once
+and writing it once; :func:`schedule` says where each substage runs (in a
+thread, across a warp, or in a shared-memory round).  The plain version
+here is the same network in PyTorch, in that order, addressed with the
 reshape trick the JAX package uses: for a substage with partner distance
 ``j`` the row is viewed as ``(n/(2j), 2, j)``, partners are the two middle
 halves, and the direction is constant per outer chunk.  It runs for CPU
@@ -24,9 +26,23 @@ import torch
 from repro_torch.core import keycodec
 from repro_torch.kernels import _build
 
-# shared memory caps the row: 16384 x (4-byte key + 4-byte payload) is 128 KB
-# of the 227 KB a block may use; the next power of two would not fit
+# a CTA holds a row in at most 1024 threads of 16 keys (key-value rows of
+# 16384: 512 threads of 32 keys and payloads)
 MAX_N = 1 << 14
+
+
+def thread_keys(n: int, kv: bool = False) -> int:
+    """Keys a thread of the kernel holds for rows of n: 16, but 32 for
+    key-value rows of 16384 (``csrc/bitonic_reg.cuh`` ``bitonic_shape``)."""
+    return 32 if kv and n >= MAX_N else 16
+
+
+def shared_from(n: int, kv: bool = False) -> int:
+    """The shortest partner distance the kernel runs through shared
+    memory: a warp's 32 x 16 keys at 16 a thread; at 32 a thread every
+    distance past the thread (no shuffles)."""
+    e = thread_keys(n, kv)
+    return 32 * e if e == 16 else e
 
 
 def _substages(n: int):
@@ -40,6 +56,37 @@ def _substages(n: int):
             j //= 2
         k *= 2
     return out
+
+
+def schedule(n: int, kv: bool = False):
+    """Where the kernel runs each substage of the n-input network, in its
+    order (``csrc/bitonic_reg.cuh``), E = :func:`thread_keys` keys a
+    thread: a list of ``(place, [(k, j), ...])`` steps, place ``"shared"``
+    for a shared-memory round trip of up to log2(E) consecutive substages
+    with j >= :func:`shared_from` (the top of a stage first), ``"warp"``
+    for a stage's shuffle substages (E <= j below that) and ``"thread"``
+    for its substages with j < E, in registers."""
+    log_e = thread_keys(n, kv).bit_length() - 1
+    log_span = shared_from(n, kv).bit_length() - 1
+    steps = []
+    for lk in range(1, n.bit_length()):
+        k, lj = 1 << lk, lk - 1
+        while lj >= log_span:
+            r = min(log_e, lj - log_span + 1)
+            steps.append(("shared", [(k, 1 << b)
+                                     for b in range(lj, lj - r, -1)]))
+            lj -= r
+        if lj >= log_e:
+            steps.append(("warp", [(k, 1 << b)
+                                   for b in range(lj, log_e - 1, -1)]))
+        steps.append(("thread", [(k, 1 << b)
+                                 for b in range(min(lj, log_e - 1), -1, -1)]))
+    return steps
+
+
+def network_order(n: int):
+    """The (k, j) substages in the order :func:`schedule` runs them."""
+    return [kj for _, kjs in schedule(n) for kj in kjs]
 
 
 def _chunk_flags(n: int, k: int, j: int, device) -> torch.Tensor:
@@ -90,7 +137,7 @@ def apply_network(x: torch.Tensor, descending: bool) -> torch.Tensor:
     dtype = x.dtype
     x = keycodec.to_signed(x)
     rows, n = x.shape
-    for (k, j) in _substages(n):
+    for (k, j) in network_order(n):
         v = x.reshape(rows, n // (2 * j), 2, j)
         a, b = v[:, :, 0, :], v[:, :, 1, :]
         desc = _chunk_flags(n, k, j, x.device)
@@ -112,7 +159,7 @@ def apply_network_kv(keys: torch.Tensor, vals: torch.Tensor,
     dtype = keys.dtype
     keys = keycodec.to_signed(keys)
     rows, n = keys.shape
-    for (k, j) in _substages(n):
+    for (k, j) in network_order(n):
         kv = keys.reshape(rows, n // (2 * j), 2, j)
         vv = vals.reshape(rows, n // (2 * j), 2, j)
         ka, kb = kv[:, :, 0, :], kv[:, :, 1, :]

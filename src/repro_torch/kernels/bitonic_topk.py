@@ -1,8 +1,8 @@
 """K5 — per-row bitonic top-k: the CUDA kernel and its plain version.
 
-The kernel (``csrc/bitonic_topk.cu``) loads each row into shared memory
-with its lane indices as payload, runs K1's descending key-value network
-on them (the shared ``csrc/bitonic_net.cuh``) and writes only the first k
+The kernel (``csrc/bitonic_topk.cu``) loads each row into registers with
+its lane indices as payload, runs K1's descending key-value network on
+them (the shared ``csrc/bitonic_reg.cuh``) and writes only the first k
 keys and indices: one read of the row, one write of k columns.  The plain
 version is the port's key-value network (``bitonic_sort.apply_network_kv``)
 on the same lane indices, sliced to k.  Keys compare numerically, so -0.0
@@ -24,7 +24,7 @@ from repro_torch.core.sortspec import index_rows
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitonic_sort as _bs
 
-MAX_N = _bs.MAX_N       # the same shared-memory cap as K1
+MAX_N = _bs.MAX_N       # the same cap as K1
 
 
 def topk_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -19,9 +19,9 @@ q_offset``), not aligned to the end of T.  Masking uses -1e30 as the
 reference does, so a query that sees no key in the tiles it visits (only
 possible with a window or an offset) averages the values of those tiles,
 keys past T counting as zero vectors: the tiles are the query's
-``q_block`` bound clipped to ``k_block`` multiples, the kernel's fixed 64
-and 64 (only the plain version takes other block sizes).  Forward only: a
-tensor that requires grad is refused.
+``q_block`` bound clipped to ``k_block`` multiples, the kernels' fixed
+``Q_BLOCK`` and ``K_BLOCK`` (128 and 128; only the plain version takes other
+block sizes).  Forward only: a tensor that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -37,8 +37,8 @@ __all__ = ["Q_BLOCK", "K_BLOCK", "HEAD_DIMS", "NEG_INF", "flash_rows",
            "flash_rows_plain", "flash_attention"]
 
 NEG_INF = -1e30
-Q_BLOCK = 64          # csrc/flash_attention.cu kQBlock
-K_BLOCK = 64          # csrc/flash_attention.cu kKBlock
+Q_BLOCK = 128         # csrc/flash_attention.cu kQBlock
+K_BLOCK = 128         # csrc/flash_attention.cu kKBlock
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -145,7 +145,8 @@ def flash_rows(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
     """q2: (RQ, S, H); k2/v2: (RK, T, H); RQ = RK * G -> (RQ, S, H) in q2's
     dtype.  ``q_offset``: the absolute position of q2's first query.  The
     kernel for CUDA tensors (float32, bfloat16 or float16, H in
-    ``HEAD_DIMS``, contiguous, 64-query and 64-key blocks), the plain
+    ``HEAD_DIMS``, contiguous, ``Q_BLOCK``-query blocks over ``K_BLOCK``-key
+    tiles; bf16 / fp16 at H = 64 and 128 on wgmma fed by TMA), the plain
     version for CPU tensors."""
     g = _check(q2, k2, v2, "flash_rows")
     if not q2.is_cuda:

@@ -66,6 +66,28 @@ def test_k1_kernel_matches_plain(name, rows, n):
         _same(v1, v2)
 
 
+@pytest.mark.parametrize("name", ["float32", "int32"])
+@pytest.mark.parametrize("n", [1 << p for p in range(1, 15)])
+def test_k1_every_row_length_matches_plain(name, n):
+    """Every power of two K1 takes, key-only and key-value, both ways;
+    a row count that leaves the last CTA part empty (a CTA owns at least
+    2048 keys), ±0.0 and ±inf among the keys; then the same rows at an
+    offset off the 16-byte vectors (the kernel's scalar path)."""
+    rows = max(1, 2048 // n) + 3
+    x = _keys((rows, n), name, seed=n + 1)
+    idx = torch.arange(n, dtype=torch.int32, device="cuda") \
+        .expand(rows, n).contiguous()
+    for desc in (False, True):
+        _same(bs.sort_blocks(x, descending=desc), bs.apply_network(x, desc))
+        k1, v1 = bs.sort_kv_blocks(x, idx, descending=desc)
+        k2, v2 = bs.apply_network_kv(x, idx, desc)
+        _same(k1, k2)
+        _same(v1, v2)
+    flat = torch.cat([x.new_zeros(1), x.view(-1)])[1:].view(rows, n)
+    assert flat.data_ptr() % 16
+    _same(bs.sort_blocks(flat), bs.apply_network(flat, False))
+
+
 @pytest.mark.parametrize("name", DTYPES)
 @pytest.mark.parametrize("rows,l", [(64, 3), (8, 4096), (1, 1 << 20)])
 def test_k2_kernel_matches_plain(name, rows, l):
@@ -506,6 +528,56 @@ def test_k6_rows_that_see_no_key_match_plain():
     want = fa.flash_rows_plain(q, k, v, 300, causal=True, window=8)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float16"])
+@pytest.mark.parametrize("n,r,h,s,t,q_offset,window", [
+    (24, 8, 128, 1024, 1024, 0, 0),     # the serve's heads at S = 1024
+    (24, 8, 128, 2048, 2048, 0, 0),     # ... and 2048
+    (6, 2, 128, 1000, 1000, 0, 0),      # S = T off the 128-key tiles
+    (6, 2, 64, 333, 333, 0, 0),
+    (6, 2, 128, 200, 460, 260, 0),      # an offset across a tile edge
+    (6, 2, 64, 300, 300, 0, 200),       # a window edge inside tiles
+    (3, 1, 128, 257, 600, 300, 130),    # both, S one past two blocks
+])
+def test_k6_wgmma_kernel_matches_plain(name, n, r, h, s, t, q_offset,
+                                       window):
+    """The warp-specialised TMA + wgmma kernel (bf16 / fp16, H = 64 and
+    128) against its plain version: one launch, within the limits."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(s + t + h + n)
+    dtype = getattr(torch, name)
+    q = torch.randn((n, s, h), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((r, t, h), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((r, t, h), generator=gen, device="cuda").to(dtype)
+    _build.reset_launches()
+    got = fa.flash_rows(q, k, v, q_offset, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_fwd": 1}
+    want = fa.flash_rows_plain(q, k, v, q_offset, causal=True,
+                               window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K6_ATOL[name], err
+    rel = _row_rel_err(got, want)
+    assert rel <= K6_ROW_REL[name], rel
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float16"])
+@pytest.mark.parametrize("h", [64, 128])
+def test_k6_wgmma_rows_that_see_no_key_match_plain(name, h):
+    """The -1e30 arithmetic on the wgmma kernel: queries whose window holds
+    no key average the values of the 128-key tiles they visit."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(h)
+    dtype = getattr(torch, name)
+    q = torch.randn((2, 150, h), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, 200, h), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((1, 200, h), generator=gen, device="cuda").to(dtype)
+    got = fa.flash_rows(q, k, v, 300, causal=True, window=8)
+    want = fa.flash_rows_plain(q, k, v, 300, causal=True, window=8)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= K6_ATOL[name]
 
 
 def test_k6_wrapper_refuses_what_the_kernel_does_not_take():

@@ -50,25 +50,27 @@ def _oracle(q, k, v, causal, window, q_offset=0):
                                     jnp.asarray(v), mask))
 
 
-# (b, s, g, r, h, causal, window): S = T, every G in 1..4, every H, ragged
-# lengths (96, 100 are not multiples of the 64-key block)
+# (b, s, g, r, h, causal, window): S = T, every G in 1..4, every H, one
+# block and ragged lengths past it (1.5 and 1.5 blocks + 4 keys are not
+# multiples of the kernels' K_BLOCK, so the recurrence spans two tiles)
+_B1, _B15, _B15R = tfa.K_BLOCK, tfa.K_BLOCK * 3 // 2, tfa.K_BLOCK * 3 // 2 + 4
 CASES = [
-    (1, 64, 1, 2, 16, True, 0),
-    (2, 64, 2, 2, 32, True, 24),
-    (1, 96, 3, 2, 128, True, 0),
-    (2, 100, 4, 1, 16, True, 0),
-    (1, 100, 2, 3, 32, False, 0),
-    (2, 96, 1, 4, 16, False, 24),
-    (1, 100, 3, 1, 32, True, 24),
-    (2, 64, 4, 2, 128, False, 0),
-    (1, 96, 2, 1, 128, True, 24),
-    (2, 100, 1, 2, 128, True, 24),
+    (1, _B1, 1, 2, 16, True, 0),
+    (2, _B1, 2, 2, 32, True, 24),
+    (1, _B15, 3, 2, 128, True, 0),
+    (2, _B15R, 4, 1, 16, True, 0),
+    (1, _B15R, 2, 3, 32, False, 0),
+    (2, _B15, 1, 4, 16, False, 24),
+    (1, _B15R, 3, 1, 32, True, 24),
+    (2, _B1, 4, 2, 128, False, 0),
+    (1, _B15, 2, 1, 128, True, 24),
+    (2, _B15R, 1, 2, 128, True, 24),
 ]
 
 
 def _plain_blocks(q, k, v, **kw):
     """K6's plain version in the (B, S, N, H) layout, with block sizes
-    other than the kernel's fixed 64."""
+    other than the kernels' ``Q_BLOCK`` / ``K_BLOCK``."""
     b, s, n, h = q.shape
     t, r = k.shape[1], k.shape[2]
     q2, k2, v2 = (to_torch(x).transpose(1, 2).reshape(b * m, ln, h)
@@ -111,6 +113,25 @@ def test_plain_q_offset_matches_the_offset_mask(s, t, q_offset, window):
     q, k, v = _inputs(1, s, t, 6, 2, 16, seed=s + t)
     got = _plain_blocks(q, k, v, causal=True, window=window,
                         q_offset=q_offset, q_block=32, k_block=32)
+    np.testing.assert_allclose(got.numpy(),
+                               _oracle(q, k, v, True, window, q_offset),
+                               atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("s,t,q_offset,window", [
+    (200, 330, 130, 0),          # offset and T past whole 128-key tiles
+    (200, 330, 130, 150),        # a window edge inside the tiles
+    (300, 300, 0, 100),
+])
+def test_plain_at_the_kernel_blocks_matches_jax_attend(s, t, q_offset,
+                                                       window):
+    """The plain version at the kernels' own blocks (``Q_BLOCK`` queries
+    over ``K_BLOCK``-key tiles), the queries' causal bounds, windows and
+    offsets crossing tile edges, G = 3 (minitron's grouping)."""
+    q, k, v = _inputs(1, s, t, 6, 2, 64, seed=s + t + window)
+    got = _plain_blocks(q, k, v, causal=True, window=window,
+                        q_offset=q_offset, q_block=tfa.Q_BLOCK,
+                        k_block=tfa.K_BLOCK)
     np.testing.assert_allclose(got.numpy(),
                                _oracle(q, k, v, True, window, q_offset),
                                atol=3e-5, rtol=0)

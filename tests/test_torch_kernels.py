@@ -66,6 +66,54 @@ def test_k1_sort_kv_blocks_matches_pallas(name, descending):
     assert_same(rv, gv, "K1 kv payload")
 
 
+@pytest.mark.parametrize("kv", [False, True])
+@pytest.mark.parametrize("n", [1 << p for p in range(1, 15)])
+def test_k1_schedule_covers_the_network_in_order(n, kv):
+    """K1's schedule (where the kernel runs each substage) covers exactly
+    the network's substages in order; each step's substages sit where their
+    partner distance belongs (thread < 16 <= warp < 512 <= shared; for
+    key-value rows of 16384, 32 keys a thread: thread < 32 <= shared), a
+    shared round holds at most log2(E) consecutive substages of one stage,
+    and a row of 4096 keys takes 3 rounds, 16384 keys 6 (13 key-value)."""
+    e = tbs.thread_keys(n, kv)
+    span = tbs.shared_from(n, kv)
+    assert (e, span) == ((32, 32) if kv and n == 16384 else (16, 512))
+    steps = tbs.schedule(n, kv)
+    assert tbs.network_order(n) == tbs._substages(n)
+    assert [kj for _, kjs in steps for kj in kjs] == tbs._substages(n)
+    for place, kjs in steps:
+        lo, hi = {"thread": (1, e - 1), "warp": (e, span - 1),
+                  "shared": (span, n)}[place]
+        assert all(lo <= j <= hi for _, j in kjs), (place, kjs)
+        assert len({k for k, _ in kjs}) == 1
+        assert [j for _, j in kjs] == [kjs[0][1] >> i
+                                       for i in range(len(kjs))]
+        if place == "shared":
+            assert len(kjs) <= e.bit_length() - 1
+    rounds = sum(place == "shared" for place, _ in steps)
+    assert rounds == {4096: 3, 16384: 13 if kv else 6}.get(n, rounds)
+
+
+@pytest.mark.parametrize("n,descending", [(1024, False), (2048, True)])
+def test_k1_network_in_the_kernel_order_matches_pallas(n, descending):
+    """The plain network, run in the kernel's schedule, against the
+    reference's Pallas K1 (interpret mode) at rows long enough for shared
+    rounds: key-only and key-value (ties in keys and payloads)."""
+    x = keys("float32", (2, n), "mixed", seed=n)
+    ref = jbs.sort_blocks(jnp.asarray(x), descending=descending,
+                          interpret=True)
+    assert_same(ref, tbs.sort_blocks(to_torch(x), descending=descending),
+                f"K1 n={n}")
+    v = np.random.default_rng(n).integers(-3, 4, size=x.shape) \
+        .astype(np.int32)
+    rk, rv = jbs.sort_kv_blocks(jnp.asarray(x), jnp.asarray(v),
+                                descending=descending, interpret=True)
+    gk, gv = tbs.sort_kv_blocks(to_torch(x), to_torch(v),
+                                descending=descending)
+    assert_same(rk, gk, f"K1 kv keys n={n}")
+    assert_same(rv, gv, f"K1 kv payload n={n}")
+
+
 def test_k1_signed_zero_min_max_match_xla():
     """jnp.minimum(0.0, -0.0) is -0.0 but torch.minimum's is 0.0: the
     network's min/max must give XLA's bits in either operand order."""
@@ -326,6 +374,32 @@ def test_k3_pass_tile_counts_on_a_card_name_the_onesweep_tile():
             dtype = getattr(torch, name)
             assert trs.pass_tile_counts(n, dtype) == \
                 (-(-dtype.itemsize * 8 // 4), -(-n // trs.ONESWEEP_TILE))
+    finally:
+        tuning.set_active(before)
+
+
+def test_radix_cost_prices_n_keys_and_selection_keeps_its_tile():
+    """Under the card's profile (4096-key ``radix_tile``) a ``radix`` plan
+    of n = 4097 is priced on 4097 keys, as K3 sorts them (no padding to
+    8192); K4's ``selection_cost_ns`` still pads the row to its tile."""
+    from repro_torch.core import cost_model, tuning
+    before = tuning.active()
+    tuning.set_active(dataclasses.replace(
+        before, run_len=tuning.CUDA_RUN_LEN,
+        radix_tile=tuning.CUDA_RADIX_TILE))
+    try:
+        prof = tuning.active()
+        c = prof.constants
+        passes = -(-32 // prof.digit_bits)
+        for n, batch in ((4097, 1), (4097, 3), (4096, 2), (1, 1)):
+            assert cost_model.device_sort_cost_ns("radix", n, batch) == \
+                c.radix * batch * n * passes
+        assert cost_model.device_sort_cost_ns("radix", 4097) < \
+            cost_model.device_sort_cost_ns("radix", 8192)
+        tiled = -(-4097 // prof.radix_tile) * prof.radix_tile
+        assert tiled == 8192
+        assert cost_model.selection_cost_ns(4097, 8) == \
+            c.select * tiled * passes + c.torch * 8 * 3.0
     finally:
         tuning.set_active(before)
 
