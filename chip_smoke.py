@@ -9,13 +9,14 @@ Phases, each printed as one JSON line:
 
 1. build    compile every kernel (one ``nvcc`` per source, all at once)
             into ``build/kernels/``, and print what ``ptxas -v`` said of
-            K7's, K3's, K1's, K5's and K6's kernels (registers, stack
-            frame, spills) and K6's build warnings: no K7, K1, K5 or K6
-            kernel may have a stack frame or spills, and ptxas may not
-            serialise K6's wgmma products.  Then the machine code
-            (``cuobjdump -sass``): the instructions of each K7 kernel's main
-            loop by pipe, and the INT32 ALU instructions a pair costs (the
-            ops of K7's bound), no K7 kernel holding a min/max instruction;
+            K7's, K3's, K1's, K2's, K4's, K5's and K6's kernels
+            (registers, stack frame, spills) and K6's build warnings: no
+            K7, K1, K2, K4, K5 or K6 kernel may have a stack frame or
+            spills, and ptxas may not serialise K6's wgmma products.
+            Then the machine code (``cuobjdump -sass``): the instructions
+            of each K7 kernel's main loop by pipe, and the INT32 ALU
+            instructions a pair costs (the ops of K7's bound), no K7
+            kernel holding a min/max instruction;
             K6's bf16 H = 128 kernel must hold ``HGMMA`` and ``UTMALDG``
             (wgmma fed by TMA); K1's ALU instructions a compare-exchange,
             counted in the in-thread merge that closes each stage (the ops
@@ -24,7 +25,7 @@ Phases, each printed as one JSON line:
             bit for bit (signed zeros, ties and dtype extremes included; K7's
             pair and stage kernels at every width, K3's onesweep histogram
             and passes for 1-, 2- and 4-byte carriers and every digit
-            width);
+            width; K2's partition and merges in both directions);
             K6 (flash attention) within 1e-4 in float32 and 2e-2 in bf16,
             and each query's output within 2^-16 (float32) and 2^-6 (bf16)
             of the plain one's norm;
@@ -50,8 +51,11 @@ Phases, each printed as one JSON line:
             more calls; each K3 sort in it must be one onesweep histogram and
             one pass a digit (1 + 4 launches for 32-bit keys), and no
             retired kernel may run.  A ``torch.profiler`` trace of one
-            2^26 argsort each way says where the descending one's extra
-            time goes (kernels and aten ops by device ms);
+            2^26 argsort each way says where each one's time goes
+            (kernels and aten ops by device ms); neither may run a flip
+            (K2 merges descending runs with a descending comparator); a
+            trace of one select top-k of the sampling rows splits it
+            between K4 and the compaction;
 4. serve    minitron-4b at full width and depth (32 layers, d=3072, 4.2 B
             parameters in bf16, random weights from a seeded generator)
             through ``repro_torch.launch.serve.serve`` with the prefill's
@@ -72,8 +76,12 @@ Phases, each printed as one JSON line:
             ``torch.maximum`` for K7's pair kernel; nothing for K3's
             histogram and pass or K7's stage kernel, which no one call
             computes; ``scaled_dot_product_attention`` for K6) on the same
-            rows; K3's whole 2^26 sort beside ``torch.sort`` and its bound,
-            its launches counted on one call.
+            rows; K2 (its partition and merge launches together) at the
+            first and the last merge level of the 2^28 float32 sort and of
+            the 2^26 int32 argsort, both ways, and its partition launch
+            alone; K4's first and a later pass; K3's whole 2^26 sort beside
+            ``torch.sort`` and its bound, its launches counted on one
+            call.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -256,24 +264,33 @@ def phase_kernels(rng) -> dict:
         same_bits(v1, v2, "K1 kv random payload vals")
         cases += 2
 
-    # K2: runs sharing duplicates, strided pair views as the merge tree
+    # K2: runs sharing duplicates, strided pair views as the merge tree,
+    # both directions: the partition's cuts, then both merges
     for dtype in dtypes:
         for rows, l in ((500, 1), (64, 3), (32, 1000), (8, 4096),
-                        (1, 1 << 20)):
+                        (3, 12293), (1, 1 << 20)):
             raw = _keys(rng, (rows, 2, l), dtype)
-            pairs = keycodec.from_signed(
-                torch.sort(keycodec.to_signed(raw), dim=-1).values, dtype)
-            a, b = pairs[:, 0, :], pairs[:, 1, :]
-            same_bits(mp.merge_pairs_blocks(a, b), mp.rank_merge(a, b)[0],
-                      f"K2 {dtype} {rows}x{l}")
             va = torch.arange(l, dtype=torch.int32, device="cuda") \
                 .expand(rows, l).contiguous()
             vb = va + l
-            k1, v1 = mp.merge_pairs_kv_blocks(a, b, va, vb)
-            k2, v2 = mp.rank_merge(a, b, va, vb)
-            same_bits(k1, k2, f"K2 kv keys {dtype} {rows}x{l}")
-            same_bits(v1, v2, f"K2 kv vals {dtype} {rows}x{l}")
-            cases += 3
+            for desc in (False, True):
+                pairs = keycodec.from_signed(torch.sort(
+                    keycodec.to_signed(raw), dim=-1, descending=desc)
+                    .values.contiguous(), dtype)
+                a, b = pairs[:, 0, :], pairs[:, 1, :]
+                what = f"{dtype} {rows}x{l} desc={desc}"
+                same_bits(mp.merge_path_partition(a, b, descending=desc),
+                          mp.partition_plain(a, b, descending=desc),
+                          f"K2 partition {what}")
+                same_bits(mp.merge_pairs_blocks(a, b, descending=desc),
+                          mp.rank_merge(a, b, descending=desc)[0],
+                          f"K2 {what}")
+                k1, v1 = mp.merge_pairs_kv_blocks(a, b, va, vb,
+                                                  descending=desc)
+                k2, v2 = mp.rank_merge(a, b, va, vb, descending=desc)
+                same_bits(k1, k2, f"K2 kv keys {what}")
+                same_bits(v1, v2, f"K2 kv vals {what}")
+                cases += 4
 
     # K3: the onesweep histogram, every pass, then the whole kv sort (one
     # look-back scratch for all its passes) against the plain pass loop,
@@ -476,6 +493,9 @@ def _ref_sort(x, descending=False):
 
 
 K3 = ("radix_onesweep_hist", "radix_onesweep_pass")
+# K2: a merge is a partition launch and a merge launch
+K2 = ("merge_path_partition", "merge_pairs_blocks")
+K2_KV = ("merge_path_partition", "merge_pairs_kv_blocks")
 # kernels that left the port: no path may reach them
 RETIRED = ("radix_digit_hist", "radix_digit_scatter")
 
@@ -520,7 +540,8 @@ def trace_summary(fn, top: int = 8) -> dict:
     kernels.sort(key=lambda x: -x[2])
     ops.sort(key=lambda x: -x[2])
     return {"device_ms": sum(x[2] for x in kernels),
-            "kernels_ms": kernels[:top], "aten_ops_ms": ops[:top]}
+            "kernels_ms": kernels[:top], "aten_ops_ms": ops[:top],
+            "flips": sum(x[1] for x in kernels + ops if "flip" in x[0])}
 
 
 def phase_main(rng) -> dict:
@@ -573,7 +594,7 @@ def phase_main(rng) -> dict:
           "run_len": plan.run_len, "costs_ns": plan.costs})
     out = run("sort merge 2^28 float32",
               lambda: rsort.sort(x, method="merge"),
-              ("bitonic_sort_blocks", "merge_pairs_blocks"))
+              ("bitonic_sort_blocks",) + K2)
     same_bits(out, _ref_sort(x)[0], "sort 2^28")
     del out, x
 
@@ -585,26 +606,31 @@ def phase_main(rng) -> dict:
         order = run(f"argsort merge 2^26 int32 desc={desc}",
                     lambda: rsort.argsort(k, method="merge",
                                           descending=desc),
-                    ("bitonic_sort_kv_blocks", "merge_pairs_kv_blocks"))
+                    ("bitonic_sort_kv_blocks",) + K2_KV)
         same_bits(order, ref_i, f"argsort desc={desc}")
         sk, sv = run(f"sort_kv merge 2^26 int32 desc={desc}",
                      lambda: rsort.sort_kv(k, payload, method="merge",
                                            descending=desc),
-                     ("bitonic_sort_kv_blocks", "merge_pairs_kv_blocks"))
+                     ("bitonic_sort_kv_blocks",) + K2_KV)
         same_bits(sk, ref_k, f"sort_kv keys desc={desc}")
         same_bits(sv, ref_i, f"sort_kv payload desc={desc}")
         # a stable merge sort: K3 (stable) sorts the runs in K1's place
         order = run(f"argsort stable merge 2^26 int32 desc={desc}",
                     lambda: rsort.argsort(k, method="merge", stable=True,
                                           descending=desc),
-                    K3 + ("merge_pairs_kv_blocks",), k3_passes=4)
+                    K3 + K2_KV, k3_passes=4)
         same_bits(order, ref_i, f"stable argsort desc={desc}")
-    # where a descending argsort's extra time goes: a profiler trace of
-    # one call each way
-    emit({"phase": "main", "trace": "argsort merge 2^26 int32",
-          **{f"desc={desc}": trace_summary(
-              lambda: rsort.argsort(k, method="merge", descending=desc))
-             for desc in (False, True)}})
+    # where an argsort's time goes: a profiler trace of one call each way;
+    # the merge tree merges descending runs with K2's descending
+    # comparator, so neither way may flip a run
+    traces = {f"desc={desc}": trace_summary(
+        lambda: rsort.argsort(k, method="merge", descending=desc))
+        for desc in (False, True)}
+    emit({"phase": "main", "trace": "argsort merge 2^26 int32", **traces})
+    flipped = {d: s["flips"] for d, s in traces.items() if s["flips"]}
+    if flipped:
+        raise AssertionError(f"argsort merge 2^26: flip kernels or aten "
+                             f"ops in the trace: {flipped}")
     del k, order, sk, sv, ref_k, ref_i
 
     # 2^26 uint32 through the radix backend (K3)
@@ -632,7 +658,7 @@ def phase_main(rng) -> dict:
     xt = torch.from_numpy(rng.standard_normal(TOPK_N, dtype=np.float32)).cuda()
     v, i = run(f"topk merge k={TOPK_K} 2^24 float32",
                lambda: rsort.topk(xt, TOPK_K, method="merge"),
-               ("bitonic_sort_kv_blocks", "merge_pairs_kv_blocks"))
+               ("bitonic_sort_kv_blocks",) + K2_KV)
     ref_v, ref_i = _ref_sort(xt, descending=True)
     same_bits(v, ref_v[:TOPK_K], "topk values")
     same_bits(i, ref_i[:TOPK_K], "topk indices")
@@ -665,6 +691,10 @@ def phase_main(rng) -> dict:
     v_i = run("topk select k=50 (64, 128256) float32",
               lambda: rsort.topk(logits, 50, method="select"), sel_k)
     check_topk("topk select vocab", logits, 50, "select", v_i)
+    # where a select top-k's time goes: K4's passes against the
+    # compaction's PyTorch ops and K1's ordering
+    emit({"phase": "main", "trace": "topk select k=50 (64, 128256)",
+          **trace_summary(lambda: rsort.topk(logits, 50, method="select"))})
     k5_k1 = ("bitonic_topk_blocks", "bitonic_sort_kv_blocks")
     v_i = run("topk cuda k=50 (64, 128256) float32",
               lambda: rsort.topk(logits, 50, method="cuda"), k5_k1)
@@ -697,8 +727,7 @@ def phase_main(rng) -> dict:
     gk = GRAD_N // 100
     v_i = run(f"topk select k={gk} |g| of 2^26 float32",
               lambda: rsort.topk(g, gk, method="select"),
-              ("select_digit_hist", "bitonic_sort_kv_blocks",
-               "merge_pairs_kv_blocks"))
+              ("select_digit_hist", "bitonic_sort_kv_blocks") + K2_KV)
     check_topk("topk select grad", g, gk, "select", v_i)
     del g, v_i
 
@@ -1163,49 +1192,56 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
         sass_alu_per_compare_exchange=k1_ops["kv"])
     del t, idx
 
-    def sorted_pairs(pairs):
-        """(rows, 2, L) sorted along L -> the strided (a, b) views the merge
-        tree hands the kernel, and the rows as one (rows, 2L) tensor."""
-        pairs = torch.sort(pairs, dim=-1).values
-        return pairs[:, 0, :], pairs[:, 1, :], pairs.view(pairs.shape[0], -1)
-
-    # K2 key-only: the last merge level of the 2^28 float32 sort (checked),
-    # then the first (checked and timed)
-    a, b, _ = sorted_pairs(torch.randn((1, 2, MAIN_N // 2), generator=gen,
-                                       device="cuda"))
-    last = compare("merge_pairs_blocks (1, 2^27) x 2",
-                   lambda: (mp.merge_pairs_blocks(a, b),),
-                   lambda: mp.rank_merge(a, b)[:1])
-    a, b, flat = sorted_pairs(torch.randn((MAIN_N // (2 * n), 2, n),
-                                          generator=gen, device="cuda"))
-    row("merge_pairs_blocks", "src/repro_torch/csrc/merge_path.cu",
-        "src/repro/kernels/merge_path.py:182",
-        lambda: (mp.merge_pairs_blocks(a, b),),
-        lambda: mp.rank_merge(a, b)[:1],
-        2 * flat.numel() * 4, flat.numel(),
-        lambda: torch.sort(flat, dim=-1), err=last)
-    del a, b, flat
-
-    # K2 key-value: the last and the first merge level of the 2^26 int32
-    # argsort (heavy ties across the two runs)
-    def kv_pairs(rows_, l):
-        a, b, flat = sorted_pairs(ints((rows_, 2, l), 4096))
-        va = torch.arange(l, dtype=torch.int32, device="cuda") \
-            .expand(a.shape).contiguous()
-        return a, b, va, va + l, flat
-
-    a, b, va, vb, _ = kv_pairs(1, KV_N // 2)
-    last = compare("merge_pairs_kv_blocks (1, 2^25) x 2",
-                   lambda: mp.merge_pairs_kv_blocks(a, b, va, vb),
-                   lambda: mp.rank_merge(a, b, va, vb))
-    a, b, va, vb, flat = kv_pairs(KV_N // (2 * n), n)
-    row("merge_pairs_kv_blocks", "src/repro_torch/csrc/merge_path.cu",
-        "src/repro/kernels/merge_path.py:182",
-        lambda: mp.merge_pairs_kv_blocks(a, b, va, vb),
-        lambda: mp.rank_merge(a, b, va, vb),
-        2 * flat.numel() * 8, flat.numel(),
-        lambda: torch.sort(flat, dim=-1, stable=True), err=last)
-    del a, b, va, vb, flat
+    # K2 at the first and the last merge level of the 2^28 float32 sort
+    # (key-only) and of the 2^26 int32 argsort (key-value, heavy ties
+    # across the two runs), both ways, on the strided (a, b) views the
+    # merge tree hands it: the wrapper's two launches (partition, merge)
+    # timed together against the plain rank merge (the flip construction
+    # when descending); then, ascending, the partition launch alone.  Its
+    # bound: the binary searches' probes, two keys a step, and the cuts.
+    for kv, total in ((False, MAIN_N), (True, KV_N)):
+        name = "merge_pairs_kv_blocks" if kv else "merge_pairs_blocks"
+        for level, l in (("first", n), ("last", total // 2)):
+            for desc in (False, True):
+                shape = (total // (2 * l), 2, l)
+                pairs = ints(shape, 4096) if kv else torch.randn(
+                    shape, generator=gen, device="cuda")
+                pairs = torch.sort(pairs, dim=-1, descending=desc).values
+                a, b = pairs[:, 0, :], pairs[:, 1, :]
+                flat = pairs.view(shape[0], -1)
+                va = torch.arange(l, dtype=torch.int32, device="cuda") \
+                    .expand(a.shape).contiguous()
+                vb = va + l
+                if kv:
+                    kernel = lambda: mp.merge_pairs_kv_blocks(  # noqa: E731
+                        a, b, va, vb, descending=desc)
+                    plain = lambda: mp.rank_merge(  # noqa: E731
+                        a, b, va, vb, descending=desc)
+                else:
+                    kernel = lambda: (mp.merge_pairs_blocks(  # noqa: E731
+                        a, b, descending=desc),)
+                    plain = lambda: mp.rank_merge(  # noqa: E731
+                        a, b, descending=desc)[:1]
+                row(name, "src/repro_torch/csrc/merge_path.cu",
+                    "src/repro/kernels/merge_path.py:182", kernel, plain,
+                    2 * flat.numel() * (8 if kv else 4), flat.numel(),
+                    lambda: torch.sort(flat, dim=-1, stable=kv,
+                                       descending=desc),
+                    level=level, descending=desc, shape=list(shape))
+                if not desc:
+                    cuts = shape[0] * (mp.tiles_per_row(l) + 1)
+                    probes = l.bit_length()
+                    row("merge_path_partition",
+                        "src/repro_torch/csrc/merge_path.cu",
+                        "src/repro/kernels/merge_path.py:182",
+                        lambda: (mp.merge_path_partition(a, b),),
+                        lambda: (mp.partition_plain(a, b),),
+                        cuts * (2 * probes * a.element_size() + 4),
+                        cuts * probes, None, level=level,
+                        shape=list(shape), of=name,
+                        search="the reference's _diag_search, "
+                               "src/repro/kernels/merge_path.py:97")
+                del pairs, a, b, flat, va, vb
 
     # K3 at the 2^26 uint32 radix sort_kv of the main path: the histogram
     # of all passes, one pass (each launch on a fresh look-back scratch,
@@ -1254,32 +1290,37 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
     del keys, vals, hist, u
 
     # K4: the first (all-active) pass over the 2^24 float32 row of the
-    # select top-k, and a later pass under the row's 64th key as prefix;
-    # torch.topk of the same row is the one library call for the function
+    # select top-k, and a later pass under the row's 64th key as prefix
+    # (its time in the row as later_pass_ms); each launch counts into its
+    # own histogram, zeroed before the clock starts (as a selection zeroes
+    # one buffer for all its passes); torch.topk of the same row is the one
+    # library call for the function
     x = torch.randn((1, TOPK_N), generator=gen, device="cuda")
     nbits = 32
     zero = torch.zeros(1, dtype=torch.int64, device="cuda")
-    hist_bytes = x.numel() * 4 + 8 + radix * 4
-    row("select_digit_hist", "src/repro_torch/csrc/radix_select.cu",
-        "src/repro/kernels/radix_select.py:128",
-        lambda: (sel.digit_hist(x, zero, nbits - digit_bits, digit_bits,
-                                radix_tile, encode=True),),
-        lambda: (sel.digit_hist_plain(x, zero, nbits - digit_bits,
-                                      digit_bits, radix_tile, encode=True),),
-        hist_bytes, x.numel(), lambda: torch.topk(x, TOPK_K))
     enc = keycodec.encode(x, descending=True)
     kth = torch.sort(enc.to(torch.int64) & 0xffffffff, dim=-1) \
         .values[:, TOPK_K - 1].contiguous()
-    later = compare("select_digit_hist later pass",
-                    lambda: (sel.digit_hist(x, kth, 8, digit_bits,
-                                            radix_tile, encode=True),),
-                    lambda: (sel.digit_hist_plain(x, kth, 8, digit_bits,
-                                                  radix_tile, encode=True),))
-    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], later)
-    emit({"phase": "timing", "name": "select_digit_hist later pass",
-          "ms": kernel_ms(lambda: sel.digit_hist(x, kth, 8, digit_bits,
-                                               radix_tile, encode=True),
-                        10)[0]})
+
+    def k4(thresh, shift, reps):
+        bufs = iter(torch.zeros((reps + 1, 1, radix), dtype=torch.int32,
+                                device="cuda"))
+        return lambda: (sel.digit_hist(x, thresh, shift, digit_bits,
+                                       radix_tile, encode=True,
+                                       out=next(bufs)),)
+
+    def k4_plain(thresh, shift):
+        return lambda: (sel.digit_hist_plain(x, thresh, shift, digit_bits,
+                                             radix_tile, encode=True),)
+
+    later = compare("select_digit_hist later pass", k4(kth, 8, 0),
+                    k4_plain(kth, 8))
+    later_ms = kernel_ms(k4(kth, 8, 10), 10)[0]
+    row("select_digit_hist", "src/repro_torch/csrc/radix_select.cu",
+        "src/repro/kernels/radix_select.py:128",
+        k4(zero, nbits - digit_bits, 10), k4_plain(zero, nbits - digit_bits),
+        x.numel() * 4 + 8 + radix * 4, x.numel(),
+        lambda: torch.topk(x, TOPK_K), err=later, later_pass_ms=later_ms)
     # the whole select top-k (4 passes, compaction, K1 order) and the
     # cuda top-k (K5 chunks, K1 or the merge path) beside torch.topk
     for name, fn in (("select", lambda: sel.select_topk(x, TOPK_K)),
@@ -1446,15 +1487,16 @@ def time_k6(row, gen) -> None:
 
 
 # sources whose kernels must keep everything in registers: no stack frame,
-# no spills (K7's rows, K1's and K5's 16 keys a thread, K6's accumulators)
+# no spills (K7's rows, K1's and K5's 16 keys a thread, K6's accumulators,
+# K2's 16 merged outputs a thread, K4's vectors in flight)
 NO_SPILLS = ("bitserial_cas", "bitonic_sort", "bitonic_topk",
-             "flash_attention")
+             "flash_attention", "merge_path", "radix_select")
 
 
 def check_ptxas(_build) -> None:
-    """Print what ``ptxas -v`` said of the K7, K3, K1, K5 and K6 kernels
-    (registers, stack frame, spills), one line a kernel, and K6's build
-    warnings and performance notes; fail unless every kernel of
+    """Print what ``ptxas -v`` said of the K7, K3, K1, K5, K6, K2 and K4
+    kernels (registers, stack frame, spills), one line a kernel, and K6's
+    build warnings and performance notes; fail unless every kernel of
     ``NO_SPILLS`` has no stack frame and no spills, and if ptxas
     serialised K6's wgmma products (its C7520 note: the products then run
     one after another with nothing overlapping them)."""

@@ -190,16 +190,14 @@ def device_sort_cost_ns(method: str, n: int, batch: int = 1, *,
 
 def selection_cost_ns(n: int, k: int, key_bits: int = 32, batch: int = 1, *,
                       consts: Optional[DeviceSortConstants] = None,
-                      digit_bits: Optional[int] = None,
-                      tile: Optional[int] = None) -> float:
+                      digit_bits: Optional[int] = None) -> float:
     """Estimated ns for an exact top-k *selection* of ``(batch, n)`` rows:
     ``ceil(b/digit_bits)`` MSD digit-refinement passes of O(n) counting
-    over the tile-padded row, plus the O(k log k) ordering of the k
-    survivors (priced as a ``torch`` sort of k)."""
+    over the row (K4's grid strides over the keys and pads nothing), plus
+    the O(k log k) ordering of the k survivors (priced as a ``torch`` sort
+    of k)."""
     prof = _tuning.active()
     c = consts or prof.constants
     digit_bits = prof.digit_bits if digit_bits is None else digit_bits
-    tile = prof.radix_tile if tile is None else tile
     passes = -(-key_bits // digit_bits)
-    tiled = -(-n // tile) * tile
-    return c.select * batch * tiled * passes + c.torch * batch * k * _log2(k)
+    return c.select * batch * n * passes + c.torch * batch * k * _log2(k)

@@ -43,9 +43,9 @@ DEFAULT_CPU_RUN_LEN = 8192      # host tile (the JAX package's CPU default)
 # CUDA placeholders until calibration measures them.  run_len: the bitonic
 # kernel holds a whole run in shared memory (16 KB of float32 keys, 32 KB
 # with the payload), small enough for several CTAs per SM; a 2^28-key sort
-# then takes 16 merge levels.  radix_tile: the histogram is tiles x radix
-# int32, so 4096-element tiles keep it at 1/16 of the keys' bytes where the
-# CPU's 256 would make it as large as the keys.
+# then takes 16 merge levels.  radix_tile: the tile of the plain radix
+# histograms (the reference's); the card's K3 runs fixed 4096-key tiles and
+# K4 a grid sized to the card, so neither follows it there.
 CUDA_RUN_LEN = 4096
 CUDA_RADIX_TILE = 4096
 DEFAULT_SELECT_MIN_N = 1024     # auto never picks selection below this n

@@ -12,9 +12,12 @@ Merge backends:
                compare-exchanges, not stable (ties follow a consistent
                left-wins predicate; payloads stay with their keys).
 
-``torch``/``cuda`` are ascending-stable (left run wins ties); descending
-merges flip in, swap the pair, merge ascending and flip out.  The k-way
-merges of the spill tier (``kway_merge*``) come with that tier.
+``torch``/``cuda`` are stable (the left run wins ties) in both
+directions.  ``cuda`` merges descending runs with a descending comparator
+and moves no more bytes than an ascending merge; ``torch`` and
+``bitonic`` keep the reference's construction (flip in, swap the pair,
+merge ascending, flip out), as ``src/repro/engine/merge.py`` does.  The
+k-way merges of the spill tier (``kway_merge*``) come with that tier.
 """
 from __future__ import annotations
 
@@ -67,25 +70,18 @@ def merge_pairs(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(
             f"merge backend must be one of {MERGE_BACKENDS}, got {backend!r}")
     va, vb = values
-    if descending:
-        # flip to ascending AND swap the pair: the ascending merge's
-        # left-wins rule becomes right-wins after the final flip, so
-        # swapping roles keeps "a first on equal keys"
-        a, b = b.flip(-1), a.flip(-1)
-        va, vb = (None if vb is None else vb.flip(-1),
-                  None if va is None else va.flip(-1))
     if backend == "cuda":
         if va is None:
-            out, vout = _mp.merge_pairs_blocks(a, b), None
+            out, vout = _mp.merge_pairs_blocks(
+                a, b, descending=descending), None
         else:
-            out, vout = _mp.merge_pairs_kv_blocks(a, b, va, vb)
+            out, vout = _mp.merge_pairs_kv_blocks(a, b, va, vb,
+                                                  descending=descending)
     elif backend == "bitonic":
-        out, vout = _bitonic_box_merge(a, b, va, vb)
+        out, vout = (_mp.flip_merge(_bitonic_box_merge, a, b, va, vb)
+                     if descending else _bitonic_box_merge(a, b, va, vb))
     else:
-        out, vout = _mp.rank_merge(a, b, va, vb)
-    if descending:
-        out = out.flip(-1)
-        vout = None if vout is None else vout.flip(-1)
+        out, vout = _mp.rank_merge(a, b, va, vb, descending=descending)
     return (out, vout) if values[0] is not None else out
 
 

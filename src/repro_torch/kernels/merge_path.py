@@ -1,17 +1,22 @@
-"""K2 — stable merge of row-sorted run pairs: the CUDA kernel and its plain
-version.
+"""K2 — stable merge of row-sorted run pairs, either direction: the CUDA
+kernels and their plain versions.
 
-The kernel (``csrc/merge_path.cu``) cuts each output row into tiles of
-``KERNEL_TILE`` by binary search on the merge path's diagonals and merges
-each tile's two windows in shared memory.  The plain version is the rank
-merge: every element's output slot is its own index plus its cross-rank in
-the partner run (``searchsorted``; ``a`` counts only strictly smaller
-b-elements, ``b`` counts the a-elements less or equal, so ``a`` wins
-ties), placed with one scatter per run.  A stable merge with a fixed tie
-winner has exactly one result, so the two agree bit for bit, whatever
-their order of work.
+On a card a merge is two launches (``csrc/merge_path.cu``): the partition
+kernel binary-searches the merge path's diagonal at every boundary of the
+output's ``KERNEL_TILE``-output tiles, and the merge kernel merges each
+tile's two windows in shared memory along those cuts.  The plain version is
+the rank merge: every element's output slot is its own index plus its
+cross-rank in the partner run (``searchsorted``; ``a`` counts only strictly
+smaller b-elements, ``b`` counts the a-elements less or equal, so ``a``
+wins ties), placed with one scatter per run; descending, it is the
+reference's construction (flip both runs into ascending order, swap them,
+merge, flip out).  A stable merge with a fixed tie winner has exactly one
+result, so kernel and plain agree bit for bit, whatever their order of
+work.
 
-Both merge ascending; callers flip for descending merges.  Keys are
+Both directions keep ``a`` first on equal keys: the kernel compares in the
+merge's direction (descending takes ``a`` when ``a >= b``), so a
+descending merge moves no more bytes than an ascending one.  Keys are
 NaN-free and compare numerically (-0.0 == +0.0).
 """
 from __future__ import annotations
@@ -24,17 +29,15 @@ import torch
 from repro_torch.core import keycodec
 from repro_torch.kernels import _build
 
-KERNEL_TILE = 2048          # outputs per CTA in csrc/merge_path.cu
+KERNEL_TILE = 4096          # outputs a tile in csrc/merge_path.cu
 
 
-def rank_merge(a: torch.Tensor, b: torch.Tensor,
-               va: Optional[torch.Tensor] = None,
-               vb: Optional[torch.Tensor] = None):
-    """Plain version: merge row-sorted (rows, La) + (rows, Lb) ascending,
-    ``a`` first on ties -> (rows, La+Lb) (and the permuted payloads)."""
-    dtype = a.dtype
-    a = keycodec.to_signed(a).contiguous()
-    b = keycodec.to_signed(b).contiguous()
+def tiles_per_row(l: int) -> int:
+    """Tiles of a merged row of 2L outputs."""
+    return -(-2 * l // KERNEL_TILE)
+
+
+def _rank_merge_ascending(a, b, va, vb):
     rows, la = a.shape
     lb = b.shape[-1]
     pa = torch.arange(la, device=a.device) + torch.searchsorted(b, a)
@@ -42,12 +45,61 @@ def rank_merge(a: torch.Tensor, b: torch.Tensor,
         a, b, right=True)
     out = torch.empty((rows, la + lb), dtype=a.dtype, device=a.device)
     out.scatter_(1, pa, a).scatter_(1, pb, b)
-    out = keycodec.from_signed(out, dtype)
     if va is None:
         return out, None
     vout = torch.empty((rows, la + lb), dtype=va.dtype, device=va.device)
     vout.scatter_(1, pa, va).scatter_(1, pb, vb)
     return out, vout
+
+
+def flip_merge(merge, a, b, va=None, vb=None):
+    """A descending merge through an ascending ``merge(a, b, va, vb)``: the
+    reference's construction.  Flip both runs into ascending order AND swap
+    them: the ascending merge's left-wins rule becomes right-wins after the
+    final flip, so swapping roles keeps ``a`` first on equal keys."""
+    out, vout = merge(b.flip(-1), a.flip(-1),
+                      None if vb is None else vb.flip(-1),
+                      None if va is None else va.flip(-1))
+    return out.flip(-1), None if vout is None else vout.flip(-1)
+
+
+def rank_merge(a: torch.Tensor, b: torch.Tensor,
+               va: Optional[torch.Tensor] = None,
+               vb: Optional[torch.Tensor] = None, *,
+               descending: bool = False):
+    """Plain version: merge row-sorted (rows, La) + (rows, Lb), ascending
+    (or descending), ``a`` first on ties -> (rows, La+Lb) (and the
+    permuted payloads)."""
+    dtype = a.dtype
+    a = keycodec.to_signed(a).contiguous()
+    b = keycodec.to_signed(b).contiguous()
+    if descending:
+        out, vout = flip_merge(_rank_merge_ascending, a, b, va, vb)
+    else:
+        out, vout = _rank_merge_ascending(a, b, va, vb)
+    return keycodec.from_signed(out.contiguous(), dtype), vout
+
+
+def partition_plain(a: torch.Tensor, b: torch.Tensor, *,
+                    descending: bool = False) -> torch.Tensor:
+    """Plain version of the partition kernel: (rows, tiles + 1) int32, the
+    a-elements among the first ``min(t * KERNEL_TILE, 2L)`` outputs of the
+    merge, for every tile boundary t: the count of a's output slots below
+    the boundary."""
+    a = keycodec.to_signed(a).contiguous()
+    b = keycodec.to_signed(b).contiguous()
+    rows, l = a.shape
+    ar = torch.arange(l, device=a.device)
+    if descending:
+        # a[i] goes after the b-elements strictly greater
+        slot = ar + l - torch.searchsorted(b.flip(-1).contiguous(), a,
+                                           right=True)
+    else:
+        slot = ar + torch.searchsorted(b, a)
+    d = (torch.arange(tiles_per_row(l) + 1, device=a.device)
+         * KERNEL_TILE).clamp(max=2 * l)
+    return torch.searchsorted(slot.contiguous(),
+                              d.expand(rows, -1).contiguous()).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -62,8 +114,11 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("merge_path")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.merge_path_partition.argtypes = [i, vp, ll, vp, ll, vp, ll, i, i,
+                                             i, vp]
+        lib.merge_path_partition.restype = i
         lib.merge_pairs_blocks.argtypes = [i, vp, ll, vp, ll, vp, ll, vp, ll,
-                                           vp, vp, ll, i, vp]
+                                           vp, vp, vp, ll, i, i, i, vp]
         lib.merge_pairs_blocks.restype = i
         _lib_handle = lib
     return _lib_handle
@@ -84,15 +139,50 @@ def _row_stride(t, name: str) -> int:
     return t.stride(0)
 
 
-def _launch(a, b, va, vb, name: str):
+def _check_keys(a, b, name: str) -> None:
     _check_pair(a, b, name)
     if a.dtype not in _build.KEY_CODES:
         raise TypeError(f"{name}: no kernel for keys of "
                         f"{keycodec.dtype_name(a.dtype)}")
+    if 2 * a.shape[-1] >= 1 << 31:
+        raise ValueError(f"{name}: run length {a.shape[-1]} overflows the "
+                         f"kernel's int32 positions")
+
+
+def _partition(a, b, descending: bool) -> torch.Tensor:
+    """The partition kernel's launch: (rows, tiles + 1) int32 cuts."""
     rows, l = a.shape
-    if 2 * l >= 1 << 31:
-        raise ValueError(f"{name}: run length {l} overflows the kernel's "
-                         f"int32 positions")
+    shape = (rows, tiles_per_row(l) + 1)
+    if a.numel() == 0:
+        return torch.zeros(shape, dtype=torch.int32, device=a.device)
+    cuts = torch.empty(shape, dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        status = _lib().merge_path_partition(
+            _build.KEY_CODES[a.dtype], _build.ptr(a), _row_stride(a, "K2"),
+            _build.ptr(b), _row_stride(b, "K2"), _build.ptr(cuts), rows, l,
+            KERNEL_TILE, int(descending), _build.stream_of(a))
+    _build.check(status, "merge_path_partition")
+    _build.count_launch("merge_path_partition")
+    return cuts
+
+
+def merge_path_partition(a: torch.Tensor, b: torch.Tensor, *,
+                         descending: bool = False) -> torch.Tensor:
+    """The merge's tile cuts: (rows, tiles + 1) int32 a-element counts at
+    every ``KERNEL_TILE`` boundary of the merged rows (see
+    :func:`partition_plain`)."""
+    _check_keys(a, b, "merge_path_partition")
+    if a.is_cuda:
+        return _partition(a, b, descending)
+    if a.device.type != "cpu":
+        raise ValueError(f"merge_path_partition: unsupported device "
+                         f"{a.device}")
+    return partition_plain(a, b, descending=descending)
+
+
+def _launch(a, b, va, vb, descending: bool, name: str):
+    _check_keys(a, b, name)
+    rows, l = a.shape
     if va is not None:
         _check_pair(va, vb, name)
         if va.dtype != torch.int32 or va.shape != a.shape \
@@ -107,37 +197,41 @@ def _launch(a, b, va, vb, name: str):
     strides = [_row_stride(t, name) for t in (a, b)]
     vstrides = [0, 0] if va is None else [_row_stride(t, name)
                                           for t in (va, vb)]
+    cuts = _partition(a, b, descending)
     with torch.cuda.device(a.device):
         status = _lib().merge_pairs_blocks(
             _build.KEY_CODES[a.dtype], _build.ptr(a), strides[0],
             _build.ptr(b), strides[1], _build.ptr(va), vstrides[0],
             _build.ptr(vb), vstrides[1], _build.ptr(out), _build.ptr(vout),
-            rows, l, _build.stream_of(a))
+            _build.ptr(cuts), rows, l, KERNEL_TILE, int(descending),
+            _build.stream_of(a))
     _build.check(status, name)
     _build.count_launch(name)
     return out, vout
 
 
-def merge_pairs_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Merge row-wise sorted (rows, L) + (rows, L) -> (rows, 2L), ascending,
-    ``a`` first on ties.  Rows may be strided views; each row must be
-    contiguous."""
+def merge_pairs_blocks(a: torch.Tensor, b: torch.Tensor, *,
+                       descending: bool = False) -> torch.Tensor:
+    """Merge row-wise sorted (rows, L) + (rows, L) -> (rows, 2L), ascending
+    (or descending), ``a`` first on ties.  Rows may be strided views; each
+    row must be contiguous."""
     if a.is_cuda:
-        return _launch(a, b, None, None, "merge_pairs_blocks")[0]
+        return _launch(a, b, None, None, descending, "merge_pairs_blocks")[0]
     if a.device.type != "cpu":
         raise ValueError(f"merge_pairs_blocks: unsupported device {a.device}")
     _check_pair(a, b, "merge_pairs_blocks")
-    return rank_merge(a, b)[0]
+    return rank_merge(a, b, descending=descending)[0]
 
 
 def merge_pairs_kv_blocks(a: torch.Tensor, b: torch.Tensor,
-                          va: torch.Tensor, vb: torch.Tensor
+                          va: torch.Tensor, vb: torch.Tensor, *,
+                          descending: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Key-value variant: payloads ride along their keys."""
     if a.is_cuda:
-        return _launch(a, b, va, vb, "merge_pairs_kv_blocks")
+        return _launch(a, b, va, vb, descending, "merge_pairs_kv_blocks")
     if a.device.type != "cpu":
         raise ValueError(f"merge_pairs_kv_blocks: unsupported device "
                          f"{a.device}")
     _check_pair(a, b, "merge_pairs_kv_blocks")
-    return rank_merge(a, b, va, vb)
+    return rank_merge(a, b, va, vb, descending=descending)

@@ -22,10 +22,14 @@ order).
 
 The histogram is the kernel (``csrc/radix_select.cu``): on a CUDA tensor
 :func:`digit_hist` launches it, on a CPU tensor it runs the plain version,
-a masked per-tile histogram in PyTorch ops.  The digit choice between
-passes is a few ops on ``(rows, radix)`` counts on the keys' device, with
-no host synchronisation.  The compaction is PyTorch ops (``cumsum`` +
-``searchsorted``), as it is jnp outside Pallas in the reference.  The
+the reference's masked per-tile histogram in PyTorch ops.  The kernel's
+grid is sized to the card, not to ``tile``, which only the plain version
+reads; the counts do not depend on it.  A selection zeroes one
+``(passes, rows, radix)`` buffer and each pass counts into its slice.  The
+digit choice between passes is a few ops on ``(rows, radix)`` counts on
+the keys' device, with no host synchronisation.  The compaction is
+PyTorch ops (``cumsum`` + ``searchsorted``), as it is jnp outside Pallas
+in the reference.  The
 final order of the k survivors is K1's key-value kernel on a card (k <=
 16384) or the engine's merge path (K1 runs, K2 merges) above that, and a
 stable ``torch.sort`` on the CPU.
@@ -55,8 +59,8 @@ _UNSIGNED_CODE = {1: torch.uint8, 2: torch.uint16, 4: torch.uint32}
 
 def pass_tile_counts(n: int, dtype, tile: Optional[int] = None,
                      digit_bits: Optional[int] = None) -> Tuple[int, int]:
-    """(refinement passes, histogram tiles per row) at this shape, from
-    the shape alone."""
+    """(refinement passes, the plain version's histogram tiles per row) at
+    this shape, from the shape alone."""
     tile, digit_bits = _resolve(tile, digit_bits)
     tile = min(tile, max(8, n))
     return -(-keycodec.key_bits(dtype) // digit_bits), -(-n // tile)
@@ -113,7 +117,7 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("radix_select")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.select_digit_hist.argtypes = [i, vp, vp, vp, ll, ll, i, i, i, i,
+        lib.select_digit_hist.argtypes = [i, vp, vp, vp, ll, ll, i, i, i,
                                           vp]
         lib.select_digit_hist.restype = i
         _lib_handle = lib
@@ -121,12 +125,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def digit_hist(keys: torch.Tensor, thresh: torch.Tensor, shift: int,
-               digit_bits: int, tile: int, *, encode: bool) -> torch.Tensor:
+               digit_bits: int, tile: int, *, encode: bool,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(rows, n) keys -> (rows, 2^digit_bits) int32 counts of the digit at
     ``shift`` among the keys still active under ``thresh`` (int64 (rows,),
     the unsigned encoded threshold so far).  ``encode=True``: ``keys`` are
     source-dtype keys, encoded descending on the fly (by the kernel in
-    registers); ``encode=False``: they are encoded carrier keys already."""
+    registers); ``encode=False``: they are encoded carrier keys already.
+    ``tile`` is the plain version's (the reference's) histogram tile.
+    With ``out`` (a zeroed contiguous int32 (rows, 2^digit_bits) tensor on
+    the keys' device) the counts are added into it and it is returned:
+    no new buffer, no memset."""
     if keys.dim() != 2 or not keycodec.supports(keys.dtype):
         raise ValueError(f"digit_hist takes (rows, n) keys of a codec dtype, "
                          f"got {keycodec.dtype_name(keys.dtype)} "
@@ -143,23 +152,31 @@ def digit_hist(keys: torch.Tensor, thresh: torch.Tensor, shift: int,
             or thresh.device != keys.device:
         raise ValueError("digit_hist: thresh must be an int64 (rows,) tensor "
                          "on the keys' device")
+    radix = 1 << digit_bits
+    if out is not None and (out.shape != (rows, radix)
+                            or out.dtype != torch.int32
+                            or out.device != keys.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"digit_hist: out must be a contiguous int32 "
+                         f"({rows}, {radix}) tensor on the keys' device")
     if not keys.is_cuda:
         if keys.device.type != "cpu":
             raise ValueError(f"digit_hist: unsupported device {keys.device}")
-        return digit_hist_plain(keys, thresh, shift, digit_bits, tile,
+        hist = digit_hist_plain(keys, thresh, shift, digit_bits, tile,
                                 encode=encode)
+        return hist if out is None else out.add_(hist)
     if not (keys.is_contiguous() and thresh.is_contiguous()):
         raise ValueError("digit_hist: keys and thresh must be contiguous")
-    radix = 1 << digit_bits
-    hist = torch.zeros((rows, radix), dtype=torch.int32, device=keys.device)
+    hist = out if out is not None else torch.zeros(
+        (rows, radix), dtype=torch.int32, device=keys.device)
     if keys.numel() == 0:
         return hist
     code_dtype = keys.dtype if encode else _UNSIGNED_CODE[keys.element_size()]
     with torch.cuda.device(keys.device):
         status = _lib().select_digit_hist(
             _build.KEY_CODES[code_dtype], _build.ptr(keys), _build.ptr(thresh),
-            _build.ptr(hist), rows, n, min(tile, max(8, n)), shift,
-            digit_bits, int(encode), _build.stream_of(keys))
+            _build.ptr(hist), rows, n, shift, digit_bits, int(encode),
+            _build.stream_of(keys))
     _build.check(status, "select_digit_hist")
     _build.count_launch("select_digit_hist")
     return hist
@@ -176,9 +193,13 @@ def _kth_key(keys: torch.Tensor, k: int, tile: int, digit_bits: int,
     bits = keys.element_size() * 8
     k_rem = torch.full((rows,), k, dtype=torch.int64, device=keys.device)
     thresh = torch.zeros((rows,), dtype=torch.int64, device=keys.device)
-    for shift in range(bits - digit_bits, -1, -digit_bits):
+    shifts = range(bits - digit_bits, -1, -digit_bits)
+    # every pass's histogram, zeroed once
+    hists = torch.zeros((len(shifts), rows, 1 << digit_bits),
+                        dtype=torch.int32, device=keys.device)
+    for p, shift in enumerate(shifts):
         hist = digit_hist(keys, thresh, shift, digit_bits, tile,
-                          encode=encode).to(torch.int64)
+                          encode=encode, out=hists[p]).to(torch.int64)
         cum = hist.cumsum(-1)
         # the smallest digit whose cumulative count reaches the residual k
         d = (cum < k_rem[:, None]).sum(-1)

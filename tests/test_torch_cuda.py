@@ -52,6 +52,14 @@ def _keys(shape, name, seed):
     return torch.from_numpy(raw.astype(name)).cuda()
 
 
+def _offset_by_one(t):
+    """``t`` copied to one element past a 16-byte boundary (through its
+    bits: no dtype loses ``cat`` that way)."""
+    tb = _bits(t)
+    return torch.cat([tb.new_zeros(1), tb.reshape(-1)])[1:] \
+        .view(t.dtype).view(t.shape)
+
+
 @pytest.mark.parametrize("name", DTYPES)
 @pytest.mark.parametrize("rows,n", [(300, 2), (40, 4096), (3, 16384)])
 def test_k1_kernel_matches_plain(name, rows, n):
@@ -88,20 +96,93 @@ def test_k1_every_row_length_matches_plain(name, n):
     _same(bs.sort_blocks(flat), bs.apply_network(flat, False))
 
 
-@pytest.mark.parametrize("name", DTYPES)
-@pytest.mark.parametrize("rows,l", [(64, 3), (8, 4096), (1, 1 << 20)])
-def test_k2_kernel_matches_plain(name, rows, l):
-    raw = _keys((rows, 2, l), name, seed=l)
-    pairs = keycodec.from_signed(
-        torch.sort(keycodec.to_signed(raw), dim=-1).values, raw.dtype)
-    a, b = pairs[:, 0, :], pairs[:, 1, :]           # strided, as the tree
-    _same(mp.merge_pairs_blocks(a, b), mp.rank_merge(a, b)[0])
+def _sorted_pairs(raw, descending):
+    """(rows, 2, L) -> each run sorted in the merge's direction."""
+    s = torch.sort(keycodec.to_signed(raw), dim=-1,
+                   descending=descending).values
+    return keycodec.from_signed(s.contiguous(), raw.dtype)
+
+
+def _k2_matches_plain(a, b, descending):
+    """Both K2 entries, and the partition, against their plain versions."""
+    rows, l = a.shape
+    _same(mp.merge_path_partition(a, b, descending=descending),
+          mp.partition_plain(a, b, descending=descending))
+    _same(mp.merge_pairs_blocks(a, b, descending=descending),
+          mp.rank_merge(a, b, descending=descending)[0])
     va = torch.arange(l, dtype=torch.int32, device="cuda") \
         .expand(rows, l).contiguous()
-    k1, v1 = mp.merge_pairs_kv_blocks(a, b, va, va + l)
-    k2, v2 = mp.rank_merge(a, b, va, va + l)
+    k1, v1 = mp.merge_pairs_kv_blocks(a, b, va, va + l,
+                                      descending=descending)
+    k2, v2 = mp.rank_merge(a, b, va, va + l, descending=descending)
     _same(k1, k2)
     _same(v1, v2)
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("name", DTYPES)
+@pytest.mark.parametrize("rows,l", [(64, 3), (8, 4096), (3, 5001),
+                                    (1, 1 << 20)])
+def test_k2_kernel_matches_plain(name, rows, l, descending):
+    """Heavy ties, ±0.0 and the extremes, the strided pair views the merge
+    tree hands the kernel; then the same runs at an offset of one element
+    (rows off the 16-byte chunks: the kernel's element head and tail)."""
+    pairs = _sorted_pairs(_keys((rows, 2, l), name, seed=l), descending)
+    _k2_matches_plain(pairs[:, 0, :], pairs[:, 1, :], descending)
+    off = _offset_by_one(pairs)
+    assert off.data_ptr() % 16
+    _k2_matches_plain(off[:, 0, :], off[:, 1, :], descending)
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("name", ["float32", "int32", "int8"])
+def test_k2_tie_runs_across_tile_cuts(name, descending):
+    """The middle half of both runs is one key, so several of the kernel's
+    tile boundaries fall inside a run of equal keys that both runs feed."""
+    rows, l = 3, 3 * mp.KERNEL_TILE + 5
+    raw = _keys((rows, 2, l), name, seed=7)
+    raw[:, :, l // 4: 3 * l // 4] = 3
+    pairs = _sorted_pairs(raw, descending)
+    a, b = pairs[:, 0, :], pairs[:, 1, :]
+    _k2_matches_plain(a, b, descending)
+    out = mp.merge_pairs_blocks(a, b, descending=descending)
+    d = torch.arange(1, mp.tiles_per_row(l), device="cuda") * mp.KERNEL_TILE
+    inside = (out[:, d - 1] == 3) & (out[:, d] == 3)
+    assert (inside.sum(-1) >= 2).all()
+
+
+@pytest.mark.parametrize("kv", [False, True])
+def test_descending_merge_tree_flips_nothing_on_the_card(kv):
+    """A descending merge tree on the ``cuda`` backend is K2 with its
+    descending comparator: no ``aten::flip`` in a profile of the call, and
+    the result is the plain (flip construction) tree's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import merge as emerge
+    raw = _keys((2, 8, 1024), "int32", seed=3)
+    runs = _sorted_pairs(raw.view(16, 1, 1024), True).view(2, 8, 1024)
+    vals = torch.arange(runs.numel(), dtype=torch.int32,
+                        device="cuda").view(runs.shape)
+
+    def tree(backend):
+        if kv:
+            return emerge.merge_runs(runs, vals, descending=True,
+                                     backend=backend)
+        return (emerge.merge_runs(runs, descending=True, backend=backend),)
+
+    tree("cuda")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = tree("cuda")
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "flip" in n], names
+    name = "merge_pairs_kv_blocks" if kv else "merge_pairs_blocks"
+    assert _build.launches == {name: 3, "merge_path_partition": 3}
+    for g, w in zip(got, tree("torch")):
+        _same(g, w)
 
 
 @pytest.mark.parametrize("bits_", [8, 16, 32])
@@ -237,23 +318,59 @@ def _kth_encoded(enc, k):
     return torch.sort(u, dim=-1).values[:, k - 1].contiguous()
 
 
+def _k4_rows(name, rows, n, seed):
+    """Heavy ties and extremes; row 0 all one key, row 1 a few distinct
+    top digits (a normal row's first pass for floats, three extremes for
+    integers), the rest mixed.  Written through the keys' bits, which
+    every dtype takes on the card."""
+    x = _keys((rows, n), name, seed=seed)
+    xb = _bits(x)
+    xb[0] = xb[0, 0]
+    if rows > 1:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        if x.dtype.is_floating_point:
+            xb[1] = _bits(torch.randn(n, generator=g, device="cuda")
+                          .to(x.dtype))
+        else:
+            info = torch.iinfo(xb.dtype)
+            pick = torch.randint(0, 3, (n,), generator=g, device="cuda")
+            xb[1] = torch.tensor([info.min, 0, info.max], device="cuda",
+                                 dtype=xb.dtype)[pick]
+    return x
+
+
 @pytest.mark.parametrize("name", DTYPES)
-@pytest.mark.parametrize("digit_bits,tile", [(8, 4096), (4, 1000)])
-def test_k4_kernel_matches_plain(name, digit_bits, tile):
+@pytest.mark.parametrize("rows,n,digit_bits,tile", [
+    (3, 5001, 8, 4096), (3, 5001, 4, 1000), (64, 128256, 8, 4096),
+    (2, 1 << 20, 8, 4096)])
+def test_k4_kernel_matches_plain(name, rows, n, digit_bits, tile):
     """Every pass of the refinement, the first (all active) and the later
     ones under a threshold prefix, on source keys (encoded in registers)
-    and on encoded keys, with a ragged tail of the last tile."""
-    x = _keys((3, 5001), name, seed=digit_bits)
-    enc = keycodec.encode(x, descending=True)
+    and on encoded keys: an all-equal row, a skewed row, ragged rows
+    (head and tail off the 16-byte vectors), the sampling rows' (64,
+    128256); then the same rows at an offset of one element; and passes
+    counted into one zeroed buffer."""
+    x = _k4_rows(name, rows, n, seed=digit_bits + n)
+    flat = _offset_by_one(x)
+    assert flat.data_ptr() % 16
     bits = 8 * x.element_size()
-    for thresh in (torch.zeros(3, dtype=torch.int64, device="cuda"),
-                   _kth_encoded(enc, 2500)):
-        for shift in range(bits - digit_bits, -1, -digit_bits):
-            for keys, encode in ((x, True), (enc, False)):
-                _same(sel.digit_hist(keys, thresh, shift, digit_bits, tile,
-                                     encode=encode),
-                      sel.digit_hist_plain(keys, thresh, shift, digit_bits,
-                                           tile, encode=encode))
+    shifts = range(bits - digit_bits, -1, -digit_bits)
+    for xs in (x, flat):
+        enc = keycodec.encode(xs, descending=True)
+        for thresh in (torch.zeros(rows, dtype=torch.int64, device="cuda"),
+                       _kth_encoded(enc, n // 2)):
+            for keys, encode in ((xs, True), (enc, False)):
+                hists = torch.zeros((len(shifts), rows, 1 << digit_bits),
+                                    dtype=torch.int32, device="cuda")
+                for p, shift in enumerate(shifts):
+                    want = sel.digit_hist_plain(keys, thresh, shift,
+                                                digit_bits, tile,
+                                                encode=encode)
+                    _same(sel.digit_hist(keys, thresh, shift, digit_bits,
+                                         tile, encode=encode), want)
+                    sel.digit_hist(keys, thresh, shift, digit_bits, tile,
+                                   encode=encode, out=hists[p])
+                    _same(hists[p], want)
 
 
 @pytest.mark.parametrize("name", DTYPES)

@@ -381,7 +381,8 @@ def test_k3_pass_tile_counts_on_a_card_name_the_onesweep_tile():
 def test_radix_cost_prices_n_keys_and_selection_keeps_its_tile():
     """Under the card's profile (4096-key ``radix_tile``) a ``radix`` plan
     of n = 4097 is priced on 4097 keys, as K3 sorts them (no padding to
-    8192); K4's ``selection_cost_ns`` still pads the row to its tile."""
+    8192); so is K4's ``selection_cost_ns``: its grid strides over the row
+    and no longer follows the tile, which only the plain version reads."""
     from repro_torch.core import cost_model, tuning
     before = tuning.active()
     tuning.set_active(dataclasses.replace(
@@ -396,10 +397,12 @@ def test_radix_cost_prices_n_keys_and_selection_keeps_its_tile():
                 c.radix * batch * n * passes
         assert cost_model.device_sort_cost_ns("radix", 4097) < \
             cost_model.device_sort_cost_ns("radix", 8192)
-        tiled = -(-4097 // prof.radix_tile) * prof.radix_tile
-        assert tiled == 8192
-        assert cost_model.selection_cost_ns(4097, 8) == \
-            c.select * tiled * passes + c.torch * 8 * 3.0
+        assert prof.radix_tile == 4096
+        for n, batch in ((4097, 1), (4097, 3), (4096, 2)):
+            assert cost_model.selection_cost_ns(n, 8, batch=batch) == \
+                c.select * batch * n * passes + c.torch * batch * 8 * 3.0
+        assert cost_model.selection_cost_ns(4097, 8) < \
+            cost_model.selection_cost_ns(8192, 8)
     finally:
         tuning.set_active(before)
 
