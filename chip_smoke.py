@@ -25,7 +25,9 @@ Phases, each printed as one JSON line:
             bit for bit (signed zeros, ties and dtype extremes included; K7's
             pair and stage kernels at every width, K3's onesweep histogram
             and passes for 1-, 2- and 4-byte carriers and every digit
-            width; K2's partition and merges in both directions);
+            width; K2's partition and merges in both directions; K5's
+            one-pass kernels on rows of any length, off 16-byte boundaries
+            and cut into stripes of a few keys, and its network kernel);
             K6 (flash attention) within 1e-4 in float32 and 2e-2 in bf16,
             and each query's output within 2^-16 (float32) and 2^-6 (bf16)
             of the plain one's norm;
@@ -33,7 +35,9 @@ Phases, each printed as one JSON line:
             size (2^28 32-bit keys): sort, argsort (also stable), sort_kv,
             the radix and cuda backends and an engine top-k; then top-k
             through the select (K4) and cuda (K5) backends at the shapes of
-            vocabulary sampling, MoE routing and gradient compression, MoE
+            vocabulary sampling, MoE routing and gradient compression (each
+            cuda top-k asserted as K5's launches alone: a stream and a merge
+            launch, or one short-row launch), MoE
             token grouping, a ragged segment sort and a padded-row sort;
             then the paper's CAS block (``cas.run_cas``, one launch of K7's
             pair kernel over 2^24 pairs), its in-memory sorter and the imc
@@ -81,7 +85,11 @@ Phases, each printed as one JSON line:
             the 2^26 int32 argsort, both ways, and its partition launch
             alone; K4's first and a later pass; K3's whole 2^26 sort beside
             ``torch.sort`` and its bound, its launches counted on one
-            call.
+            call; K5's short-row kernel at the MoE routing rows, its stream
+            kernel (with its merge launch) at the vocabulary, sampling and
+            2^24 rows, each also ascending (every key admitted), its merge
+            launch alone, the serve's sampling rows through radix, cuda and
+            ``torch.topk``, and its network kernel (k > 256) as before.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -347,7 +355,9 @@ def phase_kernels(rng) -> dict:
                         cases += 1
 
     # K5: short and chunk-long rows, a row at the sentinel and a row of
-    # signed zeros
+    # signed zeros; the one-pass kernels (k <= 256) also on rows of any
+    # length, one element off a 16-byte boundary, and cut into stripes of a
+    # few keys (ties across every stripe and CTA)
     for dtype in dtypes:
         for n in (8, 64, 2048):
             x = _keys(rng, (70, n), dtype)
@@ -363,6 +373,24 @@ def phase_kernels(rng) -> dict:
                     v2, i2 = btk.topk_plain(x, k)
                     same_bits(v1, v2, f"K5 values {dtype} n={n} k={k}")
                     same_bits(i1, i2, f"K5 indices {dtype} n={n} k={k}")
+                    cases += 2
+                if k <= min(n, btk.MAX_K):
+                    v1, i1 = btk.topk_rows(x, k)
+                    v2, i2 = btk.topk_rows_plain(x, k)
+                    same_bits(v1, v2, f"K5 rows values {dtype} n={n} k={k}")
+                    same_bits(i1, i2, f"K5 rows indices {dtype} n={n} k={k}")
+                    cases += 2
+        x = _keys(rng, (9, 3001), dtype)
+        odd = torch.cat([x.view(-1)[:1], x.view(-1)])[1:].view(x.shape)
+        for plan in (None, btk.RowPlan("stream"),
+                     btk.RowPlan("stream", warps_per_row=8, ctas=3,
+                                 stripe=127)):
+            for t in (x, odd):
+                for k in (16, 256):
+                    v1, i1 = btk.topk_rows(t, k, plan)
+                    v2, i2 = btk.topk_rows_plain(t, k, plan)
+                    same_bits(v1, v2, f"K5 rows {dtype} {plan} k={k}")
+                    same_bits(i1, i2, f"K5 rows {dtype} {plan} k={k}")
                     cases += 2
 
     # K7: every width, random pairs with equal operands, 0, 2^W - 1 and
@@ -695,9 +723,11 @@ def phase_main(rng) -> dict:
     # compaction's PyTorch ops and K1's ordering
     emit({"phase": "main", "trace": "topk select k=50 (64, 128256)",
           **trace_summary(lambda: rsort.topk(logits, 50, method="select"))})
-    k5_k1 = ("bitonic_topk_blocks", "bitonic_sort_kv_blocks")
+    # K5's one pass: a stream launch and a merge launch, nothing else
+    k5 = {"topk_rows_stream": 1, "topk_rows_merge": 1}
     v_i = run("topk cuda k=50 (64, 128256) float32",
-              lambda: rsort.topk(logits, 50, method="cuda"), k5_k1)
+              lambda: rsort.topk(logits, 50, method="cuda"), tuple(k5),
+              exact=k5)
     check_topk("topk cuda vocab", logits, 50, "cuda", v_i)
     # padded vocabulary: the last 128 lanes masked to -inf, and row 0
     # masked down to 10 finite lanes, fewer than k (the reference's top-k
@@ -705,9 +735,11 @@ def phase_main(rng) -> dict:
     masked = logits.clone()
     masked[:, -128:] = float("-inf")
     masked[0, 10:] = float("-inf")
-    for method, must in (("cuda", k5_k1), ("select", sel_k)):
+    for method, must, exact in (("cuda", tuple(k5), k5),
+                                ("select", sel_k, None)):
         v_i = run(f"topk {method} k=50 (64, 128256) float32 -inf masked",
-                  lambda: rsort.topk(masked, 50, method=method), must)
+                  lambda: rsort.topk(masked, 50, method=method), must,
+                  exact=exact)
         check_topk(f"topk {method} masked", masked, 50, method, v_i)
         if int(v_i[1].min()) < 0:
             raise AssertionError(f"topk {method}: negative index")
@@ -717,7 +749,7 @@ def phase_main(rng) -> dict:
                               ).cuda()
     v_i = run("topk cuda k=8 (16384, 64) float32",
               lambda: rsort.topk(router, 8, method="cuda"),
-              ("bitonic_topk_blocks",))
+              ("topk_rows_short",), exact={"topk_rows_short": 1})
     check_topk("topk cuda router", router, 8, "cuda", v_i)
     del router
 
@@ -1120,7 +1152,6 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
     from repro_torch.core import keycodec, network
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitonic_sort as bs
-    from repro_torch.kernels import bitonic_topk as btk
     from repro_torch.kernels import bitserial_cas as bsc
     from repro_torch.kernels import merge_path as mp
     from repro_torch.kernels import ops
@@ -1322,7 +1353,7 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
         x.numel() * 4 + 8 + radix * 4, x.numel(),
         lambda: torch.topk(x, TOPK_K), err=later, later_pass_ms=later_ms)
     # the whole select top-k (4 passes, compaction, K1 order) and the
-    # cuda top-k (K5 chunks, K1 or the merge path) beside torch.topk
+    # cuda top-k (K5's stream and merge launches) beside torch.topk
     for name, fn in (("select", lambda: sel.select_topk(x, TOPK_K)),
                      ("cuda", lambda: ops.bitonic_topk(x, TOPK_K))):
         emit({"phase": "timing", "name": f"topk {name} k={TOPK_K} 2^24",
@@ -1336,26 +1367,7 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
               "ms": kernel_ms(fn, 10)[0],
               "library_ms": kernel_ms(lambda: torch.topk(lg, 50), 10)[0]})
     del lg
-
-    # K5: MoE routing rows, (16384, 64) float32, top-8
-    r = torch.randn(ROUTER, generator=gen, device="cuda")
-    n, kk = ROUTER[1], 8
-    lg5 = n.bit_length() - 1
-    row("bitonic_topk_blocks", "src/repro_torch/csrc/bitonic_topk.cu",
-        "src/repro/kernels/bitonic_topk.py:47",
-        lambda: btk.topk_blocks(r, kk), lambda: btk.topk_plain(r, kk),
-        r.numel() * 4 + ROUTER[0] * kk * 8,
-        ROUTER[0] * (n // 2) * lg5 * (lg5 + 1) // 2,
-        lambda: torch.topk(r, kk, dim=-1))
-    # and the per-chunk pass of the vocabulary top-k, (64 * 63, 2048), k=50
-    c = torch.randn((VOCAB[0] * 63, 2048), generator=gen, device="cuda")
-    emit({"phase": "timing", "name": "bitonic_topk_blocks (4032, 2048) k=50",
-          "ms": kernel_ms(lambda: btk.topk_blocks(c, 50), 10)[0],
-          "bound_ms": _bound(c.numel() * 4 + c.shape[0] * 50 * 8, 0)[0],
-          "max_abs_err": max(same_bits(g, w, "K5 vocab chunks vs plain")
-                             for g, w in zip(btk.topk_blocks(c, 50),
-                                             btk.topk_plain(c, 50)))})
-    del r, c
+    time_k5(row, gen)
 
     # K7 at each stage shape of the main path's imc steps: the paper units
     # (W=4, 2^24 pairs), the int32 sort (W=32, 2^23), the int8 argsort's
@@ -1461,6 +1473,103 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
     return rows
 
 
+def time_k5(row, gen) -> None:
+    """K5 at the main path's shapes: the one-pass kernels (each row's call
+    is the wrapper's launches, held against the plain version), their
+    merge launch alone, ascending rows (every key admitted), the serve's
+    sampling rows three ways, and the network kernel of k > 256."""
+    import torch
+    import repro_torch.sort as rsort
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bitonic_topk as btk
+
+    src = "src/repro_torch/csrc/bitonic_topk.cu"
+    ref = "src/repro/kernels/bitonic_topk.py:47"
+
+    def k5_row(name, x, k, **extra):
+        rows, n = x.shape
+        row(name, src, ref, lambda: btk.topk_rows(x, k),
+            lambda: btk.topk_rows_plain(x, k),
+            x.numel() * x.element_size() + rows * k * (x.element_size() + 4),
+            0, lambda: torch.topk(x, k, dim=-1), shape=[rows, n], k=k,
+            plan=str(btk.plan(rows, n, k)), **extra)
+
+    # MoE routing rows (the short kernel), vocabulary and sampling rows and
+    # one long row (the stream kernel and its merge launch, timed together)
+    k5_row("topk_rows_short", torch.randn(ROUTER, generator=gen,
+                                          device="cuda"), 8)
+    for shape, k in ((VOCAB, 50), ((8, 256000), 50), ((1, TOPK_N), TOPK_K)):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        k5_row("topk_rows_stream", x, k, with_launch="topk_rows_merge")
+        # adversarial order: every key beats the bound and is queued
+        up = torch.arange(shape[1], dtype=torch.float32, device="cuda") \
+            .expand(shape).contiguous()
+        emit({"phase": "timing",
+              "name": f"topk_rows ascending {list(shape)} k={k}",
+              "ms": kernel_ms(lambda: btk.topk_rows(up, k), 10)[0],
+              "random_rows_ms": kernel_ms(lambda: btk.topk_rows(x, k),
+                                          10)[0],
+              "max_abs_err": max(same_bits(g, w, "K5 ascending vs plain")
+                                 for g, w in zip(btk.topk_rows(up, k),
+                                                 btk.topk_rows_plain(up, k)))})
+        del up
+    # the merge launch alone, over the partial runs of the 2^24 row
+    rows, n = x.shape
+    p = btk.plan(rows, n, TOPK_K)
+    part = torch.empty((rows, p.ctas, btk.run_len(TOPK_K)),
+                       dtype=torch.int64, device="cuda")
+    vo = torch.empty((rows, TOPK_K), device="cuda")
+    io = torch.empty((rows, TOPK_K), dtype=torch.int32, device="cuda")
+    lib, ptr, stream = btk._lib(), _build.ptr, _build.stream_of(x)
+    _build.check(lib.topk_rows_stream(
+        0, ptr(x), ptr(vo), ptr(io), ptr(part), rows, n, TOPK_K, p.stripe,
+        p.warps_per_row, p.ctas, stream), "topk_rows_stream")
+
+    def merge():
+        _build.check(lib.topk_rows_merge(
+            0, ptr(part), ptr(vo), ptr(io), rows, p.ctas,
+            min(p.ctas, btk.MERGE_WARPS), TOPK_K, stream), "topk_rows_merge")
+        return vo, io
+
+    row("topk_rows_merge", src, ref, merge,
+        lambda: btk.merge_runs_plain(part ^ btk.PLACEHOLDER, TOPK_K,
+                                     torch.float32),
+        part.numel() * 8 + rows * TOPK_K * 8, 0, None,
+        shape=list(part.shape), k=TOPK_K)
+    del x, part, vo, io
+
+    # the serve's sampling rows, (8, 256000) k = 50, through the plan the
+    # cost model picks today (radix), the one-pass cuda top-k and torch.topk
+    x = torch.randn((8, 256000), generator=gen, device="cuda")
+    emit({"phase": "timing", "name": "sampling topk (8, 256000) k=50",
+          "radix_ms": kernel_ms(
+              lambda: rsort.topk(x, 50, method="radix"), 10)[0],
+          "cuda_ms": kernel_ms(lambda: rsort.topk(x, 50, method="cuda"),
+                               10)[0],
+          "library_ms": kernel_ms(lambda: torch.topk(x, 50), 10)[0]})
+    del x
+
+    # the network route (k > 256): MoE routing rows at k = 8, its row
+    # before the one-pass kernels, and the per-chunk pass of a vocabulary
+    # top-k past k = 256
+    r = torch.randn(ROUTER, generator=gen, device="cuda")
+    n, kk = ROUTER[1], 8
+    lg5 = n.bit_length() - 1
+    row("bitonic_topk_blocks", src, ref,
+        lambda: btk.topk_blocks(r, kk), lambda: btk.topk_plain(r, kk),
+        r.numel() * 4 + ROUTER[0] * kk * 8,
+        ROUTER[0] * (n // 2) * lg5 * (lg5 + 1) // 2,
+        lambda: torch.topk(r, kk, dim=-1))
+    c = torch.randn((VOCAB[0] * 63, 2048), generator=gen, device="cuda")
+    emit({"phase": "timing", "name": "bitonic_topk_blocks (4032, 2048) k=50",
+          "ms": kernel_ms(lambda: btk.topk_blocks(c, 50), 10)[0],
+          "bound_ms": _bound(c.numel() * 4 + c.shape[0] * 50 * 8, 0)[0],
+          "max_abs_err": max(same_bits(g, w, "K5 vocab chunks vs plain")
+                             for g, w in zip(btk.topk_blocks(c, 50),
+                                             btk.topk_plain(c, 50)))})
+    del r, c
+
+
 def time_k6(row, gen) -> None:
     """K6's kernel-table rows: the serve's prefill batch, (8, 1024) x 24/8
     heads of 128, and prefill_32k's length at batch 1, bf16; beside SDPA on
@@ -1487,8 +1596,9 @@ def time_k6(row, gen) -> None:
 
 
 # sources whose kernels must keep everything in registers: no stack frame,
-# no spills (K7's rows, K1's and K5's 16 keys a thread, K6's accumulators,
-# K2's 16 merged outputs a thread, K4's vectors in flight)
+# no spills (K7's rows, K1's 16 keys a thread, K5's runs and composites,
+# K6's accumulators, K2's 16 merged outputs a thread, K4's vectors in
+# flight)
 NO_SPILLS = ("bitserial_cas", "bitonic_sort", "bitonic_topk",
              "flash_attention", "merge_path", "radix_select")
 

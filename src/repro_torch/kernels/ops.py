@@ -3,7 +3,7 @@ and of the ``imc`` path over the bit-serial CAS kernel (K7).
 
 Handles what the kernels do not: arbitrary axes and leading dims,
 power-of-two padding with the direction's sentinel, rows longer than one
-kernel row (top-k), and autodiff.  A sort runs the key-value network with
+kernel row (top-k past K5's one-pass cap on k), and autodiff.  A sort runs the key-value network with
 an index payload, so it also yields the permutation its gradient needs: a
 sort is a permutation, and its transpose scatter-adds the cotangent back
 (``torch.autograd.Function``, the counterpart of the JAX package's
@@ -132,7 +132,10 @@ def _topk_impl(x: torch.Tensor, k: int, chunk: int = _TOPK_CHUNK):
     rows = keycodec.to_signed(rows)
     n = rows.shape[-1]
     sent = sentinel(rows.dtype, True)
-    if n <= chunk:
+    if k <= _bt.MAX_K:
+        # one pass over rows of any length (``chunk`` does not apply)
+        v, i = _bt.topk_rows(rows.contiguous(), k)
+    elif n <= chunk:
         m = max(next_pow2(n), next_pow2(k))
         v, i = _bt.topk_blocks(pad_rows(rows, m, sent).contiguous(), k)
     else:
@@ -178,8 +181,9 @@ class _BitonicTopk(torch.autograd.Function):
 def bitonic_topk(x: torch.Tensor, k: int, chunk: int = _TOPK_CHUNK):
     """Top-k along the last axis -> (values, int32 indices), descending,
     the lower index first among equal keys (numeric: -0.0 == +0.0);
-    differentiable in the values.  Rows up to ``chunk`` run K5 once;
-    longer rows run K5 per chunk and order the candidates."""
+    differentiable in the values.  k <= 256: K5's one-pass kernels over
+    rows of any length.  Larger k: rows up to ``chunk`` run K5's network
+    once; longer rows run it per chunk and order the candidates."""
     n = x.shape[-1]
     if not 1 <= k <= n:
         raise ValueError(

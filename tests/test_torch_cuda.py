@@ -377,17 +377,109 @@ def test_k4_kernel_matches_plain(name, rows, n, digit_bits, tile):
 @pytest.mark.parametrize("n", [8, 64, 2048, 16384])
 def test_k5_kernel_matches_plain(name, n):
     """Rows of ties, signed zeros and extremes, one row all at the
-    sentinel (-inf, the integer minimum)."""
+    sentinel (-inf, the integer minimum): the one-pass kernels (k <= 256)
+    and the network kernel (power-of-two rows, any k)."""
     x = _keys((37, n), name, seed=n)
     dtype = getattr(torch, name)
     x[1] = float("-inf") if dtype.is_floating_point \
         else torch.iinfo(dtype).min
-    for k in (1, 8, 50, n):
+    for k in (1, 8, 50, 256, n):
         if k <= n:
             v1, i1 = btk.topk_blocks(x, k)
             v2, i2 = btk.topk_plain(x, k)
             _same(v1, v2)
             _same(i1, i2)
+        if k <= min(n, btk.MAX_K):
+            v1, i1 = btk.topk_rows(x, k)
+            v2, i2 = btk.topk_rows_plain(x, k)
+            _same(v1, v2)
+            _same(i1, i2)
+
+
+def _numeric_topk(x, k):
+    """The stable descending sort of the numeric keys, first k: the
+    function's definition (-0.0 == +0.0, the lower index first)."""
+    order = torch.sort(x, dim=-1, stable=True, descending=True).indices
+    order = order[:, :k]
+    return x.gather(-1, order), order.to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["router", "vocab", "vocab_masked",
+                                  "vocab_ascending", "sampling", "long_row",
+                                  "long_row_ascending", "rows_2048"])
+def test_k5_rows_kernel_matches_plain_and_sort(case):
+    """The one-pass kernels at the main path's shapes against their plain
+    version and the stable descending numeric sort: router rows (16384,
+    64) k = 8; vocabulary rows (64, 128256) k = 50, also -inf masked with
+    row 0 down to 10 finite lanes, and ascending; the serve's sampling rows
+    (8, 256000) k = 50; one row of 2^24 k = 64, also ascending."""
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    shape, k = {"router": ((16384, 64), 8), "vocab": ((64, 128256), 50),
+                "vocab_masked": ((64, 128256), 50),
+                "vocab_ascending": ((64, 128256), 50),
+                "sampling": ((8, 256000), 50), "long_row": ((1, 1 << 24), 64),
+                "long_row_ascending": ((1, 1 << 24), 64),
+                "rows_2048": ((4096, 2048), 50)}[case]
+    x = torch.randn(shape, generator=g, device="cuda")
+    if case == "vocab_masked":
+        x[:, -128:] = float("-inf")
+        x[0, 10:] = float("-inf")
+    if case.endswith("ascending"):
+        x = torch.arange(shape[1], dtype=torch.float32, device="cuda") \
+            .expand(shape).contiguous()
+    v, i = btk.topk_rows(x, k)
+    pv, pi = btk.topk_rows_plain(x, k)
+    _same(v, pv)
+    _same(i, pi)
+    ov, oi = _numeric_topk(x, k)
+    _same(v, ov)
+    _same(i, oi)
+
+
+@pytest.mark.parametrize("name", DTYPES)
+@pytest.mark.parametrize("plan", [
+    None, btk.RowPlan("short", lanes=32), btk.RowPlan("stream"),
+    btk.RowPlan("stream", warps_per_row=8, ctas=1, stripe=40),
+    btk.RowPlan("stream", warps_per_row=8, ctas=6, stripe=7),
+    btk.RowPlan("stream", warps_per_row=8, ctas=40, stripe=1)])
+def test_k5_rows_every_dtype_and_cut(name, plan):
+    """Ties across every lane, stripe and CTA boundary (keys in [-8, 8],
+    +-0.0, extremes), rows of 300 and a copy one element off a 16-byte
+    boundary (scalar heads and tails), k = 16, against the plain version
+    cut the same way."""
+    x = _keys((5, 300), name, seed=7)
+    for t in (x, _offset_by_one(x)):
+        v, i = btk.topk_rows(t, 16, plan)
+        pv, pi = btk.topk_rows_plain(t, 16, plan)
+        _same(v, pv)
+        _same(i, pi)
+
+
+def test_k5_merge_scratch_is_overwritten_whole():
+    """The stream kernel writes every slot of the partial runs the merge
+    launch reads, so a scratch full of the largest composite -- a reused
+    or stale buffer -- changes nothing; there is no counter to reset."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((3, 200000), generator=g, device="cuda")
+    k = 40
+    p = btk.plan(*x.shape, k)
+    assert p.ctas > 1
+    part = torch.full((3, p.ctas, btk.run_len(k)), -1, dtype=torch.int64,
+                      device="cuda")
+    v = torch.empty((3, k), device="cuda")
+    i = torch.empty((3, k), dtype=torch.int32, device="cuda")
+    for _ in range(2):
+        lib, P = btk._lib(), _build.ptr
+        st = _build.stream_of(x)
+        assert lib.topk_rows_stream(0, P(x), P(v), P(i), P(part), 3,
+                                    x.shape[1], k, p.stripe, p.warps_per_row,
+                                    p.ctas, st) == 0
+        assert lib.topk_rows_merge(0, P(part), P(v), P(i), 3, p.ctas,
+                                   min(p.ctas, btk.MERGE_WARPS), k, st) == 0
+        torch.cuda.synchronize()
+        ov, oi = _numeric_topk(x, k)
+        _same(v, ov)
+        _same(i, oi)
 
 
 _NOT_ON_THE_CARD = ("sort", "argsort", "topk", "kthvalue", "msort")
@@ -398,10 +490,12 @@ _NOT_ON_THE_CARD = ("sort", "argsort", "topk", "kthvalue", "msort")
                                       (4096, 64, 8), (1, 1 << 17, 20000)])
 def test_topk_on_the_card_runs_kernels_only(method, rows, n, k,
                                             monkeypatch):
-    """``select`` and ``cuda`` top-k launch K4 or K5, order their
-    candidates with K1 (K1 runs and K2 merges past its cap) and call no
-    PyTorch sort or top-k.  Rows with a -inf tail and signed zeros hold
-    the reference's indices: the stable descending sort on the IEEE total
+    """``select`` top-k launches K4 and orders its candidates with K1 (K1
+    runs and K2 merges past its cap); ``cuda`` top-k at k <= 256 launches
+    only K5's one-pass kernels, at most two, and above that K5's network
+    per chunk and K1 (and K2) over the candidates; neither calls a PyTorch
+    sort or top-k.  Rows with a -inf tail and signed zeros hold the
+    reference's indices: the stable descending sort on the IEEE total
     order for ``select``, on the numeric order for ``cuda``."""
     import repro_torch.sort as rsort
     g = torch.Generator(device="cuda").manual_seed(n + k)
@@ -416,10 +510,14 @@ def test_topk_on_the_card_runs_kernels_only(method, rows, n, k,
     v, i = rsort.topk(x, k, method=method)
     counts = dict(_build.launches)
     monkeypatch.undo()
-    first = "select_digit_hist" if method == "select" \
-        else "bitonic_topk_blocks"
-    assert counts.get(first, 0) > 0, counts
-    if method == "select" or n > 2048:
+    if method == "cuda" and k <= btk.MAX_K:
+        one_pass = {"topk_rows_short", "topk_rows_stream", "topk_rows_merge"}
+        assert set(counts) <= one_pass and 1 <= sum(counts.values()) <= 2, \
+            counts
+    else:
+        first = "select_digit_hist" if method == "select" \
+            else "bitonic_topk_blocks"
+        assert counts.get(first, 0) > 0, counts
         key_value = ("bitonic_sort_kv_blocks",)
         if k > bs.MAX_N or (method == "cuda" and n // 2048 * min(k, 2048)
                             > bs.MAX_N):

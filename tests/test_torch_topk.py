@@ -146,3 +146,136 @@ def test_topk_blocks_rejects_what_it_does_not_take():
         tbt.topk_blocks(torch.zeros(2, 8), 9)
     with pytest.raises(ValueError, match="1 <= k <= n"):
         tops.bitonic_topk(torch.zeros(2, 8), 0)
+
+
+# ---------------------------------------------------------------------------
+# K5's one-pass row top-k (k <= 256): the plain version of the kernels'
+# decomposition against the reference's Pallas top-k in interpret mode, bit
+# for bit (tolerance 0)
+# ---------------------------------------------------------------------------
+
+ALL_DTYPES = ["float32", "bfloat16", "float16", "int8", "uint8", "int16",
+              "uint16", "int32", "uint32"]
+
+
+def _rows_vs_reference(x, k, plan=None, chunk=2048):
+    """``topk_rows_plain`` (cut as ``plan``) and the reference's
+    ``ops.bitonic_topk`` on the same keys, bit for bit."""
+    rv, ri = jops.bitonic_topk(jnp.asarray(x), k, chunk, True)
+    gv, gi = tbt.topk_rows_plain(to_torch(x), k, plan)
+    assert_same(rv, gv, "values")
+    assert_same(ri, gi, "indices")
+
+
+@pytest.mark.parametrize("dist", ["mixed", "dup_heavy", "all_equal"])
+@pytest.mark.parametrize("name", ALL_DTYPES)
+def test_k5_rows_plain_matches_pallas(name, dist):
+    """Every key dtype and distribution, rows of 50 (short kernel, k = 8)
+    and 700 (a warp a row, k = 50; not a power of two)."""
+    for n, k in ((50, 8), (700, 50)):
+        _rows_vs_reference(keys(name, (3, n), dist, seed=n + k), k)
+
+
+@pytest.mark.parametrize("name,n,k", [
+    ("float32", 64, 8), ("bfloat16", 256, 50), ("int32", 32, 32),
+    ("int8", 1024, 256), ("float16", 16, 1), ("int16", 512, 16)])
+def test_k5_rows_plain_matches_pallas_topk_blocks(name, n, k):
+    """Against the reference's kernel itself (``topk_blocks``, power-of-two
+    rows), through the default cut."""
+    x = keys(name, (4, n), "mixed", seed=n * k)
+    rv, ri = jbt.topk_blocks(jnp.asarray(x), k, interpret=True)
+    gv, gi = tbt.topk_rows_plain(to_torch(x), k)
+    assert_same(rv, gv, "values")
+    assert_same(ri, gi, "indices")
+
+
+@pytest.mark.parametrize("k", [1, 8, 50, 256, 257])
+def test_k5_rows_signed_zeros_sentinels_and_order(k):
+    """Rows of 300 float32 keys: +-0.0 ties, a row at the sentinel (-inf),
+    a -inf-masked row with fewer finite lanes than k, an ascending and a
+    descending row.  k = 257 takes the network route (``topk_blocks`` and
+    the candidates' ordering); k <= 256 the one-pass route, cut by the
+    default plan and by CTAs of short stripes."""
+    rng = np.random.default_rng(k)
+    x = np.round(rng.standard_normal((6, 300)) * 2).astype(np.float32)
+    x[0, ::2] = -0.0
+    x[0, 1::2] = 0.0
+    x[1] = -np.inf
+    x[2, 7:] = -np.inf
+    x[3] = np.arange(300, dtype=np.float32)
+    x[4] = -np.arange(300, dtype=np.float32)
+    rv, ri = jops.bitonic_topk(jnp.asarray(x), k, 2048, True)
+    gv, gi = tops.bitonic_topk(to_torch(x), k)
+    assert_same(rv, gv, "values")
+    assert_same(ri, gi, "indices")
+    if k <= tbt.MAX_K:
+        _rows_vs_reference(x, k, tbt.RowPlan("stream", warps_per_row=8,
+                                              ctas=3, stripe=13))
+
+
+@pytest.mark.parametrize("name", ["float32", "int32", "int8", "bfloat16"])
+@pytest.mark.parametrize("plan", [
+    tbt.RowPlan("short", lanes=32),          # 16 keys a lane, 32 lanes
+    tbt.RowPlan("stream"),                   # a warp a row
+    tbt.RowPlan("stream", warps_per_row=8, ctas=1, stripe=40),
+    tbt.RowPlan("stream", warps_per_row=8, ctas=6, stripe=7),
+    tbt.RowPlan("stream", warps_per_row=8, ctas=40, stripe=1)])
+def test_k5_rows_cut_anywhere_matches_pallas(name, plan):
+    """Ties straddle every stripe, CTA and lane boundary: 4 distinct keys
+    over rows of 300, k = 16, cut into lanes, stripes of 40, 7 and 1 keys
+    (40 CTAs: more runs than the merge kernel's 32 warps)."""
+    x = keys(name, (3, 300), "dup_heavy", seed=len(name))
+    _rows_vs_reference(x, 16, plan)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 5), (17, 3), (31, 16),
+                                 (33, 33), (256, 256), (1000, 1),
+                                 (5000, 64)])
+def test_k5_rows_short_long_and_full_rows(n, k):
+    """n < 32, n = k, n not a power of two, and rows past the reference's
+    chunk (k short of the sentinel keys, where the reference gives index
+    -1)."""
+    x = keys("float32", (2, n), "mixed", seed=n)
+    _rows_vs_reference(x, k)
+
+
+def test_k5_plan_cuts_the_main_path_shapes():
+    """Router rows take the short kernel; vocabulary and sampling rows,
+    and one long row, CTAs of 8 warps in one wave of the card and a merge
+    launch; many rows of a few thousand keys a warp each."""
+    assert tbt.plan(16384, 64, 8) == tbt.RowPlan("short", lanes=4)
+    for rows, n, k in ((64, 128256, 50), (8, 256000, 50), (1, 1 << 24, 64)):
+        p = tbt.plan(rows, n, k)
+        assert p.route == "stream" and p.warps_per_row == tbt.WARPS
+        assert 1 < p.ctas and rows * p.ctas * tbt.WARPS <= tbt.TARGET_WARPS
+        assert p.stripe % tbt.STEP == 0
+        assert p.stripe * tbt.WARPS * p.ctas >= n
+        assert (p.stripe * tbt.WARPS * (p.ctas - 1)) < n
+    assert tbt.plan(4096, 2048, 50) == tbt.RowPlan("stream")
+
+
+def test_k5_composites_order_pairs_and_round_trip():
+    """``pack`` orders (key descending, index ascending) with -0.0 == +0.0
+    and gives the keys' bits back through ``unpack``."""
+    x = torch.tensor([[-0.0, 0.0, 1.5, -np.inf, 1.5, -0.0]])
+    c = tbt.pack(x)
+    order = torch.sort(c, descending=True).indices[0].tolist()
+    assert order == [2, 4, 0, 1, 5, 3]
+    v, i = tbt.unpack(c, torch.float32)
+    assert i.tolist() == [[0, 1, 2, 3, 4, 5]]
+    assert_same(x.numpy(), v)
+
+
+def test_topk_rows_rejects_what_it_does_not_take():
+    with pytest.raises(ValueError, match="1 <= k <= min"):
+        tbt.topk_rows(torch.zeros(2, 300), 257)
+    with pytest.raises(ValueError, match="1 <= k <= min"):
+        tbt.topk_rows(torch.zeros(2, 8), 9)
+    with pytest.raises(ValueError, match=r"\(rows, n\)"):
+        tbt.topk_rows(torch.zeros(2, 3, 8), 2)
+    with pytest.raises(ValueError, match="cover"):
+        tbt.topk_rows(torch.zeros(2, 300), 8, tbt.RowPlan(
+            "stream", warps_per_row=8, ctas=5, stripe=7))
+    with pytest.raises(ValueError, match="short"):
+        tbt.topk_rows(torch.zeros(2, 300), 32, tbt.RowPlan("short",
+                                                           lanes=32))
