@@ -60,7 +60,28 @@ Phases, each printed as one JSON line:
             (K2 merges descending runs with a descending comparator); a
             trace of one select top-k of the sampling rows splits it
             between K4 and the compaction;
-4. serve    minitron-4b at full width and depth (32 layers, d=3072, 4.2 B
+4. relational
+            the relational tier (``repro_torch.relational``) at TPC-H SF10's
+            sizes (15 M orders, ~60 M line items from dbgen's key and value
+            ranges, seeded): unique, Q18's group_by over l_quantity (sum,
+            count, min, max, mean), a group_by of l_extendedprice (sum,
+            mean), the join l_orderkey = o_orderkey, RLE and delta of
+            o_orderkey with their round trips, a 64-bin histogram and three
+            quantiles of l_extendedprice, group_ranks of MoE dispatch rows
+            (8, 16384) over 64 experts (one-hot) and of 2^24 ids over 4096
+            groups (sort path).  Each op runs ``method="auto"`` once with the
+            counts set to 0 just before and read just after (the kernels of
+            its plan must run: K3 on the radix route; K4 once a digit pass
+            for the quantiles, their survivors ordered by K1 and K2), is
+            held bit for bit against the same call on ``method="torch"``
+            (``torch.sort``, no kernel may run) and by an independent check
+            (``torch.unique``'s values and counts, int64 sums, float sums
+            within c x 2^-24 of float64, every line item joined to its one
+            order, the round trips; the sketches against ``torch.sort`` and
+            ``torch.bucketize``), then is timed twice (CUDA-event and host
+            ms, beside the one PyTorch call that computes the same where
+            there is one);
+5. serve    minitron-4b at full width and depth (32 layers, d=3072, 4.2 B
             parameters in bf16, random weights from a seeded generator)
             through ``repro_torch.launch.serve.serve`` with the prefill's
             attention on K6: 16 requests in batches of 8, prompts up to
@@ -71,8 +92,9 @@ Phases, each printed as one JSON line:
             0.2, the argmax equal on most rows, the served first tokens
             replayed; a float32 einsum prefill as the control of what bf16
             alone moves), and K6 against its plain version at each served
-            batch's shape;
-5. timing   each kernel at the main path's shapes: its output held against
+            batch's shape; the ``[serve] length accounting`` groups against
+            a numpy count of the prompt lengths;
+6. timing   each kernel at the main path's shapes: its output held against
             its plain version on the same inputs (the ``max_abs_err`` of the
             kernel table; bit for bit but for K6, which is held to the
             limits of phase 2), then CUDA-event times of both beside
@@ -914,12 +936,302 @@ def phase_imc(rng, run) -> None:
 # phase 4: serving minitron-4b at full width
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 4: the relational tier at TPC-H SF10
+# ---------------------------------------------------------------------------
+
+TPCH_ORDERS = 15_000_000      # SF10 orders (TPC-H 4.2.3: SF x 1,500,000)
+MOE_IDS = (8, 16384)          # MoE dispatch rows (B, S*k): 16384 tokens
+MOE_EXPERTS = 64              # x top-8 of OLMoE's 64 experts
+FLAT_IDS = (1 << 24, 4096)    # group_ranks sort path: ids, groups
+REL_QS = (0.01, 0.5, 0.99)
+REL_BINS = 64
+
+
+def tpch_columns(rng):
+    """TPC-H SF10's join and aggregate keys, as dbgen makes them, on the
+    card: ``o_orderkey`` the first 8 of every 32 key values (15 M, in
+    dbgen's order), ``l_orderkey`` each order 1-7 times, shuffled;
+    ``l_quantity`` 1-50, ``l_extendedprice`` quantity x a retail price of
+    900.00-2099.00 (dbgen's ``p_retailprice`` range), float32."""
+    import numpy as np
+    import torch
+    i = np.arange(TPCH_ORDERS, dtype=np.int64)
+    orders = (32 * (i // 8) + i % 8 + 1).astype(np.int32)
+    lines = np.repeat(orders, rng.integers(1, 8, TPCH_ORDERS))
+    rng.shuffle(lines)
+    qty = rng.integers(1, 51, lines.size).astype(np.int32)
+    price = (qty * rng.integers(90000, 209901, lines.size) / 100
+             ).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda()
+                 for a in (orders, lines, qty, price))
+
+
+def planned_kernels(op, method) -> tuple:
+    """The kernels a sort-backed relational op's plan must launch on the
+    card: K3 for the radix route and for the stable sorts of group_by and
+    join on any kernel route (their merge fallback sorts runs on K3, merges
+    on K2), K1 runs + K2 merges on the merge route, K1 on cuda."""
+    stable = op in ("group_by", "join", "group_ranks")
+    if method == "radix":
+        return K3
+    if method == "torch":
+        return ()
+    if stable or method == "merge":
+        runs = K3 if stable else ("bitonic_sort_blocks",)
+        return runs + ("merge_path_partition",)
+    return ("bitonic_sort_kv_blocks",)
+
+
+def phase_relational(rng) -> dict:
+    """Every relational op through ``method="auto"`` at TPC-H SF10 (15 M
+    orders, ~60 M line items), each held bit for bit against the same call
+    on ``method="torch"`` (``torch.sort``, no kernel) and by an independent
+    check; the sketches against ``torch.sort``-based oracles.  Each op runs
+    once with the launch counts set to 0 just before and read just after
+    (its plan's kernels must run), then twice more timed.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+    import repro_torch.relational as rel
+    from repro_torch import engine
+    from repro_torch.core import tuning
+    from repro_torch.engine import planner
+    from repro_torch.kernels import _build
+
+    launches: dict = {}
+
+    def run(name, fn, must, *, plan=None, k3_passes=None, exact=None,
+            library=None, reps=2, **info):
+        """One counted call, then ``reps`` timed calls: CUDA-event ms on
+        the stream and host ms around each call (its syncs included).
+        ``exact`` maps kernels to the launches the call must make."""
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        missing = [k for k in must if counts.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched: {missing} "
+                                 f"(counts {counts})")
+        wrong = {k: counts.get(k, 0) for k, v in (exact or {}).items()
+                 if counts.get(k, 0) != v}
+        if wrong:
+            raise AssertionError(f"{name}: launches {wrong}, expected "
+                                 f"{exact}")
+        check_k3_sorts(name, counts, k3_passes)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        line = {"phase": "relational", "op": name,
+                "plan": None if plan is None else plan.method,
+                "costs_ns": None if plan is None else plan.costs,
+                "ms": start.elapsed_time(end) / reps,
+                "host_ms": (time.perf_counter() - t0) * 1e3 / reps,
+                "launches": counts, **info}
+        if library is not None:
+            line["library"] = library[0]
+            line["library_ms"] = cuda_ms(library[1], reps)[0]
+        emit(line)
+        return out
+
+    def torch_route(name, fn):
+        """The same call on ``torch.sort``: no kernel may run."""
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        if _build.launches:
+            raise AssertionError(f"{name} method=torch launched "
+                                 f"{dict(_build.launches)}")
+        ms = cuda_ms(fn, 2, warm=False)[0]
+        emit({"phase": "relational", "op": name, "route": "torch",
+              "ms": ms})
+        return out
+
+    def same(got, want, what):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if isinstance(g, tuple):
+                same(g, w, f"{what}[{i}]")
+            elif g is not None or w is not None:
+                same_bits(g, w, f"{what} field {i}")
+
+    def plan_of(op, n):
+        return planner.choose_relational_cached(op, n, dtype=torch.int32,
+                                                device="cuda")
+
+    orders, lines, qty, price = tpch_columns(rng)
+    n = lines.numel()
+    emit({"phase": "relational", "tpch": "SF10", "orders": TPCH_ORDERS,
+          "lineitems": n, "nvidia_smi": card()})
+
+    # unique: l_orderkey's distinct orders and their line counts
+    p = plan_of("unique", n)
+    u = run("unique l_orderkey", lambda: rel.unique(
+        lines, return_counts=True), planned_kernels("unique", p.method),
+        plan=p, k3_passes=4 if p.method == "radix" else None,
+        library=("torch.unique(return_counts=True)",
+                 lambda: torch.unique(lines, return_counts=True)))
+    same(u, torch_route("unique l_orderkey", lambda: rel.unique(
+        lines, return_counts=True, method="torch")), "unique")
+    tv, tc = torch.unique(lines, return_counts=True)
+    if int(u.n_unique) != TPCH_ORDERS:
+        raise AssertionError(f"unique: {int(u.n_unique)} orders")
+    same_bits(u.values[:TPCH_ORDERS], tv, "unique values vs torch.unique")
+    same_bits(u.counts[:TPCH_ORDERS], tc.to(torch.int32),
+              "unique counts vs torch.unique")
+    del u
+
+    # group_by: Q18's inner aggregate over l_quantity, and the revenue sums
+    inverse = torch.unique(lines, return_inverse=True)[1]
+    p = plan_of("group_by", n)
+    aggs = ("sum", "count", "min", "max", "mean")
+    g = run("group_by l_orderkey, l_quantity", lambda: rel.group_by(
+        lines, qty, agg=aggs), planned_kernels("group_by", p.method),
+        plan=p, k3_passes=4 if p.method == "radix" else None, agg=aggs)
+    same(g, torch_route("group_by l_orderkey, l_quantity",
+                        lambda: rel.group_by(lines, qty, agg=aggs,
+                                             method="torch")), "group_by q")
+    s64 = torch.zeros(TPCH_ORDERS, dtype=torch.int64, device="cuda") \
+        .index_add_(0, inverse, qty.to(torch.int64))
+    same_bits(g.aggregates[0][:TPCH_ORDERS].to(torch.int64), s64,
+              "l_quantity sums vs int64")
+    same_bits(g.aggregates[1][:TPCH_ORDERS], tc.to(torch.int32),
+              "group counts vs torch.unique")
+    del g
+    g = run("group_by l_orderkey, l_extendedprice", lambda: rel.group_by(
+        lines, price, agg=("sum", "mean")),
+        planned_kernels("group_by", p.method), plan=p,
+        k3_passes=4 if p.method == "radix" else None, agg=("sum", "mean"))
+    same(g, torch_route("group_by l_orderkey, l_extendedprice",
+                        lambda: rel.group_by(lines, price,
+                                             agg=("sum", "mean"),
+                                             method="torch")), "group_by p")
+    f64 = torch.zeros(TPCH_ORDERS, dtype=torch.float64, device="cuda") \
+        .index_add_(0, inverse, price.to(torch.float64))
+    cnt = tc.to(torch.float64)
+    # float32 sums of c positive terms: |error| <= c * 2^-24 * sum; the
+    # mean adds one more rounding
+    sum_err = ((g.aggregates[0][:TPCH_ORDERS].double() - f64).abs()
+               / (cnt * f64 * 2.0 ** -24)).max().item()
+    mean_err = ((g.aggregates[1][:TPCH_ORDERS].double() - f64 / cnt).abs()
+                / ((cnt + 1) * (f64 / cnt) * 2.0 ** -24)).max().item()
+    emit({"phase": "relational", "check": "float sums vs float64",
+          "max_err_over_limit": {"sum": sum_err, "mean": mean_err}})
+    if not (sum_err <= 1.0 and mean_err <= 1.0):
+        raise AssertionError(f"group_by float sums: {sum_err}, {mean_err} "
+                             f"of the c x 2^-24 limit")
+    del g, f64, cnt, s64, inverse
+
+    # join: every line item finds its one order
+    p = plan_of("join", n)
+    j = run("join l_orderkey = o_orderkey", lambda: rel.join(
+        lines, orders, size=n), planned_kernels("join", p.method), plan=p,
+        k3_passes=4 if p.method == "radix" else None)
+    same(j, torch_route("join l_orderkey = o_orderkey", lambda: rel.join(
+        lines, orders, size=n, method="torch")), "join")
+    left, right = j.left_idx.long(), j.right_idx.long()
+    if int(j.n_pairs) != n or not bool((lines[left] == orders[right]).all()):
+        raise AssertionError(f"join: {int(j.n_pairs)} pairs of {n}, or a "
+                             f"pair whose keys differ")
+    if not bool((torch.bincount(left, minlength=n) == 1).all()):
+        raise AssertionError("join: a line item not matched exactly once")
+    del j, left, right
+
+    # rle / delta of o_orderkey, both round trips
+    so = torch.sort(orders).values
+    p = plan_of("rle", TPCH_ORDERS)
+    r = run("rle o_orderkey", lambda: rel.run_length_encode(orders),
+            planned_kernels("rle", p.method), plan=p,
+            k3_passes=4 if p.method == "radix" else None,
+            library=("torch.unique(return_counts=True)",
+                     lambda: torch.unique(orders, return_counts=True)))
+    same(r, torch_route("rle o_orderkey", lambda: rel.run_length_encode(
+        orders, method="torch")), "rle")
+    same_bits(rel.rle_decode(r.values, r.run_lengths, TPCH_ORDERS), so,
+              "rle round trip")
+    p = plan_of("delta", TPCH_ORDERS)
+    d = run("delta o_orderkey", lambda: rel.delta_encode(orders),
+            planned_kernels("delta", p.method), plan=p,
+            k3_passes=4 if p.method == "radix" else None)
+    same(d, torch_route("delta o_orderkey", lambda: rel.delta_encode(
+        orders, method="torch")), "delta")
+    same_bits(rel.delta_decode(d.deltas), so, "delta round trip")
+    del r, d, so
+
+    # the sketches: a torch.sort / bucketize oracle
+    lo, hi = float(price.min()), float(price.max())
+    h = run("histogram l_extendedprice 64 bins",
+            lambda: rel.histogram(price, REL_BINS), (),
+            library=("torch.histc", lambda: torch.histc(price, REL_BINS,
+                                                        lo, hi)))
+    idx = (torch.bucketize(price, h.edges, right=True) - 1
+           ).clamp(0, REL_BINS - 1)
+    same_bits(h.counts, torch.bincount(idx, minlength=REL_BINS)
+              .to(torch.int32), "histogram vs bucketize")
+    if int(h.counts.sum()) != n:
+        raise AssertionError("histogram: counts do not add up to n")
+    passes = -(-32 // tuning.active().digit_bits)
+    # K4 one launch a digit pass; the ~0.99 n survivors ordered by K1
+    # runs and K2 merges (past K1's cap)
+    q = run("quantiles l_extendedprice", lambda: rel.quantiles(
+        price, REL_QS), ("select_digit_hist", "bitonic_sort_kv_blocks")
+        + K2_KV, exact={"select_digit_hist": passes}, qs=REL_QS,
+        k=int(max(REL_QS) * (n - 1)) + 1,
+        library=("torch.sort", lambda: torch.sort(price)))
+    sp = torch.sort(price).values
+    same_bits(q.values, sp[[int(f * (n - 1)) for f in REL_QS]],
+              "quantiles vs torch.sort")
+    del h, idx, q, sp
+
+    # group_ranks: MoE dispatch rows (one-hot) and a flat sort path
+    def ranks_oracle(ids, groups):
+        o = torch.sort(ids, dim=-1, stable=True)
+        first = torch.searchsorted(o.values, o.values, side="left")
+        pos = torch.arange(ids.shape[-1], device="cuda").expand_as(first)
+        r = torch.empty_like(first).scatter_(-1, o.indices, pos - first)
+        c = torch.zeros(ids.shape[:-1] + (groups,), dtype=torch.int64,
+                        device="cuda").scatter_add_(
+            -1, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+        return r.to(torch.int32), c.to(torch.int32)
+
+    ids = torch.from_numpy(rng.integers(0, MOE_EXPERTS, MOE_IDS)
+                           .astype(np.int32)).cuda()
+    gr = run(f"group_ranks {MOE_IDS} ids, {MOE_EXPERTS} experts",
+             lambda: rel.group_ranks(ids, MOE_EXPERTS), ())
+    same(gr, ranks_oracle(ids, MOE_EXPERTS), "group_ranks one-hot")
+    flat = torch.from_numpy(rng.integers(0, FLAT_IDS[1], FLAT_IDS[0])
+                            .astype(np.int32)).cuda()
+    p = engine.choose(FLAT_IDS[0], 1, torch.int32, device="cuda")
+    gr = run(f"group_ranks 2^24 ids, {FLAT_IDS[1]} groups",
+             lambda: rel.group_ranks(flat, FLAT_IDS[1]),
+             planned_kernels("group_ranks", p.method), plan=p,
+             k3_passes=4 if p.method == "radix" else None)
+    same(gr, torch_route(f"group_ranks 2^24 ids, {FLAT_IDS[1]} groups",
+                         lambda: rel.group_ranks(flat, FLAT_IDS[1],
+                                                 method="torch")),
+         "group_ranks sort path")
+    same(gr, ranks_oracle(flat, FLAT_IDS[1]), "group_ranks vs torch.sort")
+    del gr, ids, flat, orders, lines, qty, price
+    torch.cuda.synchronize()
+    return launches
+
+
 def phase_serve() -> dict:
     """``serve`` of minitron-4b, the prefill's attention on K6, with the
     launch counts set to 0 just before and read just after; then the same
     batches' prefill through K6 and through the einsum attention, and the
-    time splits of a prefill and a decode step.  Returns the counts."""
+    time splits of a prefill and a decode step; the served requests'
+    length accounting against a numpy count.  Returns the counts."""
     import dataclasses
+    import numpy as np
     import torch
     from repro_torch import engine
     from repro_torch.configs import get_config
@@ -963,9 +1275,18 @@ def phase_serve() -> dict:
         if r.out is None or len(r.out) != steps or not (
                 (r.out >= 0) & (r.out < cfg.vocab_size)).all():
             raise AssertionError(f"serve: request {r.rid} got {r.out}")
+    # the length accounting (relational.group_by on the card) against a
+    # numpy count of the prompt lengths: every request made ``steps`` tokens
+    lens, per_len = np.unique([len(r.prompt) for r in done],
+                              return_counts=True)
+    want = [(int(k), int(c), float(steps)) for k, c in zip(lens, per_len)]
+    if stats["length_groups"] != want:
+        raise AssertionError(f"serve: length accounting "
+                             f"{stats['length_groups']}, expected {want}")
     emit({"phase": "serve", "requests": len(done),
           "batches": stats["batches"], "launches": counts,
           "prompt_lens": sorted(len(r.prompt) for r in done),
+          "length_groups": stats["length_groups"],
           "padding_waste": stats["padding_waste"],
           "prefill_ms": stats["prefill_ms"],
           "decode_tok_s": stats["decode_tps"], "seconds": seconds})
@@ -1849,12 +2170,18 @@ def main() -> int:
     emit({"phase": "main", "total_launches": main_res["launches"],
           "seconds": time.perf_counter() - tm})
 
+    tr = time.perf_counter()
+    rel_launches = phase_relational(rng)
+    emit({"phase": "relational", "total_launches": rel_launches,
+          "seconds": time.perf_counter() - tr})
+
     ts = time.perf_counter()
     serve_launches = phase_serve()
     emit({"phase": "serve", "seconds": time.perf_counter() - ts})
     launches = dict(main_res["launches"])
-    for k, v in serve_launches.items():
-        launches[k] = launches.get(k, 0) + v
+    for counts in (rel_launches, serve_launches):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
 
     tt = time.perf_counter()
     rows = phase_timing(launches, prof.run_len, prof.radix_tile,

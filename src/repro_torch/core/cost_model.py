@@ -9,8 +9,9 @@ the backends with.
   (``gates``/``sorter``) validates functional correctness and total cycle
   counts; this module owns the quoted latency/throughput/ratio numbers.
 * **The device model**: the part of the JAX package's cost model the
-  single-device planner needs: closed-form ns estimates per sort backend
-  and for top-k selection, with fixed asymptotics and leading constants
+  single-device planner needs: closed-form ns estimates per sort backend,
+  for top-k selection and for the relational ops (a sort plus O(n)
+  post-passes), with fixed asymptotics and leading constants
   from the active tuning profile.  The constants are the JAX package's
   default seeds (``core/tuning.py``), not measurements on a CUDA card;
   they order candidates, they do not predict times.
@@ -201,3 +202,52 @@ def selection_cost_ns(n: int, k: int, key_bits: int = 32, batch: int = 1, *,
     digit_bits = prof.digit_bits if digit_bits is None else digit_bits
     passes = -(-key_bits // digit_bits)
     return c.select * batch * n * passes + c.torch * batch * k * _log2(k)
+
+
+# ---- relational ops (repro_torch.relational auto-dispatch) -------------------
+#
+# Every relational op is priced as (sort backbone) + (O(n) post-pass), as in
+# the JAX package: the post-pass is a handful of elementwise / searchsorted
+# sweeps over the sorted column, priced at the one-merge-level constant
+# (``merge_level``, one O(n) gather-bound pass) times a per-op pass count.
+# No new profile field: relational plans reuse the sort constants.
+
+REL_POST_PASSES: Dict[str, float] = {
+    "unique": 3.0,     # boundary mask + compaction search + pad
+    "group_by": 4.0,   # boundary + compaction + segment reduce (per agg ~1)
+    "join": 6.0,       # 2x searchsorted runs + offset scan + pair expansion
+    "rle": 3.0,        # boundary + compaction + segment lengths
+    "delta": 1.0,      # one adjacent-diff sweep
+}
+
+# ops that sort more than one column (join sorts both sides)
+REL_SORT_COLUMNS: Dict[str, float] = {"join": 2.0}
+
+
+def relational_cost_ns(op: str, method: str, n: int, batch: int = 1, *,
+                       run_len: Optional[int] = None, key_bits: int = 32,
+                       consts: Optional[DeviceSortConstants] = None,
+                       plain: bool = False) -> float:
+    """Estimated ns for relational ``op`` over an ``n``-element column with
+    its sort backbone on ``method``.
+
+    ``planner.choose_relational`` prices every auto candidate with this,
+    passing the stable merge pipeline in place of a non-stable backend on
+    the order-sensitive ops, since that is what the engine runs for them.
+    The sketches are priced too (quantile at the selection model's median
+    contract, histogram at one binary-search sweep), though they take no
+    backend.  ``plain`` is ``device_sort_cost_ns``'s: the kernel backends
+    on a CPU tensor."""
+    c = consts or _tuning.active().constants
+    if op == "quantile":
+        return selection_cost_ns(n, max(1, n // 2), key_bits, batch,
+                                 consts=c)
+    if op == "histogram":
+        # one searchsorted sweep over the edges + a bincount scatter
+        return c.torch * batch * n * _log2(n)
+    if op not in REL_POST_PASSES:
+        raise ValueError(f"no relational cost model for op {op!r}")
+    sort_ns = device_sort_cost_ns(method, n, batch, run_len=run_len,
+                                  consts=c, plain=plain, key_bits=key_bits)
+    post = c.merge_level * batch * n * REL_POST_PASSES[op]
+    return REL_SORT_COLUMNS.get(op, 1.0) * sort_ns + post

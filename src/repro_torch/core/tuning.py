@@ -10,7 +10,7 @@ profile; :func:`set_active` bumps a generation counter the planner folds
 into its plan-cache keys, so swapping profiles re-plans.
 
 Not carried yet: calibration (``calibrate``/``maybe_refresh``, ROADMAP
-Queue 1 item 7) and the persisted-profile search path.  Until then the
+Queue 1 item 7a) and the persisted-profile search path.  Until then the
 constants are the JAX package's default seeds, copied unchanged — none of
 them was measured on a CUDA card — and the CUDA kernel knobs are
 placeholders chosen from the kernels' design (see ``default_profile``).

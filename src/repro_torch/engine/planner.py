@@ -10,8 +10,10 @@ merge-path kernel, and the run length is capped at what the bitonic
 kernel holds in shared memory; on the CPU it runs ``torch.sort`` runs and
 the plain rank merge, as the JAX package does off the TPU.
 
-Resolved plans are cached per (n, batch, dtype, requested, run_len, k,
-device type) and invalidated on profile or registry changes.
+``choose_relational`` picks the sort backbone of a relational op
+(``repro_torch.relational``) the same way, with the relational cost
+entries.  Resolved plans are cached per (n, batch, dtype, requested,
+run_len, k, device type) and invalidated on profile or registry changes.
 """
 from __future__ import annotations
 
@@ -127,6 +129,92 @@ def _record_decision(plan: Plan, *, n: int, batch: int, dtype,
 
 
 _PLAN_CACHE: Dict[tuple, Plan] = {}
+
+
+# ---------------------------------------------------------------------------
+# relational dispatch: which sorting backend carries each relational op
+# ---------------------------------------------------------------------------
+
+def choose_relational(op: str, n: int, batch: int = 1, dtype=torch.float32,
+                      *, requested: str = "auto", device="cuda") -> Plan:
+    """Resolve the sort backbone of a sort-backed relational op
+    (``repro_torch.relational``).
+
+    Prices every auto-dispatchable sort backend with
+    ``cost_model.relational_cost_ns``.  The order-sensitive ops
+    (``STABLE_OPS``: join's pair order, group-by's summation order, group
+    ranks) run the engine's stable pipeline, and a non-stable backend is
+    replaced there by the stable merge fallback (its runs on K3 on a card,
+    ``stable_run_method="radix"``), so such a candidate is priced at the
+    ``merge`` cost, what picking it really runs."""
+    from repro_torch.core import cost_model
+    from repro_torch.relational.relspec import SORT_OPS, STABLE_OPS
+    if op not in SORT_OPS:
+        raise ValueError(
+            f"choose_relational plans the sort-backed ops "
+            f"{tuple(sorted(SORT_OPS))}, got {op!r}")
+    prof = _tuning.active()
+    rl = prof.run_len
+    cuda = on_cuda(device)
+    if cuda:
+        rl = min(sortspec.next_pow2(rl), MAX_CUDA_N)
+    kb = keycodec.key_bits(dtype) if keycodec.supports(dtype) else 32
+    candidates = {name: be for name, be in _auto_candidates().items()
+                  if be.capabilities.supports_sort}
+    costs: Dict[str, float] = {}
+    for name, be in candidates.items():
+        effective = name
+        if op in STABLE_OPS and not be.capabilities.stable \
+                and name != "merge":
+            effective = "merge"
+        try:
+            costs[name] = cost_model.relational_cost_ns(
+                op, effective, n, batch, run_len=rl, key_bits=kb,
+                consts=prof.constants, plain=not cuda)
+        except ValueError:
+            costs[name] = float("inf")   # unknown backend: never auto-picked
+    if requested == "auto":
+        valid = [m for m in costs
+                 if candidates[m].eligible(n, dtype, rl)
+                 and costs[m] != float("inf")]
+        method = min(valid, key=costs.__getitem__)
+    else:
+        method = requested
+    plan = Plan(method=method, run_len=rl,
+                run_method="cuda" if cuda else "torch",
+                merge_backend="cuda" if cuda else "torch", costs=costs,
+                stable_run_method="radix" if cuda else "torch")
+    from repro_torch.obs import trace as _obs
+    if _obs.enabled():
+        _obs.record_event(
+            "relational_plan_decision", op=op, n=n, batch=batch,
+            dtype=keycodec.dtype_name(dtype), requested=requested,
+            method=plan.method, predicted_ns=plan.costs.get(plan.method),
+            costs=dict(plan.costs), device=torch.device(device).type)
+        from repro_torch.obs import metrics as _m
+        _m.counter("planner.relational_decisions").inc()
+    return plan
+
+
+def choose_relational_cached(op: str, n: int, batch: int = 1,
+                             dtype=torch.float32, *,
+                             requested: str = "auto", device="cuda") -> Plan:
+    """``choose_relational`` memoized in the shared plan cache, with the
+    same invalidation (tuning and registry generations, device type)."""
+    key = ("rel", op, n, batch, keycodec.dtype_name(dtype), requested,
+           torch.device(device).type, _tuning.generation(),
+           sortspec.registry_generation())
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        plan = choose_relational(op, n, batch, dtype, requested=requested,
+                                 device=device)
+        _PLAN_CACHE[key] = plan
+    else:
+        from repro_torch.obs import trace as _obs
+        if _obs.enabled():
+            from repro_torch.obs import metrics as _m
+            _m.counter("planner.plan_cache_hits").inc()
+    return plan
 
 
 def choose_cached(n: int, batch: int = 1, dtype=torch.float32, *,

@@ -5,14 +5,15 @@ are sorted by prompt length through the port's ``argsort`` so each prefill
 batch is length-homogeneous; each batch is left-padded to its longest
 prompt (the pad tokens are attended to, as in the reference), prefilled
 (through K6 with ``--flash-prefill``), and decoded a token at a time with
-top-k sampling through the port's ``topk``.
+top-k sampling through the port's ``topk``.  The served requests are then
+accounted by prompt length with one ``relational.group_by``
+(``batch_accounting``), and with obs on the SLO report is printed.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
       --smoke --device cpu --requests 6 --batch-size 3 --decode-steps 8
 
 Not carried yet: the scheduler's mesh path and the topology snapshot
-(ROADMAP Queue 1 item 11), ``batch_accounting`` (needs ``relational``,
-item 8) and the SLO report (``obs/report.py``, item 7).
+(ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -26,13 +27,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import relational
 from repro_torch import sort as sorting
 from repro_torch.configs.base import ShapeSpec, get_config, get_smoke_config
 from repro_torch.core import tuning as _tuning
 from repro_torch.core.sortspec import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model_zoo import build
-from repro_torch.obs import metrics as _metrics, trace as _obs
+from repro_torch.obs import metrics as _metrics, report as _obs_report, \
+    trace as _obs
 
 # where serve persists its tuning snapshot between runs (the --state-dir
 # flag overrides; unset means no persistence)
@@ -174,6 +177,25 @@ def snapshot_state(state_dir: os.PathLike) -> List[pathlib.Path]:
                                                     prof.fingerprint))]
 
 
+def batch_accounting(done: List[Request], *, device="cuda"):
+    """Per-prompt-length accounting of the completed requests: one
+    ``relational.group_by`` (prompt length -> generated-token count) with
+    ``agg=("count", "mean")`` on ``device``.  Returns ascending
+    ``[(prompt_len, n_requests, mean_new_tokens), ...]``."""
+    if not done:
+        return []
+    lens = torch.tensor([len(r.prompt) for r in done], dtype=torch.int32)
+    gen = torch.tensor([0 if r.out is None else len(r.out) for r in done],
+                       dtype=torch.int32)
+    gb = relational.group_by(lens, gen, agg=("count", "mean"),
+                             device=device)
+    g = int(gb.n_groups)
+    keys = gb.keys[:g].tolist()
+    cnt = gb.aggregates[0][:g].tolist()
+    mean = gb.aggregates[1][:g].tolist()
+    return [(int(k), int(c), float(m)) for k, c, m in zip(keys, cnt, mean)]
+
+
 def serve(arch: str, smoke: bool = True, n_requests: int = 16,
           batch_size: int = 8, decode_steps: int = 32, topk: int = 50,
           seed: int = 0, max_len: int = 256,
@@ -187,7 +209,8 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
     on startup and snapshots the active one on shutdown.
 
     Returns (requests done, stats): ``batches``, per-batch
-    ``padding_waste``, ``prefill_ms`` and ``decode_tps``."""
+    ``padding_waste``, ``prefill_ms`` and ``decode_tps``, and
+    ``length_groups`` (``batch_accounting``)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if flash_prefill is not None:
         cfg = dataclasses.replace(cfg, flash_prefill=flash_prefill)
@@ -226,6 +249,15 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
           f"{dev}; mean padding waste {waste:.3f}; prefill "
           f"{np.mean(stats['prefill_ms']):.1f} ms a batch; decode "
           f"{np.mean(stats['decode_tps']):.1f} tok/s")
+    acct = batch_accounting(done, device=dev)
+    stats["length_groups"] = acct
+    if acct:
+        head = ", ".join(f"len={k}: {c} req x {m:.0f} tok"
+                         for k, c, m in acct[:8])
+        more = "" if len(acct) <= 8 else f" (+{len(acct) - 8} more)"
+        print(f"[serve] length accounting: {head}{more}")
+    if _obs.enabled():
+        print(_obs_report.slo_report())
     return done, stats
 
 
@@ -270,8 +302,7 @@ def _serve_loop(sched, model, params, serve_step, noise, decode_steps,
                 _metrics.histogram("serve.e2e_ms").observe(
                     (fin - r.submit_t) * 1e3)
         if _obs.enabled():
-            _metrics.histogram("serve.decode_tps").observe(
-                stats["decode_tps"][-1])
+            _metrics.gauge("serve.decode_tps").set(stats["decode_tps"][-1])
 
 
 def main():

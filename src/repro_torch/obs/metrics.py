@@ -1,5 +1,5 @@
-"""Process-local counters and fixed-bucket histograms (the part of the JAX
-package's metrics registry the engine writes; pure Python).
+"""Process-local counters, gauges and fixed-bucket histograms (the JAX
+package's metrics registry; pure Python).
 
 No dependencies beyond the standard library: histograms use fixed
 geometric buckets (``_BPD`` buckets per decade over ``[_LO, _HI)``), so an
@@ -18,14 +18,15 @@ Units are by convention in the metric name (``serve.e2e_ms``,
 """
 from __future__ import annotations
 
+import json
 import math
 import threading
 from typing import Dict, List, Optional
 
 from repro_torch.obs import trace as _trace
 
-__all__ = ["Counter", "Histogram", "counter", "histogram", "snapshot",
-           "reset"]
+__all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
+           "snapshot", "to_json", "reset"]
 
 _LOCK = threading.Lock()
 _REGISTRY: Dict[str, object] = {}
@@ -52,6 +53,23 @@ class Counter:
 
     def _snap(self):
         return {"type": "counter", "value": self.value}
+
+
+class Gauge:
+    """Last-write-wins value (a rate, a queue depth)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value: Optional[float] = None
+
+    def set(self, v: float) -> None:
+        if not _trace.enabled():
+            return
+        with _LOCK:
+            self.value = float(v)
+
+    def _snap(self):
+        return {"type": "gauge", "value": self.value}
 
 
 class Histogram:
@@ -140,6 +158,10 @@ def counter(name: str) -> Counter:
     return _get(name, Counter)
 
 
+def gauge(name: str) -> Gauge:
+    return _get(name, Gauge)
+
+
 def histogram(name: str) -> Histogram:
     return _get(name, Histogram)
 
@@ -149,6 +171,10 @@ def snapshot() -> Dict[str, dict]:
     with _LOCK:
         metrics = dict(_REGISTRY)
     return {name: m._snap() for name, m in sorted(metrics.items())}
+
+
+def to_json(indent: Optional[int] = None) -> str:
+    return json.dumps(snapshot(), indent=indent)
 
 
 def reset() -> None:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import json
 import os
 import threading
 import time
@@ -26,7 +27,7 @@ import torch
 
 __all__ = [
     "enable", "disable", "enabled", "tracing", "trace", "Span",
-    "record_event", "events", "spans", "clear",
+    "record_event", "events", "spans", "clear", "to_json",
 ]
 
 _ENABLED = bool(os.environ.get("REPRO_OBS"))
@@ -187,3 +188,26 @@ def events(kind: Optional[str] = None) -> List[Dict[str, Any]]:
     if kind is not None:
         evs = [e for e in evs if e.get("kind") == kind]
     return evs
+
+
+# ---------------------------------------------------------------------------
+# export
+# ---------------------------------------------------------------------------
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    try:                                    # 0-d tensors, numpy scalars
+        return v.item()
+    except (AttributeError, ValueError, RuntimeError):
+        return repr(v)
+
+
+def to_json(indent: Optional[int] = None) -> str:
+    """Every recorded span and event as one JSON document."""
+    return json.dumps({"spans": _jsonable(spans()),
+                       "events": _jsonable(events())}, indent=indent)

@@ -835,3 +835,130 @@ def test_model_prefill_on_the_card_flash_on_vs_off(name):
     assert (l0 - l1).abs().max().item() <= tol
     for a, b in ((s0["body"].k, s1["body"].k), (s0["body"].v, s1["body"].v)):
         assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the relational ops on the card: auto against method="torch"
+# ---------------------------------------------------------------------------
+
+REL_N = 1 << 20
+K3 = ("radix_onesweep_hist", "radix_onesweep_pass")
+
+
+def _planned_kernels(op, n, dtype):
+    """The kernels the card's plan for a sort-backed op must launch."""
+    from repro_torch.engine import planner
+    stable = op in ("group_by", "join")
+    method = planner.choose_relational(op, n, dtype=dtype,
+                                       device="cuda").method
+    if method == "radix" or (stable and method != "torch"):
+        # a stable merge sorts its runs on K3 too, and merges them on K2
+        return K3 + (("merge_path_partition",) if method != "radix" else ())
+    return {"torch": (), "cuda": ("bitonic_sort_kv_blocks",),
+            "merge": ("bitonic_sort_blocks", "merge_path_partition"),
+            "bitonic": ()}[method]
+
+
+def _launched(fn):
+    _build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.launches)
+
+
+def _same_tree(a, b):
+    for x, y in zip(a, b):
+        if isinstance(x, tuple):
+            _same_tree(x, y)
+        elif x is not None:
+            _same(x, y)
+
+
+def _rel_cols(seed):
+    rng = np.random.default_rng(seed)
+    k = torch.from_numpy(rng.integers(0, REL_N // 4, REL_N)
+                         .astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.integers(1, 51, REL_N).astype(np.int32)).cuda()
+    p = torch.from_numpy((rng.standard_normal(REL_N) * 1000)
+                         .astype(np.float32)).cuda()
+    return k, q, p
+
+
+@pytest.mark.parametrize("op", ["unique", "group_by_int", "group_by_float",
+                                "join", "rle", "delta"])
+def test_relational_auto_matches_torch_route(op):
+    """Each sort-backed op at 2^20 rows: the planner's kernels launched,
+    and the bits of the same call on ``torch.sort`` (no kernel)."""
+    import repro_torch.relational as rel
+    k, q, p = _rel_cols(0)
+    calls = {
+        "unique": (lambda m: rel.unique(k, return_inverse=True,
+                                        return_counts=True, method=m),
+                   "unique"),
+        "group_by_int": (lambda m: rel.group_by(
+            k, q, agg=("sum", "count", "min", "max", "mean"), method=m),
+            "group_by"),
+        "group_by_float": (lambda m: rel.group_by(
+            k, p, agg=("sum", "min", "max", "mean"), method=m), "group_by"),
+        "join": (lambda m: rel.join(k, k[: REL_N // 4], size=REL_N * 2,
+                                    method=m), "join"),
+        "rle": (lambda m: rel.run_length_encode(k, method=m), "rle"),
+        "delta": (lambda m: rel.delta_encode(k, method=m), "delta"),
+    }
+    fn, name = calls[op]
+    got, counts = _launched(lambda: fn(None))
+    for kernel in _planned_kernels(name, REL_N, torch.int32):
+        assert counts.get(kernel, 0) > 0, (kernel, counts)
+    want, counts = _launched(lambda: fn("torch"))
+    assert not counts, counts
+    _same_tree(got, want)
+    again = fn(None)        # the float sums are deterministic on the card
+    _same_tree(again, got)
+
+
+def test_relational_sketches_against_sort_oracles():
+    import repro_torch.relational as rel
+    _, _, p = _rel_cols(1)
+    qs = (0.01, 0.5, 0.99)
+    got, counts = _launched(lambda: rel.quantiles(p, qs))
+    assert counts.get("select_digit_hist", 0) == 4, counts
+    s = torch.sort(p).values
+    _same(got.values, s[[int(f * (REL_N - 1)) for f in qs]])
+    h = rel.histogram(p, 64)
+    idx = (torch.bucketize(p, h.edges, right=True) - 1).clamp(0, 63)
+    want = torch.bincount(idx, minlength=64).to(torch.int32)
+    _same(h.counts, want)
+    assert int(h.counts.sum()) == REL_N
+
+
+@pytest.mark.parametrize("shape,groups", [((8, 16384), 64),
+                                          ((1 << 20,), 4096)])
+def test_relational_group_ranks_on_the_card(shape, groups):
+    import repro_torch.relational as rel
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, groups, shape).astype(np.int32)
+                           ).cuda()
+    got, counts = _launched(lambda: rel.group_ranks(ids, groups))
+    if len(shape) == 1:
+        assert counts.get("radix_onesweep_hist", 0) > 0, counts
+    order = torch.sort(ids, dim=-1, stable=True)
+    start = torch.searchsorted(order.values, order.values, side="left")
+    pos = torch.arange(shape[-1], device="cuda").expand_as(start)
+    want = torch.empty_like(start).scatter_(-1, order.indices, pos - start)
+    _same(got.ranks, want.to(torch.int32))
+    _same(got.counts, torch.nn.functional.one_hot(
+        ids.long(), groups).sum(-2).to(torch.int32))
+
+
+def test_relational_float_sums_on_the_card_match_the_cpu():
+    """A float group-by on the card adds each run in order, one run a
+    thread, as the CPU does: the same bits as ``device="cpu"`` (the JAX
+    package's bits, ``tests/test_torch_relational.py``)."""
+    import repro_torch.relational as rel
+    k, _, p = _rel_cols(3)
+    for vals in (p, p.to(torch.bfloat16)):
+        got = rel.group_by(k, vals, agg=("sum", "mean", "min", "max"))
+        want = rel.group_by(k.cpu(), vals.cpu(),
+                            agg=("sum", "mean", "min", "max"), device="cpu")
+        _same_tree([a.cpu() for a in got.aggregates], want.aggregates)
+        _same(got.keys.cpu(), want.keys)

@@ -368,6 +368,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "from repro_torch.models import layers, attention, transformer, "
             "model_zoo\n"
             "from repro_torch.launch import steps, serve\n"
+            "import repro_torch.relational\n"
+            "from repro_torch.relational import relspec, unique, groupby, "
+            "join, encode, sketch\n"
+            "from repro_torch.obs import report\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"

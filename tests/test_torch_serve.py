@@ -290,3 +290,93 @@ def test_tuning_profile_state_dir_round_trip(tmp_path, monkeypatch):
         assert tserve.resolve_state_dir("x").name == "x"
     finally:
         tuning.set_active(None)
+
+
+# ---------------------------------------------------------------------------
+# length accounting and the SLO report
+# ---------------------------------------------------------------------------
+
+def test_batch_accounting_matches_the_reference():
+    """The served requests of the reference's stream (16 prompts, ties
+    among their lengths) accounted by both packages' group_by."""
+    reqs = tserve.make_requests(256, 16, 64, 8, seed=2)
+    rng = np.random.default_rng(3)
+    for r in reqs:
+        r.out = np.zeros(int(rng.integers(1, 9)), np.int32)
+    reqs.append(tserve.Request(rid=99, prompt=reqs[0].prompt))  # no output
+    want = jserve.batch_accounting([jserve.Request(
+        rid=r.rid, prompt=r.prompt, out=r.out) for r in reqs])
+    got = tserve.batch_accounting(reqs, device="cpu")
+    assert got == want
+    lens, counts = np.unique([len(r.prompt) for r in reqs],
+                             return_counts=True)
+    assert [(k, c) for k, c, _ in got] == list(zip(lens.tolist(),
+                                                   counts.tolist()))
+
+
+def test_serve_prints_length_accounting_and_slo_report(capsys):
+    from repro_torch import obs
+    obs.clear()
+    with obs.tracing():
+        done, stats = tserve.serve("minitron-4b", n_requests=4,
+                                   batch_size=2, decode_steps=3, topk=5,
+                                   device="cpu")
+        gauge = obs.snapshot()["serve.decode_tps"]
+    obs.clear()
+    out = capsys.readouterr().out
+    assert "[serve] length accounting: len=" in out
+    assert "## Serve SLO report" in out and "| serve.e2e_ms | 4 |" in out
+    assert gauge["type"] == "gauge" and gauge["value"] > 0
+    lens, counts = np.unique([len(r.prompt) for r in done],
+                             return_counts=True)
+    assert stats["length_groups"] == [
+        (int(k), int(c), 3.0) for k, c in zip(lens, counts)]
+
+
+def _record(mods):
+    """The same metrics, spans and events into each obs package."""
+    for obs in mods:
+        obs.clear()
+        obs.enable()
+        for v in (3.0, 5.0, 40.0, 7.5):
+            obs.metrics.histogram("serve.e2e_ms").observe(v)
+            obs.metrics.histogram("serve.queue_wait_ms").observe(v / 2)
+        obs.metrics.histogram("planner.cost_model_error").observe(2.0)
+        obs.metrics.counter("serve.requests").inc(4)
+        obs.metrics.gauge("serve.decode_tps").set(123.5)
+        obs.metrics.counter("relational.unique").inc()
+        with obs.trace.trace("engine.sort", n=8, method="torch"):
+            with obs.trace.trace("radix.sort_kv", n=8, passes=4):
+                pass
+        obs.trace.record_event("cost_observation", op="sort", n=8, k=None,
+                               method="radix", predicted_ns=10.0,
+                               measured_ns=30.0, error=3.0)
+
+
+def test_slo_and_markdown_reports_match_the_reference():
+    import repro.obs as jobs
+    import repro_torch.obs as tobs
+    _record((jobs, tobs))
+    try:
+        assert tobs.report.slo_report() == jobs.report.slo_report()
+        assert tobs.report.cost_model_report() == \
+            jobs.report.cost_model_report()
+        # the span table's wall times differ: compare the rest, and the
+        # span rows' names and attributes
+        want = jobs.report.render_markdown().split("### Spans")
+        got = tobs.report.render_markdown().split("### Spans")
+        assert got[0] == want[0]
+
+        def rows(text):
+            return [(r.split("|")[1], r.split("|")[4])
+                    for r in text.splitlines() if r.startswith("| ")]
+        assert rows(got[1]) == rows(want[1])
+        import json
+        assert json.loads(tobs.metrics.to_json()) == \
+            json.loads(jobs.metrics.to_json())
+        assert [e["kind"] for e in json.loads(tobs.trace.to_json())[
+            "events"]] == ["cost_observation"]
+    finally:
+        for obs in (jobs, tobs):
+            obs.clear()
+            obs.disable()
