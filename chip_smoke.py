@@ -94,7 +94,26 @@ Phases, each printed as one JSON line:
             alone moves), and K6 against its plain version at each served
             batch's shape; the ``[serve] length accounting`` groups against
             a numpy count of the prompt lengths;
-6. timing   each kernel at the main path's shapes: its output held against
+6. spill    the spill tier above the default 4 GiB threshold, inputs on
+            the host: a 3 x 2^29 float32 ``method="auto"`` sort (its plan
+            must be ``spill``), held bit for bit with overlap off and on,
+            ``spill_argsort`` / ``spill_sort_kv`` of 2^30 int32 keys in 16
+            runs both ways, a bfloat16 and a NaN-holding float32 run; each
+            call counted (K3: a histogram and a pass a digit a chunk sort;
+            K2: a partition launch a merge launch), held against
+            ``torch.sort(stable=True)`` on the card (``spill_reference``:
+            chunks sorted as their plan sorts them, one stable sort of the
+            runs by the merge's order), and printed with its spill- and
+            merge-phase ms, overlap fraction and link bytes beside a plain
+            pinned 1 GiB copy's rate;
+7. calibrate
+            ``planner.calibrate`` at (64, 2048) and (4096, 4096): constants,
+            probes, sweeps; the plans the seed and both calibrated profiles
+            pick at this script's sort, top-k and SF10 shapes beside the
+            ms of each candidate; the profile persisted, resolved by a
+            fresh process (``source == "persisted"``), then
+            ``reset_calibration()``: the timing phase runs on the seeds;
+8. timing   each kernel at the main path's shapes: its output held against
             its plain version on the same inputs (the ``max_abs_err`` of the
             kernel table; bit for bit but for K6, which is held to the
             limits of phase 2), then CUDA-event times of both beside
@@ -1000,6 +1019,7 @@ def phase_relational(rng) -> dict:
     from repro_torch.kernels import _build
 
     launches: dict = {}
+    measured: dict = {}     # op -> {route: ms}, read by phase_calibrate
 
     def run(name, fn, must, *, plan=None, k3_passes=None, exact=None,
             library=None, reps=2, **info):
@@ -1040,6 +1060,8 @@ def phase_relational(rng) -> dict:
         if library is not None:
             line["library"] = library[0]
             line["library_ms"] = cuda_ms(library[1], reps)[0]
+        if plan is not None:
+            measured.setdefault(name, {})[plan.method] = line["ms"]
         emit(line)
         return out
 
@@ -1052,6 +1074,7 @@ def phase_relational(rng) -> dict:
             raise AssertionError(f"{name} method=torch launched "
                                  f"{dict(_build.launches)}")
         ms = cuda_ms(fn, 2, warm=False)[0]
+        measured.setdefault(name, {})["torch"] = ms
         emit({"phase": "relational", "op": name, "route": "torch",
               "ms": ms})
         return out
@@ -1219,9 +1242,10 @@ def phase_relational(rng) -> dict:
                                                  method="torch")),
          "group_ranks sort path")
     same(gr, ranks_oracle(flat, FLAT_IDS[1]), "group_ranks vs torch.sort")
+    measured["n"] = {"lineitems": n, "orders": TPCH_ORDERS}
     del gr, ids, flat, orders, lines, qty, price
     torch.cuda.synchronize()
-    return launches
+    return launches, measured
 
 
 def phase_serve() -> dict:
@@ -1448,7 +1472,391 @@ def decode_split(model, params, toks, max_len) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timing at the main path's shapes
+# phase 6: the spill tier, above the default threshold
+# ---------------------------------------------------------------------------
+
+SPILL_N = 3 << 29          # float32 keys of the auto spill sort: 6 GiB
+SPILL_KV_N = 1 << 30       # int32 keys in [0, 2^20): argsort, sort_kv
+SPILL_KV_KEYS = 1 << 20
+SPILL_KV_CHUNK = 1 << 28   # bytes a chunk: 16 runs of 2^26 keys
+SPILL_SMALL = 1 << 24      # the bfloat16 and the NaN-holding float32 runs
+SPILL_SMALL_CHUNK = 1 << 22
+LINK_BYTES = 1 << 30       # one plain pinned copy each way
+
+
+def _release_pinned() -> None:
+    """Hand cached pinned host blocks back (where torch has the call)."""
+    import gc
+    import torch
+    gc.collect()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def spill_reference(x, chunk, descending, chunk_order):
+    """What the spill tier must return for ``x`` on the card, built from
+    ``torch.sort(stable=True)``: each chunk sorted as its plan sorts it
+    (``chunk_order(c)``: the chunk's sorted keys), then the runs merged by
+    one stable ``torch.sort`` of their concatenation on the reference
+    merge's order (``merge.order_key``: -0.0 with +0.0, NaN last), ties in
+    run order.  For keys without signed zeros or NaN this is
+    ``torch.sort(x, stable=True)`` itself."""
+    import torch
+    from repro_torch.engine.merge import order_key
+    cat = torch.cat([chunk_order(x[s:s + chunk].cuda())
+                     for s in range(0, x.numel(), chunk)])
+    idx = torch.sort(order_key(cat), stable=True,
+                     descending=descending).indices
+    return cat[idx]
+
+
+def total_order_sorted(c):
+    """A chunk as ``radix`` sorts it: stable, on the IEEE total order
+    (-0.0 below +0.0, ``keycodec``'s order)."""
+    import torch
+    from repro_torch.core import keycodec
+    return c[torch.sort(keycodec.total_order_key(c), stable=True).indices]
+
+
+def host_trace(fn, top: int = 10) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms, the ops
+    that took the most host time (self CPU ms) and what took the card's
+    time (kernels and copies, device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    host, card = [], []
+    for e in prof.key_averages():
+        own = getattr(e, "self_device_time_total", 0) / 1e3
+        if own > 0 and e.device_type == DeviceType.CUDA:
+            card.append((e.key[:60], e.count, own))
+        elif e.self_cpu_time_total > 0:
+            host.append((e.key[:60], e.count, e.self_cpu_time_total / 1e3))
+    host.sort(key=lambda r: -r[2])
+    card.sort(key=lambda r: -r[2])
+    return {"wall_ms": wall, "host_ms": host[:top], "card_ms": card[:top]}
+
+
+def phase_spill(rng) -> dict:
+    """The spill tier at sizes above the default 4 GiB threshold, inputs
+    on the host: ``repro_torch.sort.sort(method="auto")`` of 3 x 2^29
+    float32 (two uneven chunks; the plan must be ``spill``),
+    ``spill_argsort`` and ``spill_sort_kv`` of 2^30 int32 keys in [0,
+    2^20) at 2^28-byte chunks (16 runs, the grouped merge width), both
+    ways, and a bfloat16 and a NaN-holding float32 run.  Each call runs
+    once traced with the launch counts set to 0 just before and read just
+    after (K3: one histogram and a pass a digit a chunk sort; K2: a
+    partition launch a merge launch), is held bit for bit against
+    ``torch.sort(stable=True)`` of the same keys on the card (sorted keys,
+    and the permutation against its indices), and prints its phase times,
+    overlap fraction and link bytes beside the link's plain rate.
+    Returns the launches."""
+    import numpy as np
+    import torch
+    import repro_torch.sort as rsort
+    from repro_torch import engine
+    from repro_torch.engine import spill
+    from repro_torch.kernels import _build
+    from repro_torch.obs import metrics, trace
+
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=30).stdout
+    emit({"phase": "spill", "free_g": free.split("\n")[:3],
+          "threshold_bytes": engine.planner._tuning.active()
+          .spill_threshold_bytes})
+    host = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(LINK_BYTES, dtype=torch.uint8, device="cuda")
+    h2d_ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 3)[0]
+    d2h_ms = cuda_ms(lambda: host.copy_(dev, non_blocking=True), 3)[0]
+    rate = {"h2d": LINK_BYTES / h2d_ms * 1e3, "d2h": LINK_BYTES / d2h_ms * 1e3}
+    emit({"phase": "spill", "link": "pinned copy_ of 1 GiB",
+          "h2d_ms": h2d_ms, "d2h_ms": d2h_ms,
+          "h2d_GB_s": rate["h2d"] / 1e9, "d2h_GB_s": rate["d2h"] / 1e9})
+    del host, dev
+    launches: dict = {}
+
+    def run(name, fn, payload, chunks, passes):
+        """One traced call, the counts set to 0 just before and read just
+        after.  ``chunks`` K3 chunk sorts of ``passes`` passes each (None:
+        no K3, the NaN run's chunks sort on torch.sort); every K2 merge a
+        partition launch and a merge launch."""
+        torch.cuda.synchronize()
+        metrics.reset()
+        trace.clear()
+        _build.reset_launches()
+        trace.enable()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            trace.disable()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.launches)
+        check_k3_sorts(name, counts, passes)
+        hist = counts.get("radix_onesweep_hist", 0)
+        if hist != (chunks or 0):
+            raise AssertionError(f"{name}: {hist} K3 sorts, expected "
+                                 f"{chunks} chunk sorts ({counts})")
+        part = counts.get("merge_path_partition", 0)
+        merges = counts.get("merge_pairs_blocks", 0) \
+            + counts.get("merge_pairs_kv_blocks", 0)
+        if part == 0 or part != merges:
+            raise AssertionError(f"{name}: K2 launches {counts}, expected "
+                                 f"a partition launch a merge launch")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        h2d = metrics.counter("spill.h2d_bytes").value
+        d2h = metrics.counter("spill.d2h_bytes").value
+        emit({"phase": "spill", "call": name, "launches": counts,
+              "traced_wall_ms": wall,
+              "spill_phase_ms": metrics.gauge("spill.spill_phase_ms").value,
+              "merge_phase_ms": metrics.gauge("spill.merge_phase_ms").value,
+              "overlap_fraction":
+                  metrics.gauge("spill.overlap_fraction").value,
+              "h2d_bytes": h2d, "d2h_bytes": d2h,
+              "four_x_payload_bytes": 4 * payload,
+              "link_bound_ms": (h2d / rate["h2d"] + d2h / rate["d2h"]) * 1e3,
+              "merge_blocks": sum(1 for sp in trace.spans()
+                                  if sp["name"] == "spill.merge_block")})
+        trace.clear()
+        metrics.reset()
+        return out
+
+    # 6 GiB of float32 through the front door: the plan must be spill
+    x = torch.from_numpy(rng.standard_normal(SPILL_N, dtype=np.float32))
+    plan = engine.choose(SPILL_N, 1, torch.float32, device="cuda")
+    emit({"phase": "spill", "auto_plan_3x2^29_float32": plan.method,
+          "costs_ns": plan.costs})
+    if plan.method != "spill":
+        raise AssertionError(f"6 GiB float32: plan {plan.method}, not spill")
+    out = run("sort auto 3x2^29 float32", lambda: rsort.sort(x), x.nbytes,
+              2, 4)
+    if out.device.type != "cpu":
+        raise AssertionError("spill sort: the result is not on the host")
+    # untraced, on the pinned blocks the traced call left cached: the
+    # pipeline's wall time each way, alternating, the same bits
+    for overlap in (True, False, False, True):
+        t0 = time.perf_counter()
+        again = spill.spill_sort(x, overlap=overlap)
+        emit({"phase": "spill", "call": f"sort 3x2^29 float32 overlap="
+              f"{overlap} (untraced)",
+              "wall_ms": (time.perf_counter() - t0) * 1e3})
+        if not torch.equal(again.view(torch.int32), out.view(torch.int32)):
+            raise AssertionError(f"spill sort: overlap={overlap} differs")
+        del again
+    emit({"phase": "spill", "trace": "warm sort 3x2^29 float32",
+          **host_trace(lambda: spill.spill_sort(x))})
+    _release_pinned()
+    # the radix chunk sorts order -0.0 below +0.0 (numpy's float32 normals
+    # hold a few signed zeros), the merge treats them as equal
+    want = spill_reference(x, spill.chunk_elems(4), False,
+                           total_order_sorted)
+    del x
+    same_bits(out.cuda(), want, "spill sort 3x2^29 vs torch.sort")
+    del out, want
+    torch.cuda.empty_cache()
+    _release_pinned()
+
+    # 2^30 int32 keys with ties: argsort and sort_kv, both ways
+    k = torch.from_numpy(rng.integers(0, SPILL_KV_KEYS, SPILL_KV_N)
+                         .astype(np.int32))
+    p = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, SPILL_KV_N)
+                         .astype(np.int32))
+    chunks = SPILL_KV_N * 4 // SPILL_KV_CHUNK
+    for desc in (False, True):
+        kd = k.cuda()
+        ref = torch.sort(kd, stable=True, descending=desc)
+        want_k, want_i = ref.values, ref.indices.to(torch.int32)
+        del ref, kd
+        order = run(f"spill_argsort 2^30 int32 desc={desc}",
+                    lambda: spill.spill_argsort(k, descending=desc,
+                                                chunk_bytes=SPILL_KV_CHUNK),
+                    2 * k.nbytes, chunks, 4)
+        same_bits(order.cuda(), want_i, f"spill argsort desc={desc}")
+        del order
+        _release_pinned()
+        sk, sv = run(f"spill_sort_kv 2^30 int32 desc={desc}",
+                     lambda: spill.spill_sort_kv(
+                         k, p, descending=desc, chunk_bytes=SPILL_KV_CHUNK),
+                     2 * k.nbytes, chunks, 4)
+        same_bits(sk.cuda(), want_k, f"spill sort_kv keys desc={desc}")
+        del sk
+        same_bits(sv.cuda(), p.cuda()[want_i.long()],
+                  f"spill sort_kv payload desc={desc}")
+        del sv, want_k, want_i
+        torch.cuda.empty_cache()
+        _release_pinned()
+    del k, p
+
+    # bfloat16 (its order code through the pipeline) and float32 with NaN
+    # (torch.sort chunk sorts, merges on the order key), small chunks
+    b = torch.randn(SPILL_SMALL, generator=torch.Generator().manual_seed(
+        SEED)).to(torch.bfloat16)
+    out = run("spill_sort 2^24 bfloat16", lambda: spill.spill_sort(
+        b, chunk_bytes=SPILL_SMALL_CHUNK), b.numel() * 2,
+        SPILL_SMALL * 2 // SPILL_SMALL_CHUNK, 2)
+    same_bits(out.cuda(), total_order_sorted(b.cuda()),
+              "spill sort bfloat16 (its order code: the total order)")
+    f = torch.from_numpy(rng.standard_normal(SPILL_SMALL, dtype=np.float32))
+    f[::1001] = float("nan")
+    out = run("spill_sort 2^24 float32 NaN desc=True", lambda:
+              spill.spill_sort(f, descending=True,
+                               chunk_bytes=SPILL_SMALL_CHUNK * 2),
+              f.numel() * 4, None, None)
+    same_bits(out.cuda(), spill_reference(
+        f, SPILL_SMALL_CHUNK * 2 // 4, True,
+        lambda c: torch.sort(c, stable=True).values.flip(-1)),
+        "spill sort NaN descending")
+    del b, f, out
+    torch.cuda.empty_cache()
+    _release_pinned()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: calibration, and what it would move
+# ---------------------------------------------------------------------------
+
+CAL_SHAPES = (("default (64, 2048)", 2048, 64),
+              ("card (4096, 4096)", 4096, 4096))
+
+
+def phase_calibrate(main_steps, rel_ms) -> None:
+    """``planner.calibrate`` at the reference's default probe (64, 2048)
+    and at a card-scale one (4096, 4096): constants, probes and sweeps;
+    then the plans the seed profile and each calibrated profile choose at
+    this script's shapes, each beside the ms measured for its candidates
+    (the sorts and top-k timed here on the card, the relational ops from
+    phase 4); then the card-scale profile persisted to a temporary
+    ``REPRO_TORCH_TUNING_DIR``, loaded by a fresh process (``source ==
+    "persisted"``, the same fingerprint), and ``reset_calibration()``: the
+    later phases run on the seeds."""
+    import dataclasses
+    import tempfile
+    import torch
+    import repro_torch.sort as rsort
+    from repro_torch.core import tuning
+    from repro_torch.engine import planner
+
+    seed = tuning.active()
+    profiles = {"seed": seed}
+    for label, tile_n, batch in CAL_SHAPES:
+        t0 = time.perf_counter()
+        prof = planner.calibrate(tile_n=tile_n, batch=batch)
+        emit({"phase": "calibrate", "profile": label,
+              "seconds": time.perf_counter() - t0,
+              "constants": dataclasses.asdict(prof.constants),
+              "digit_bits": prof.digit_bits, "run_len": prof.run_len,
+              "merge_fanin": prof.merge_fanin,
+              "select_min_n": prof.select_min_n, "probe_ns": prof.probe_ns,
+              "sweeps": prof.sweeps, "not_swept": planner.NOT_SWEPT})
+        profiles[label] = prof
+    planner.reset_calibration()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    steps = {s["step"]: s["ms"] for s in main_steps}
+    n_lines = rel_ms["n"]["lineitems"]
+    cases = [
+        ("sort 2^28 float32", MAIN_N, 1, torch.float32, None),
+        ("argsort 2^26 int32", KV_N, 1, torch.int32, None),
+        ("topk (8, 256000) k=50", 256000, 8, torch.float32, 50),
+        ("topk (64, 128256) k=50", VOCAB[1], VOCAB[0], torch.float32, 50),
+        ("topk (16384, 64) k=8", ROUTER[1], ROUTER[0], torch.float32, 8),
+    ]
+    for name, n, batch, dtype, k in cases:
+        plans = {}
+        for label, prof in profiles.items():
+            tuning.set_active(prof)
+            planner.clear_plan_cache()
+            p = planner.choose(n, batch, dtype, k=k, device="cuda")
+            plans[label] = {"method": p.method,
+                            "predicted_ms": p.costs[p.method] / 1e6}
+        tuning.set_active(seed)
+        planner.clear_plan_cache()
+        cands = []
+        for m in sorted(p.costs):
+            be = rsort.get_backend(m)
+            if k is None and be.capabilities.supports_sort \
+                    and be.eligible(n, dtype, p.run_len):
+                cands.append(m)
+            elif k is not None and be.capabilities.supports_topk \
+                    and be.topk_eligible(n, k, dtype, p.run_len):
+                cands.append(m)
+        shape = (batch, n) if batch > 1 else (n,)
+        if dtype == torch.float32:
+            x = torch.randn(shape, generator=gen, device="cuda")
+        else:
+            x = torch.randint(0, 4096, shape, generator=gen, device="cuda",
+                              dtype=torch.int32)
+        measured = {}
+        for m in cands:
+            if k is not None:
+                fn = (lambda m=m: rsort.topk(x, k, method=m))
+            elif dtype == torch.int32:
+                fn = (lambda m=m: rsort.argsort(x, method=m))
+            else:
+                fn = (lambda m=m: rsort.sort(x, method=m))
+            measured[m] = cuda_ms(fn, 5, lead=True)[0]
+        del x
+        emit({"phase": "calibrate", "plan_table": name, "plans": plans,
+              "measured_ms": measured})
+    for op, n in (("unique", n_lines), ("group_by", n_lines),
+                  ("join", n_lines), ("rle", TPCH_ORDERS),
+                  ("delta", TPCH_ORDERS)):
+        plans = {}
+        for label, prof in profiles.items():
+            tuning.set_active(prof)
+            planner.clear_plan_cache()
+            p = planner.choose_relational(op, n, dtype=torch.int32,
+                                          device="cuda")
+            plans[label] = {"method": p.method,
+                            "predicted_ms": p.costs[p.method] / 1e6}
+        tuning.set_active(seed)
+        planner.clear_plan_cache()
+        emit({"phase": "calibrate", "plan_table": f"{op} n={n} (SF10)",
+              "plans": plans,
+              "measured_ms": {key: val for key, val in rel_ms.items()
+                              if key.startswith(op)}})
+    emit({"phase": "calibrate", "main_phase_ms": {
+        key: steps[key] for key in ("sort merge 2^28 float32",
+                                    "argsort merge 2^26 int32 desc=False",
+                                    "sort_kv radix 2^26 uint32")}})
+
+    # persisted, then resolved by a fresh process
+    with tempfile.TemporaryDirectory() as d:
+        card = profiles[CAL_SHAPES[1][0]]
+        path = tuning.save(card, tuning.profile_path(d))
+        code = ("import json; from repro_torch.core import tuning; "
+                "p = tuning.active(); print(json.dumps({'source': p.source, "
+                "'fingerprint': p.fingerprint, 'run_len': p.run_len}))")
+        out = subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True,
+            timeout=300, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+                 tuning.PROFILE_DIR_ENV: d})
+        if out.returncode != 0:
+            raise AssertionError(f"calibrate: the fresh process failed: "
+                                 f"{out.stderr[-2000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        emit({"phase": "calibrate", "persisted": os.path.basename(path),
+              "fresh_process": got})
+        if got["source"] != "persisted" \
+                or got["fingerprint"] != card.fingerprint:
+            raise AssertionError(f"calibrate: a fresh process resolved "
+                                 f"{got}, not the persisted {card.fingerprint}")
+    planner.reset_calibration()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
 def kernel_ms(fn, reps: int):
@@ -2171,15 +2579,27 @@ def main() -> int:
           "seconds": time.perf_counter() - tm})
 
     tr = time.perf_counter()
-    rel_launches = phase_relational(rng)
+    rel_launches, rel_ms = phase_relational(rng)
     emit({"phase": "relational", "total_launches": rel_launches,
           "seconds": time.perf_counter() - tr})
 
     ts = time.perf_counter()
     serve_launches = phase_serve()
     emit({"phase": "serve", "seconds": time.perf_counter() - ts})
+
+    tp = time.perf_counter()
+    spill_launches = phase_spill(rng)
+    emit({"phase": "spill", "total_launches": spill_launches,
+          "seconds": time.perf_counter() - tp})
+
+    tc = time.perf_counter()
+    phase_calibrate(main_res["steps"], rel_ms)
+    emit({"phase": "calibrate", "seconds": time.perf_counter() - tc})
+    if tuning.active() != prof:
+        raise AssertionError("calibrate: the seed profile was not restored")
+
     launches = dict(main_res["launches"])
-    for counts in (rel_launches, serve_launches):
+    for counts in (rel_launches, serve_launches, spill_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 

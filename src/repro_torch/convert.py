@@ -10,10 +10,11 @@ axis — so no leaf is transposed.
 A sort has no weights: what decides both packages' bits is the tuning
 profile — ``run_len`` sets the run boundaries (and so the bits of every
 unstable path, e.g. the -0.0/+0.0 order of a key-only bitonic run), while
-``digit_bits``/``radix_tile`` set the radix passes.  ``profile_from_jax``
-takes a JAX ``TuningProfile.to_dict()`` (plain JSON, no JAX import) and
-returns the port's profile with the same knobs and the cost constants
-under the port's backend names.
+``digit_bits``/``radix_tile`` set the radix passes, and
+``spill_threshold_bytes``/``merge_fanin`` the spill tier's chunks and
+merge width.  ``profile_from_jax`` takes a JAX ``TuningProfile.to_dict()``
+(plain JSON, no JAX import) and returns the port's profile with the same
+knobs and the cost constants under the port's backend names.
 """
 from __future__ import annotations
 
@@ -29,12 +30,15 @@ from repro_torch.core.sortspec import resolve_device
 JAX_SCHEMA = "repro.tuning.profile/v1"
 
 # JAX constant name -> the port's (backends renamed: xla -> torch,
-# pallas -> cuda); constants of backends the port lacks are dropped
+# pallas -> cuda).  The distributed tier's link constants (collective_*,
+# dcn_*) are dropped: the port has no distributed tier yet
 _CONSTANTS = {
     "xla": "torch", "bitonic": "bitonic", "pallas": "cuda",
     "merge_run": "merge_run", "merge_level": "merge_level",
-    "radix": "radix", "select": "select",
+    "radix": "radix", "select": "select", "xla_topk": "torch_topk",
     "pallas_interpret_penalty": "cuda_plain_penalty",
+    "pcie_per_byte": "pcie_per_byte",
+    "host_merge_level": "host_merge_level",
 }
 
 
@@ -57,6 +61,9 @@ def profile_from_jax(d: dict) -> tuning.TuningProfile:
         spill_threshold_bytes=int(d["spill_threshold_bytes"]),
         select_min_n=int(d.get("select_min_n",
                                tuning.DEFAULT_SELECT_MIN_N)),
+        merge_fanin=int(d.get("merge_fanin", tuning.DEFAULT_MERGE_FANIN)),
+        capacity_slack=float(d.get("capacity_slack",
+                                   tuning.DEFAULT_CAPACITY_SLACK)),
         source="converted")
 
 

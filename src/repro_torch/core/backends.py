@@ -30,12 +30,21 @@ _INT_DTYPES = frozenset({"int8", "int16", "int32",
                          "uint8", "uint16", "uint32"})
 
 
+def _gather_bits(t, order):
+    """``t.gather(-1, order)`` through the bits of float tensors: torch's
+    CPU gather of float16 rows quiets a signalling NaN."""
+    if t.is_floating_point():
+        carrier = _keycodec.key_dtype(t.dtype)
+        return t.view(carrier).gather(-1, order).view(t.dtype)
+    return t.gather(-1, order)
+
+
 def _gather_kv(keys, values, order):
     """(sorted keys, permuted payload) from an argsort permutation.  The
     network backends sort (key, index) and gather both sides: an arbitrary
     payload could tie or exceed the pad marker of the network."""
     order = order.to(torch.int64)
-    return keys.gather(-1, order), values.gather(-1, order)
+    return _gather_bits(keys, order), _gather_bits(values, order)
 
 
 # ---------------------------------------------------------------------------
@@ -51,13 +60,25 @@ class TorchBackend(SortBackend):
       out in the reverse of their input order);
     * ``argsort``/``sort_kv`` keep ascending index order on ties in both
       directions (``jnp.argsort(stable=True, descending=...)``);
-    * ``topk`` is a stable descending sort on the IEEE total order plus a
-      slice: ``lax.top_k`` ranks +0.0 above -0.0 and takes the lower index
-      first among equal keys.  ``torch.topk`` breaks ties otherwise and is
-      never used.
+    * ``topk`` ranks on the IEEE total order (``lax.top_k`` ranks +0.0
+      above -0.0) and takes the lower index first among equal keys: one
+      ``torch.topk`` pass over the total-order key finds the k-th key (its
+      own tie order is never used), the keys above it and the first equal
+      ones in index order are kept, and only those k are sorted.  Off the
+      card it is priced as that O(n) selection
+      (``cost_model.native_topk_cost_ns``), as the reference prices
+      ``lax.top_k`` off the TPU; on the card at sort-prefix.
     """
     name = "torch"
     capabilities = Capabilities(dtypes=None, stable=True, substrate="host")
+
+    def topk_cost_ns(self, n, k, batch, dtype, *, run_len, consts=None,
+                     plain=False):
+        if not plain:
+            return super().topk_cost_ns(n, k, batch, dtype, run_len=run_len,
+                                        consts=consts, plain=plain)
+        from repro_torch.core import cost_model
+        return cost_model.native_topk_cost_ns(n, k, batch, consts=consts)
 
     def sort(self, rows, *, descending=False, plan=None):
         out = torch.sort(rows, dim=-1, stable=True).values
@@ -72,9 +93,19 @@ class TorchBackend(SortBackend):
                           self.argsort(keys, descending=descending))
 
     def topk(self, rows, k, *, plan=None):
-        order = torch.sort(_keycodec.total_order_key(rows), dim=-1,
-                           stable=True, descending=True).indices[..., :k]
-        return rows.gather(-1, order), order.to(torch.int32)
+        key = _keycodec.total_order_key(rows)
+        kth = torch.topk(key, k, dim=-1, sorted=False).values \
+            .amin(-1, keepdim=True)
+        above = key > kth
+        tie = key == kth
+        room = k - above.sum(-1, keepdim=True)
+        take = above | (tie & (tie.cumsum(-1) <= room))
+        # exactly k a row, in ascending index order
+        idx = take.nonzero()[:, 1].view(rows.shape[0], k)
+        order = torch.sort(key.gather(-1, idx), dim=-1, stable=True,
+                           descending=True).indices
+        idx = idx.gather(-1, order)
+        return rows.gather(-1, idx), idx.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -121,9 +152,10 @@ class BitonicBackend(SortBackend):
 @register_backend
 class CudaBackend(SortBackend):
     """K1 through ``kernels/ops.py``: the key-value kernel with an index
-    payload, then a gather.  Top-k is K5 per row (per 2048-key chunk and
-    an ordering of the candidates for longer rows), at any n when asked
-    for by name; ``max_n`` caps only what ``auto`` hands it.  Keys compare
+    payload, then a gather.  Top-k is K5 per row: for k <= 256 its one
+    pass over rows of any length, which ``auto`` may pick at any n
+    (``topk_eligible``); past 256 the network per 2048-key chunk and an
+    ordering of the candidates, capped by ``max_n`` as a sort is.  Keys compare
     numerically: -0.0 and +0.0 tie and keep index order, as in the
     reference's ``pallas`` top-k.  On a CPU tensor the plain versions
     run."""
@@ -142,6 +174,21 @@ class CudaBackend(SortBackend):
     def sort_kv(self, keys, values, *, descending=False, plan=None):
         return _gather_kv(keys, values,
                           self.argsort(keys, descending=descending))
+
+    def topk_eligible(self, n, k, dtype, run_len=None):
+        """K5's one pass takes rows of any length for k <= 256; past it
+        the network route is capped as a sort is."""
+        from repro_torch.kernels.bitonic_topk import MAX_K
+        if k <= MAX_K:
+            return _keycodec.dtype_name(dtype) in self.capabilities.dtypes
+        return self.eligible(n, dtype, run_len)
+
+    def topk_cost_ns(self, n, k, batch, dtype, *, run_len, consts=None,
+                     plain=False):
+        """K5's price: one pass for k <= 256, the sort past it."""
+        from repro_torch.core import cost_model
+        return cost_model.cuda_topk_cost_ns(n, k, batch, consts=consts,
+                                            plain=plain)
 
     def topk(self, rows, k, *, plan=None):
         from repro_torch.kernels import ops
@@ -298,3 +345,48 @@ class SelectBackend(SortBackend):
             out = _sel.select_topk(rows, k)
             sp.fence(out)
         return out
+
+
+# ---------------------------------------------------------------------------
+# spill — out-of-core: chunked device sorts + host k-way merge
+# ---------------------------------------------------------------------------
+
+@register_backend
+class SpillBackend(SortBackend):
+    """The spill-to-host tier (``repro_torch.engine.spill``): chunks of
+    ``spill_threshold_bytes`` sorted on the device through the engine,
+    their runs streamed to host memory, and a k-way merge-path over the
+    host runs, block by block on the device.
+
+    Never auto-priced (``auto_dispatch=False``): the planner routes to it
+    by feasibility — key bytes above the profile's threshold spill,
+    nothing below does.  Host-driven (blocking waits, data-dependent
+    cursors): while a CUDA graph is being captured the engine falls back
+    to the merge pipeline.  Stable (stable chunk sorts, run-index ties in
+    both merges); no top-k or segmented path.  Results are CPU tensors:
+    the sorted array does not fit the card.  bfloat16 rides the pipeline
+    as its order-embedding code, so every comparable dtype is honest."""
+    name = "spill"
+    capabilities = Capabilities(dtypes=COMPARABLE_DTYPES, stable=True,
+                                supports_kv=True, supports_topk=False,
+                                supports_segments=False, auto_dispatch=False,
+                                substrate="host")
+
+    def sort(self, rows, *, descending=False, plan=None, device=None):
+        from repro_torch.engine import spill
+        self.check_dtype(rows.dtype)
+        return spill.sort_rows(rows, descending=descending,
+                               device=device or rows.device)
+
+    def sort_kv(self, keys, values, *, descending=False, plan=None,
+                device=None):
+        from repro_torch.engine import spill
+        self.check_dtype(keys.dtype)
+        return spill.sort_rows_kv(keys, values, descending=descending,
+                                  device=device or keys.device)
+
+    def argsort(self, rows, *, descending=False, plan=None, device=None):
+        from repro_torch.engine import spill
+        self.check_dtype(rows.dtype)
+        return spill.argsort_rows(rows, descending=descending,
+                                  device=device or rows.device)

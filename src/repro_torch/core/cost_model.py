@@ -10,11 +10,12 @@ the backends with.
   counts; this module owns the quoted latency/throughput/ratio numbers.
 * **The device model**: the part of the JAX package's cost model the
   single-device planner needs: closed-form ns estimates per sort backend,
-  for top-k selection and for the relational ops (a sort plus O(n)
-  post-passes), with fixed asymptotics and leading constants
-  from the active tuning profile.  The constants are the JAX package's
-  default seeds (``core/tuning.py``), not measurements on a CUDA card;
-  they order candidates, they do not predict times.
+  for top-k (selection, K5's one pass, the torch backend's top-k off the
+  card), for the relational ops (a sort plus O(n) post-passes) and for
+  the spill tier (chunk sorts, the host link, the host merge), with fixed
+  asymptotics and leading constants from the active tuning profile: the
+  JAX package's seeds (``core/tuning.py``) until ``planner.calibrate``
+  measures them on the running device.
 """
 from __future__ import annotations
 
@@ -189,6 +190,36 @@ def device_sort_cost_ns(method: str, n: int, batch: int = 1, *,
     raise ValueError(f"no device cost model for method {method!r}")
 
 
+def cuda_topk_cost_ns(n: int, k: int, batch: int = 1, *,
+                      consts: Optional[DeviceSortConstants] = None,
+                      plain: bool = False) -> float:
+    """Estimated ns for the ``cuda`` backend's top-k of ``(batch, n)``
+    rows as K5 runs it: for ``k <= 256`` one pass that reads each row once
+    and keeps a k-buffer per stream (priced as the row plus a bitonic
+    merge of k, at the ``cuda`` network constant); past 256 the network
+    route sorts each row's chunks, priced as the sort (sort-prefix).
+    ``plain`` pays ``cuda_plain_penalty`` (a CPU tensor)."""
+    from repro_torch.kernels.bitonic_topk import MAX_K
+    if k > MAX_K:
+        return device_sort_cost_ns("cuda", n, batch, consts=consts,
+                                   plain=plain)
+    c = consts or _tuning.active().constants
+    pen = c.cuda_plain_penalty if plain else 1.0
+    return pen * c.cuda * batch * (n + k * _log2(k) ** 2)
+
+
+def native_topk_cost_ns(n: int, k: int, batch: int = 1, *,
+                        consts: Optional[DeviceSortConstants] = None
+                        ) -> float:
+    """Estimated ns for the ``torch`` backend's top-k off the card: one
+    O(n) selection pass (``torch.topk`` over the total-order key) plus
+    the O(k log k) ordering of the survivors — the JAX package's native
+    ``lax.top_k`` price off the TPU.  On the card the backend keeps the
+    sort-prefix price, as the reference keeps it on the TPU."""
+    c = consts or _tuning.active().constants
+    return c.torch_topk * batch * n + c.torch * batch * k * _log2(k)
+
+
 def selection_cost_ns(n: int, k: int, key_bits: int = 32, batch: int = 1, *,
                       consts: Optional[DeviceSortConstants] = None,
                       digit_bits: Optional[int] = None) -> float:
@@ -251,3 +282,39 @@ def relational_cost_ns(op: str, method: str, n: int, batch: int = 1, *,
                                   consts=c, plain=plain, key_bits=key_bits)
     post = c.merge_level * batch * n * REL_POST_PASSES[op]
     return REL_SORT_COLUMNS.get(op, 1.0) * sort_ns + post
+
+
+# ---- out-of-core spill tier ---------------------------------------------------
+
+def spill_sort_cost_ns(n: int, batch: int = 1, itemsize: int = 4, *,
+                       chunk_bytes: Optional[int] = None,
+                       key_bits: int = 32, overlap: bool = True,
+                       consts: Optional[DeviceSortConstants] = None) -> float:
+    """Estimated ns for the spill tier (``repro_torch.engine.spill``) over
+    ``batch`` rows of ``n`` keys: the JAX package's three terms.
+
+      chunk sorts   ceil(total/chunk) device sorts at the chunk size,
+                    priced at the comparison-sort contract (``torch``)
+      link          every key crosses the host link four times (chunk
+                    H2D, run D2H, merge-block H2D, merged D2H) at
+                    ``pcie_per_byte``; with overlap the spill phase pays
+                    max(sorts, its transfers), else their sum
+      host merge    log2(chunks) levels at ``host_merge_level`` a key
+
+    ``chunk_bytes`` defaults to the profile's ``spill_threshold_bytes``,
+    the same knob the planner routes on."""
+    prof = _tuning.active()
+    c = consts or prof.constants
+    cb = chunk_bytes if chunk_bytes is not None \
+        else prof.spill_threshold_bytes
+    chunk = max(1, cb // max(1, itemsize))
+    total = n * batch
+    n_chunks = max(1, -(-total // chunk))
+    per_chunk = device_sort_cost_ns("torch", min(chunk, total), consts=c,
+                                    key_bits=key_bits)
+    sort_ns = n_chunks * per_chunk
+    spill_xfer = 2.0 * total * itemsize * c.pcie_per_byte
+    merge_xfer = 2.0 * total * itemsize * c.pcie_per_byte
+    pipeline = max(sort_ns, spill_xfer) if overlap else sort_ns + spill_xfer
+    levels = _log2(n_chunks) if n_chunks > 1 else 0.0
+    return pipeline + merge_xfer + c.host_merge_level * total * levels

@@ -29,7 +29,6 @@ __all__ = [
 
 # JAX backends without a port yet -> where the ROADMAP schedules them
 NOT_PORTED = {
-    "spill": "ROADMAP Queue 1 item 9 (engine/spill.py)",
     "distributed": "ROADMAP Queue 1 item 11 (distributed tier)",
 }
 
@@ -104,6 +103,12 @@ class SortBackend:
         if caps.max_n is not None and next_pow2(n) > caps.max_n:
             return False
         return True
+
+    def topk_eligible(self, n: int, k: int, dtype,
+                      run_len: Optional[int] = None) -> bool:
+        """May ``auto`` hand a top-k of (n, k, dtype) to this backend?  By
+        default what :meth:`eligible` says of a sort of n."""
+        return self.eligible(n, dtype, run_len)
 
     def cost_ns(self, n: int, batch: int, dtype, *, run_len: int,
                 consts=None, plain: bool = False) -> float:

@@ -10,13 +10,18 @@ radix-select kernel (K4), one of ``cuda`` the bitonic top-k kernel (K5).
 Ragged and padded-row sorts (segmented.py) are two engine sorts each.
 
 Every entry point takes ``device=`` (default ``"cuda"``), moves its input
-there and returns on it; ``device="cuda"`` without a card raises.
+there and returns on it; ``device="cuda"`` without a card raises.  The
+exception is a sort the planner sends to the spill tier (its keys exceed
+the profile's ``spill_threshold_bytes``): the plan is made from the shape
+and dtype before anything moves, the input stays where it is (a host
+input crosses to the card chunk by chunk) and the result is a CPU tensor.
 ``uint16``/``uint32`` keys ride the engine as order-preserving signed keys
 of the same width (torch has no comparisons or gathers for those dtypes on
 the CPU) and come back bit-exact.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -26,8 +31,10 @@ from repro_torch.core.sortspec import index_rows
 from repro_torch.engine import merge as merge  # noqa: F401  (re-export)
 from repro_torch.engine import planner, runs
 from repro_torch.engine.merge import merge_pairs, merge_runs  # noqa: F401
+from repro_torch.engine.merge import kway_merge, kway_merge_kv  # noqa: F401
 from repro_torch.engine.planner import (  # noqa: F401
-    Plan, choose, choose_cached, clear_plan_cache)
+    Plan, calibrate, choose, choose_cached, clear_plan_cache,
+    reset_calibration)
 from repro_torch.engine.segmented import (  # noqa: F401
     group_tokens_by_expert, segment_ids_from_row_splits, segmented_argsort,
     segmented_sort, sort_padded_rows)
@@ -52,14 +59,50 @@ def _obs_finish(sp, op: str, plan: planner.Plan, n: int, batch: int,
                       measured_ns=measured_ns, error=error)
     from repro_torch.obs import metrics as _metrics
     _metrics.histogram("planner.cost_model_error").observe(error)
+    # closed-loop re-probing, opt-in (REPRO_TORCH_AUTOTUNE=1): see
+    # tuning.refresh_if_stale
+    from repro_torch.core import tuning as _tuning
+    _tuning.maybe_refresh()
 
 
-def _rows_on(x, axis: int, device):
-    """(x moved to the device, its rows form, lead dims, axis)."""
+def _capturing() -> bool:
+    """Is a CUDA graph being captured on the current stream?"""
+    return torch.cuda.is_available() \
+        and torch.cuda.is_current_stream_capturing()
+
+
+def _spill_fallback(plan: planner.Plan) -> planner.Plan:
+    """The spill tier is host-driven (blocking waits, data-dependent
+    cursors) and cannot be captured in a CUDA graph: while one is being
+    captured a spill plan degrades to the merge pipeline on the device,
+    the best plan a capture can hold, at the caller's memory risk."""
+    if plan.method == "spill" and _capturing():
+        return dataclasses.replace(plan, method="merge")
+    return plan
+
+
+def _rows_planned(x, axis: int, device, method: str, run_len, k=None):
+    """Plan ``x``'s rows, then move them: (x, its rows form (signed keys),
+    lead dims, axis, plan).  A spill plan leaves the rows where they are."""
     dev = sortspec.resolve_device(device)
-    x = torch.as_tensor(x).to(dev)
+    x = torch.as_tensor(x)
     x2, lead, ax = _to_rows(x, axis)
-    return x, keycodec.to_signed(x2), lead, ax
+    batch, n = x2.shape
+    plan = _spill_fallback(planner.choose_cached(
+        n, batch, x.dtype, requested=method, run_len=run_len, k=k,
+        device=dev))
+    if plan.method != "spill":
+        x, x2 = x.to(dev), x2.to(dev)
+    return x, keycodec.to_signed(x2), lead, ax, plan
+
+
+def _backend_call(plan: planner.Plan, fn: str, *args, descending: bool,
+                  device):
+    """``fn`` of the plan's backend; the spill backend also takes the
+    device its chunks sort on."""
+    be = sortspec.get_backend(plan.method)
+    extra = {"device": device} if plan.method == "spill" else {}
+    return getattr(be, fn)(*args, descending=descending, plan=plan, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -117,16 +160,14 @@ def sort(x, *, axis: int = -1, descending: bool = False,
          device="cuda") -> torch.Tensor:
     """Sort along ``axis``; sizes beyond one run go through runs + merges.
     ``method`` is "auto", "merge" or any registered backend name."""
-    x, x2, lead, ax = _rows_on(x, axis, device)
+    x, x2, lead, ax, plan = _rows_planned(x, axis, device, method, run_len)
     batch, n = x2.shape
-    plan = planner.choose_cached(n, batch, x.dtype, requested=method,
-                                 run_len=run_len, device=x.device)
     with _obs.trace("engine.sort", n=n, batch=batch, method=plan.method) as sp:
         if plan.method == "merge":
             out = merge_sort_rows(x2, descending=descending, plan=plan)
         else:
-            out = sortspec.get_backend(plan.method).sort(
-                x2, descending=descending, plan=plan)
+            out = _backend_call(plan, "sort", x2, descending=descending,
+                                device=device)
         sp.fence(out)
     _obs_finish(sp, "sort", plan, n, batch)
     return _from_rows(keycodec.from_signed(out, x.dtype), lead, ax)
@@ -138,18 +179,21 @@ def sort_kv(keys, values, *, axis: int = -1, descending: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort ``keys`` along ``axis`` carrying ``values`` with them;
     ``stable=True`` forces a stable pipeline."""
-    keys, k2, lead, ax = _rows_on(keys, axis, device)
-    values, v2, _, _ = _rows_on(values, axis, device)
+    keys, k2, lead, ax, plan = _rows_planned(keys, axis, device, method,
+                                             run_len)
+    values = torch.as_tensor(values)
+    if plan.method != "spill":
+        values = values.to(k2.device)
+    v2 = keycodec.to_signed(_to_rows(values, axis)[0])
     batch, n = k2.shape
-    plan = planner.choose_cached(n, batch, keys.dtype, requested=method,
-                                 run_len=run_len, device=keys.device)
     with _obs.trace("engine.sort_kv", n=n, batch=batch,
                     method=plan.method) as sp:
         sk = sv = None
         if plan.method != "merge":
             be = sortspec.get_backend(plan.method)
             if not stable or be.capabilities.stable:
-                sk, sv = be.sort_kv(k2, v2, descending=descending, plan=plan)
+                sk, sv = _backend_call(plan, "sort_kv", k2, v2,
+                                       descending=descending, device=device)
         if sk is None:
             sk, sv = merge_sort_rows_kv(k2, v2, descending=descending,
                                         plan=plan, stable=stable)
@@ -164,17 +208,16 @@ def argsort(x, *, axis: int = -1, descending: bool = False,
             run_len: Optional[int] = None, device="cuda") -> torch.Tensor:
     """Sorting permutation along ``axis`` (int32); ties keep ascending
     index order in both directions on every backend."""
-    x, x2, lead, ax = _rows_on(x, axis, device)
+    x, x2, lead, ax, plan = _rows_planned(x, axis, device, method, run_len)
     batch, n = x2.shape
-    plan = planner.choose_cached(n, batch, x.dtype, requested=method,
-                                 run_len=run_len, device=x.device)
     with _obs.trace("engine.argsort", n=n, batch=batch,
                     method=plan.method) as sp:
         order = None
         if plan.method != "merge":
             be = sortspec.get_backend(plan.method)
             if not stable or be.capabilities.stable:
-                order = be.argsort(x2, descending=descending, plan=plan)
+                order = _backend_call(plan, "argsort", x2,
+                                      descending=descending, device=device)
         if order is None:
             _, order = merge_sort_rows_kv(x2, index_rows(x2),
                                           descending=descending, plan=plan,
@@ -190,13 +233,13 @@ def topk(x, k: int, *, method: str = "auto", run_len: Optional[int] = None,
     the lower index first among equal keys.  Engine path: per-run top-k
     candidates (only a run's first k can reach the top k), then a
     key-value merge tree over the k-prefixes."""
-    x, x2, lead, _ = _rows_on(x, -1, device)
-    batch, n = x2.shape
+    x = torch.as_tensor(x)
+    n = x.shape[-1]
     if not 1 <= k <= n:
         raise ValueError(
             f"topk k must satisfy 1 <= k <= n (n={n}); got k={k}")
-    plan = planner.choose_cached(n, batch, x.dtype, requested=method,
-                                 run_len=run_len, k=k, device=x.device)
+    x, x2, lead, _, plan = _rows_planned(x, -1, device, method, run_len, k=k)
+    batch = x2.shape[0]
     with _obs.trace("engine.topk", n=n, batch=batch, k=k,
                     method=plan.method) as sp:
         if plan.method != "merge":

@@ -16,17 +16,23 @@ Merge backends:
 directions.  ``cuda`` merges descending runs with a descending comparator
 and moves no more bytes than an ascending merge; ``torch`` and
 ``bitonic`` keep the reference's construction (flip in, swap the pair,
-merge ascending, flip out), as ``src/repro/engine/merge.py`` does.  The
-k-way merges of the spill tier (``kway_merge*``) come with that tier.
+merge ascending, flip out), as ``src/repro/engine/merge.py`` does.
+
+``kway_merge``/``kway_merge_kv`` merge k sorted 1-D arrays of any lengths
+(the spill tier's block merges): a tournament of pairwise merges over the
+arrays padded to one power-of-two length, the pads dropped by position.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import keycodec
+from repro_torch.core.sortspec import next_pow2
 from repro_torch.kernels import bitonic_sort as _bs
 from repro_torch.kernels import merge_path as _mp
+from repro_torch.kernels.ops import sentinel
 
 MERGE_BACKENDS = ("torch", "cuda", "bitonic")
 
@@ -112,3 +118,106 @@ def merge_runs(run_keys: torch.Tensor,
     if run_vals is None:
         return keys
     return keys, vals.reshape(rows, l)
+
+
+# ---------------------------------------------------------------------------
+# k-way merges of 1-D arrays (the spill tier's block merges)
+# ---------------------------------------------------------------------------
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """The reference merge's comparator as an integer key: -0.0 and +0.0
+    equal, every NaN one value above +inf (``jnp.searchsorted``'s order,
+    NaN last), floats only.  K2 and the rank merge compare numerically and
+    ``torch.searchsorted`` mis-ranks keys against a NaN, so runs that hold
+    NaN merge on this key and their keys are gathered back by position,
+    bits (NaN payloads) untouched."""
+    x = torch.where(x == 0, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    return keycodec.total_order_key(x)
+
+
+def _kway(keys: Sequence[torch.Tensor], descending: bool, backend: str):
+    """Tournament over ``keys`` padded to one power-of-two length ->
+    (merged genuine keys, or None where the caller must gather them, and
+    their positions in the concatenation, int64).  The keys of float runs
+    that hold NaN merge as :func:`order_key`.  Pads carry the direction's
+    sentinel of the merge key and position ``total``: a pad that ties a
+    genuine key (a genuine +inf, an integer maximum) is dropped by
+    position, never by value, so it cannot shadow one."""
+    total = sum(a.shape[0] for a in keys)
+    if total >= 1 << 31:
+        raise ValueError(f"kway_merge: {total} keys overflow the int32 "
+                         f"positions")
+    dtype, dev = keys[0].dtype, keys[0].device
+    by_order = dtype.is_floating_point and any(
+        bool(torch.isnan(a).any()) for a in keys)
+    mkeys = [order_key(a) if by_order else keycodec.to_signed(a)
+             for a in keys]
+    l = next_pow2(max(1, max(a.shape[0] for a in keys)))
+    r = next_pow2(len(keys))
+    pk = torch.full((r, l), sentinel(mkeys[0].dtype, descending),
+                    dtype=mkeys[0].dtype, device=dev)
+    pp = torch.full((r, l), total, dtype=torch.int32, device=dev)
+    off = 0
+    for i, a in enumerate(mkeys):
+        m = a.shape[0]
+        pk[i, :m] = a
+        pp[i, :m] = torch.arange(off, off + m, dtype=torch.int32, device=dev)
+        off += m
+    mk, mp = merge_runs(pk[None], pp[None], descending=descending,
+                        backend=backend)
+    genuine = mp[0] < total
+    pos = mp[0][genuine].to(torch.int64)
+    if by_order:
+        return None, pos
+    return keycodec.from_signed(mk[0][genuine], dtype), pos
+
+
+def _take(arrays: Sequence[torch.Tensor], pos: torch.Tensor) -> torch.Tensor:
+    """The concatenation of ``arrays`` at positions ``pos``, moved as bits:
+    floats through their integer carrier (a CPU gather may quiet a
+    signalling NaN), uint16/uint32 through their signed one."""
+    dtype = arrays[0].dtype
+    flat = torch.cat([keycodec.to_signed(a) for a in arrays])
+    if flat.is_floating_point() and keycodec.supports(dtype):
+        return flat.view(keycodec.key_dtype(dtype))[pos].view(dtype)
+    return keycodec.from_signed(flat[pos], dtype)
+
+
+def _flat(keys, vals=None):
+    if not keys or (vals is not None and len(vals) != len(keys)):
+        raise ValueError("need matching non-empty key/payload array lists")
+    keys = [a.reshape(-1) for a in keys]
+    if vals is None:
+        return keys, None
+    vals = [v.reshape(-1) for v in vals]
+    for a, v in zip(keys, vals):
+        if a.shape != v.shape:
+            raise ValueError(
+                f"key/payload length mismatch: {tuple(a.shape)} vs "
+                f"{tuple(v.shape)}")
+    return keys, vals
+
+
+def kway_merge(arrays: Sequence[torch.Tensor], *, descending: bool = False,
+               backend: str = "torch") -> torch.Tensor:
+    """Merge k independently sorted 1-D arrays of any lengths into one
+    sorted array; ties keep array order (``torch``/``cuda``).  The pads
+    are dropped by position, as :func:`kway_merge_kv` drops them."""
+    arrays, _ = _flat(arrays)
+    mk, pos = _kway(arrays, descending, backend)
+    return _take(arrays, pos) if mk is None else mk
+
+
+def kway_merge_kv(keys: Sequence[torch.Tensor], vals: Sequence[torch.Tensor],
+                  *, descending: bool = False, backend: str = "torch"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge k independently sorted 1-D (key, payload) arrays.  The
+    tournament runs on (key, concatenation position) and the payload, of
+    any dtype, is gathered by position at the end, so a pad never
+    displaces a genuine element whatever its key.  Stable for
+    ``torch``/``cuda``: ties keep array order, then index order.  Its
+    compaction is data-dependent: not for a captured CUDA graph."""
+    keys, vals = _flat(keys, vals)
+    mk, pos = _kway(keys, descending, backend)
+    return (_take(keys, pos) if mk is None else mk), _take(vals, pos)

@@ -133,12 +133,13 @@ def finish(sp, spec: RelSpec, plan, n: int) -> None:
 def sorted_column(x: torch.Tensor, method: str,
                   values: Optional[torch.Tensor] = None):
     """The op's sort backbone on the column's device: the planner-picked
-    (or pinned) backend; with ``values`` a stable key-value sort."""
+    (or pinned) backend; with ``values`` a stable key-value sort.  A
+    ``spill`` result (a CPU tensor) comes back to the column's device."""
     import repro_torch.sort as rsort
     if values is not None:
-        return rsort.sort_kv(x, values, method=method, stable=True,
-                             device=x.device)
-    return rsort.sort(x, method=method, device=x.device)
+        return tuple(t.to(x.device) for t in rsort.sort_kv(
+            x, values, method=method, stable=True, device=x.device))
+    return rsort.sort(x, method=method, device=x.device).to(x.device)
 
 
 def stable_order(x: torch.Tensor, method: str) -> torch.Tensor:
@@ -146,7 +147,8 @@ def stable_order(x: torch.Tensor, method: str) -> torch.Tensor:
     front door; a non-stable backend runs the engine's stable merge
     pipeline instead, as ``cost_model.relational_cost_ns`` prices it."""
     import repro_torch.sort as rsort
-    return rsort.argsort(x, stable=True, method=method, device=x.device)
+    return rsort.argsort(x, stable=True, method=method,
+                         device=x.device).to(x.device)
 
 
 __all__ = ["boundary_mask", "compact_sorted", "valid_mask", "pad_tail",

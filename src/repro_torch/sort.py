@@ -13,11 +13,15 @@ one is ``run(spec, x, device=...)``.  The wrappers build the spec::
     rsort.sort_kv(keys, payload, device="cpu")     # plain versions, CPU
     rsort.segment_sort(x, segment_ids=seg)         # ragged groups
     rsort.sort(batch, valid_lengths=lengths)       # padded rows
+    rsort.sort(huge_host_keys)                     # > 4 GiB: spill tier
 
 Validation happens once, at the spec layer; execution is
 ``repro_torch.engine``'s.  Every entry point takes ``device=`` (default
 ``"cuda"``), moves its input there and returns on it; ``device="cuda"``
-without a card raises ``RuntimeError``.
+without a card raises ``RuntimeError``.  A sort planned onto the spill
+tier (``method="spill"``, or ``auto`` above the profile's
+``spill_threshold_bytes``) leaves its input where it is and returns a CPU
+tensor.
 """
 from __future__ import annotations
 

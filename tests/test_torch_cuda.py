@@ -962,3 +962,145 @@ def test_relational_float_sums_on_the_card_match_the_cpu():
                             agg=("sum", "mean", "min", "max"), device="cpu")
         _same_tree([a.cpu() for a in got.aggregates], want.aggregates)
         _same(got.keys.cpu(), want.keys)
+
+
+# ---------------------------------------------------------------------------
+# the spill tier and calibration on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16", "int32", "uint16",
+                                  "int8"])
+@pytest.mark.parametrize("descending", [False, True])
+def test_spill_kway_merge_on_k2_matches_the_rank_merge(name, descending):
+    """A spill block's k-way merge on K2 (partition + kv merge launches)
+    against the same tournament on the plain rank merge, bit for bit;
+    uneven runs, ties across them and genuine sentinel-valued keys."""
+    from repro_torch.engine import merge as tmerge
+    rng = np.random.default_rng(5)
+    runs, vals = [], []
+    for i, m in enumerate(rng.integers(1, 5000, 7)):
+        r = _keys((int(m),), name, seed=int(m))
+        r = torch.sort(keycodec.to_signed(r), descending=descending,
+                       stable=True).values
+        runs.append(keycodec.from_signed(r, getattr(torch, name)))
+        vals.append(torch.arange(int(m), dtype=torch.int32,
+                                 device="cuda") + 10000 * i)
+    (mk, mv), counts = _launched(lambda: tmerge.kway_merge_kv(
+        runs, vals, descending=descending, backend="cuda"))
+    assert counts.get("merge_path_partition", 0) == \
+        counts.get("merge_pairs_kv_blocks", 0) > 0, counts
+    wk, wv = tmerge.kway_merge_kv(runs, vals, descending=descending,
+                                  backend="torch")
+    _same(mk, wk)
+    _same(mv, wv)
+
+
+def test_spill_nan_runs_merge_on_k2_by_order_key():
+    """Runs that hold NaN merge on the reference comparator's integer key
+    (NaN last, -0.0 with +0.0) on K2; the keys come back by position."""
+    from repro_torch.engine import merge as tmerge
+    a = torch.tensor([-1.0, -0.0, 2.0, float("inf"), float("nan")],
+                     device="cuda")
+    b = torch.tensor([0.0, 1.0, float("nan")], device="cuda")
+    v = [torch.arange(5, dtype=torch.int32, device="cuda"),
+         torch.arange(3, dtype=torch.int32, device="cuda") + 5]
+    (mk, mv), counts = _launched(lambda: tmerge.kway_merge_kv(
+        [a, b], v, backend="cuda"))
+    assert counts.get("merge_pairs_kv_blocks", 0) > 0, counts
+    assert mv.tolist() == [0, 1, 5, 6, 2, 3, 4, 7]
+    _same(mk, torch.cat([a, b])[mv.long()])
+
+
+@pytest.mark.parametrize("descending", [False, True])
+def test_spill_on_the_card_matches_torch_sort(descending):
+    """The spill tier on the card (host input, many chunks, K3 chunk sorts,
+    K2 block merges on the copy streams) against ``torch.sort(stable=
+    True)``; overlap off gives the same bits."""
+    from repro_torch.engine import spill
+    rng = np.random.default_rng(8)
+    k = torch.from_numpy(rng.integers(0, 1000, 1 << 20).astype(np.int32))
+    (order, counts) = _launched(lambda: spill.spill_argsort(
+        k, descending=descending, chunk_bytes=1 << 18))
+    chunks = (1 << 20) // (1 << 16)
+    assert counts.get("radix_onesweep_hist") == chunks, counts
+    assert counts.get("radix_onesweep_pass") == 4 * chunks, counts
+    assert counts.get("merge_path_partition") == \
+        counts.get("merge_pairs_kv_blocks") > 0, counts
+    assert order.device.type == "cpu"
+    want = torch.sort(k.cuda(), descending=descending, stable=True)
+    _same(order, want.indices.to(torch.int32).cpu())
+    _same(order, spill.spill_argsort(k, descending=descending,
+                                     chunk_bytes=1 << 18, overlap=False))
+    x = torch.from_numpy(rng.standard_normal(1 << 20).astype(np.float32))
+    x[::1001] = float("nan")
+    got = spill.spill_sort(x, descending=descending, chunk_bytes=1 << 18)
+    _same(got, torch.sort(x.cuda(), descending=descending,
+                          stable=True).values.cpu())
+
+
+def test_k3_and_k2_at_the_spill_chunk_sizes():
+    """Trouble spot of the default 4 GiB chunk: K3 sorts a 2^30-key row
+    (64-bit row offsets, int32 tile counts), K2 merges two 2^29-key runs
+    (2L = 2^30 outputs, its int32 positions' largest power of two)."""
+    from repro_torch.kernels import merge_path as mp
+    from repro_torch.kernels import radix_sort as rsk
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(-(1 << 31), 1 << 31, (1, 1 << 30), generator=gen,
+                      device="cuda", dtype=torch.int64).to(torch.int32)
+    got = rsk.sort_blocks(x)
+    want = torch.sort(x.view(-1) ^ -(1 << 31)).values ^ -(1 << 31)
+    assert torch.equal(got.view(-1), want)
+    del got, want
+    a = torch.sort(x.view(-1)[:1 << 29]).values.view(1, -1)
+    b = torch.sort(x.view(-1)[1 << 29:]).values.view(1, -1)
+    del x
+    m = mp.merge_pairs_blocks(a, b)
+    assert torch.equal(m.view(-1), torch.sort(torch.cat([a, b], -1)
+                                              .view(-1)).values)
+    with pytest.raises(ValueError, match="int32"):
+        mp.merge_pairs_blocks(torch.cat([a, b], -1), torch.cat([a, b], -1))
+
+
+def test_spill_plan_falls_back_to_merge_under_graph_capture():
+    """While a CUDA graph is being captured a spill plan runs the merge
+    pipeline on the card (the reference's outer-jit fallback)."""
+    import dataclasses
+    from repro_torch import engine
+    from repro_torch.core import tuning
+    prof = tuning.active()
+    tuning.set_active(dataclasses.replace(prof, spill_threshold_bytes=1024))
+    try:
+        x = torch.randn(1 << 14, device="cuda")
+        assert engine.choose(1 << 14, 1, torch.float32).method == "spill"
+        engine.sort(x)                  # warm-up outside the capture
+        engine.sort(x, method="merge")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side), torch.cuda.graph(graph):
+            out = engine.sort(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert out.is_cuda
+        _same(out, torch.sort(x).values)
+    finally:
+        tuning.set_active(prof)
+
+
+def test_calibrate_on_the_card_times_the_kernels(tmp_path, monkeypatch):
+    from repro_torch.core import tuning
+    from repro_torch.engine import planner
+    monkeypatch.setenv(tuning.PROFILE_DIR_ENV, str(tmp_path))
+    try:
+        prof = planner.calibrate(tile_n=1024, batch=16, reps=1,
+                                 persist=True)
+        assert prof.fingerprint.startswith("cuda/")
+        assert {"digit_bits", "run_len", "merge_fanin"} <= set(prof.sweeps)
+        assert any(k.startswith("cuda.topk") for k in prof.probe_ns)
+        assert any(k.startswith("radix.sort") for k in prof.probe_ns)
+        assert all(v > 0 for v in prof.probe_ns.values())
+        tuning.set_active(None)
+        assert tuning.active().source == "persisted"
+    finally:
+        planner.reset_calibration()
+        tuning.set_active(None)

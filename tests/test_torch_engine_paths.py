@@ -314,10 +314,11 @@ def test_result_on_requested_device_from_numpy_input():
 
 @pytest.mark.parametrize("kwargs", [
     {"mesh": object()},
-    {"axis_name": "data"}, {"method": "spill"}, {"method": "distributed"}])
+    {"axis_name": "data"}, {"method": "distributed"}])
 def test_fields_not_ported_fail_loudly(kwargs):
     """What the port does not carry yet raises, naming its ROADMAP item
-    (segments, padded rows, ``select`` and ``imc`` are ported now)."""
+    (segments, padded rows, ``select``, ``imc`` and ``spill`` are ported
+    now)."""
     x = np.zeros((1, 4), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsort.sort(x, device="cpu", **kwargs)
@@ -327,13 +328,17 @@ def test_fields_not_ported_fail_loudly(kwargs):
 
 
 def test_auto_above_the_spill_threshold_fails_loudly():
+    """Above the threshold ``auto`` no longer raises: it runs the spill
+    tier (``tests/test_torch_spill.py`` holds its bits), as the reference
+    does; an explicit method is honoured."""
     prof = ttuning.active()
     ttuning.set_active(dataclasses.replace(prof, spill_threshold_bytes=64))
     try:
-        with pytest.raises(NotImplementedError, match="spill"):
-            tsort.sort(np.zeros(100, np.float32), device="cpu")
-        # an explicit method is honoured, as in the reference
-        tsort.sort(np.zeros(100, np.float32), method="torch", device="cpu")
+        x = np.arange(100, dtype=np.float32)[::-1].copy()
+        assert tengine.choose(100, 1, torch.float32, device="cpu").method \
+            == "spill"
+        assert tsort.sort(x, device="cpu").tolist() == sorted(x.tolist())
+        tsort.sort(x, method="torch", device="cpu")
     finally:
         ttuning.set_active(prof)
 
@@ -359,7 +364,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "from repro_torch.core import backends\n"
             "from repro_torch.kernels import ops, radix_sort, merge_path, "
             "radix_select, bitonic_topk, bitserial_cas\n"
-            "from repro_torch.engine import segmented\n"
+            "from repro_torch.engine import segmented, spill, planner\n"
             "from repro_torch.core import imc_array, gates, network, cas, "
             "sorter, cost_model, sort_api\n"
             "from repro_torch.configs import adsimc_paper, base, "

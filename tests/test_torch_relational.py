@@ -479,14 +479,16 @@ def test_relspec_validation_errors(kw, x, values, match):
 def test_relspec_mesh_waits_for_the_distributed_tier(op):
     """The reference rejects a mesh for join and runs unique/group_by over
     it; the port raises for every op until the distributed tier is
-    ported."""
+    ported.  The spill tier is ported: ``method="spill"`` runs, as in the
+    reference."""
     x = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="item 11"):
         TRelSpec(op=op, mesh=object()).canonical(x, x)
     with pytest.raises(NotImplementedError, match="item 11"):
         trel.unique(x, mesh=object(), axis_name="data", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trel.unique(x, method="spill", device="cpu")
+    col = np.array([3, 1, 3, 2], np.int32)
+    _same(jrel.unique(jnp.asarray(col), method="spill"),
+          trel.unique(_t(col), method="spill", device="cpu"), op)
 
 
 def test_relspec_canonical_is_idempotent_and_static_key_hashable():

@@ -183,9 +183,14 @@ def test_segment_and_padded_spec_validation(spec, match):
 def test_auto_topk_switches_to_selection_from_select_min_n():
     """``auto`` never picks the selection backend below ``select_min_n``;
     from there on it picks it where it is the cheapest (on the CPU, where
-    the kernel backends pay their plain penalty), and moving the floor
-    moves the switch-over.  An explicit ``select`` is honoured below it."""
-    prof = ttuning.active()
+    the kernel backends pay their plain penalty, once the torch backend's
+    native top-k is priced above it: its seed makes it the cheapest on the
+    CPU, as the reference's ``lax.top_k`` is), and moving the floor moves
+    the switch-over.  An explicit ``select`` is honoured below it."""
+    base = ttuning.active()
+    prof = dataclasses.replace(base, constants=dataclasses.replace(
+        base.constants, torch_topk=1e3))
+    ttuning.set_active(prof)
     lo = tengine.choose(prof.select_min_n - 1, 1, torch.float32, k=8,
                         device="cpu")
     hi = tengine.choose(1 << 16, 1, torch.float32, k=8, device="cpu")
@@ -201,19 +206,22 @@ def test_auto_topk_switches_to_selection_from_select_min_n():
                           method="select", device="cpu")
         assert i.tolist() == [15, 14, 13]
     finally:
-        ttuning.set_active(prof)
+        ttuning.set_active(base)
 
 
 def test_topk_plans_price_selection_and_the_card_backends():
-    """A top-k plan prices ``select`` with the selection model and every
-    sort backend at its sort; ``cuda`` takes top-k now, ``select`` no
-    sort, and neither is offered a plain sort by ``auto``."""
+    """A top-k plan prices ``select`` with the selection model, ``cuda``
+    as K5's one pass (k <= 256) and every other sort backend on the card
+    at its sort; ``cuda`` takes top-k now, ``select`` no sort, and neither
+    is offered a plain sort by ``auto``."""
     from repro_torch.core import cost_model
     plan = tengine.choose(1 << 20, 4, torch.float32, k=64, device="cuda")
     assert plan.costs["select"] == cost_model.selection_cost_ns(
         1 << 20, 64, 32, 4)
-    assert plan.costs["cuda"] == cost_model.device_sort_cost_ns(
-        "cuda", 1 << 20, 4)
+    assert plan.costs["cuda"] == cost_model.cuda_topk_cost_ns(
+        1 << 20, 64, 4)
+    assert plan.costs["torch"] == cost_model.device_sort_cost_ns(
+        "torch", 1 << 20, 4)
     sort_plan = tengine.choose(1 << 20, 4, torch.float32, device="cuda")
     assert sort_plan.method != "select"
     small = tengine.choose(64, 16384, torch.float32, k=8, device="cuda")
