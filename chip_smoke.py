@@ -72,7 +72,9 @@ Phases, each printed as one JSON line:
             groups (sort path).  Each op runs ``method="auto"`` once with the
             counts set to 0 just before and read just after (the kernels of
             its plan must run: K3 on the radix route; K4 once a digit pass
-            for the quantiles, their survivors ordered by K1 and K2), is
+            for the quantiles, their survivors ordered by K1 and K2; where
+            ``auto`` plans ``torch.sort``, the op again on ``method="radix"``
+            with K3's launches asserted and the same bits), is
             held bit for bit against the same call on ``method="torch"``
             (``torch.sort``, no kernel may run) and by an independent check
             (``torch.unique``'s values and counts, int64 sums, float sums
@@ -94,13 +96,46 @@ Phases, each printed as one JSON line:
             alone moves), and K6 against its plain version at each served
             batch's shape; the ``[serve] length accounting`` groups against
             a numpy count of the prompt lengths;
+5b. moe_serve
+            moonshot-v1-16b-a3b at full size (48 layers, 64 experts top-6
+            + 2 shared, 28.4 B parameters in bf16, random weights from a
+            seeded generator) through ``serve`` with the prefill's
+            attention on K6: 16 requests in batches of 8, prompts up to 511
+            tokens, ``max_len`` 2048, 32 tokens each by top-k (k=50).  The
+            counts are set to 0 just before and read just after: the
+            router's K5 (``topk_rows_short``) once a MoE layer a forward
+            (47 x (prefill batches + decode steps)), apart from the
+            sampling top-k's K5 (``topk_rows_stream``, once a decode step),
+            and K6 once a layer and prefill batch; prefill ms, decode
+            tokens/s, peak memory and the top-k plans are printed; then K6
+            against its plain version at (8, 1024) x 16/16 heads of 128;
+5c. train   moonshot at full width, depth cut to 3 (one dense prefix
+            layer, a stacked body of two MoE layers, 1.93 B parameters),
+            AdamW over ``SyntheticLM`` batches of 4 x 1024: one step's
+            gradients with the router on K5 against the same step with
+            ``router_method="torch"`` (within ``TRAIN_GRAD_TOL`` of each
+            leaf's largest value); then 5 steps without a codec and 5 with
+            the top-k codec (an eighth of each tensor), each step counted
+            (the router's K5 once a MoE layer) with its loss, grad norm,
+            ms, tokens/s and peak memory; the loss finite and falling.
+            Then the smoke model: one float32 step on the card against the
+            CPU (``SMOKE_TOL``), and ``launch.train`` saved, restored and
+            continued on the card (the step count carries on);
+5d. data    2^20 token rows of 128 with a tenth planted as copies:
+            ``dedup_rows`` on ``method="radix"`` (its ``unique`` exactly
+            one K3 histogram and 4 passes) and on ``auto``, and
+            ``global_dedup`` through the spill tier in 4 chunks (K3 a
+            chunk, every K2 merge a partition launch and a merge launch),
+            each keep-mask equal to a numpy brute force over the rows;
 6. spill    the spill tier above the default 4 GiB threshold, inputs on
             the host: a 3 x 2^29 float32 ``method="auto"`` sort (its plan
-            must be ``spill``), held bit for bit with overlap off and on,
-            ``spill_argsort`` / ``spill_sort_kv`` of 2^30 int32 keys in 16
-            runs both ways, a bfloat16 and a NaN-holding float32 run; each
-            call counted (K3: a histogram and a pass a digit a chunk sort;
-            K2: a partition launch a merge launch), held against
+            must be ``spill``; its chunk sorts as the planner prices a sort
+            of their size, ``torch.sort`` under the seed), held bit for bit
+            with overlap off and on, ``spill_argsort`` / ``spill_sort_kv``
+            of 2^30 int32 keys in 16 runs both ways and a bfloat16 run on
+            ``method="radix"`` (K3's rows), and a NaN-holding float32 run;
+            each call counted (K3: a histogram and a pass a digit a chunk
+            sort; K2: a partition launch a merge launch), held against
             ``torch.sort(stable=True)`` on the card (``spill_reference``:
             chunks sorted as their plan sorts them, one stable sort of the
             runs by the merge's order), and printed with its spill- and
@@ -167,6 +202,10 @@ SERVE = dict(n_requests=16, batch_size=8, decode_steps=32, topk=50,
              max_len=4096)        # prompts of 4 to 1023 tokens
 ATTN_SHAPES = ((8, 1024), (1, 32768))    # (B, S) of K6's rows: the serve's
 ATTN_HEADS = (24, 8, 128)                # prefill batch and prefill_32k
+# every K6 row: (B, S) and (query heads, kv heads, head dim); the last is
+# moonshot's prefill batch
+K6_ROWS = tuple((bs, ATTN_HEADS) for bs in ATTN_SHAPES) \
+    + (((8, 1024), (16, 16, 128)),)
 K6_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # max |kernel - plain|
 # ... and the largest |kernel - plain|_2 / |plain|_2 over query rows: an
 # absolute limit is loose where outputs are small (a row that sees n keys
@@ -661,6 +700,14 @@ def phase_main(rng) -> dict:
     emit({"phase": "main", "auto_plan_2^28_float32": plan.method,
           "run_method": plan.run_method, "merge_backend": plan.merge_backend,
           "run_len": plan.run_len, "costs_ns": plan.costs})
+    # the seed prices torch.sort as the radix sort it is on the card, and
+    # below K3: the 2^28 float32 sort and the 2^26 argsort plan it (both
+    # routes' ms are in the calibrate phase's table)
+    argsort_plan = engine.choose(KV_N, 1, torch.int32, device="cuda")
+    if (plan.method, argsort_plan.method) != ("torch", "torch"):
+        raise AssertionError(f"seed plans: 2^28 float32 sort {plan.method}, "
+                             f"2^26 int32 argsort {argsort_plan.method}; "
+                             f"expected torch for both")
     out = run("sort merge 2^28 float32",
               lambda: rsort.sort(x, method="merge"),
               ("bitonic_sort_blocks",) + K2)
@@ -809,13 +856,20 @@ def phase_main(rng) -> dict:
                            .astype(np.int32)).cuda()
     p = engine.choose(ids.numel(), 1, torch.int32, device="cuda")
     emit({"phase": "main", "auto_plan_group_tokens": p.method})
-    perm, splits = run("group_tokens_by_expert 131072 ids, 64 experts",
-                       lambda: engine.group_tokens_by_expert(ids, 64),
-                       K3, k3_passes=4)
-    same_bits(perm, _ref_sort(ids)[1], "group_tokens permutation")
     counts = torch.bincount(ids.long(), minlength=64)
-    same_bits(splits, torch.cat([counts.new_zeros(1), counts.cumsum(0)])
-              .to(torch.int32), "group_tokens row splits")
+    # the auto plan's kernels (K3 on radix; torch.sort, no kernel, under
+    # the seed), then K3's own row where auto plans another route
+    for m in ("auto",) + (() if p.method == "radix" else ("radix",)):
+        on_k3 = "radix" in (m, p.method)
+        perm, splits = run(f"group_tokens_by_expert 131072 ids, 64 experts "
+                           f"{m}",
+                           lambda: engine.group_tokens_by_expert(
+                               ids, 64, method=m),
+                           K3 if on_k3 else (),
+                           k3_passes=4 if on_k3 else None)
+        same_bits(perm, _ref_sort(ids)[1], "group_tokens permutation")
+        same_bits(splits, torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+                  .to(torch.int32), "group_tokens row splits")
     del ids, perm, splits
 
     # ragged segments: 2^24 float32 over 4096 segments of random lengths
@@ -825,27 +879,35 @@ def phase_main(rng) -> dict:
                               replace=False))
     splits = torch.from_numpy(np.concatenate([[0], cuts, [TOPK_N]])
                               .astype(np.int64)).cuda()
-    sv, ss = run(f"segment_sort 2^24 float32, {SEGMENTS} segments",
-                 lambda: rsort.segment_sort(xs, row_splits=splits),
-                 K3, k3_passes=4)
     seg = engine.segment_ids_from_row_splits(splits, TOPK_N)
     o1 = _ref_sort(xs)[1].long()
     order = o1.gather(0, _ref_sort(seg.gather(0, o1))[1].long())
-    same_bits(sv, xs.gather(0, order), "segment_sort values")
-    same_bits(ss, seg.gather(0, order), "segment_sort segment ids")
+    p = engine.choose(TOPK_N, 1, torch.float32, device="cuda")
+    for m in ("auto",) + (() if p.method == "radix" else ("radix",)):
+        on_k3 = "radix" in (m, p.method)
+        sv, ss = run(f"segment_sort 2^24 float32, {SEGMENTS} segments {m}",
+                     lambda: rsort.segment_sort(xs, row_splits=splits,
+                                                method=m),
+                     K3 if on_k3 else (), k3_passes=4 if on_k3 else None)
+        same_bits(sv, xs.gather(0, order), "segment_sort values")
+        same_bits(ss, seg.gather(0, order), "segment_sort segment ids")
     del xs, splits, sv, ss, seg, o1, order
 
     # padded rows: each row's valid prefix sorted, the tail filled
     b = torch.from_numpy(rng.standard_normal(VOCAB, dtype=np.float32)).cuda()
     lengths = torch.from_numpy(rng.integers(0, VOCAB[1] + 1, VOCAB[0])
                                ).cuda()
-    out = run("sort(valid_lengths=...) (64, 128256) float32",
-              lambda: rsort.sort(b, valid_lengths=lengths, fill_value=-1.0),
-              K3, k3_passes=4)
     valid = torch.arange(VOCAB[1], device="cuda")[None, :] < lengths[:, None]
     want = torch.sort(torch.where(valid, b, float("inf")), dim=-1,
                       stable=True).values
-    same_bits(out, torch.where(valid, want, -1.0), "valid_lengths sort")
+    p = engine.choose(VOCAB[1], VOCAB[0], torch.float32, device="cuda")
+    for m in ("auto",) + (() if p.method == "radix" else ("radix",)):
+        on_k3 = "radix" in (m, p.method)
+        out = run(f"sort(valid_lengths=...) (64, 128256) float32 {m}",
+                  lambda: rsort.sort(b, valid_lengths=lengths,
+                                     fill_value=-1.0, method=m),
+                  K3 if on_k3 else (), k3_passes=4 if on_k3 else None)
+        same_bits(out, torch.where(valid, want, -1.0), "valid_lengths sort")
     del b, lengths, out, valid, want
 
     phase_imc(rng, run)
@@ -1022,10 +1084,11 @@ def phase_relational(rng) -> dict:
     measured: dict = {}     # op -> {route: ms}, read by phase_calibrate
 
     def run(name, fn, must, *, plan=None, k3_passes=None, exact=None,
-            library=None, reps=2, **info):
+            library=None, reps=2, route=None, **info):
         """One counted call, then ``reps`` timed calls: CUDA-event ms on
         the stream and host ms around each call (its syncs included).
-        ``exact`` maps kernels to the launches the call must make."""
+        ``exact`` maps kernels to the launches the call must make;
+        ``route`` names a pinned method's row."""
         _build.reset_launches()
         torch.cuda.synchronize()
         out = fn()
@@ -1051,7 +1114,7 @@ def phase_relational(rng) -> dict:
             fn()
         end.record()
         end.synchronize()
-        line = {"phase": "relational", "op": name,
+        line = {"phase": "relational", "op": name, "route": route,
                 "plan": None if plan is None else plan.method,
                 "costs_ns": None if plan is None else plan.costs,
                 "ms": start.elapsed_time(end) / reps,
@@ -1060,10 +1123,19 @@ def phase_relational(rng) -> dict:
         if library is not None:
             line["library"] = library[0]
             line["library_ms"] = cuda_ms(library[1], reps)[0]
-        if plan is not None:
-            measured.setdefault(name, {})[plan.method] = line["ms"]
+        if route is not None or plan is not None:
+            measured.setdefault(name, {})[route or plan.method] = line["ms"]
         emit(line)
         return out
+
+    def radix_route(name, plan, fn, want):
+        """K3's own row where ``auto`` plans another route (torch.sort is
+        priced under K3 on the card): the same call on ``method="radix"``,
+        one K3 sort of 4 passes a sorted column, the same bits."""
+        if plan.method == "radix":
+            return
+        same(run(name, fn, K3, k3_passes=4, route="radix"), want,
+             f"{name} radix")
 
     def torch_route(name, fn):
         """The same call on ``torch.sort``: no kernel may run."""
@@ -1104,6 +1176,8 @@ def phase_relational(rng) -> dict:
                  lambda: torch.unique(lines, return_counts=True)))
     same(u, torch_route("unique l_orderkey", lambda: rel.unique(
         lines, return_counts=True, method="torch")), "unique")
+    radix_route("unique l_orderkey", p, lambda: rel.unique(
+        lines, return_counts=True, method="radix"), u)
     tv, tc = torch.unique(lines, return_counts=True)
     if int(u.n_unique) != TPCH_ORDERS:
         raise AssertionError(f"unique: {int(u.n_unique)} orders")
@@ -1122,6 +1196,8 @@ def phase_relational(rng) -> dict:
     same(g, torch_route("group_by l_orderkey, l_quantity",
                         lambda: rel.group_by(lines, qty, agg=aggs,
                                              method="torch")), "group_by q")
+    radix_route("group_by l_orderkey, l_quantity", p, lambda: rel.group_by(
+        lines, qty, agg=aggs, method="radix"), g)
     s64 = torch.zeros(TPCH_ORDERS, dtype=torch.int64, device="cuda") \
         .index_add_(0, inverse, qty.to(torch.int64))
     same_bits(g.aggregates[0][:TPCH_ORDERS].to(torch.int64), s64,
@@ -1137,6 +1213,9 @@ def phase_relational(rng) -> dict:
                         lambda: rel.group_by(lines, price,
                                              agg=("sum", "mean"),
                                              method="torch")), "group_by p")
+    radix_route("group_by l_orderkey, l_extendedprice", p,
+                lambda: rel.group_by(lines, price, agg=("sum", "mean"),
+                                     method="radix"), g)
     f64 = torch.zeros(TPCH_ORDERS, dtype=torch.float64, device="cuda") \
         .index_add_(0, inverse, price.to(torch.float64))
     cnt = tc.to(torch.float64)
@@ -1160,6 +1239,8 @@ def phase_relational(rng) -> dict:
         k3_passes=4 if p.method == "radix" else None)
     same(j, torch_route("join l_orderkey = o_orderkey", lambda: rel.join(
         lines, orders, size=n, method="torch")), "join")
+    radix_route("join l_orderkey = o_orderkey", p, lambda: rel.join(
+        lines, orders, size=n, method="radix"), j)
     left, right = j.left_idx.long(), j.right_idx.long()
     if int(j.n_pairs) != n or not bool((lines[left] == orders[right]).all()):
         raise AssertionError(f"join: {int(j.n_pairs)} pairs of {n}, or a "
@@ -1178,6 +1259,8 @@ def phase_relational(rng) -> dict:
                      lambda: torch.unique(orders, return_counts=True)))
     same(r, torch_route("rle o_orderkey", lambda: rel.run_length_encode(
         orders, method="torch")), "rle")
+    radix_route("rle o_orderkey", p, lambda: rel.run_length_encode(
+        orders, method="radix"), r)
     same_bits(rel.rle_decode(r.values, r.run_lengths, TPCH_ORDERS), so,
               "rle round trip")
     p = plan_of("delta", TPCH_ORDERS)
@@ -1186,6 +1269,8 @@ def phase_relational(rng) -> dict:
             k3_passes=4 if p.method == "radix" else None)
     same(d, torch_route("delta o_orderkey", lambda: rel.delta_encode(
         orders, method="torch")), "delta")
+    radix_route("delta o_orderkey", p, lambda: rel.delta_encode(
+        orders, method="radix"), d)
     same_bits(rel.delta_decode(d.deltas), so, "delta round trip")
     del r, d, so
 
@@ -1241,6 +1326,9 @@ def phase_relational(rng) -> dict:
                          lambda: rel.group_ranks(flat, FLAT_IDS[1],
                                                  method="torch")),
          "group_ranks sort path")
+    radix_route(f"group_ranks 2^24 ids, {FLAT_IDS[1]} groups", p,
+                lambda: rel.group_ranks(flat, FLAT_IDS[1], method="radix"),
+                gr)
     same(gr, ranks_oracle(flat, FLAT_IDS[1]), "group_ranks vs torch.sort")
     measured["n"] = {"lineitems": n, "orders": TPCH_ORDERS}
     del gr, ids, flat, orders, lines, qty, price
@@ -1472,6 +1560,400 @@ def decode_split(model, params, toks, max_len) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 5b-5d: the MoE family, the training path, the data pipeline
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_SERVE = dict(n_requests=16, batch_size=8, decode_steps=32, topk=50,
+                 max_len=2048)    # prompts of 4 to 511 tokens
+TRAIN = dict(layers=3, batch=4, seq=1024, steps=5, peak_lr=3e-4,
+             topk_frac=0.125)
+# a bf16 gradient through the router's K5 against the same step's through
+# torch.topk's route: the largest |diff| of a leaf over its largest |g|
+TRAIN_GRAD_TOL = 1e-2
+# the smoke step on the card against the CPU (float32): the loss and grad
+# norm relative; the parameters within 1e-4 but for at most 0.1% of them,
+# which stay within 2 lr (Adam turns a 1-ulp gradient difference where
+# |g| is near eps into up to ~2 lr, lr 1e-2)
+SMOKE_TOL = {"loss": 1e-5, "params": 1e-4, "params_share_past": 1e-3,
+             "params_bound": 2e-2}
+DATA_ROWS = 1 << 20       # token rows of the dedup phase
+DATA_SEQ = 128
+DATA_DUP = 0.1            # share of rows overwritten with an earlier row
+DATA_CHUNK = 1 << 20      # bytes a spill chunk of fingerprints: 4 chunks
+
+
+def phase_moe_serve() -> dict:
+    """``serve`` of moonshot-v1-16b-a3b at full size (48 layers, 64
+    experts top-6 + 2 shared, 28.4 B parameters in bf16, random weights
+    from a seeded generator), the prefill's attention on K6, with the
+    launch counts set to 0 just before and read just after: the router's
+    K5 (``topk_rows_short``) once a MoE layer a forward, the sampling
+    top-k's K5 (``topk_rows_stream``) once a decode step, K6 once a layer
+    and prefill batch.  Then K6 against its plain version at the prefill's
+    (8, 1024) x 16/16 heads of 128.  Returns the counts."""
+    import numpy as np
+    import torch
+    from repro_torch import engine
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as srv
+
+    cfg = get_config(MOE_ARCH)
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    bsz, steps, n_req = (MOE_SERVE["batch_size"], MOE_SERVE["decode_steps"],
+                         MOE_SERVE["n_requests"])
+    plans = {
+        "sampling (8, vocab) k=50": engine.choose(
+            cfg.padded_vocab, bsz, torch.float32, k=MOE_SERVE["topk"],
+            device="cuda"),
+        "router decode (8, 64) k=6": engine.choose(
+            cfg.moe.n_experts, bsz, torch.float32, k=cfg.moe.top_k,
+            device="cuda"),
+        "router prefill (8 x 512, 64) k=6": engine.choose(
+            cfg.moe.n_experts, bsz * 512, torch.float32, k=cfg.moe.top_k,
+            device="cuda")}
+    emit({"phase": "moe_serve", "model": cfg.name,
+          "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
+          "plans": {k: p.method for k, p in plans.items()},
+          "costs_ns": {k: p.costs for k, p in plans.items()}})
+    if any(p.method != "cuda" for p in plans.values()):
+        raise AssertionError("moe_serve: a router or sampling top-k is not "
+                             "planned on K5")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, stats = srv.serve(MOE_ARCH, smoke=False, seed=SEED, device="cuda",
+                            flash_prefill=True, **MOE_SERVE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = stats["batches"] * steps      # a prefill + steps - 1 decodes
+    want = {"topk_rows_short": n_moe * forwards,
+            "topk_rows_stream": stats["batches"] * (steps - 1),
+            "flash_attention_fwd": cfg.n_layers * stats["batches"]}
+    wrong = {k: counts.get(k, 0) for k, v in want.items()
+             if counts.get(k, 0) != v}
+    if wrong:
+        raise AssertionError(f"moe_serve: launches {wrong}, expected {want} "
+                             f"(counts {counts})")
+    check_k3_sorts("moe_serve", counts, None)
+    if len(done) != n_req or sorted(r.rid for r in done) != \
+            list(range(n_req)):
+        raise AssertionError(f"moe_serve: {len(done)} of {n_req} answered")
+    for r in done:
+        if r.out is None or len(r.out) != steps or not (
+                (r.out >= 0) & (r.out < cfg.vocab_size)).all():
+            raise AssertionError(f"moe_serve: request {r.rid} got {r.out}")
+    lens, per_len = np.unique([len(r.prompt) for r in done],
+                              return_counts=True)
+    if stats["length_groups"] != [(int(k), int(c), float(steps))
+                                  for k, c in zip(lens, per_len)]:
+        raise AssertionError(f"moe_serve: length accounting "
+                             f"{stats['length_groups']}")
+    emit({"phase": "moe_serve", "requests": len(done),
+          "batches": stats["batches"], "launches": counts,
+          "router_k5_launches": counts.get("topk_rows_short", 0),
+          "sampling_k5_launches": counts.get("topk_rows_stream", 0),
+          "prompt_lens": sorted(len(r.prompt) for r in done),
+          "prefill_ms": stats["prefill_ms"],
+          "decode_tok_s": stats["decode_tps"],
+          "peak_memory_gib": peak / 2 ** 30, "seconds": seconds,
+          "nvidia_smi": card()})
+    del done, stats
+    torch.cuda.empty_cache()
+    # K6 at moonshot's prefill shape: 16 query heads on 16 kv heads
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v = attn_rows(gen, 8 * cfg.n_kv_heads, 1, 1024, 1024,
+                        cfg.resolved_head_dim, torch.bfloat16)
+    errs = attn_within(fa.flash_rows(q, k, v), fa.flash_rows_plain(q, k, v),
+                       "K6 at moonshot's (8, 1024) x 16/16 x 128")
+    emit({"phase": "moe_serve", "k6_vs_plain_max_abs_and_row_rel_err": errs,
+          "shape": [8, 1024, 16, 16, 128], "limits": [K6_TOL["bfloat16"],
+                                                      K6_ROW_REL["bfloat16"]]})
+    del q, k, v
+    return counts
+
+
+def _train_smoke_on_card_vs_cpu() -> dict:
+    """One AdamW step of moonshot's smoke model in float32 on the card and
+    on the CPU from the same weights and batch: the small input the
+    full-width run is held to."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model_zoo
+    cfg = dataclasses.replace(get_smoke_config(MOE_ARCH), dtype="float32")
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((4, 1), -100, np.int32)],
+                            axis=1)
+    init = model_zoo.build(cfg, device="cpu").init(
+        torch.Generator().manual_seed(SEED))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = model_zoo.build(cfg, device=dev)
+        params = tree.map(lambda p: p.to(dev, copy=True), init)
+        fn, opt = steps_lib.make_train_step(
+            model, cfg, ShapeSpec("smoke", 32, 4, "train"), peak_lr=1e-2,
+            total_steps=10)
+        state = opt.init(params)
+        params, state, met = fn(params, state, 1, {
+            "tokens": torch.from_numpy(toks).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)})
+        out[dev] = (params, float(met["loss"]), float(met["grad_norm"]))
+    (pc, lc, gc), (pg, lg, gg) = out["cpu"], out["cuda"]
+    diff = torch.cat([(a - b.cpu()).abs().reshape(-1)
+                      for a, b in zip(tree.leaves(pc), tree.leaves(pg))])
+    res = {"loss_rel_err": abs(lg - lc) / abs(lc),
+           "grad_norm_rel_err": abs(gg - gc) / abs(gc),
+           "params_max_abs_err": diff.max().item(),
+           "params_share_past": (diff > SMOKE_TOL["params"]).float().mean()
+           .item()}
+    if res["loss_rel_err"] > SMOKE_TOL["loss"] or \
+            res["grad_norm_rel_err"] > SMOKE_TOL["loss"] or \
+            res["params_share_past"] > SMOKE_TOL["params_share_past"] or \
+            res["params_max_abs_err"] > SMOKE_TOL["params_bound"]:
+        raise AssertionError(f"train smoke: card vs CPU {res}, limits "
+                             f"{SMOKE_TOL}")
+    return res
+
+
+def phase_train() -> dict:
+    """moonshot-v1-16b-a3b at full width, depth cut to 3 (one dense
+    prefix layer and a stacked body of two MoE layers), AdamW on
+    ``SyntheticLM`` batches of 4 x 1024: one step's gradients with the
+    router on K5 against the same step with ``router_method="torch"``;
+    then 5 steps without a codec and 5 with the top-k codec (an eighth of
+    each tensor), each step counted (the router's K5 once a MoE layer in
+    the forward) and timed; the loss finite and falling.  Then the smoke
+    model: one step on the card against the CPU, and a save, restore and
+    continue of ``launch.train`` (the step count carries on).  Returns the
+    launches."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.engine import planner
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import grad_compress
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAIN["layers"])
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    model = model_zoo.build(cfg, device="cuda")
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    if (model.impl.n_prefix, model.impl.n_body) != (1, n_moe):
+        raise AssertionError("train: not one dense prefix layer and a "
+                             "stacked MoE body")
+    router = planner.choose(cfg.moe.n_experts, b * s, torch.float32,
+                            k=cfg.moe.top_k, device="cuda")
+    emit({"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+          "n_params": cfg.n_params(), "tokens_a_step": b * s,
+          "router_plan": router.method, "reduced": "depth 48 -> 3 layers",
+          "nvidia_smi": card()})
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                  global_batch=b, seed=SEED))
+    launches: dict = {}
+
+    # one step's gradients: the router on K5 against torch.topk's route
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    batch = to_device(data.global_batch_at(0), "cuda")
+    _build.reset_launches()
+    la, _, ga = steps_lib.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    if _build.launches.get("topk_rows_short", 0) != n_moe:
+        raise AssertionError(f"train: router K5 launches "
+                             f"{dict(_build.launches)}, expected {n_moe}")
+    ref = model_zoo.build(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router_method="torch")), device="cuda")
+    lb, _, gb = steps_lib.loss_and_grads(ref, params, batch)
+    worst = 0.0
+    for (path, x), y in zip(tree.leaves_with_path(ga), tree.leaves(gb)):
+        err = (x.float() - y.float()).abs().max().item() / max(
+            y.float().abs().max().item(), 1e-30)
+        worst = max(worst, err)
+        if err > TRAIN_GRAD_TOL:
+            raise AssertionError(f"train: gradient {path} with the router "
+                                 f"on K5 differs from torch.topk's route by "
+                                 f"{err} of its largest value")
+    emit({"phase": "train", "check": "gradients, router on K5 vs torch",
+          "loss": [float(la), float(lb)], "max_rel_err": worst,
+          "limit": TRAIN_GRAD_TOL})
+    del params, ga, gb, ref, batch
+
+    for codec in (None, "topk"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        hook = None
+        if codec is not None:
+            cinit, hook = grad_compress.make_compressor(
+                grad_compress.CompressorConfig(
+                    codec=codec, topk_frac=TRAIN["topk_frac"]))
+        fn, opt = steps_lib.make_train_step(
+            model, cfg, ShapeSpec("train", s, b, "train"),
+            peak_lr=TRAIN["peak_lr"], total_steps=TRAIN["steps"],
+            grad_compressor=hook)
+        state = opt.init(params)
+        if codec is not None:
+            state.update(cinit(params))
+        losses = []
+        for step in range(TRAIN["steps"]):
+            batch = to_device(data.global_batch_at(step), "cuda")
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, met = fn(params, state, step, batch)
+            loss = float(met["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(_build.launches)
+            if counts.get("topk_rows_short", 0) != n_moe:
+                raise AssertionError(f"train: router K5 launches {counts}, "
+                                     f"expected {n_moe} a step")
+            check_k3_sorts("train", counts, None)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            losses.append(loss)
+            emit({"phase": "train", "codec": codec, "step": step,
+                  "loss": loss, "grad_norm": float(met["grad_norm"]),
+                  "lr": float(met["lr"]), "ms": ms,
+                  "tokens_s": b * s / ms * 1e3,
+                  "peak_memory_gib": torch.cuda.max_memory_allocated()
+                  / 2 ** 30, "launches": counts})
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"train codec={codec}: losses {losses} "
+                                 f"not finite and falling")
+        del params, state, fn, opt, batch
+    torch.cuda.empty_cache()
+
+    smoke = _train_smoke_on_card_vs_cpu()
+    # save, restore, continue: the driver's own oracle
+    ck = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        kw = dict(smoke=True, batch=4, seq=64, lr=1e-2, ckpt_dir=ck,
+                  ckpt_every=3, log_every=100, device="cuda")
+        first = train_lib.train(MOE_ARCH, steps=6, **kw)
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            more = train_lib.train(MOE_ARCH, steps=9, **kw)
+        latest = Checkpointer(ck).latest_step()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if "resumed from step 6 -> starting at 6" not in said.getvalue() or \
+            len(more) != 3 or latest != 9 or not first[-1] < first[0]:
+        raise AssertionError(f"train: resume did not continue the step "
+                             f"count ({said.getvalue()!r}, {first}, {more}, "
+                             f"latest {latest})")
+    emit({"phase": "train", "smoke_card_vs_cpu": smoke,
+          "limits": SMOKE_TOL, "smoke_losses": first + more,
+          "resumed_at": 6, "latest_checkpoint": latest})
+    return launches
+
+
+def phase_data(rng) -> dict:
+    """Dedup of 2^20 token rows of 128 with a tenth of the rows planted as
+    copies of others: ``dedup_rows`` on K3 (``method="radix"``: its
+    ``unique`` one histogram and 4 passes, exactly) and on the ``auto``
+    plan, and ``global_dedup`` through the spill tier in 4 chunks (K3 a
+    chunk, every K2 merge a partition launch and a merge launch); every
+    keep-mask equal to a numpy brute force over the rows themselves.
+    Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.engine import planner
+    from repro_torch.kernels import _build
+
+    tokens = rng.integers(0, 163840, (DATA_ROWS, DATA_SEQ), dtype=np.int32)
+    n_dup = int(DATA_ROWS * DATA_DUP)
+    dst = rng.choice(DATA_ROWS, n_dup, replace=False)
+    keep_rows = np.setdiff1d(np.arange(DATA_ROWS), dst)
+    tokens[dst] = tokens[rng.choice(keep_rows, n_dup)]
+    t0 = time.perf_counter()
+    rows = np.ascontiguousarray(tokens).view(
+        np.dtype((np.void, 4 * DATA_SEQ)))[:, 0]
+    _, first = np.unique(rows, return_index=True)
+    brute = np.zeros(DATA_ROWS, bool)
+    brute[first] = True
+    brute_s = time.perf_counter() - t0
+    plan = planner.choose_relational("unique", DATA_ROWS,
+                                     dtype=torch.uint32, device="cuda")
+    emit({"phase": "data", "rows": DATA_ROWS, "seq": DATA_SEQ,
+          "planted_duplicates": n_dup, "distinct": int(brute.sum()),
+          "brute_force_s": brute_s, "unique_auto_plan": plan.method,
+          "nvidia_smi": card()})
+    launches: dict = {}
+
+    def run(name, fn, check):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        keep = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = dict(_build.launches)
+        check(counts)
+        if not np.array_equal(keep, brute):
+            raise AssertionError(f"{name}: keep-mask differs from the brute "
+                                 f"force at {np.flatnonzero(keep != brute)[:5]}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        emit({"phase": "data", "call": name, "seconds": seconds,
+              "kept": int(keep.sum()), "launches": counts})
+
+    def k3_exact(counts):
+        want = {"radix_onesweep_hist": 1, "radix_onesweep_pass": 4}
+        if counts != want:
+            raise AssertionError(f"dedup_rows radix: launches {counts}, "
+                                 f"expected {want}")
+
+    def spill_k3_k2(counts):
+        chunks = DATA_ROWS * 4 // DATA_CHUNK
+        check_k3_sorts("global_dedup", counts, 4)
+        part = counts.get("merge_path_partition", 0)
+        merges = counts.get("merge_pairs_kv_blocks", 0) \
+            + counts.get("merge_pairs_blocks", 0)
+        if counts.get("radix_onesweep_hist", 0) != chunks or part == 0 or \
+                part != merges:
+            raise AssertionError(f"global_dedup: launches {counts}, expected "
+                                 f"{chunks} K3 sorts and a K2 partition a "
+                                 f"merge")
+
+    run("dedup_rows radix", lambda: pipeline.dedup_rows(
+        tokens, method="radix"), k3_exact)
+    run(f"dedup_rows auto ({plan.method})",
+        lambda: pipeline.dedup_rows(tokens),
+        lambda c: check_k3_sorts("dedup_rows auto", c,
+                                 4 if plan.method == "radix" else None))
+    run("global_dedup radix, 4 chunks", lambda: pipeline.global_dedup(
+        tokens, chunk_bytes=DATA_CHUNK, method="radix"), spill_k3_k2)
+    del tokens, rows, brute
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the spill tier, above the default threshold
 # ---------------------------------------------------------------------------
 
@@ -1637,8 +2119,15 @@ def phase_spill(rng) -> dict:
           "costs_ns": plan.costs})
     if plan.method != "spill":
         raise AssertionError(f"6 GiB float32: plan {plan.method}, not spill")
+    # its chunk sorts are planned as any sort of their size: torch.sort
+    # under the seed (priced as the radix sort it is on the card, below
+    # K3), K3 where a profile prices K3 lower
+    chunk_plan = engine.choose(spill.chunk_elems(4), 1, torch.float32,
+                               device="cuda").method
+    on_k3 = chunk_plan == "radix"
+    emit({"phase": "spill", "chunk_plan_2^30_float32": chunk_plan})
     out = run("sort auto 3x2^29 float32", lambda: rsort.sort(x), x.nbytes,
-              2, 4)
+              2 if on_k3 else None, 4 if on_k3 else None)
     if out.device.type != "cpu":
         raise AssertionError("spill sort: the result is not on the host")
     # untraced, on the pinned blocks the traced call left cached: the
@@ -1656,9 +2145,11 @@ def phase_spill(rng) -> dict:
           **host_trace(lambda: spill.spill_sort(x))})
     _release_pinned()
     # the radix chunk sorts order -0.0 below +0.0 (numpy's float32 normals
-    # hold a few signed zeros), the merge treats them as equal
-    want = spill_reference(x, spill.chunk_elems(4), False,
-                           total_order_sorted)
+    # hold a few signed zeros), torch.sort's keep their input order, the
+    # merge treats them as equal
+    want = spill_reference(
+        x, spill.chunk_elems(4), False, total_order_sorted if on_k3 else
+        (lambda c: torch.sort(c, stable=True).values))
     del x
     same_bits(out.cuda(), want, "spill sort 3x2^29 vs torch.sort")
     del out, want
@@ -1676,16 +2167,19 @@ def phase_spill(rng) -> dict:
         ref = torch.sort(kd, stable=True, descending=desc)
         want_k, want_i = ref.values, ref.indices.to(torch.int32)
         del ref, kd
-        order = run(f"spill_argsort 2^30 int32 desc={desc}",
+        # K3's own rows: auto plans torch.sort's chunk sorts under the seed
+        order = run(f"spill_argsort 2^30 int32 desc={desc} radix",
                     lambda: spill.spill_argsort(k, descending=desc,
-                                                chunk_bytes=SPILL_KV_CHUNK),
+                                                chunk_bytes=SPILL_KV_CHUNK,
+                                                method="radix"),
                     2 * k.nbytes, chunks, 4)
         same_bits(order.cuda(), want_i, f"spill argsort desc={desc}")
         del order
         _release_pinned()
-        sk, sv = run(f"spill_sort_kv 2^30 int32 desc={desc}",
+        sk, sv = run(f"spill_sort_kv 2^30 int32 desc={desc} radix",
                      lambda: spill.spill_sort_kv(
-                         k, p, descending=desc, chunk_bytes=SPILL_KV_CHUNK),
+                         k, p, descending=desc, chunk_bytes=SPILL_KV_CHUNK,
+                         method="radix"),
                      2 * k.nbytes, chunks, 4)
         same_bits(sk.cuda(), want_k, f"spill sort_kv keys desc={desc}")
         del sk
@@ -1700,8 +2194,8 @@ def phase_spill(rng) -> dict:
     # (torch.sort chunk sorts, merges on the order key), small chunks
     b = torch.randn(SPILL_SMALL, generator=torch.Generator().manual_seed(
         SEED)).to(torch.bfloat16)
-    out = run("spill_sort 2^24 bfloat16", lambda: spill.spill_sort(
-        b, chunk_bytes=SPILL_SMALL_CHUNK), b.numel() * 2,
+    out = run("spill_sort 2^24 bfloat16 radix", lambda: spill.spill_sort(
+        b, chunk_bytes=SPILL_SMALL_CHUNK, method="radix"), b.numel() * 2,
         SPILL_SMALL * 2 // SPILL_SMALL_CHUNK, 2)
     same_bits(out.cuda(), total_order_sorted(b.cuda()),
               "spill sort bfloat16 (its order code: the total order)")
@@ -2300,16 +2794,16 @@ def time_k5(row, gen) -> None:
 
 
 def time_k6(row, gen) -> None:
-    """K6's kernel-table rows: the serve's prefill batch, (8, 1024) x 24/8
-    heads of 128, and prefill_32k's length at batch 1, bf16; beside SDPA on
+    """K6's kernel-table rows: minitron's serve prefill batch, (8, 1024) x
+    24/8 heads of 128, prefill_32k's length at batch 1, and moonshot's
+    prefill batch, (8, 1024) x 16/16 heads of 128, bf16; beside SDPA on
     the same (B, N, S, H) tensors (causal from position 0: S = T).  Bound:
     the causal half of QK^T and PV over the bf16 tensor rate, against q, k,
     v and o read or written once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    n, r, h = ATTN_HEADS
-    for b, s in ATTN_SHAPES:
+    for (b, s), (n, r, h) in K6_ROWS:
         q, k, v = attn_rows(gen, b * r, n // r, s, s, h, torch.bfloat16)
         q4, k4, v4 = (x.view(b, -1, s, h) for x in (q, k, v))
         row("flash_attention_fwd", "src/repro_torch/csrc/flash_attention.cu",
@@ -2587,6 +3081,20 @@ def main() -> int:
     serve_launches = phase_serve()
     emit({"phase": "serve", "seconds": time.perf_counter() - ts})
 
+    ts = time.perf_counter()
+    moe_launches = phase_moe_serve()
+    emit({"phase": "moe_serve", "seconds": time.perf_counter() - ts})
+
+    ts = time.perf_counter()
+    train_launches = phase_train()
+    emit({"phase": "train", "total_launches": train_launches,
+          "seconds": time.perf_counter() - ts})
+
+    ts = time.perf_counter()
+    data_launches = phase_data(rng)
+    emit({"phase": "data", "total_launches": data_launches,
+          "seconds": time.perf_counter() - ts})
+
     tp = time.perf_counter()
     spill_launches = phase_spill(rng)
     emit({"phase": "spill", "total_launches": spill_launches,
@@ -2599,7 +3107,8 @@ def main() -> int:
         raise AssertionError("calibrate: the seed profile was not restored")
 
     launches = dict(main_res["launches"])
-    for counts in (rel_launches, serve_launches, spill_launches):
+    for counts in (rel_launches, serve_launches, moe_launches,
+                   train_launches, data_launches, spill_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 

@@ -1,6 +1,7 @@
 """repro_torch.configs — workload configurations of the port: the paper's
 sorting unit (``adsimc_paper``), the model configurations (one module per
-architecture, ``minitron_4b`` so far) and the shape registry."""
+architecture: ``minitron_4b``, ``moonshot_v1_16b``, ``dbrx_132b``) and
+the shape registry."""
 from repro_torch.configs.adsimc_paper import PAPER_UNIT, SortUnitConfig  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
     ALIASES, SHAPES, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig,

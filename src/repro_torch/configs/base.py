@@ -4,7 +4,8 @@ The port's copy of the JAX package's ``configs/base.py``: the same
 dataclasses and fields, so a configuration means the same model in both
 packages.  ``param_dtype`` answers in torch dtypes.  Each architecture the
 port carries is a ``ModelConfig`` in its own module under
-``repro_torch.configs`` (``minitron_4b`` so far); ``get_config(name)``
+``repro_torch.configs`` (``minitron_4b``, ``moonshot_v1_16b``,
+``dbrx_132b`` so far); ``get_config(name)``
 resolves them, and each also provides a ``smoke()`` reduction (same
 family, tiny dims) for CPU tests.
 
@@ -30,6 +31,8 @@ class MoEConfig:
     d_ff_expert: int
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
+    # "auto": the k-aware planner prices the router top-k per (n_experts,
+    # top_k); any registered backend name forces one engine
     router_method: str = "auto"
     first_dense_layers: int = 0         # leading layers use a dense MLP
 
@@ -144,6 +147,18 @@ class ModelConfig:
         total += self.n_enc_layers * (enc_attn + attn)  # enc + cross-attn approx
         return total
 
+    def n_active_params(self) -> int:
+        """Active (per-token) parameters: MoE counts only top-k experts."""
+        if self.moe is None:
+            return self.n_params()
+        full = self.n_params()
+        d = self.d_model
+        gated = self.mlp_type in ("swiglu", "geglu")
+        per = d * self.moe.d_ff_expert * (3 if gated else 2)
+        n_moe_layers = self.n_layers - self.moe.first_dense_layers
+        inactive = per * (self.moe.n_experts - self.moe.top_k) * n_moe_layers
+        return full - inactive
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
@@ -186,7 +201,8 @@ def _module(name: str):
             raise
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (the port carries "
-            f"minitron-4b; the other families are ROADMAP Queue 1 item 12)"
+            f"minitron-4b, moonshot-v1-16b-a3b and dbrx-132b; the other "
+            f"families and dense configs are ROADMAP Queue 1 item 12b)"
         ) from e
 
 

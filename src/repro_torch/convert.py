@@ -79,16 +79,18 @@ def _leaf(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 def params_from_jax(params: Any, cfg: ModelConfig, *, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Any:
     """The port's parameter tree for ``cfg`` from the JAX package's (nested
-    dicts/lists of numpy arrays): every leaf a tensor of ``dtype`` (default
-    ``cfg.param_dtype()``) on ``device`` (default ``"cuda"``)."""
+    dicts/lists of numpy arrays, ``prefix`` lists and stacked ``body``
+    leaves alike): every leaf a tensor of ``dtype`` (default
+    ``cfg.param_dtype()``) on ``device`` (default ``"cuda"``), but a MoE
+    layer's ``router``, which stays float32 as the reference keeps it."""
     dev = resolve_device(device)
     dtype = dtype or cfg.param_dtype()
 
-    def conv(tree):
+    def conv(tree, key=None):
         if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
+            return {k: conv(v, k) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return [conv(v) for v in tree]
-        return _leaf(tree, dtype, dev)
+        return _leaf(tree, torch.float32 if key == "router" else dtype, dev)
 
     return conv(params)

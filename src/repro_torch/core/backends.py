@@ -144,6 +144,15 @@ class BitonicBackend(SortBackend):
         return _gather_kv(keys, values,
                           self.argsort(keys, descending=descending))
 
+    def topk(self, rows, k, *, plan=None):
+        """Sort-prefix; on rows that require grad the values are gathered
+        from the rows by index (the same values, and the gradient the
+        reference's differentiable network gives)."""
+        v, i = super().topk(rows, k, plan=plan)
+        if rows.requires_grad:
+            v = rows.gather(-1, i.to(torch.int64))
+        return v, i
+
 
 # ---------------------------------------------------------------------------
 # cuda — the whole row in shared memory (the JAX package's ``pallas``)

@@ -163,15 +163,22 @@ def device_sort_cost_ns(method: str, n: int, batch: int = 1, *,
     ``n`` is priced at the padded size each backend executes (``radix``
     pads nothing: K3 runs fixed tiles and ends a row's last, partial one
     inside the kernel, and its plain pass pads nothing either).  ``plain``
-    says the kernel backends (``cuda``, ``radix``) would run their plain
-    versions (a CPU tensor) and pays ``cuda_plain_penalty``.  ``key_bits``
-    is the encoded key width; only the radix pass count depends on it.
+    says the tensor lies on the CPU: the kernel backends (``cuda``,
+    ``radix``) would run their plain versions and pay
+    ``cuda_plain_penalty``, and ``torch`` is the comparison sort the
+    reference prices (c * n log2 n).  Off ``plain``, ``torch`` is priced
+    as what ``torch.sort`` runs on the card, a radix sort (``torch_card``
+    a key and 8-bit pass).  ``key_bits`` is the encoded key width; only
+    the radix pass counts depend on it.
     """
     prof = _tuning.active()
     c = consts or prof.constants
     m = 1 << max(0, (n - 1).bit_length())
     pen = c.cuda_plain_penalty if plain else 1.0
     if method == "torch":
+        if not plain:
+            # on the card torch.sort is a radix sort of 8-bit digits
+            return c.torch_card * batch * n * -(-key_bits // 8)
         return c.torch * batch * n * _log2(n)
     if method == "bitonic":
         return c.bitonic * batch * m * _log2(m) ** 2
@@ -289,12 +296,13 @@ def relational_cost_ns(op: str, method: str, n: int, batch: int = 1, *,
 def spill_sort_cost_ns(n: int, batch: int = 1, itemsize: int = 4, *,
                        chunk_bytes: Optional[int] = None,
                        key_bits: int = 32, overlap: bool = True,
-                       consts: Optional[DeviceSortConstants] = None) -> float:
+                       consts: Optional[DeviceSortConstants] = None,
+                       plain: bool = False) -> float:
     """Estimated ns for the spill tier (``repro_torch.engine.spill``) over
     ``batch`` rows of ``n`` keys: the JAX package's three terms.
 
       chunk sorts   ceil(total/chunk) device sorts at the chunk size,
-                    priced at the comparison-sort contract (``torch``)
+                    priced as ``torch`` sorts (``plain``: on the CPU)
       link          every key crosses the host link four times (chunk
                     H2D, run D2H, merge-block H2D, merged D2H) at
                     ``pcie_per_byte``; with overlap the spill phase pays
@@ -311,7 +319,7 @@ def spill_sort_cost_ns(n: int, batch: int = 1, itemsize: int = 4, *,
     total = n * batch
     n_chunks = max(1, -(-total // chunk))
     per_chunk = device_sort_cost_ns("torch", min(chunk, total), consts=c,
-                                    key_bits=key_bits)
+                                    key_bits=key_bits, plain=plain)
     sort_ns = n_chunks * per_chunk
     spill_xfer = 2.0 * total * itemsize * c.pcie_per_byte
     merge_xfer = 2.0 * total * itemsize * c.pcie_per_byte

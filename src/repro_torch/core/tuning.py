@@ -95,6 +95,10 @@ class DeviceSortConstants:
     host link, ~16 GB/s) and ``host_merge_level`` (one host cursor
     partition + block merge, a key) price the spill tier."""
     torch: float = 6.0           # comparison sort: c * n log2 n
+    # torch.sort on the card, a radix sort: c * n * passes of 8 bits (the
+    # seed: the radix seed x torch/radix ms of a 2^28 float32 sort on an
+    # H100, 13.34 / 15.01)
+    torch_card: float = 10.7
     bitonic: float = 1.2         # plain network: c * n log2^2 n
     cuda: float = 0.25           # shared-memory network: c * n log2^2 n
     merge_run: float = 6.0       # run generation: c * n log2 run_len

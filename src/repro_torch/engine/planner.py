@@ -95,7 +95,7 @@ def choose(n: int, batch: int = 1, dtype=torch.float32, *,
                  and sortspec.get_backend("spill").eligible(n, dtype, rl))
     if k is None and (oversized or requested == "spill"):
         costs["spill"] = cost_model.spill_sort_cost_ns(
-            n, batch, itemsize, consts=consts)
+            n, batch, itemsize, consts=consts, plain=plain)
     if requested == "auto" and oversized:
         method = "spill"
     elif requested == "auto":
@@ -388,7 +388,8 @@ def _fit_select_min_n(consts: _tuning.DeviceSortConstants,
         n = 1 << exp
         sel = cost_model.selection_cost_ns(n, k, 32, consts=consts,
                                            digit_bits=digit_bits)
-        alt = cost_model.device_sort_cost_ns("torch", n, consts=consts)
+        alt = cost_model.device_sort_cost_ns("torch", n, consts=consts,
+                                             plain=not cuda)
         other = (cost_model.cuda_topk_cost_ns(n, k, consts=consts) if cuda
                  else cost_model.native_topk_cost_ns(n, k, consts=consts))
         if sel < min(alt, other):
@@ -412,8 +413,9 @@ def calibrate(tile_n: int = 2048, batch: int = 64, reps: int = 3, *,
          ``sweeps``; ``select_min_n`` fitted from the measured constants.
          ``radix_tile`` and ``capacity_slack`` keep their seeds
          (:data:`NOT_SWEPT` says why).
-      3. fit — the leading constants (torch, bitonic, cuda, merge, radix,
-         select, the torch backend's top-k) from the probes; the link and
+      3. fit — the leading constants (torch, on the card torch_card too,
+         bitonic, cuda, merge, radix, select, the torch backend's top-k)
+         from the probes; the link and
          host-merge constants keep their seeds.
       4. install — ``tuning.set_active`` (every cached plan dies);
          ``persist=True`` writes it (``path``, else this fingerprint's
@@ -494,8 +496,13 @@ def calibrate(tile_n: int = 2048, batch: int = 64, reps: int = 3, *,
         if not cuda:    # the plain versions: fold into constant x penalty
             cuda_c /= dc.cuda_plain_penalty
             rad_c /= dc.cuda_plain_penalty
+    # on the card torch.sort is a radix sort: its own constant a key and
+    # 8-bit pass (the CPU's keeps the n log2 n form)
+    torch_card = torch_ns / (elems * -(-keycodec.key_bits(x.dtype) // 8)) \
+        if cuda else dc.torch_card
     consts = dataclasses.replace(
-        dc, torch=torch_ns / (elems * lg), bitonic=bit_ns / (elems * lg * lg),
+        dc, torch=torch_ns / (elems * lg), torch_card=torch_card,
+        bitonic=bit_ns / (elems * lg * lg),
         cuda=cuda_c, radix=rad_c, select=sel_c, torch_topk=ttk_c,
         merge_run=run_ns / (elems * lg), merge_level=mrg_ns / elems)
     select_min_n = _fit_select_min_n(consts, digit_bits, cuda) \

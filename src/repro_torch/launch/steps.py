@@ -1,8 +1,14 @@
-"""Step-function builders for serving: prefill and one decode step.
+"""Step-function builders: train, prefill and one decode step.
 
-The port of the serve half of the JAX package's ``launch/steps.py``
-(``make_prefill_step``, ``make_serve_step``).  PyTorch runs eagerly, so a
-step is a plain function; the training step waits for the training slice.
+The port of the JAX package's ``launch/steps.py`` on one device.  PyTorch
+runs eagerly, so a step is a plain function and there are no shardings or
+partition specs (no ``policy`` argument).
+
+train_step = gradient accumulation over microbatches in float32 (the
+reference's scan), the optional gradient codec, the optimizer update and
+the parameter refresh from the float32 master.  The step updates its
+parameters and optimizer state in place (the reference donates them) and
+returns them.
 """
 from __future__ import annotations
 
@@ -10,9 +16,91 @@ from typing import Union
 
 import torch
 
-from repro_torch.configs.base import ShapeSpec
+from repro_torch import tree as _tree
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models.model_zoo import Model
+from repro_torch.optim import optimizers as opt_lib
 
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+def loss_and_grads(model: Model, params, batch):
+    """(loss, aux, gradients): the loss of ``batch`` and its gradient with
+    respect to every parameter leaf, in the parameters' dtypes and tree."""
+    live = _tree.map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = _tree.leaves(live)
+    with torch.enable_grad():
+        loss, aux = model.loss(live, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    aux = {k: v.detach() for k, v in aux.items()}
+    return loss.detach(), aux, _tree.unflatten(params, grads)
+
+
+def build_train_step(model: Model, optimizer: opt_lib.Optimizer,
+                     shape: ShapeSpec, microbatch: int = 1,
+                     accum_dtype=torch.float32, grad_compressor=None):
+    """``train_step(params, opt_state, step, batch) -> (params, opt_state,
+    metrics)``.  ``batch``: ``{"tokens", "labels"}`` tensors on the
+    model's device; ``microbatch`` splits it along the batch axis and
+    accumulates the gradients in ``accum_dtype``; ``grad_compressor`` is a
+    codec's ``apply`` (``optim.grad_compress.make_compressor``)."""
+    del shape          # the reference's shardings; one device here
+
+    def train_step(params, opt_state, step, batch):
+        if microbatch > 1:
+            b = next(iter(batch.values())).shape[0]
+            per = b // microbatch
+            gsum, lsum = None, 0.0
+            for j in range(microbatch):
+                mb = {k: v[j * per:(j + 1) * per] for k, v in batch.items()}
+                loss, _, grads = loss_and_grads(model, params, mb)
+                if gsum is None:
+                    gsum = _tree.map(lambda g: g.to(accum_dtype), grads)
+                else:
+                    gsum = _tree.map(lambda a, g: a + g.to(accum_dtype),
+                                     gsum, grads)
+                lsum = lsum + loss
+            grads = _tree.map(lambda g: g.to(torch.float32) / microbatch,
+                              gsum)
+            loss = lsum / microbatch
+        else:
+            loss, _, grads = loss_and_grads(model, params, batch)
+        if grad_compressor is not None:
+            grads, opt_state = grad_compressor(grads, opt_state)
+        opt_state, info = optimizer.update(grads, opt_state, step)
+        with torch.no_grad():
+            for p, m in zip(_tree.leaves(params),
+                            _tree.leaves(opt_state["master"])):
+                p.copy_(m)           # the master cast to the param dtype
+        return params, opt_state, {"loss": loss, **info}
+
+    return train_step
+
+
+def make_train_step(model: Model, cfg: ModelConfig, shape: ShapeSpec,
+                    optimizer_name: str = "adamw", microbatch: int = 1,
+                    peak_lr: float = 3e-4, total_steps: int = 10000,
+                    accum_dtype=torch.float32, grad_compressor=None):
+    """(train_step, optimizer): the reference's cosine schedule (warmup
+    ``min(500, total_steps // 10)``) under AdamW or Adafactor."""
+    sched = opt_lib.cosine_schedule(peak_lr,
+                                    warmup=min(500, total_steps // 10),
+                                    total=total_steps)
+    optimizer = (opt_lib.adafactor(sched) if optimizer_name == "adafactor"
+                 else opt_lib.adamw(sched))
+    fn = build_train_step(model, optimizer, shape, microbatch=microbatch,
+                          accum_dtype=accum_dtype,
+                          grad_compressor=grad_compressor)
+    return fn, optimizer
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
 
 def make_prefill_step(model: Model, shape: ShapeSpec):
     def prefill_step(params, batch):

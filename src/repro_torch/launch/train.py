@@ -1,0 +1,125 @@
+"""Training driver.
+
+The port of the JAX package's ``launch/train.py`` on one device: config
+registry -> model -> train step (``steps.make_train_step``) -> synthetic
+data pipeline -> async checkpointing -> fault-tolerance runtime
+(preemption save, step watchdog, resume from the latest checkpoint).
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 5
+
+Runs on the card unless ``--device cpu`` is given.  Not carried: the mesh
+and shardings (ROADMAP Queue 1 items 11 and 12c).
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List
+
+import torch
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.base import ShapeSpec, get_config, get_smoke_config
+from repro_torch.core.sortspec import resolve_device
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models.model_zoo import build
+from repro_torch.runtime.fault_tolerance import (PreemptionHandler,
+                                                 StepWatchdog)
+
+
+def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
+          seq: int = 128, microbatch: int = 1, lr: float = 3e-3,
+          ckpt_dir: str = "", ckpt_every: int = 25, optimizer: str = "adamw",
+          log_every: int = 5, resume: bool = True, seed: int = 0, *,
+          device="cuda") -> List[float]:
+    """Train ``arch`` (``smoke``: its reduced config) for ``steps`` steps
+    on ``device`` (default ``"cuda"``) from weights drawn from ``seed``,
+    or from the latest checkpoint in ``ckpt_dir``.  Returns the losses of
+    the steps run."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    dev = resolve_device(device)
+    model = build(cfg, device=dev)
+    shape = ShapeSpec("custom", seq, batch, "train", microbatch)
+    fn, optimizer_obj = steps_lib.make_train_step(
+        model, cfg, shape, optimizer_name=optimizer, microbatch=microbatch,
+        peak_lr=lr, total_steps=steps)
+
+    # init or resume
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    opt_state = optimizer_obj.init(params)
+    if ckpt is not None and resume:
+        latest = ckpt.latest_step()
+        if latest is not None:
+            restored, extra = ckpt.restore(
+                latest, {"params": params, "opt": opt_state}, device=dev)
+            params, opt_state = restored["params"], restored["opt"]
+            start_step = int(extra.get("next_step", latest))
+            print(f"[train] resumed from step {latest} "
+                  f"-> starting at {start_step}")
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=seed))
+    preempt = PreemptionHandler().install()
+    watchdog = StepWatchdog()
+    losses: List[float] = []
+    try:
+        for step in range(start_step, steps):
+            dev_batch = to_device(data.global_batch_at(step), dev)
+            watchdog.start()
+            params, opt_state, metrics = fn(params, opt_state, step,
+                                            dev_batch)
+            loss = float(metrics["loss"])            # waits for the card
+            dt = watchdog.stop(step)
+            losses.append(loss)
+            if step % log_every == 0 or step == steps - 1:
+                print(f"[train] step {step:5d} loss {loss:8.4f} "
+                      f"gnorm {float(metrics['grad_norm']):7.3f} "
+                      f"lr {float(metrics['lr']):.2e} {dt*1e3:7.1f} ms")
+            should_save = ckpt is not None and (
+                (step + 1) % ckpt_every == 0 or preempt.preempted
+                or step == steps - 1)
+            if should_save:
+                ckpt.save(step + 1, {"params": params, "opt": opt_state},
+                          extra={"next_step": step + 1})
+            if preempt.preempted:
+                print(f"[train] preemption requested — saved at "
+                      f"{step + 1}, exiting")
+                break
+        if ckpt is not None:
+            ckpt.wait()
+    finally:
+        preempt.uninstall()
+    return losses
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain versions)")
+    args = ap.parse_args()
+    losses = train(args.arch, smoke=args.smoke, steps=args.steps,
+                   batch=args.batch, seq=args.seq,
+                   microbatch=args.microbatch, lr=args.lr,
+                   ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                   optimizer=args.optimizer, device=args.device)
+    if losses:
+        print(f"[train] first loss {losses[0]:.4f} -> last "
+              f"{losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

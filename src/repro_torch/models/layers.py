@@ -22,16 +22,36 @@ import torch
 import torch.nn.functional as F
 
 
+# elements a float32 draw covers at once: a larger leaf (a stacked expert
+# weight of a full-size MoE, 8.7 G elements) is drawn a slice at a time, so
+# its float32 temporary never holds more than 4 GiB; smaller leaves are
+# drawn whole, as they always were
+_DRAW_CHUNK = 1 << 30
+
+
 def truncnorm_init(gen: torch.Generator, shape, std: float,
                    dtype: torch.dtype) -> torch.Tensor:
     """A normal of ``std`` truncated to two standard deviations (the
     reference's ``truncated_normal(-2, 2)``), drawn in float32 on the
-    generator's device by the inverse CDF."""
+    generator's device by the inverse CDF and cast to ``dtype``; leaves of
+    more than 2^30 elements are drawn in slices of that many (the same
+    distribution, element by element)."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    u.uniform_(lo, 1.0 - lo, generator=gen)
-    x = u.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0))
-    return x.clamp_(-2.0, 2.0).mul_(std).to(dtype)
+
+    def draw(n: int) -> torch.Tensor:
+        u = torch.empty((n,), dtype=torch.float32, device=gen.device)
+        u.uniform_(lo, 1.0 - lo, generator=gen)
+        x = u.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0))
+        return x.clamp_(-2.0, 2.0).mul_(std)
+
+    n = math.prod(shape)
+    if n <= _DRAW_CHUNK:
+        return draw(n).to(dtype).reshape(shape)
+    out = torch.empty((n,), dtype=dtype, device=gen.device)
+    for i in range(0, n, _DRAW_CHUNK):
+        m = min(_DRAW_CHUNK, n - i)
+        out[i:i + m] = draw(m)
+    return out.reshape(shape)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -155,6 +175,21 @@ def embed(params, tokens: torch.Tensor, scale: bool, d: int) -> torch.Tensor:
 def unembed_init(gen: torch.Generator, vocab: int, d: int, dtype):
     return {"unembedding": truncnorm_init(gen, (d, vocab),
                                           1.0 / math.sqrt(d), dtype)}
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Masked mean cross-entropy over (B, S, V) float32 logits; labels < 0
+    are masked.  The reference's formulation: ``z = max + log(sum(exp(
+    logits - max)))`` and the true logit taken by index (the reference's
+    one-hot contraction gives the same value)."""
+    mask = (labels >= 0).to(torch.float32)
+    safe = labels.clamp(min=0).to(torch.int64)
+    m = logits.amax(dim=-1)
+    z = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    true_logit = logits.gather(-1, safe[..., None])[..., 0]
+    ll = true_logit - z
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def logits_from_hidden(x: torch.Tensor, emb_params, unemb_params, tie: bool,

@@ -4,12 +4,11 @@ The port of the JAX package's ``models/model_zoo.py``; the facade exposes
 what ``launch/`` and the tests need:
 
     model.init(generator)        -> params (no partition specs)
+    model.loss(params, batch)    -> (scalar, aux)       [training]
     model.prefill(params, batch, max_len) -> (last logits, decode state)
     model.decode_state(batch_size, max_len) -> empty decode state
     model.decode_step(params, token, state) -> (logits, state)
     model.input_specs(shape)     -> meta tensors standing in for each input
-
-``model.loss`` raises until the training slice.
 """
 from __future__ import annotations
 
@@ -36,9 +35,7 @@ class Model:
         return self.impl.init(gen)
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            "the training path (loss, cross_entropy_loss, train step) is "
-            "not ported yet (ROADMAP Queue 1 item 12)")
+        return self.impl.loss(params, batch)
 
     def prefill(self, params, batch, max_len: int):
         return self.impl.prefill(params, batch["tokens"], max_len)

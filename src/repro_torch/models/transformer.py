@@ -1,26 +1,33 @@
-"""Decoder-only transformer trunk: dense attention-only stacks.
+"""Decoder-only transformer trunk: dense and MoE attention stacks.
 
 The port of the JAX package's ``models/transformer.py`` for the ``dense``
-family.  The reference scans one layer over parameters stacked along a
-leading layer axis; here a loop over the layers indexes the same stacked
-tensors, so the parameter and decode-state trees keep the reference's
-shape leaf for leaf: ``params["body"]`` holds ``(L, ...)`` leaves and the
-decode state is ``{"prefix": [...], "body": KVCache((L, B, S, R, H) x 2),
-"t": 0-dim int32}``.
+and ``moe`` families.  The layout follows the reference's rule: layers of
+one signature (mixer kind, MoE or dense FFN) after the leading dense
+layers form a stacked ``body`` (``(L, ...)`` leaves) when there are more
+than one of them, the rest are ``prefix`` layers, one tree each; a
+homogeneous stack is all body.  The reference scans the body; here a loop
+over the layers indexes the stacked tensors, so the parameter and
+decode-state trees keep the reference's shape leaf for leaf: the decode
+state is ``{"prefix": [...], "body": KVCache((L, B, S, R, H) x 2), "t":
+0-dim int32}``.
 
-The families the slice does not carry (moe, ssm, hybrid, encdec, vlm)
-raise ``NotImplementedError``; they are ROADMAP Queue 1 item 12.  There is
-no training path yet (``loss`` comes with the training slice).
+Training: ``loss`` is the reference's (masked cross-entropy over float32
+logits, plus ``0.01 * lb + 1e-3 * z`` of the MoE layers' aux losses), its
+attention the einsum path (K6 is forward-only and refuses a tensor that
+requires grad).
+
+The families the port does not carry (ssm, hybrid, encdec, vlm) raise
+``NotImplementedError``; they are ROADMAP Queue 1 item 12b.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 
 def _attn_config(cfg: ModelConfig) -> attention.AttentionConfig:
@@ -31,18 +38,24 @@ def _attn_config(cfg: ModelConfig) -> attention.AttentionConfig:
         causal=True, window=cfg.window)
 
 
+def _layer_signature(cfg: ModelConfig, i: int) -> Tuple[str, bool]:
+    has_moe = (cfg.moe is not None and i >= cfg.moe.first_dense_layers)
+    return (cfg.layer_kind(i), has_moe)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's transformer does not carry yet."""
-    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None \
-            or cfg.rglru is not None:
+    if cfg.family not in ("dense", "moe") or cfg.ssm is not None \
+            or cfg.rglru is not None or (cfg.family == "moe") != (
+                cfg.moe is not None):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port serves dense attention stacks (moe, ssm, hybrid, encdec "
-            f"and vlm are ROADMAP Queue 1 item 12)")
+            f"port carries dense and moe attention stacks (ssm, hybrid, "
+            f"encdec and vlm are ROADMAP Queue 1 item 12b)")
     if cfg.vision_prefix or cfg.rope_type == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: vlm inputs (vision prefix, M-RoPE) are not ported "
-            f"yet (ROADMAP Queue 1 item 12)")
+            f"yet (ROADMAP Queue 1 item 12b)")
 
 
 def _layer(tree, i: int):
@@ -64,24 +77,39 @@ class Transformer:
         self.device = torch.device(self.device)
         self.attn_cfg = _attn_config(self.cfg)
         self.norm = layers.norm_fn(self.cfg.norm_type)
-        # one homogeneous stack: stacked "body" unless there is one layer
-        self.scan_body = self.cfg.n_layers > 1
-        self.n_prefix = 0 if self.scan_body else self.cfg.n_layers
-        self.n_body = self.cfg.n_layers - self.n_prefix
+        # the reference's layout: a stacked body of the layers after the
+        # leading dense ones when they share one signature and are more
+        # than one; all body for a homogeneous stack; else all prefix
+        cfg = self.cfg
+        sigs = [_layer_signature(cfg, i) for i in range(cfg.n_layers)]
+        first = cfg.moe.first_dense_layers if cfg.moe else 0
+        body = sigs[first:]
+        self.scan_body = len(set(body)) == 1 and len(body) > 1
+        self.n_prefix = first if self.scan_body else (
+            0 if len(set(sigs)) == 1 and len(sigs) > 1 else cfg.n_layers)
+        if len(set(sigs)) == 1 and len(sigs) > 1:
+            self.scan_body, self.n_prefix = True, 0
+        self.n_body = cfg.n_layers - self.n_prefix
 
     # ------------------------------------------------------------------ init
-    def _init_layer(self, gen: torch.Generator, lead=()):
+    def _init_layer(self, gen: torch.Generator, i: int, lead=()):
         cfg = self.cfg
         dtype, dev = cfg.param_dtype(), self.device
-        return {
+        _, has_moe = _layer_signature(cfg, i)
+        params = {
             "ln1": layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev,
                                     lead)[0],
             "ln2": layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev,
                                     lead)[0],
             "mixer": attention.init(gen, self.attn_cfg, dtype, lead),
-            "ffn": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                                   dtype, lead),
         }
+        if has_moe:
+            params["ffn"] = moe.init(gen, cfg.d_model, cfg.moe, cfg.mlp_type,
+                                     dtype, lead)
+        else:
+            params["ffn"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                            cfg.mlp_type, dtype, lead)
+        return params
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random parameters from ``gen`` (a generator on the model's
@@ -99,9 +127,10 @@ class Transformer:
                                                     cfg.d_model, dtype)
         params["final_ln"] = layers.make_norm(cfg.norm_type, cfg.d_model,
                                               dtype, self.device)[0]
-        params["prefix"] = [self._init_layer(gen)
-                            for _ in range(self.n_prefix)]
-        params["body"] = (self._init_layer(gen, lead=(self.n_body,))
+        params["prefix"] = [self._init_layer(gen, i)
+                            for i in range(self.n_prefix)]
+        params["body"] = (self._init_layer(gen, self.n_prefix,
+                                           lead=(self.n_body,))
                           if self.scan_body else {})
         return params
 
@@ -116,25 +145,47 @@ class Transformer:
         return out
 
     # ------------------------------------------------------------- forwards
-    def _ffn(self, lp, x):
-        return x + layers.mlp_apply(lp["ffn"], self.norm(lp["ln2"], x),
-                                    self.cfg.mlp_type)
+    def _ffn(self, lp, x, i: int, aux=None):
+        """x + the layer's FFN (dense MLP or MoE) of its second norm; a MoE
+        layer's aux losses are added into ``aux`` when it is given."""
+        h = self.norm(lp["ln2"], x)
+        if _layer_signature(self.cfg, i)[1]:
+            f, moe_aux = moe.apply(lp["ffn"], h, self.cfg.moe,
+                                   self.cfg.mlp_type)
+            if aux is not None:
+                for k, v in moe_aux.items():
+                    aux[k] = aux[k] + v if k in aux else v
+        else:
+            f = layers.mlp_apply(lp["ffn"], h, self.cfg.mlp_type)
+        return x + f
 
     def _positions(self, tokens):
         b, s = tokens.shape
         return torch.arange(s, dtype=torch.int32,
                             device=tokens.device).expand(b, s)
 
-    def hidden_states(self, params, tokens):
-        """Token ids -> final hidden states (B, S, D)."""
+    def forward(self, params, tokens) -> Tuple[torch.Tensor, Dict]:
+        """Token ids -> (final hidden states (B, S, D), aux): ``aux`` sums
+        the MoE layers' ``moe_lb_loss`` and ``moe_z_loss`` (empty for a
+        dense stack), in layer order as the reference."""
         cfg = self.cfg
         x = layers.embed(params["embed"], tokens, cfg.emb_scale, cfg.d_model)
         positions = self._positions(tokens)
-        for lp, _ in self._layers(params):
+        aux: Dict[str, torch.Tensor] = {}
+        for i, (lp, _) in enumerate(self._layers(params)):
+            if i == self.n_prefix and self.scan_body and cfg.moe is not None:
+                # the reference's scan starts its aux carry at zero
+                for k in ("moe_lb_loss", "moe_z_loss"):
+                    aux.setdefault(k, torch.zeros((), dtype=torch.float32,
+                                                  device=x.device))
             mix, _ = attention.apply(lp["mixer"], self.attn_cfg,
                                      self.norm(lp["ln1"], x), positions)
-            x = self._ffn(lp, x + mix)
-        return self.norm(params["final_ln"], x)
+            x = self._ffn(lp, x + mix, i, aux)
+        return self.norm(params["final_ln"], x), aux
+
+    def hidden_states(self, params, tokens):
+        """Token ids -> final hidden states (B, S, D)."""
+        return self.forward(params, tokens)[0]
 
     def logits(self, params, hidden):
         cfg = self.cfg
@@ -142,6 +193,23 @@ class Transformer:
             hidden, params["embed"], params.get("unembed"),
             cfg.tie_embeddings, cfg.logits_softcap,
             true_vocab=cfg.vocab_size)
+
+    # ------------------------------------------------------------- training
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """batch: {tokens, labels}; labels are next-token ids with -100 =
+        masked.  -> (total, aux): cross-entropy plus, for a MoE stack,
+        ``0.01 * moe_lb_loss + 1e-3 * moe_z_loss``; aux also holds
+        ``ce_loss``."""
+        hidden, aux = self.forward(params, batch["tokens"])
+        logits = self.logits(params, hidden)
+        ce = layers.cross_entropy_loss(logits, batch["labels"])
+        total = ce
+        if self.cfg.moe is not None:
+            total = total + 0.01 * aux.get("moe_lb_loss", 0.0) \
+                + 1e-3 * aux.get("moe_z_loss", 0.0)
+        aux = dict(aux)
+        aux["ce_loss"] = ce
+        return total, aux
 
     # ------------------------------------------------------ prefill / decode
     def init_state(self, batch: int, max_len: int):
@@ -165,10 +233,10 @@ class Transformer:
         cfg = self.cfg
         t = state["t"]
         x = layers.embed(params["embed"], token, cfg.emb_scale, cfg.d_model)
-        for lp, st in self._layers(params, state):
+        for i, (lp, st) in enumerate(self._layers(params, state)):
             mix, _ = attention.decode_step(lp["mixer"], self.attn_cfg,
                                            self.norm(lp["ln1"], x), st, t)
-            x = self._ffn(lp, x + mix)
+            x = self._ffn(lp, x + mix, i)
         hidden = self.norm(params["final_ln"], x)
         logits = self.logits(params, hidden)
         new_state = {"prefix": state["prefix"], "body": state["body"],
@@ -187,12 +255,12 @@ class Transformer:
         x = layers.embed(params["embed"], tokens, cfg.emb_scale, cfg.d_model)
         positions = self._positions(tokens)
         state = self.init_state(b, max_len)
-        for lp, cache in self._layers(params, state):
+        for i, (lp, cache) in enumerate(self._layers(params, state)):
             mix, kv = attention.apply(lp["mixer"], self.attn_cfg,
                                       self.norm(lp["ln1"], x), positions,
                                       use_flash=cfg.flash_prefill)
             self._fill_cache(cache, kv)
-            x = self._ffn(lp, x + mix)
+            x = self._ffn(lp, x + mix, i)
         hidden = self.norm(params["final_ln"], x)
         logits = self.logits(params, hidden[:, -1:, :])
         state["t"] = torch.full((), s, dtype=torch.int32, device=self.device)

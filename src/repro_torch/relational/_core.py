@@ -62,6 +62,18 @@ def compact_sorted(s: torch.Tensor, mask: torch.Tensor
     return compacted, n_valid, csum - 1, ends - src
 
 
+def search_key(x: torch.Tensor) -> torch.Tensor:
+    """The key a binary search over a column runs on, in the order of the
+    JAX package's ``jnp.searchsorted``: floats as ``merge.order_key``
+    (-0.0 with +0.0, every NaN one value above +inf), since
+    ``torch.searchsorted`` mis-ranks keys against a NaN; other dtypes in
+    their ``keycodec.to_signed`` form."""
+    if x.is_floating_point():
+        from repro_torch.engine.merge import order_key
+        return order_key(x)
+    return keycodec.to_signed(x)
+
+
 def valid_mask(n_valid: torch.Tensor, n: int) -> torch.Tensor:
     """(n,) bool, True at the slots below ``n_valid`` (built once an op)."""
     return torch.arange(n, dtype=torch.int32,
@@ -151,7 +163,8 @@ def stable_order(x: torch.Tensor, method: str) -> torch.Tensor:
                          device=x.device).to(x.device)
 
 
-__all__ = ["boundary_mask", "compact_sorted", "valid_mask", "pad_tail",
+__all__ = ["boundary_mask", "compact_sorted", "search_key", "valid_mask",
+           "pad_tail",
            "resolve_plan",
            "span", "finish", "sorted_column", "stable_order",
            "SORT_OPS", "STABLE_OPS"]

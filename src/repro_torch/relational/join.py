@@ -16,7 +16,6 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import keycodec
 from repro_torch.relational import _core
 from repro_torch.relational.relspec import RelSpec
 
@@ -42,10 +41,11 @@ def run(spec: RelSpec, lk: torch.Tensor, rk: torch.Tensor) -> Join:
     sp = _core.span(spec, nl + nr)
     with sp:
         ol = _core.stable_order(lk, method).to(torch.int64)
-        sl = keycodec.to_signed(lk)[ol]
+        sl = _core.search_key(lk)[ol]
         orr = _core.stable_order(rk, method).to(torch.int64)
-        sr = keycodec.to_signed(rk)[orr]
+        sr = _core.search_key(rk)[orr]
         # merge-scan: each left-sorted element's matching run on the right
+        # (in the search order: -0.0 matches +0.0, NaN matches NaN)
         start = torch.searchsorted(sr, sl, side="left")
         stop = torch.searchsorted(sr, sl, side="right")
         off = torch.cumsum(stop - start, 0)         # inclusive pair offsets

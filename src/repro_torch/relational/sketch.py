@@ -53,6 +53,10 @@ def run_histogram(spec: RelSpec, x: torch.Tensor) -> HistogramSketch:
             else (xf.min() if n else scalar(0.0))
         hi = scalar(spec.hi) if spec.hi is not None \
             else (xf.max() if n else scalar(1.0))
+        # a NaN-holding column's min/max is NaN: the reference's bits
+        # (0x7FC00000, XLA's reductions), not torch's all-ones
+        lo, hi = (torch.where(torch.isnan(v), scalar(float("nan")), v)
+                  for v in (lo, hi))
         hi = torch.where(hi > lo, hi, lo + 1.0)     # degenerate range guard
         edges = lo + (hi - lo) * (
             torch.arange(bins + 1, dtype=torch.float32, device=dev) / bins)

@@ -43,22 +43,35 @@ def run(spec: RelSpec, x: torch.Tensor) -> Unique:
         s = keycodec.to_signed(_core.sorted_column(x, method))
         uvals, n_unique, _, lengths = _core.compact_sorted(
             s, _core.boundary_mask(s))
+        valid = _core.valid_mask(n_unique, n)
         inverse = None
         if spec.return_inverse:
-            # uvals is non-decreasing (the tail repeats the max) and every
-            # value of x is in its valid prefix: one binary search finds
-            # each element's slot
-            inverse = torch.searchsorted(uvals, keycodec.to_signed(x),
-                                         side="left", out_int32=True)
+            # uvals is non-decreasing in the search order (the tail repeats
+            # the max) and every value of x is in its valid prefix: one
+            # binary search finds each element's slot, every NaN the first
+            # NaN slot (the reference's jnp.searchsorted)
+            inverse = torch.searchsorted(
+                _core.search_key(uvals), _core.search_key(x), side="left",
+                out_int32=True)
+        counts = None
+        if spec.return_counts:
+            # a slot's multiplicity is its run's length; the reference
+            # counts the inverse, which differs only on NaN: each NaN is a
+            # run of its own (NaN != NaN), all sorted last, and all of them
+            # count in the first NaN slot
+            counts = lengths
+            if x.is_floating_point():
+                nan_slot = torch.isnan(uvals) & valid
+                n_nan = nan_slot.sum(dtype=torch.int32)
+                first = torch.arange(n, dtype=torch.int32, device=x.device
+                                     ) == n_unique - n_nan
+                counts = torch.where(nan_slot, torch.where(first, n_nan, 0),
+                                     lengths).to(torch.int32)
         values = keycodec.from_signed(uvals, x.dtype)
         if spec.fill_value is not None:
-            values = _core.pad_tail(values, _core.valid_mask(n_unique, n),
-                                    spec.fill_value)
-        out = Unique(
-            values=values, n_unique=n_unique, inverse=inverse,
-            # a slot's multiplicity is its run's length (the JAX package
-            # counts the inverse indices: the same numbers)
-            counts=lengths if spec.return_counts else None)
+            values = _core.pad_tail(values, valid, spec.fill_value)
+        out = Unique(values=values, n_unique=n_unique, inverse=inverse,
+                     counts=counts)
         sp.fence(out.values)
     _core.finish(sp, spec, plan, n)
     return out

@@ -183,7 +183,8 @@ def test_calibrate_mirrors_the_reference_profile():
               dataclasses.asdict(want.constants)} - {
         "collective_alpha", "collective_per_byte", "dcn_alpha",
         "dcn_per_byte"}
-    assert ported == set(dataclasses.asdict(got.constants))
+    # plus the port's own: torch.sort's radix price on the card
+    assert ported | {"torch_card"} == set(dataclasses.asdict(got.constants))
     for f in ("digit_bits", "radix_tile", "capacity_slack",
               "spill_threshold_bytes"):
         assert getattr(got, f) == getattr(want, f), f
@@ -276,6 +277,41 @@ def test_cuda_topk_price_is_one_pass_up_to_k256():
     assert plan.method == "cuda"
     assert planner.choose(1 << 20, 1, torch.float32, k=300,
                           device="cuda").method != "cuda"
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float16,
+                                   np.uint16, np.int8])
+@pytest.mark.parametrize("n", [64, 4096, 1 << 16, 1 << 20, 1 << 28])
+def test_cpu_torch_price_and_plans_are_the_references(n, dtype):
+    """Off the card ``torch`` keeps the reference's comparison-sort price
+    (its ``xla``), so CPU plans are the reference's."""
+    tdt = getattr(torch, np.dtype(dtype).name)
+    for batch in (1, 8):
+        want = jplanner.choose(n, batch, dtype)
+        got = planner.choose(n, batch, tdt, device="cpu")
+        assert got.costs["torch"] == pytest.approx(want.costs["xla"])
+        assert got.method == NAMES.get(want.method, want.method)
+
+
+def test_card_torch_price_is_a_radix_sort():
+    """On the card ``torch.sort`` is priced as the radix sort it runs:
+    linear in n, a pass a byte of key, its own constant; the seed plans it
+    over K3 at the shapes where it was measured faster (the 2^28 float32
+    sort, the 2^26 int32 argsort), and CPU plans keep n log2 n."""
+    c = tuning.active().constants
+    for kb, passes in ((32, 4), (16, 2), (8, 1)):
+        one = cost_model.device_sort_cost_ns("torch", 1 << 20, key_bits=kb)
+        assert one == c.torch_card * (1 << 20) * passes
+        for n in (1 << 12, 1 << 24, 1 << 28):
+            assert cost_model.device_sort_cost_ns(
+                "torch", 2 * n, key_bits=kb) == 2 * \
+                cost_model.device_sort_cost_ns("torch", n, key_bits=kb)
+    assert cost_model.device_sort_cost_ns("torch", 1 << 20, plain=True) == \
+        c.torch * (1 << 20) * 20
+    for n, dtype in ((1 << 28, torch.float32), (1 << 26, torch.int32)):
+        plan = planner.choose(n, 1, dtype, device="cuda")
+        assert plan.method == "torch", plan.costs
+        assert plan.costs["torch"] < plan.costs["radix"]
 
 
 def test_torch_topk_native_price_off_the_card_only():

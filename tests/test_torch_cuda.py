@@ -1104,3 +1104,76 @@ def test_calibrate_on_the_card_times_the_kernels(tmp_path, monkeypatch):
     finally:
         planner.reset_calibration()
         tuning.set_active(None)
+
+
+# ---------------------------------------------------------------------------
+# the MoE router and the training path on the card
+# ---------------------------------------------------------------------------
+
+def test_router_topk_on_k5_carries_torch_topks_gradient():
+    """The router's top-k (rows of 64 experts, k=6) plans K5's short-row
+    kernel and its values carry ``torch.topk``'s gradient."""
+    from repro_torch import sort as tsort
+    from repro_torch.engine import planner
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.softmax(torch.randn(4096, 64, device="cuda", generator=g), -1)
+    w = torch.randn(4096, 6, device="cuda", generator=g)
+    assert planner.choose(64, 4096, torch.float32, k=6,
+                          device="cuda").method == "cuda"
+    a = x.clone().requires_grad_(True)
+    _build.reset_launches()
+    v, i = tsort.topk(a, 6)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"topk_rows_short": 1}
+    (ga,) = torch.autograd.grad((v * w).sum(), a)
+    b = x.clone().requires_grad_(True)
+    tv, ti = torch.topk(b, 6, dim=-1)
+    (gb,) = torch.autograd.grad((tv * w).sum(), b)
+    assert torch.equal(v.detach(), tv.detach())
+    assert torch.equal(i.long(), ti)
+    assert torch.equal(ga, gb)
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu():
+    """One AdamW step of moonshot's smoke model (float32): loss, grad norm
+    within 1e-5 relative of the same step on the CPU, the parameters within
+    1e-4 but for at most 0.1% of them, which stay within 2 lr (Adam turns a
+    1-ulp gradient difference where |g| is near eps into up to ~2 lr, lr
+    1e-2 here); the router's K5 runs once a MoE layer."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("moonshot-v1-16b-a3b"),
+                              dtype="float32")
+    out = {}
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((4, 1), -100, np.int32)],
+                            axis=1)
+    init = model_zoo.build(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    for dev in ("cpu", "cuda"):
+        model = model_zoo.build(cfg, device=dev)
+        params = tree.map(lambda p: p.to(dev, copy=True), init)
+        fn, opt = steps.make_train_step(model, cfg,
+                                        ShapeSpec("t", 32, 4, "train"),
+                                        peak_lr=1e-2, total_steps=10)
+        state = opt.init(params)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        _build.reset_launches()
+        params, state, met = fn(params, state, 1, batch)
+        out[dev] = (params, met, dict(_build.launches))
+    (pc, mc, _), (pg, mg, lg) = out["cpu"], out["cuda"]
+    assert lg.get("topk_rows_short") == cfg.n_layers - 1
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=1e-5)
+    diff = torch.cat([(a - b.cpu()).abs().reshape(-1)
+                      for a, b in zip(tree.leaves(pc), tree.leaves(pg))])
+    assert float((diff > 1e-4).float().mean()) <= 1e-3
+    assert float(diff.max()) <= 2e-2

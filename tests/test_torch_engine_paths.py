@@ -368,11 +368,16 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "from repro_torch.core import imc_array, gates, network, cas, "
             "sorter, cost_model, sort_api\n"
             "from repro_torch.configs import adsimc_paper, base, "
-            "minitron_4b\n"
+            "minitron_4b, moonshot_v1_16b, dbrx_132b\n"
             "from repro_torch.kernels import flash_attention\n"
             "from repro_torch.models import layers, attention, transformer, "
-            "model_zoo\n"
-            "from repro_torch.launch import steps, serve\n"
+            "model_zoo, moe\n"
+            "from repro_torch.launch import steps, serve, train\n"
+            "from repro_torch.optim import optimizers, grad_compress\n"
+            "from repro_torch.data import pipeline\n"
+            "from repro_torch.checkpoint import checkpointer\n"
+            "from repro_torch.runtime import fault_tolerance\n"
+            "from repro_torch import tree\n"
             "import repro_torch.relational\n"
             "from repro_torch.relational import relspec, unique, groupby, "
             "join, encode, sketch\n"

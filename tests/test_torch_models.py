@@ -330,9 +330,14 @@ def test_model_facade():
     specs = model.input_specs(tbase.SHAPES["prefill_32k"])
     assert specs["tokens"].shape == (32, 32768)
     assert specs["tokens"].device.type == "meta"
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss(params, {})
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    loss, aux = model.loss(params, {"tokens": toks, "labels": toks})
+    assert loss.dim() == 0 and bool(torch.isfinite(loss))
+    assert set(aux) == {"ce_loss"}
     with pytest.raises(NotImplementedError, match="family"):
+        tzoo.build(dataclasses.replace(cfg, family="ssm"), device="cpu")
+    with pytest.raises(NotImplementedError, match="family"):
+        # a moe family needs its MoE config
         tzoo.build(dataclasses.replace(cfg, family="moe"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -5,8 +5,11 @@ variants excepted: the port raises for them).  The same seeded numpy
 columns go through both packages on the CPU and the results are compared
 bit for bit (values, counts, indices, pair order, padded tails and dtypes)
 by ``_torch_parity.assert_same``, over every keycodec dtype and the
-``mixed`` / ``dup_heavy`` / ``all_equal`` distributions (NaN-free floats,
-as the sort contract asks; ``mixed`` holds ±0.0 and ±inf).
+``mixed`` / ``dup_heavy`` / ``all_equal`` distributions (``mixed`` holds
+±0.0 and ±inf), plus NaN-holding float columns for the ops that search the
+sorted column (``unique``'s inverse and counts, ``join``) and for
+``histogram``: NaN sorts last, matches NaN, and every NaN counts in the
+first NaN slot, as in the reference.
 
 One tolerance, stated where it is used: a float ``sum``/``mean`` over a
 group holding both +inf and -inf is NaN in both packages, and the NaN's
@@ -29,7 +32,7 @@ from repro_torch import BACKEND_NAMES
 from repro_torch.engine import planner as tplanner
 from repro_torch.relational.relspec import RelSpec as TRelSpec
 
-from _torch_parity import assert_same, keys, to_numpy, to_torch
+from _torch_parity import assert_same, keys, np_dtype, to_numpy, to_torch
 
 DTYPES = ("int8", "int16", "int32", "uint8", "uint16", "uint32",
           "float16", "bfloat16", "float32")
@@ -240,6 +243,53 @@ def test_bf16_nan_sum_sign_differs():
     t = trel.group_by(_t(k), _t(v), agg="sum", device="cpu").aggregates[0][:1]
     assert np.asarray(j).view(np.uint16).tolist() == [0xFFC0]
     assert t.view(torch.int16).tolist() == [0x7FC0]
+
+
+# ---------------------------------------------------------------------------
+# NaN-holding float columns
+# ---------------------------------------------------------------------------
+
+def _nan_col(dtype, n_nan, seed, n=N):
+    """round(3 N(0, 1)) with ±0.0, ``n_nan`` NaNs (one of them -NaN when
+    there are several) at random places."""
+    rng = np.random.default_rng(seed)
+    x = np.round(3 * rng.standard_normal(n)).astype(np.float32)
+    x[:4] = [0.0, -0.0, -0.0, 0.0]
+    at = rng.choice(n, n_nan, replace=False)
+    x[at] = np.nan
+    if n_nan > 1:
+        x[at[0]] = -np.nan
+    return x.astype(np_dtype(dtype))
+
+
+@pytest.mark.parametrize("n_nan", [1, 3, 50])
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES)
+def test_unique_nan_keys_match_reference(dtype, n_nan):
+    x = _nan_col(dtype, n_nan, 21)
+    j = jrel.unique(x, return_inverse=True, return_counts=True)
+    t = trel.unique(_t(x), return_inverse=True, return_counts=True,
+                    device="cpu")
+    _same(j, t, f"unique NaN {dtype} {n_nan}")
+    assert int(to_numpy(t.inverse).max()) < int(t.n_unique)
+    assert int(to_numpy(t.counts).sum()) == N
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES)
+def test_join_nan_keys_match_reference(dtype):
+    lk = _nan_col(dtype, 3, 22, n=200)
+    for rk in (np.asarray([np.nan, 0.0, 1.0, -0.0], np.float32),
+               _nan_col("float32", 5, 23, n=61)):
+        rk = rk.astype(np_dtype(dtype))
+        j = jrel.join(lk, rk)
+        t = trel.join(_t(lk), _t(rk), device="cpu")
+        _same(j, t, f"join NaN {dtype}")
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES)
+def test_histogram_nan_edges_carry_the_reference_bits(dtype):
+    x = _nan_col(dtype, 2, 24)
+    _same(jrel.histogram(x, 8), trel.histogram(_t(x), 8, device="cpu"),
+          f"histogram NaN {dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -539,12 +589,16 @@ def test_auto_plan_matches_reference_on_cpu(op, n):
 
 
 def test_choose_relational_on_the_card_at_scale():
-    """On the card the seed constants put a 60M-row sort-backed op on the
-    radix kernels (K3), the sketches outside the sort planner."""
+    """On the card the seed constants put a 60M-row sort-backed op on
+    ``torch.sort``, priced as the radix sort it runs there and measured
+    faster than K3 at 2^28 keys; K3 (``radix``) is the next cheapest.
+    The sketches stay outside the sort planner."""
     for op in ("unique", "group_by", "join", "rle", "delta"):
         plan = tplanner.choose_relational(op, 60_000_000, dtype=torch.int32,
                                           device="cuda")
-        assert plan.method == "radix", (op, plan.costs)
+        assert plan.method == "torch", (op, plan.costs)
+        rest = {m: c for m, c in plan.costs.items() if m != "torch"}
+        assert min(rest, key=rest.__getitem__) == "radix", (op, plan.costs)
         assert plan.run_method == plan.merge_backend == "cuda"
 
 
