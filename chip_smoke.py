@@ -83,6 +83,26 @@ Phases, each printed as one JSON line:
             ``torch.bucketize``), then is timed twice (CUDA-event and host
             ms, beside the one PyTorch call that computes the same where
             there is one);
+4b. distributed
+            the distributed tier on an 8-entry mesh (8 distinct cards where
+            the machine has them, else 8 entries on cuda:0) and a 2 x 4
+            mesh, at 2^28 float32 keys (2^25 a shard): sort, stable
+            argsort and sort_kv (int32 payload) both ways through
+            ``repro_torch.sort(..., mesh=)`` (each flat sort one
+            ``radix_bucket_hist`` a shard and K2's merge tree, 3 levels x
+            8 entries, exactly), ``distributed_sort`` with each strategy,
+            the 2 x 4 two-level sort with 4 outer slices and the int8 codec
+            on a float32 payload, ``sample_topk`` / ``distributed_topk`` at
+            k = 64 and 1024 (K4 must run); each against ``torch.sort`` /
+            ``torch.topk`` of the whole array on its keycodec key, bit for
+            bit; the flat exchange and merge again under ``torch.profiler``
+            (no sort kernel, K2's launches, phase 1's bucket histograms
+            counted apart); the relational phase's SF10 columns through
+            mesh unique, group_by and join against the single-device calls;
+            a serve scheduler backlog of 8192 over the mesh against a
+            mesh-free scheduler; ``topology.calibrate`` and a state snapshot
+            round trip.  One JSON line a call: plan, CUDA-event and host
+            ms, bytes per tier, bucket skew, peak memory;
 5. serve    minitron-4b at full width and depth (32 layers, d=3072, 4.2 B
             parameters in bf16, random weights from a seeded generator)
             through ``repro_torch.launch.serve.serve`` with the prefill's
@@ -1064,7 +1084,7 @@ def planned_kernels(op, method) -> tuple:
     return ("bitonic_sort_kv_blocks",)
 
 
-def phase_relational(rng) -> dict:
+def phase_relational(rng, cols) -> dict:
     """Every relational op through ``method="auto"`` at TPC-H SF10 (15 M
     orders, ~60 M line items), each held bit for bit against the same call
     on ``method="torch"`` (``torch.sort``, no kernel) and by an independent
@@ -1162,7 +1182,7 @@ def phase_relational(rng) -> dict:
         return planner.choose_relational_cached(op, n, dtype=torch.int32,
                                                 device="cuda")
 
-    orders, lines, qty, price = tpch_columns(rng)
+    orders, lines, qty, price = cols
     n = lines.numel()
     emit({"phase": "relational", "tpch": "SF10", "orders": TPCH_ORDERS,
           "lineitems": n, "nvidia_smi": card()})
@@ -1334,6 +1354,342 @@ def phase_relational(rng) -> dict:
     del gr, ids, flat, orders, lines, qty, price
     torch.cuda.synchronize()
     return launches, measured
+
+
+DIST_N = 1 << 28           # float32 keys of the mesh sorts (2^25 a shard)
+DIST_ENTRIES = 8
+DIST_CHUNKS = 4            # outer-exchange slices of the 2 x 4 sort
+DIST_TOPK = (64, 1024)
+DIST_BACKLOG = 8192        # scheduler backlog, over distributed_min (4096)
+
+
+def dist_meshes():
+    """(flat 8-entry mesh, 2 x 4 mesh, kind): 8 distinct cards where the
+    machine has them, else every entry on cuda:0."""
+    import torch
+    from repro_torch.core.mesh import make_mesh
+    distinct = torch.cuda.device_count() >= DIST_ENTRIES
+    devices = None if distinct else "cuda:0"
+    return (make_mesh((DIST_ENTRIES,), ("data",), devices),
+            make_mesh((2, DIST_ENTRIES // 2), ("host", "dev"), devices),
+            "distinct cards" if distinct else "one card, 8 entries")
+
+
+def phase_distributed(rng, cols) -> dict:
+    """The distributed tier at 2^28 float32 keys over an 8-entry mesh and a
+    2 x 4 mesh: sort, stable argsort and sort_kv (int32 payload) both
+    ways through ``repro_torch.sort(..., mesh=)``, ``distributed_sort``
+    with each strategy, the 2 x 4 two-level sort with 4 outer slices and
+    the int8 codec on a float32 payload, and the mesh top-k at k = 64 and
+    1024.  Every result is held bit for bit against ``torch.sort`` of the
+    whole array on its keycodec key (the sort's order: -0.0 below +0.0,
+    ties by index; ``torch.topk`` for the top-k, with the same tie rule),
+    the codec's payloads against the codec's decode of their encode.
+    Each call runs once counted (launches set to 0 just before, read just
+    after), then once warm: CUDA-event ms, host ms, the bytes the
+    counters recorded per tier, the bucket skew and the peak memory.  The
+    flat sort's exchange and merge run again under ``torch.profiler``:
+    no ``torch.sort`` kernel there, K2's launches as the merge tree says,
+    and one ``radix_bucket_hist`` a shard in its phase 1.  Then the SF10
+    relational columns of the relational phase over the 8-entry mesh
+    (unique, Q18's group_by, the join), each against the single-device
+    call; a serve scheduler backlog of 8192 requests over the mesh against
+    a mesh-free scheduler; one ``topology.calibrate`` and a state snapshot
+    round trip.  Returns the launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import repro_torch.relational as rel
+    import repro_torch.sort as rsort
+    from repro_torch.core import distributed_sort as ds
+    from repro_torch.core import keycodec, topology
+    from repro_torch.engine import samplesort as ss
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as tserve
+    from repro_torch.obs import metrics, trace as obs
+
+    flat, two, kind = dist_meshes()
+    emit({"phase": "distributed", "mesh": kind,
+          "flat": [str(d) for d in flat.devices.flat],
+          "two_level": {"shape": two.shape,
+                        "devices": [str(d) for d in two.devices.flat]}})
+    launches: dict = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(name, fn, must=(), exact=None, **info):
+        """One counted call, then one warm call timed by CUDA events and
+        by the host clock, with the exchange counters of the warm call."""
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        missing = [k for k in must if counts.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched: {missing} "
+                                 f"(counts {counts})")
+        wrong = {k: counts.get(k, 0) for k, v in (exact or {}).items()
+                 if counts.get(k, 0) != v}
+        if wrong:
+            raise AssertionError(f"{name}: launches {wrong}, expected "
+                                 f"{exact}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        del out
+        metrics.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        with obs.tracing():
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+        host = (time.perf_counter() - h0) * 1e3
+        snap = metrics.snapshot()
+        tiers = {k.split(".")[1]: v["value"] for k, v in snap.items()
+                 if k.startswith("collectives.")}
+        emit({"phase": "distributed", "call": name, "ms":
+              start.elapsed_time(end), "host_ms": host, "bytes": tiers,
+              "bucket_skew": snap.get("samplesort.bucket_skew",
+                                      {}).get("value"),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "launches": counts, **info})
+        obs.clear()
+        metrics.reset()
+        return out
+
+    x = torch.from_numpy(rng.standard_normal(DIST_N, dtype=np.float32)
+                         ).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pay = torch.randint(-(1 << 31), 1 << 31, (DIST_N,), generator=gen,
+                        device="cuda", dtype=torch.int64).to(torch.int32)
+
+    def ref_order(descending):
+        """torch.sort of the whole array on its keycodec key, stable."""
+        key = keycodec.encode(x, descending=descending) ^ -(1 << 31)
+        return torch.sort(key, stable=True).indices.to(torch.int32)
+
+    from repro_torch.engine import planner
+    plan = planner.choose_distributed_cached(DIST_N, DIST_ENTRIES,
+                                             torch.float32)
+    merges = DIST_ENTRIES.bit_length() - 1      # tree levels over 8 runs
+    k2_flat = {"merge_path_partition": DIST_ENTRIES * merges,
+               "merge_pairs_kv_blocks": DIST_ENTRIES * merges,
+               "radix_bucket_hist": DIST_ENTRIES}
+    for descending in (False, True):
+        order = ref_order(descending)
+        want = x[order.long()]
+        d = "desc" if descending else "asc"
+        got = run(f"sort {d}", lambda: rsort.sort(
+            x, mesh=flat, descending=descending), exact=k2_flat,
+            plan=plan.strategy)
+        same_bits(got, want, f"mesh sort {d}")
+        del got
+        got = run(f"argsort stable {d}", lambda: rsort.argsort(
+            x, mesh=flat, descending=descending, stable=True),
+            exact=k2_flat)
+        same_bits(got, order, f"mesh argsort {d}")
+        del got
+        gk, gv = run(f"sort_kv int32 {d}", lambda: rsort.sort_kv(
+            x, pay, mesh=flat, descending=descending), exact=k2_flat)
+        same_bits(gk, want, f"mesh sort_kv keys {d}")
+        same_bits(gv, pay[order.long()], f"mesh sort_kv payload {d}")
+        del gk, gv, want, order
+        torch.cuda.empty_cache()
+
+    want = x[ref_order(False).long()]
+    for strategy in ("sample", "oddeven", "auto"):
+        got = run(f"distributed_sort {strategy}", lambda: ds.distributed_sort(
+            x, flat, "data", strategy=strategy),
+            must=("merge_path_partition",), plan=plan.strategy,
+            costs_ns=plan.costs)
+        same_bits(got, want, f"distributed_sort {strategy}")
+        del got
+
+    # the two-level sort: 4 outer slices, the int8 codec on a float32
+    # payload; keys exact, payloads the codec's decode of their encode
+    vf = torch.randn(DIST_N, generator=gen, device="cuda")
+    topo = topology.for_mesh(two)
+    hplan = planner.choose_distributed_cached(DIST_N, DIST_ENTRIES,
+                                              torch.float32, topology=topo)
+    gk, gv = run("two-level 2 x 4, chunks=4, int8 payload", lambda:
+                 ss.sample_sort(x, two, None, values=vf,
+                                pipeline_chunks=DIST_CHUNKS,
+                                wire_codec="int8"),
+                 must=("radix_bucket_hist", "merge_path_partition"),
+                 plan=hplan.strategy, costs_ns=hplan.costs)
+    same_bits(gk, want, "two-level keys")
+    order = ref_order(False).long()
+    step = vf.abs().max() / 127
+    err = (gv - vf[order]).abs().max().item()
+    if not err <= step.item() / 2 * (1 + 1e-6):
+        raise AssertionError(f"two-level int8 payload: |err| {err} over "
+                             f"half a step {step.item() / 2}")
+    emit({"phase": "distributed", "two_level_payload_max_abs_err": err,
+          "half_step": step.item() / 2})
+    del gk, gv, vf
+    gk = run("two-level 2 x 4 sort", lambda: rsort.sort(x, mesh=two),
+             must=("radix_bucket_hist",))
+    same_bits(gk, want, "two-level sort")
+    del gk, want, order
+    torch.cuda.empty_cache()
+
+    # top-k, against torch.topk with lax.top_k's rule (+0.0 above -0.0,
+    # the lower index first): torch.topk of the keycodec key
+    key = keycodec.encode(x) ^ -(1 << 31)
+    for k in DIST_TOPK:
+        _, ti = torch.topk(key, k)
+        kt = key[ti].cpu().numpy().astype(np.int64)
+        ti = ti.cpu().numpy()
+        want_i = torch.from_numpy(ti[np.lexsort((ti, -kt))].astype(np.int32))
+        for name, fn in (("sample_topk", lambda: ss.sample_topk(
+                x, k, flat, "data")), ("distributed_topk 2 x 4", lambda:
+                ds.distributed_topk(x, k, two))):
+            v, i = run(f"{name} k={k}", fn, must=("select_digit_hist",))
+            same_bits(i.cpu(), want_i, f"{name} k={k} indices")
+            same_bits(v, x[i.long()], f"{name} k={k} values")
+    del key
+
+    # the flat sort under the profiler, its phases apart: phase 1 (local
+    # sorts, splitters, bucket histograms) must launch bucket_hist_kernel
+    # once a shard; the exchange and merge no sort kernel, and K2 as the
+    # merge tree says
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_kernels(prof) -> dict:
+        return {e.key[:90]: (e.count, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and getattr(e, "self_device_time_total", 0) > 0}
+
+    devs = ss._entries(flat, ("data",))
+    m = DIST_N // DIST_ENTRIES
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pools = [ss._local_sort(ss._to_order_keys(x[d * m:(d + 1) * m],
+                                                  False),
+                                None, m, d * m, m, True, None, dev)
+                 for d, dev in enumerate(devs)]
+        starts, table = ss._cut(
+            pools, [m] * DIST_ENTRIES, DIST_ENTRIES,
+            ss.default_samples_per_shard(m, DIST_ENTRIES), True)
+        torch.cuda.synchronize()
+    p1 = dict(_build.launches)
+    hist = sum(c for k, (c, _) in device_kernels(prof).items()
+               if "bucket_hist_kernel" in k)
+    if hist != DIST_ENTRIES or p1.get("radix_bucket_hist") != DIST_ENTRIES:
+        raise AssertionError(f"phase 1: bucket_hist_kernel {hist} traced, "
+                             f"{p1} counted, expected {DIST_ENTRIES} (one a "
+                             f"shard)")
+    cap = ss._round_capacity(int(table.max()), m)
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        merged = ss._exchange_merge(pools, starts, table, cap, None)
+        out = ss._rebalance(merged, [m] * DIST_ENTRIES, devs)
+        torch.cuda.synchronize()
+    p2 = dict(_build.launches)
+    kernels = device_kernels(prof)
+    sorts = [k for k in kernels
+             if "sort" in k.lower() and "searchsorted" not in k]
+    if sorts:
+        raise AssertionError(f"exchange/merge ran sort kernels: {sorts}")
+    k2 = sum(c for k, (c, _) in kernels.items()
+             if "merge_path_kernel" in k)
+    part = sum(c for k, (c, _) in kernels.items()
+               if "merge_partition_kernel" in k)
+    if (k2, part) != (DIST_ENTRIES * merges, DIST_ENTRIES * merges) or \
+            p2.get("merge_pairs_kv_blocks") != DIST_ENTRIES * merges:
+        raise AssertionError(f"merge tree: K2 {k2} merge, {part} "
+                             f"partition launches ({p2}), expected "
+                             f"{DIST_ENTRIES * merges} each")
+    got = torch.cat([pl.k for pl in out])
+    same_bits(ss._from_order_keys(got, torch.float32, False),
+              x[ref_order(False).long()], "profiled exchange")
+    emit({"phase": "distributed", "profiled": "flat exchange + merge",
+          "phase1_launches": p1, "phase1_bucket_hist_traced": hist,
+          "launches": p2,
+          "kernels_ms": sorted(([k, c, t] for k, (c, t) in kernels.items()),
+                               key=lambda r: -r[2])[:10],
+          "device_ms": sum(t for _, t in kernels.values())})
+    del pools, merged, out, got, starts
+    for k, v in {**p1, **p2}.items():
+        launches[k] = launches.get(k, 0) + v
+    del x, pay
+    torch.cuda.empty_cache()
+
+    # SF10 relational columns over the mesh against the single device
+    orders, lines, qty, _ = cols
+    for name, fn in (
+            ("unique l_orderkey", lambda **kw: rel.unique(
+                lines, return_counts=True, **kw)),
+            ("group_by l_orderkey, l_quantity", lambda **kw: rel.group_by(
+                lines, qty, agg=("sum", "count", "min", "max", "mean"),
+                **kw)),
+            ("join l_orderkey = o_orderkey", lambda **kw: rel.join(
+                lines, orders, size=lines.numel(), **kw))):
+        want = fn()
+        got = run(f"relational {name}", lambda: fn(mesh=flat),
+                  must=("radix_bucket_hist", "merge_path_partition"))
+        for i, (g, w) in enumerate(zip(got, want)):
+            for gg, ww in zip(*((g, w) if isinstance(g, tuple)
+                                else ((g,), (w,)))):
+                if gg is not None or ww is not None:
+                    same_bits(gg, ww, f"mesh {name} field {i}")
+        del got, want
+        torch.cuda.empty_cache()
+
+    # the serve scheduler's mesh path against a mesh-free scheduler
+    lens = rng.integers(4, 4096, DIST_BACKLOG)
+    batches = {}
+    for label, kw in (("mesh", dict(mesh=flat)), ("local", {})):
+        sch = tserve.LengthSortedScheduler(8, **kw)
+        for i, n in enumerate(lens):
+            sch.submit(tserve.Request(rid=i, prompt=np.zeros(int(n),
+                                                             np.int32)))
+        _build.reset_launches()
+        first = [r.rid for r in sch.next_batch()]
+        counts = dict(_build.launches)
+        rest = [[r.rid for r in sch.next_batch()] for _ in range(3)]
+        batches[label] = ([first] + rest, sch.mesh_sorts, counts)
+    # the backlog's composite keys sort over the mesh (odd-even or the
+    # sample sort, as the planner prices 8192 keys): K2 merges them
+    if batches["mesh"][1] < 1 or not batches["mesh"][2].get(
+            "merge_path_partition"):
+        raise AssertionError(f"scheduler: no mesh sort ({batches['mesh']})")
+    if batches["mesh"][0] != batches["local"][0]:
+        raise AssertionError("scheduler: mesh batches differ from local")
+    for k, v in batches["mesh"][2].items():
+        launches[k] = launches.get(k, 0) + v
+    emit({"phase": "distributed", "scheduler_backlog": DIST_BACKLOG,
+          "mesh_sorts": batches["mesh"][1], "first_batches_equal": True,
+          "launches": batches["mesh"][2]})
+
+    # topology: one calibrate on the mesh, a snapshot round trip
+    t0 = time.perf_counter()
+    # payloads of 1 MiB and 64 MiB an entry: at the default 1 KiB / 1 MiB
+    # the 64 copies of a round take the host's time, not the copies'
+    cal = topology.calibrate(flat, small_bytes=1 << 20, large_bytes=1 << 26,
+                             set_as_active=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        topology.set_active(cal)
+        paths = tserve.snapshot_state(tmp, mesh=flat)
+        topology.set_active(None)
+        got = tserve.restore_state(tmp, mesh=flat)
+        if "topology" not in got or topology.active().axes != cal.axes:
+            raise AssertionError(f"topology round trip: {got}")
+        topology.set_active(None)
+    emit({"phase": "distributed", "calibrate": cal.to_dict()["axes"],
+          "probe_ns": cal.probe_ns, "snapshot": [p.name for p in paths],
+          "seconds": time.perf_counter() - t0,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return launches
 
 
 def phase_serve() -> dict:
@@ -2543,6 +2899,27 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
           "library_ms": kernel_ms(lambda: torch.sort(u, stable=True), 10)[0]})
     del keys, vals, hist, u
 
+    # K3's bucket histogram at the flat sample sort's shape: one sorted
+    # 2^25-key shard of signed-order keys against the 7 splitters of an
+    # 8-entry mesh (one read of the keys bounds it); torch.searchsorted of
+    # the splitters, the binary-search route, is the library call
+    shard = torch.sort(torch.randint(-(1 << 31), 1 << 31,
+                                     (DIST_N // DIST_ENTRIES,), generator=gen,
+                                     device="cuda", dtype=torch.int64)
+                       .to(torch.int32)).values
+    sp = shard[torch.arange(1, DIST_ENTRIES, device="cuda")
+               * (shard.numel() // DIST_ENTRIES)].contiguous()
+    row("radix_bucket_hist", "src/repro_torch/csrc/radix_sort.cu",
+        "src/repro/kernels/radix_sort.py:123",
+        lambda: (rsk.bucket_hist(shard, sp),),
+        lambda: (rsk.bucket_hist_plain(shard, sp),),
+        shard.numel() * 4 + sp.numel() * 4 + (DIST_ENTRIES + 1) * 4,
+        shard.numel() * (DIST_ENTRIES - 1).bit_length(),
+        lambda: torch.searchsorted(shard, sp, right=True),
+        ops_per_s=INT32_OPS_PER_S, keys=shard.numel(),
+        buckets=DIST_ENTRIES, used_by="src/repro/engine/samplesort.py:130")
+    del shard, sp
+
     # K4: the first (all-active) pass over the 2^24 float32 row of the
     # select top-k, and a later pass under the row's 64th key as prefix
     # (its time in the row as later_pass_ms); each launch counts into its
@@ -3073,9 +3450,18 @@ def main() -> int:
           "seconds": time.perf_counter() - tm})
 
     tr = time.perf_counter()
-    rel_launches, rel_ms = phase_relational(rng)
+    cols = tpch_columns(rng)
+    rel_launches, rel_ms = phase_relational(rng, cols)
     emit({"phase": "relational", "total_launches": rel_launches,
           "seconds": time.perf_counter() - tr})
+
+    td = time.perf_counter()
+    dist_launches = phase_distributed(np.random.default_rng((SEED, 22)),
+                                      cols)
+    del cols
+    torch.cuda.empty_cache()
+    emit({"phase": "distributed", "total_launches": dist_launches,
+          "seconds": time.perf_counter() - td})
 
     ts = time.perf_counter()
     serve_launches = phase_serve()
@@ -3107,7 +3493,7 @@ def main() -> int:
         raise AssertionError("calibrate: the seed profile was not restored")
 
     launches = dict(main_res["launches"])
-    for counts in (rel_launches, serve_launches, moe_launches,
+    for counts in (rel_launches, dist_launches, serve_launches, moe_launches,
                    train_launches, data_launches, spill_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v

@@ -15,6 +15,10 @@ unstable path, e.g. the -0.0/+0.0 order of a key-only bitonic run), while
 merge width.  ``profile_from_jax`` takes a JAX ``TuningProfile.to_dict()``
 (plain JSON, no JAX import) and returns the port's profile with the same
 knobs and the cost constants under the port's backend names.
+
+A mesh's link picture: ``topology_from_jax`` turns a JAX ``Topology``
+document into the port's, with the tiers renamed (``ici`` -> ``nvlink``,
+``dcn`` -> ``network``) and every axis's size and rates as recorded.
 """
 from __future__ import annotations
 
@@ -24,14 +28,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import tuning
+from repro_torch.core import topology, tuning
 from repro_torch.core.sortspec import resolve_device
 
 JAX_SCHEMA = "repro.tuning.profile/v1"
+JAX_TOPOLOGY_SCHEMA = "repro.topology/v1"
+
+# JAX tier -> the port's
+TIERS = {"ici": topology.TIER_NVLINK, "dcn": topology.TIER_NETWORK}
 
 # JAX constant name -> the port's (backends renamed: xla -> torch,
-# pallas -> cuda).  The distributed tier's link constants (collective_*,
-# dcn_*) are dropped: the port has no distributed tier yet
+# pallas -> cuda).  The link constants (collective_*, dcn_*) are dropped:
+# they price a TPU's ICI and DCN, and the port's ``links`` keep the
+# H100's seeds
 _CONSTANTS = {
     "xla": "torch", "bitonic": "bitonic", "pallas": "cuda",
     "merge_run": "merge_run", "merge_level": "merge_level",
@@ -65,6 +74,23 @@ def profile_from_jax(d: dict) -> tuning.TuningProfile:
         capacity_slack=float(d.get("capacity_slack",
                                    tuning.DEFAULT_CAPACITY_SLACK)),
         source="converted")
+
+
+def topology_from_jax(d: dict) -> topology.Topology:
+    """The port's :class:`~repro_torch.core.topology.Topology` of a JAX
+    ``Topology.to_dict()`` document: the same axes, sizes, rates and
+    probes, the tiers renamed (:data:`TIERS`), ``source="converted"``."""
+    if not isinstance(d, dict) or d.get("schema") != JAX_TOPOLOGY_SCHEMA:
+        raise topology.TopologyError(
+            f"not a JAX topology (schema {JAX_TOPOLOGY_SCHEMA!r}): "
+            f"{d.get('schema') if isinstance(d, dict) else type(d).__name__}")
+    axes = []
+    for a in d.get("axes") or ():
+        if a.get("tier") not in TIERS:
+            raise topology.TopologyError(f"unknown JAX tier {a.get('tier')!r}")
+        axes.append(dict(a, tier=TIERS[a["tier"]]))
+    return topology.Topology.from_dict(dict(
+        d, schema=topology.SCHEMA, axes=axes, source="converted"))
 
 
 def _leaf(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

@@ -357,6 +357,101 @@ class SelectBackend(SortBackend):
 
 
 # ---------------------------------------------------------------------------
+# distributed — mesh-global sorting (sample sort, odd-even, two-level)
+# ---------------------------------------------------------------------------
+
+@register_backend
+class DistributedBackend(SortBackend):
+    """Mesh-global sorting behind the registry: the sample sort
+    (``engine/samplesort.py``: flat, or the two-level schedule on a
+    two-axis mesh) with odd-even transposition for small single-axis
+    sorts, the strategy priced by ``planner.choose_distributed`` against
+    the active ``core.topology``.
+
+    The natural entry is a spec with mesh fields (``SortSpec(mesh=...)``
+    through ``repro_torch.sort``), which lands on :meth:`sort_mesh`,
+    :meth:`argsort_mesh` or :meth:`topk_mesh`.  The rows form sorts each
+    row over the host mesh of the rows' device: every card of the machine
+    (``launch.mesh.make_host_mesh``) for a CUDA tensor, one CPU entry
+    otherwise.  Never auto-dispatched by the single-device planner.
+    Stable: the port's sample sort keeps ties in index order."""
+    name = "distributed"
+    capabilities = Capabilities(dtypes=frozenset(_keycodec.SUPPORTED),
+                                stable=True, supports_segments=False,
+                                selection=True, auto_dispatch=False,
+                                substrate="mesh")
+
+    @staticmethod
+    def _host_mesh(device):
+        from repro_torch.core.mesh import make_mesh
+        if torch.device(device).type == "cuda":
+            from repro_torch.launch.mesh import make_host_mesh
+            return make_host_mesh()
+        return make_mesh((1,), ("data",), "cpu")
+
+    # -- mesh execution (what SortSpec.mesh routes to) ---------------------
+    def sort_mesh(self, x, mesh, axis_name, *, values=None,
+                  descending=False, local_method=None):
+        from repro_torch.core import distributed_sort as _ds
+        return _ds.distributed_sort(x, mesh, axis_name,
+                                    local_method=local_method,
+                                    strategy="auto", descending=descending,
+                                    values=values)
+
+    def argsort_mesh(self, x, mesh, axis_name, *, descending=False,
+                     local_method=None):
+        """The stable permutation of a mesh-global sort (int32 global
+        positions, ties in ascending index order in both directions)."""
+        from repro_torch.core import distributed_sort as _ds
+        return _ds.distributed_sort(x, mesh, axis_name,
+                                    local_method=local_method,
+                                    strategy="auto", descending=descending,
+                                    return_indices=True)[1]
+
+    def topk_mesh(self, x, k, mesh, axis_name):
+        """Mesh-global top-k: local radix select a shard, ONE candidate
+        all-gather, a small merge; no full sort."""
+        from repro_torch.core import distributed_sort as _ds
+        return _ds.distributed_topk(x, k, mesh, axis_name)
+
+    # -- rows form ---------------------------------------------------------
+    def sort(self, rows, *, descending=False, plan=None):
+        from repro_torch.engine import samplesort
+        self.check_dtype(rows.dtype)
+        mesh = self._host_mesh(rows.device)
+        return torch.stack([
+            samplesort.sample_sort(r, mesh, "data", descending=descending)
+            .to(rows.device) for r in rows])
+
+    def sort_kv(self, keys, values, *, descending=False, plan=None):
+        from repro_torch.engine import samplesort
+        self.check_dtype(keys.dtype)
+        mesh = self._host_mesh(keys.device)
+        outs = [samplesort.sample_sort(k, mesh, "data", values=v,
+                                       descending=descending)
+                for k, v in zip(keys, values)]
+        return (torch.stack([k.to(keys.device) for k, _ in outs]),
+                torch.stack([v.to(keys.device) for _, v in outs]))
+
+    def argsort(self, rows, *, descending=False, plan=None):
+        from repro_torch.engine import samplesort
+        self.check_dtype(rows.dtype)
+        mesh = self._host_mesh(rows.device)
+        return torch.stack([
+            samplesort.sample_sort(r, mesh, "data", descending=descending,
+                                   return_indices=True)[1].to(rows.device)
+            for r in rows])
+
+    def topk(self, rows, k, *, plan=None):
+        from repro_torch.engine import samplesort
+        self.check_dtype(rows.dtype)
+        mesh = self._host_mesh(rows.device)
+        outs = [samplesort.sample_topk(r, k, mesh, "data") for r in rows]
+        return (torch.stack([v.to(rows.device) for v, _ in outs]),
+                torch.stack([i.to(rows.device) for _, i in outs]))
+
+
+# ---------------------------------------------------------------------------
 # spill — out-of-core: chunked device sorts + host k-way merge
 # ---------------------------------------------------------------------------
 

@@ -16,12 +16,15 @@ the backends with.
   asymptotics and leading constants from the active tuning profile: the
   JAX package's seeds (``core/tuning.py``) until ``planner.calibrate``
   measures them on the running device.
+* **The distributed model**: mesh sorts (odd-even, flat sample sort, the
+  two-level sample sort) priced by their exchanges over the profile's
+  link constants or a ``Topology``'s measured rates.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core import cas, network
 from repro_torch.core import tuning as _tuning
@@ -326,3 +329,116 @@ def spill_sort_cost_ns(n: int, batch: int = 1, itemsize: int = 4, *,
     pipeline = max(sort_ns, spill_xfer) if overlap else sort_ns + spill_xfer
     levels = _log2(n_chunks) if n_chunks > 1 else 0.0
     return pipeline + merge_xfer + c.host_merge_level * total * levels
+
+
+# ---- distributed tier (mesh sorts) --------------------------------------------
+#
+# The JAX package's cluster-scale model (its Eq. 3-4 term: operand
+# movement priced per exchange).  The comparison-sort and merge constants
+# are the device model's; the link rates come from the profile's ``links``
+# (``collective_*`` for NVLink, ``network_*`` between nodes) unless a
+# ``Topology`` axis's measured rates are passed in.
+
+def collective_cost_ns(n_dev: int, m: int, itemsize: int,
+                       links: Optional[_tuning.LinkConstants] = None, *,
+                       alpha: Optional[float] = None,
+                       per_byte: Optional[float] = None) -> float:
+    """Estimated ns of ONE exchange round in which every entry exchanges
+    ``n_dev`` shards of ``m`` elements: ``n_dev=1`` prices a neighbour
+    exchange (odd-even pays D of these), ``n_dev=D`` a capacity-padded
+    all-to-all (the sample sort pays two).  ``alpha``/``per_byte``
+    override the link rates (the two-tier hook)."""
+    lk = links or _tuning.active().links
+    a = alpha if alpha is not None else lk.collective_alpha
+    b = per_byte if per_byte is not None else lk.collective_per_byte
+    return a + b * n_dev * m * itemsize
+
+
+def flat_collective_rates(inner: int, outer: int, *,
+                          links: Optional[_tuning.LinkConstants] = None,
+                          ici_alpha: Optional[float] = None,
+                          ici_per_byte: Optional[float] = None,
+                          dcn_alpha: Optional[float] = None,
+                          dcn_per_byte: Optional[float] = None
+                          ) -> Tuple[float, float]:
+    """(alpha, per_byte) a FLAT all-to-all pays on an ``outer x inner``
+    mesh: a fraction ``(outer-1)/outer`` of every entry's bytes crosses
+    the slow outer tier, the rest the fast inner one, and the round waits
+    for the slower launch.  ``outer <= 1`` is the inner tier alone.  The
+    keyword names are the JAX package's (``ici`` the inner tier, ``dcn``
+    the outer)."""
+    lk = links or _tuning.active().links
+    ia = ici_alpha if ici_alpha is not None else lk.collective_alpha
+    ib = ici_per_byte if ici_per_byte is not None else lk.collective_per_byte
+    da = dcn_alpha if dcn_alpha is not None else lk.network_alpha
+    db = dcn_per_byte if dcn_per_byte is not None else lk.network_per_byte
+    if outer <= 1:
+        return ia, ib
+    f_dcn = (outer - 1) / outer
+    return max(ia, da), ib * (1.0 - f_dcn) + db * f_dcn
+
+
+def distributed_sort_cost_ns(strategy: str, n: int, n_dev: int,
+                             itemsize: int = 4, *,
+                             consts: Optional[DeviceSortConstants] = None,
+                             links: Optional[_tuning.LinkConstants] = None,
+                             alpha: Optional[float] = None,
+                             per_byte: Optional[float] = None) -> float:
+    """Estimated ns to sort ``n`` keys over ``n_dev`` entries.  Both
+    strategies pay the same local shard sort:
+
+      oddeven   D rounds x (one shard exchange + a 2m bitonic merge box)
+      sample    2 all-to-alls + one merge tree over the received runs
+    """
+    c = consts or _tuning.active().constants
+    m = -(-n // n_dev)
+    local = c.torch * m * _log2(m)
+    if strategy == "oddeven":
+        round_merge = c.bitonic * (2 * m) * _log2(2 * m)
+        return local + n_dev * (
+            collective_cost_ns(1, m, itemsize, links,
+                               alpha=alpha, per_byte=per_byte)
+            + round_merge)
+    if strategy == "sample":
+        # r*m*log r: the capacity-padded exchange staging and the merge
+        # tree over the received runs; + m the rebalance (the JAX
+        # package's fitted form)
+        r = 1 << max(0, (n_dev - 1).bit_length())
+        merge = c.merge_level * ((r * m) * (_log2(r) if r > 1 else 0.0) + m)
+        return local + 2 * collective_cost_ns(n_dev, m, itemsize, links,
+                                              alpha=alpha,
+                                              per_byte=per_byte) + merge
+    raise ValueError(
+        f"no distributed cost model for strategy {strategy!r}")
+
+
+def hierarchical_sort_cost_ns(n: int, inner: int, outer: int,
+                              itemsize: int = 4, *,
+                              consts: Optional[DeviceSortConstants] = None,
+                              links: Optional[_tuning.LinkConstants] = None,
+                              ici_alpha: Optional[float] = None,
+                              ici_per_byte: Optional[float] = None,
+                              dcn_alpha: Optional[float] = None,
+                              dcn_per_byte: Optional[float] = None) -> float:
+    """Estimated ns of the two-level sample sort over ``outer x inner``:
+    the flat path's local sort and merge aggregate, three inner-tier
+    all-to-alls (opening, intra-node rebalance, finalize), one outer-tier
+    bucket all-to-all, and the global rebalance (inner-tier volume plus
+    an O(m) outer-tier spill)."""
+    c = consts or _tuning.active().constants
+    lk = links or _tuning.active().links
+    ia = ici_alpha if ici_alpha is not None else lk.collective_alpha
+    ib = ici_per_byte if ici_per_byte is not None else lk.collective_per_byte
+    da = dcn_alpha if dcn_alpha is not None else lk.network_alpha
+    db = dcn_per_byte if dcn_per_byte is not None else lk.network_per_byte
+    d = max(1, inner) * max(1, outer)
+    m = -(-n // d)
+    local = c.torch * m * _log2(m)
+    r = 1 << max(0, (d - 1).bit_length())
+    merge = c.merge_level * ((r * m) * (_log2(r) if r > 1 else 0.0) + m)
+    intra = 3 * collective_cost_ns(inner, m, itemsize, lk,
+                                   alpha=ia, per_byte=ib)
+    inter = collective_cost_ns(outer, m, itemsize, lk,
+                               alpha=da, per_byte=db)
+    rebalance = max(ia, da) + ib * d * m * itemsize + db * m * itemsize
+    return local + merge + intra + inter + rebalance

@@ -5,9 +5,11 @@ frozen :class:`SortSpec`, and every engine that can run one is a
 :class:`SortBackend` declaring what it can do in a :class:`Capabilities`
 record.  The planner derives eligibility from those records alone.
 
-Spec fields the port does not carry yet (mesh, and the backends of
-``NOT_PORTED``) fail here, loudly, with the ROADMAP item that will bring
-them — never with a different answer.
+A spec with a ``mesh`` (a :class:`~repro_torch.core.mesh.Mesh`) is a
+mesh-global sort of a flat tensor, run by the ``distributed`` backend.
+A backend of the JAX package without a port would stand in
+``NOT_PORTED`` and fail here, loudly, with its ROADMAP item; every one is
+ported now.
 """
 from __future__ import annotations
 
@@ -28,9 +30,7 @@ __all__ = [
 ]
 
 # JAX backends without a port yet -> where the ROADMAP schedules them
-NOT_PORTED = {
-    "distributed": "ROADMAP Queue 1 item 11 (distributed tier)",
-}
+NOT_PORTED: Dict[str, str] = {}
 
 
 def next_pow2(n: int) -> int:
@@ -62,9 +62,9 @@ class Capabilities:
     (``None``: any comparable dtype).  ``max_n`` caps the power-of-two
     padded row the planner may hand it under ``method="auto"``.
     ``substrate`` says where it runs: ``"host"`` (PyTorch ops),
-    ``"cuda"`` (hand-written kernels), ``"hierarchy"`` (the engine) or
+    ``"cuda"`` (hand-written kernels), ``"hierarchy"`` (the engine),
     ``"sram"`` (the paper's gate program on the simulated IMC array, K7
-    on a card).
+    on a card) or ``"mesh"`` (the distributed tier).
 
     ``selection=True`` declares an O(n·passes) top-k selection engine: its
     top-k is priced with ``cost_model.selection_cost_ns``, not as a full
@@ -80,7 +80,7 @@ class Capabilities:
     supports_sort: bool = True
     selection: bool = False
     auto_dispatch: bool = True
-    substrate: str = "host"   # "host" | "cuda" | "hierarchy" | "sram"
+    substrate: str = "host"   # "host" | "cuda" | "hierarchy" | "sram" | "mesh"
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +278,10 @@ class SortSpec:
 
     ``segment_ids``/``row_splits`` sort within ragged groups of a row;
     ``valid_lengths`` sorts each row's valid prefix of a padded batch and
-    writes ``fill_value`` over the tail."""
+    writes ``fill_value`` over the tail.  ``mesh``/``axis_name`` sort a
+    flat tensor globally over a mesh axis (one name, a tuple, or None for
+    the whole mesh): plain, key-value, the permutation (``indices``; the
+    port's mesh sort is stable, so ``stable`` is accepted) and top-k."""
     axis: int = -1
     descending: bool = False
     stable: bool = False
@@ -298,10 +301,6 @@ class SortSpec:
         """Resolve ambient defaults, normalise the axis and validate the
         whole problem against ``x``; every front-door error is raised
         here."""
-        if self.mesh is not None or self.axis_name is not None:
-            raise NotImplementedError(
-                "mesh-distributed sorts (mesh/axis_name) are not ported yet: "
-                + NOT_PORTED["distributed"])
         ndim = x.dim()
         if ndim == 0:
             raise ValueError("cannot sort a 0-d array")
@@ -317,6 +316,33 @@ class SortSpec:
         if method not in names:
             raise ValueError(
                 f"method must be one of {names}, got {method!r}")
+        axis_name = self.axis_name
+        if axis_name is not None and self.mesh is None:
+            raise ValueError("axis_name requires a mesh")
+        if self.mesh is not None:
+            from repro_torch.core.mesh import Mesh
+            from repro_torch.engine.samplesort import _axes_tuple
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(
+                    f"mesh must be a repro_torch.core.mesh.Mesh, got "
+                    f"{type(self.mesh).__name__}")
+            axis_name = _axes_tuple(self.mesh, axis_name)
+            if ndim != 1:
+                raise ValueError(
+                    "mesh-distributed specs sort flat 1-D arrays; "
+                    f"got a {ndim}-d input")
+            if (self.segment_ids is not None or self.row_splits is not None
+                    or self.valid_lengths is not None):
+                raise ValueError(
+                    "mesh-distributed specs support plain, key-value and "
+                    "permutation sorts plus top-k selection (no segments/"
+                    "valid_lengths)")
+            if method not in ("auto", "distributed"):
+                raise ValueError(
+                    f"mesh-distributed specs run the 'distributed' "
+                    f"backend; method must be 'auto' or 'distributed', "
+                    f"got {method!r}")
+            method = "distributed"
         k = self.k
         n = x.shape[axis]
         if k is not None:
@@ -370,4 +396,18 @@ class SortSpec:
         # top-k is inherently a descending selection (largest k)
         descending = True if k is not None else self.descending
         return dataclasses.replace(self, axis=axis, method=method, k=k,
-                                   descending=descending, run_len=run_len)
+                                   descending=descending, run_len=run_len,
+                                   axis_name=axis_name)
+
+    def static_key(self, shape, dtype) -> tuple:
+        """Hashable reduction of the spec to its statics and the operand's
+        (shape, dtype): array fields count by presence; a mesh by its axis
+        layout and device list (``Mesh.key``), so two same-shaped meshes
+        over other devices differ."""
+        mesh_key = None if self.mesh is None else self.mesh.key()
+        return (self.axis, self.descending, self.stable, self.k,
+                self.values is not None, self.indices,
+                self.segment_ids is not None, self.row_splits is not None,
+                self.valid_lengths is not None, self.fill_value, self.method,
+                mesh_key, self.axis_name, self.run_len, tuple(shape),
+                keycodec.dtype_name(dtype))

@@ -4,7 +4,8 @@ The port's copy of the JAX package's tuning layer: one frozen
 :class:`TuningProfile` holding the planner's per-element cost constants
 and the kernel shape parameters (radix ``digit_bits``, radix tile, engine
 ``run_len``, the selection switch-over ``select_min_n``, the spill tier's
-``merge_fanin`` and ``spill_threshold_bytes``), keyed by a device
+``merge_fanin`` and ``spill_threshold_bytes``) and the distributed tier's
+link constants (``links``), keyed by a device
 fingerprint and schema-versioned for JSON.  Every consumer (cost model,
 radix kernels, run generation, planner, spill tier) reads the *active*
 profile; :func:`set_active` bumps a generation counter the planner folds
@@ -42,7 +43,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = [
-    "SCHEMA", "DeviceSortConstants", "TuningProfile", "ProfileError",
+    "SCHEMA", "DeviceSortConstants", "LinkConstants", "TuningProfile",
+    "ProfileError",
     "device_fingerprint", "default_profile", "active", "set_active",
     "generation", "profile_path", "save", "load", "load_for_device",
     "persisted_path", "search_dirs", "cache_dir", "refresh_if_stale",
@@ -111,6 +113,28 @@ class DeviceSortConstants:
     host_merge_level: float = 8.0
 
 
+# NVLink 4 on an H100 SXM: 450 GB/s a direction (NVIDIA's data sheet,
+# 900 GB/s both ways); a seed from the specification, not a measurement
+NVLINK_BYTES_PER_S = 450e9
+# between nodes: one 400 Gb/s InfiniBand NDR port a card, 50 GB/s (the
+# specification's rate)
+NETWORK_BYTES_PER_S = 50e9
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkConstants:
+    """What one collective round costs on each link tier: ``alpha`` ns a
+    launch plus ``per_byte`` ns a byte a device moves.  The JAX package
+    keeps these among its cost constants (``collective_*``, ``dcn_*``,
+    priced for a TPU's ICI and DCN); the port seeds them from the H100's
+    links, NVLink inside a node and the network between nodes, and
+    ``topology.calibrate`` measures them per mesh axis."""
+    collective_alpha: float = 2_000.0                  # ns a launch
+    collective_per_byte: float = 1e9 / NVLINK_BYTES_PER_S
+    network_alpha: float = 2_000.0 * NVLINK_BYTES_PER_S / NETWORK_BYTES_PER_S
+    network_per_byte: float = 1e9 / NETWORK_BYTES_PER_S
+
+
 class ProfileError(ValueError):
     """A profile document that cannot be trusted: wrong schema version,
     malformed JSON, or field values outside the validated ranges."""
@@ -124,10 +148,12 @@ class TuningProfile:
     ``"converted"`` (from a JAX profile, ``repro_torch.convert``) or
     ``"loaded"`` (:func:`load`).  ``probe_ns`` and ``sweeps`` keep the raw
     timings a calibration derived its values from.  ``capacity_slack``
-    belongs to the distributed tier: carried and validated, never swept on
-    one card."""
+    and ``links`` belong to the distributed tier: carried and validated,
+    never swept by ``planner.calibrate`` (``topology.calibrate`` measures
+    links)."""
     fingerprint: str
     constants: DeviceSortConstants = DeviceSortConstants()
+    links: LinkConstants = LinkConstants()
     digit_bits: int = DEFAULT_DIGIT_BITS
     radix_tile: int = DEFAULT_RADIX_TILE
     run_len: int = DEFAULT_CPU_RUN_LEN
@@ -155,6 +181,10 @@ class TuningProfile:
         if self.capacity_slack < 1.0:
             raise ProfileError(
                 f"capacity_slack must be >= 1.0, got {self.capacity_slack}")
+        lk = self.links
+        if not (lk.collective_per_byte > 0 and lk.network_per_byte > 0
+                and lk.collective_alpha >= 0 and lk.network_alpha >= 0):
+            raise ProfileError(f"link constants must be positive, got {lk}")
         if self.select_min_n < 0:
             raise ProfileError(
                 f"select_min_n must be >= 0, got {self.select_min_n}")
@@ -197,6 +227,17 @@ class TuningProfile:
                     f"unknown cost constants {sorted(bad)} (schema {SCHEMA})")
             d["constants"] = DeviceSortConstants(
                 **{k: float(v) for k, v in consts.items()})
+        links = d.get("links")
+        if links is not None:
+            if not isinstance(links, dict):
+                raise ProfileError("profile links must be an object")
+            bad = set(links) - {f.name for f in
+                                dataclasses.fields(LinkConstants)}
+            if bad:
+                raise ProfileError(
+                    f"unknown link constants {sorted(bad)} (schema {SCHEMA})")
+            d["links"] = LinkConstants(
+                **{k: float(v) for k, v in links.items()})
         try:
             return cls(**d)
         except TypeError as e:

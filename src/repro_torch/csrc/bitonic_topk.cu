@@ -314,9 +314,11 @@ struct WarpSelect {
     k = k_;
   }
 
-  // a key that may pass: at or above the bound's key (its index decides)
+  // a key that may pass: not below the bound's key (its index decides).
+  // Written as !(key < floor) so a NaN key (whose code ranks above every
+  // number) is never filtered out here: the composite compare decides it
   __device__ __forceinline__ bool may_pass(S key) const {
-    return TR::v(key) >= floor;
+    return !(TR::v(key) < floor);
   }
 
   // a warp-wide step: each lane with `has` queues (key, index) if it beats

@@ -33,6 +33,19 @@
 //    digit's run: a warp's 32 stores fill whole sectors, not 32 sectors.
 //    The last tile of a row is partial; its missing items take no rank.
 //
+//  * radix_bucket_hist (a third entry, replacing the same _digit_stats call
+//    where src/repro/engine/samplesort.py:121-137 counts a sorted shard's
+//    keys by splitter interval with the interval id as the digit): the
+//    counts of searchsorted(splitters, key, side="left") over the D
+//    buckets of D - 1 splitters, plus the reference's pad bin (always 0
+//    here: the kernel reads exactly n keys), so D + 1 bins <= 1024.  Each
+//    CTA copies the splitters into shared memory, binary-searches every
+//    key there (4 keys a thread in flight), adds a warp's keys of one
+//    bucket with one shared atomic (__match_any_sync: a sorted shard puts
+//    whole warps in one bucket), and adds its nonzero bins to the global
+//    counts with one atomic each.  Integer counts: exact in any order.
+//    Bound: one read of the keys, 2^25 int32 keys 0.040 ms at 3.35 TB/s.
+//
 // Bound on the H100 (3.35 TB/s), 2^26 uint32 keys with int32 payloads, 8-bit
 // digits: the histogram reads the keys once (268 MB, 0.080 ms), each of the
 // 4 passes reads and writes key and payload (1.07 GB, 0.32 ms): 1.36 ms a
@@ -300,6 +313,70 @@ int launch_pass(const void* kin, const void* vin, void* kout, void* vout,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kMaxBucketBins = 1024;          // kernels/radix_sort.py
+                                              // MAX_BUCKET_BINS
+constexpr int kBucketLoads = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bucket_hist_kernel(const T* __restrict__ keys, long long n,
+                   const T* __restrict__ split, int n_split,
+                   int* __restrict__ counts, int n_bins) {
+  __shared__ T s_split[kMaxBucketBins];
+  __shared__ int s_cnt[kMaxBucketBins];
+  for (int i = threadIdx.x; i < n_split; i += kThreads) s_split[i] = split[i];
+  for (int i = threadIdx.x; i < n_bins; i += kThreads) s_cnt[i] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  constexpr long long kChunk = static_cast<long long>(kThreads) * kBucketLoads;
+  // every lane of a warp runs the same iterations (the bound depends on
+  // the chunk only), so the whole warp takes part in each match
+  for (long long base = blockIdx.x * kChunk; base < n;
+       base += static_cast<long long>(gridDim.x) * kChunk) {
+    T k[kBucketLoads];
+    bool ok[kBucketLoads];
+#pragma unroll
+    for (int q = 0; q < kBucketLoads; ++q) {
+      const long long i = base + q * kThreads + threadIdx.x;
+      ok[q] = i < n;
+      k[q] = ok[q] ? keys[i] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kBucketLoads; ++q) {
+      // lower bound: the first splitter >= key (a key equal to a
+      // splitter goes to the lower bucket)
+      int lo = 0, hi = n_split;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s_split[mid] < k[q]) lo = mid + 1; else hi = mid;
+      }
+      const int bin = ok[q] ? lo : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      if (bin >= 0 && lane == __ffs(peers) - 1) {
+        atomicAdd(&s_cnt[bin], __popc(peers));
+      }
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < n_bins; b += kThreads) {
+    if (s_cnt[b] != 0) atomicAdd(&counts[b], s_cnt[b]);
+  }
+}
+
+template <typename T>
+int launch_bucket_hist(const void* keys, long long n, const void* split,
+                       int n_split, void* counts, cudaStream_t stream) {
+  long long ctas = (n + kThreads * kBucketLoads - 1) /
+                   (kThreads * kBucketLoads);
+  if (ctas > kHistCtas) ctas = kHistCtas;
+  if (ctas < 1) ctas = 1;
+  bucket_hist_kernel<T><<<static_cast<unsigned>(ctas), kThreads, 0,
+                          stream>>>(
+      static_cast<const T*>(keys), n, static_cast<const T*>(split), n_split,
+      static_cast<int*>(counts), n_split + 2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 inline bool bad_shape(long long rows, long long m, int digit_bits) {
   const long long tiles = rows * ((m + kTile - 1) / kTile);
   return rows < 0 || m < 0 || m >= (1LL << 31) || tiles >= (1LL << 31) ||
@@ -357,4 +434,26 @@ extern "C" int radix_onesweep_pass(int key_bytes, const void* kin,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef ONESWEEP_PASS
+}
+
+// counts[b] += the number of the n keys (signed carrier order: int8/16/32)
+// whose lower bound among the n_split ascending splitters is b, for
+// b in [0, n_split]; counts has n_split + 2 zeroed int32 bins, the last
+// the reference's pad bin (left 0).  n_split + 2 <= 1024.
+extern "C" int radix_bucket_hist(int key_bytes, const void* keys,
+                                 long long n, const void* splitters,
+                                 int n_split, void* counts, void* stream) {
+  if (n < 0 || n_split < 0 || n_split + 2 > kMaxBucketBins)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (key_bytes) {
+    case 1: return launch_bucket_hist<int8_t>(keys, n, splitters, n_split,
+                                              counts, s);
+    case 2: return launch_bucket_hist<int16_t>(keys, n, splitters, n_split,
+                                               counts, s);
+    case 4: return launch_bucket_hist<int32_t>(keys, n, splitters, n_split,
+                                               counts, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -8,6 +8,9 @@ kernel (by the radix kernels when the sort must be stable) and merged by
 the merge-path kernel.  A top-k plan of the ``select`` backend runs the
 radix-select kernel (K4), one of ``cuda`` the bitonic top-k kernel (K5).
 Ragged and padded-row sorts (segmented.py) are two engine sorts each.
+The mesh tier above them is ``samplesort.sample_sort`` (exported here with
+the distributed plans, ``DistPlan`` / ``choose_distributed``), reached from
+the front door through a spec's ``mesh``.
 
 Every entry point takes ``device=`` (default ``"cuda"``), moves its input
 there and returns on it; ``device="cuda"`` without a card raises.  The
@@ -33,8 +36,9 @@ from repro_torch.engine import planner, runs
 from repro_torch.engine.merge import merge_pairs, merge_runs  # noqa: F401
 from repro_torch.engine.merge import kway_merge, kway_merge_kv  # noqa: F401
 from repro_torch.engine.planner import (  # noqa: F401
-    Plan, calibrate, choose, choose_cached, clear_plan_cache,
-    reset_calibration)
+    DistPlan, Plan, calibrate, choose, choose_cached, choose_distributed,
+    choose_distributed_cached, clear_plan_cache, reset_calibration)
+from repro_torch.engine.samplesort import sample_sort  # noqa: F401
 from repro_torch.engine.segmented import (  # noqa: F401
     group_tokens_by_expert, segment_ids_from_row_splits, segmented_argsort,
     segmented_sort, sort_padded_rows)

@@ -251,6 +251,88 @@ def choose_cached(n: int, batch: int = 1, dtype=torch.float32, *,
     return plan
 
 
+# ---------------------------------------------------------------------------
+# distributed dispatch: sample sort vs odd-even vs the two-level sort
+# ---------------------------------------------------------------------------
+
+DIST_STRATEGIES = ("sample", "oddeven")
+
+
+@dataclasses.dataclass(frozen=True)
+class DistPlan:
+    """Dispatch decision for a mesh sort of n keys over n_dev entries."""
+    strategy: str                # "sample" | "oddeven" | "hier"
+    n_dev: int
+    costs: Dict[str, float]      # estimated ns per strategy
+
+
+def choose_distributed(n: int, n_dev: int, dtype=torch.float32, *,
+                       topology=None) -> DistPlan:
+    """Price the distributed strategies and return the cheapest.
+
+    Odd-even pays D exchange launches and a bitonic merge box a round;
+    the sample sort two capacity-padded all-to-alls and one merge tree.
+    With a two-tier ``topology`` (``core.topology.Topology``) the
+    two-level sample sort joins, priced per tier
+    (``cost_model.hierarchical_sort_cost_ns``), while the flat strategies
+    pay the traffic-weighted blend of the two tiers' rates
+    (``cost_model.flat_collective_rates``)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    consts = _tuning.active().constants
+    hier = topology is not None and topology.is_hierarchical \
+        and len(topology.axes) >= 2
+    if not hier:
+        costs = {
+            s: cost_model.distributed_sort_cost_ns(s, n, n_dev, itemsize,
+                                                   consts=consts)
+            for s in DIST_STRATEGIES
+        }
+        return DistPlan(strategy=min(costs, key=costs.__getitem__),
+                        n_dev=n_dev, costs=costs)
+    if topology.n_devices != n_dev:
+        raise ValueError(
+            f"topology spans {topology.n_devices} devices, the sort "
+            f"plans for {n_dev}")
+    outer = topology.axes[0]
+    innermost = topology.axes[-1]
+    inner_size = n_dev // outer.size
+    ia, ib = innermost.latency_ns, innermost.per_byte_ns
+    da, db = outer.latency_ns, outer.per_byte_ns
+    fa, fb = cost_model.flat_collective_rates(
+        inner_size, outer.size, ici_alpha=ia, ici_per_byte=ib,
+        dcn_alpha=da, dcn_per_byte=db)
+    costs = {
+        s: cost_model.distributed_sort_cost_ns(s, n, n_dev, itemsize,
+                                               consts=consts,
+                                               alpha=fa, per_byte=fb)
+        for s in DIST_STRATEGIES
+    }
+    costs["hier"] = cost_model.hierarchical_sort_cost_ns(
+        n, inner_size, outer.size, itemsize, consts=consts,
+        ici_alpha=ia, ici_per_byte=ib, dcn_alpha=da, dcn_per_byte=db)
+    return DistPlan(strategy=min(costs, key=costs.__getitem__),
+                    n_dev=n_dev, costs=costs)
+
+
+def choose_distributed_cached(n: int, n_dev: int, dtype=torch.float32, *,
+                              topology=None) -> DistPlan:
+    """``choose_distributed`` memoized beside the single-device plans,
+    keyed also on the topology generation and every axis's tier and
+    rates: a calibration or a swapped topology re-plans."""
+    from repro_torch.core import topology as _topo
+    tsig = None if topology is None else tuple(
+        (a.name, a.size, a.tier, a.bandwidth_bytes_per_s, a.latency_ns)
+        for a in topology.axes)
+    key = ("dist", n, n_dev, keycodec.dtype_name(dtype), tsig,
+           _topo.generation(), _tuning.generation(),
+           sortspec.registry_generation())
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        plan = choose_distributed(n, n_dev, dtype, topology=topology)
+        _PLAN_CACHE[key] = plan
+    return plan
+
+
 def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
 

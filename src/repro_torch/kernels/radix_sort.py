@@ -17,7 +17,12 @@ launches for P digit passes on a CUDA tensor:
                       its keys and payloads out grouped by digit
 
 On a CPU tensor the same loop runs the kernels' plain versions,
-``onesweep_hist_plain`` and ``onesweep_pass_plain``.  ``digit_stats``,
+``onesweep_hist_plain`` and ``onesweep_pass_plain``.
+
+:func:`bucket_hist` is the third entry, ``radix_bucket_hist``: the
+distributed sample sort's count of a sorted shard's keys by splitter
+interval (the reference runs ``_digit_stats`` with the interval id as the
+digit); its plain version :func:`bucket_hist_plain` is that formulation.  ``digit_stats``,
 ``global_pos``, ``digit_hist_plain``, ``digit_scatter_plain`` and
 ``tile_bases`` are the reference's per-tile functions in PyTorch, held
 against it by the tests; the plain pass ranks with ``digit_stats``.
@@ -33,6 +38,7 @@ from repro_torch.core import keycodec
 from repro_torch.kernels import _build
 
 ONESWEEP_TILE = 4096      # csrc/radix_sort.cu kTile
+MAX_BUCKET_BINS = 1024    # csrc/radix_sort.cu kMaxBucketBins: D + 1 bins
 
 
 def _resolve(tile: Optional[int], digit_bits: Optional[int]
@@ -205,6 +211,8 @@ def _lib() -> ctypes.CDLL:
         lib.radix_onesweep_pass.argtypes = [i, vp, vp, vp, vp, vp, vp, ll,
                                             ll, i, i, vp]
         lib.radix_onesweep_pass.restype = i
+        lib.radix_bucket_hist.argtypes = [i, vp, ll, vp, i, vp, vp]
+        lib.radix_bucket_hist.restype = i
         _lib_handle = lib
     return _lib_handle
 
@@ -359,3 +367,79 @@ def sort_blocks(keys: torch.Tensor, *,
                 digit_bits: Optional[int] = None) -> torch.Tensor:
     """Key-only variant of :func:`sort_kv_blocks`."""
     return sort_kv_blocks(keys, None, digit_bits=digit_bits)[0]
+
+
+# ---------------------------------------------------------------------------
+# the sample sort's bucket histogram
+# ---------------------------------------------------------------------------
+
+def _check_buckets(keys, splitters, name: str) -> int:
+    if keys.dim() != 1 or splitters.dim() != 1:
+        raise ValueError(f"{name} takes 1-D keys and splitters, got "
+                         f"{tuple(keys.shape)} and {tuple(splitters.shape)}")
+    if keys.dtype not in (torch.int8, torch.int16, torch.int32) \
+            or splitters.dtype != keys.dtype:
+        raise TypeError(f"{name} takes signed-order int8/int16/int32 keys "
+                        f"and splitters of one dtype, got "
+                        f"{keycodec.dtype_name(keys.dtype)} and "
+                        f"{keycodec.dtype_name(splitters.dtype)}")
+    bins = splitters.shape[0] + 2
+    if bins > MAX_BUCKET_BINS:
+        raise ValueError(
+            f"{name}: {splitters.shape[0] + 1} buckets + the pad bin = "
+            f"{bins} bins, over the kernel's {MAX_BUCKET_BINS} (D + 1 <= "
+            f"{MAX_BUCKET_BINS})")
+    if keys.device != splitters.device:
+        raise ValueError(f"{name}: keys and splitters on different devices")
+    return bins
+
+
+def bucket_hist_plain(keys: torch.Tensor, splitters: torch.Tensor,
+                      tile: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`bucket_hist`, the reference's formulation:
+    every key's interval id ``searchsorted(splitters, key, side="left")``
+    as a digit, tiled like the radix passes (the tail tile padded with the
+    extra id D, counted in the pad bin and dropped), the per-tile
+    histograms of :func:`digit_stats` summed over the tiles -> (D + 1,)
+    int32 with the pad bin zeroed."""
+    bins = _check_buckets(keys, splitters, "bucket_hist_plain")
+    n_dev = bins - 1
+    m = keys.shape[0]
+    if m == 0:
+        return torch.zeros(bins, dtype=torch.int32, device=keys.device)
+    ids = torch.searchsorted(splitters, keys, side="left", out_int32=True)
+    tile = min(max(8, _resolve(tile, None)[0]), m)
+    mt = -(-m // tile) * tile
+    if mt != m:
+        ids = torch.cat([ids, ids.new_full((mt - m,), n_dev)])
+    hist, _ = digit_stats(ids.view(mt // tile, tile), n_dev + 1)
+    counts = hist.sum(0, dtype=torch.int32)
+    counts[n_dev] = 0
+    return counts
+
+
+def bucket_hist(keys: torch.Tensor, splitters: torch.Tensor
+                ) -> torch.Tensor:
+    """(m,) signed-order keys (int8/16/32; the keycodec key with its sign
+    bit flipped) and D - 1 ascending splitters of the same dtype ->
+    (D + 1,) int32: ``counts[b]`` keys fall in bucket b (a key equal to a
+    splitter in the lower bucket), the last bin the reference's pad bin,
+    0.  One launch of ``radix_bucket_hist`` for a CUDA tensor (D + 1 <=
+    1024, checked here), the plain version for a CPU tensor."""
+    bins = _check_buckets(keys, splitters, "bucket_hist")
+    if not keys.is_cuda:
+        if keys.device.type != "cpu":
+            raise ValueError(f"bucket_hist: unsupported device {keys.device}")
+        return bucket_hist_plain(keys, splitters)
+    keys, splitters = keys.contiguous(), splitters.contiguous()
+    counts = torch.zeros(bins, dtype=torch.int32, device=keys.device)
+    if keys.numel() == 0:
+        return counts
+    with torch.cuda.device(keys.device):
+        status = _lib().radix_bucket_hist(
+            keys.element_size(), _build.ptr(keys), keys.shape[0],
+            _build.ptr(splitters), splitters.shape[0], _build.ptr(counts),
+            _build.stream_of(keys))
+    _build.check(status, "radix_bucket_hist")
+    _build.count_launch("radix_bucket_hist")
+    return counts

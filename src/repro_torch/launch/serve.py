@@ -12,8 +12,9 @@ accounted by prompt length with one ``relational.group_by``
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
       --smoke --device cpu --requests 6 --batch-size 3 --decode-steps 8
 
-Not carried yet: the scheduler's mesh path and the topology snapshot
-(ROADMAP Queue 1 item 11).
+With a ``mesh`` (``core.mesh.Mesh``) the scheduler sorts a backlog of at
+least ``distributed_min`` requests over the mesh, and ``restore_state`` /
+``snapshot_state`` carry the mesh's topology beside the tuning profile.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from repro_torch import relational
 from repro_torch import sort as sorting
 from repro_torch.configs.base import ShapeSpec, get_config, get_smoke_config
+from repro_torch.core import topology as _topology
 from repro_torch.core import tuning as _tuning
 from repro_torch.core.sortspec import resolve_device
 from repro_torch.launch import steps as steps_lib
@@ -40,10 +42,6 @@ from repro_torch.obs import metrics as _metrics, report as _obs_report, \
 # where serve persists its tuning snapshot between runs (the --state-dir
 # flag overrides; unset means no persistence)
 SERVE_STATE_ENV = "REPRO_TORCH_SERVE_STATE_DIR"
-
-_NO_MESH = ("the scheduler's mesh path (distributed backlog sort) and the "
-            "topology snapshot wait for the distributed tier (ROADMAP Queue 1 "
-            "item 11)")
 
 
 @dataclasses.dataclass
@@ -65,25 +63,55 @@ class LengthSortedScheduler:
     length-homogeneous.  ``method`` is any backend name of the port's
     ``argsort`` (``"auto"``: the planner's pick); the sort runs on
     ``device``.
+
+    With a ``mesh`` the backlog sort goes mesh-global once the mesh has
+    more than one entry and the backlog reaches ``distributed_min``: a
+    packed (length, position) composite is value-sorted over the mesh
+    (``axis_name`` as ``distributed_sort`` takes it), and its low bits are
+    the order.  ``mesh_sorts`` counts the sorts that took that path.
     """
 
     def __init__(self, batch_size: int, method: str = "auto", *,
-                 mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+                 mesh=None, axis_name=None, distributed_min: int = 4096,
+                 device="cuda"):
         self.batch_size = batch_size
         self.method = method
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.distributed_min = distributed_min
         self.device = resolve_device(device)
         self.queue: List[Request] = []
+        self.mesh_sorts = 0
 
     def submit(self, req: Request) -> None:
         req.submit_t = time.monotonic()
         self.queue.append(req)
 
+    def _n_dev(self) -> int:
+        if self.mesh is None:
+            return 1
+        from repro_torch.engine import samplesort
+        axes = samplesort._axes_tuple(self.mesh, self.axis_name)
+        return samplesort._n_dev(self.mesh, axes)
+
     def _order(self, lens: np.ndarray) -> np.ndarray:
-        order = sorting.argsort(torch.from_numpy(lens), method=self.method,
-                                device=self.device)
-        return order.cpu().numpy()
+        n = lens.shape[0]
+        idx_bits = max(1, (n - 1).bit_length())
+        distributed = (self._n_dev() > 1 and n >= self.distributed_min
+                       and int(lens.max()) < (1 << (31 - idx_bits)))
+        if not distributed:
+            order = sorting.argsort(torch.from_numpy(lens),
+                                    method=self.method, device=self.device)
+            return order.cpu().numpy()
+        # the mesh path value-sorts a packed (length, position) composite
+        comp = (lens.astype(np.int32) << idx_bits) \
+            | np.arange(n, dtype=np.int32)
+        out = sorting.sort(torch.from_numpy(comp), mesh=self.mesh,
+                           axis_name=self.axis_name)
+        self.mesh_sorts += 1
+        if _obs.enabled():
+            _metrics.counter("serve.mesh_backlog_sorts").inc()
+        return out.cpu().numpy() & ((1 << idx_bits) - 1)
 
     def next_batch(self) -> List[Request]:
         if not self.queue:
@@ -150,10 +178,12 @@ def resolve_state_dir(explicit: Optional[str] = None
     return pathlib.Path(d) if d else None
 
 
-def restore_state(state_dir: os.PathLike) -> List[str]:
-    """Restore a previous run's tuning profile from ``state_dir`` as the
-    active one.  Identity-gated: a profile whose device fingerprint differs
-    (a snapshot copied from another machine) is skipped, never trusted.
+def restore_state(state_dir: os.PathLike, mesh=None) -> List[str]:
+    """Restore a previous run's tuning profile (and, given the serving
+    mesh, its topology) from ``state_dir`` as the active ones.
+    Identity-gated: a profile whose device fingerprint differs (a snapshot
+    copied from another machine), or a topology whose (fingerprint, mesh
+    signature) does not match the mesh, is skipped, never trusted.
     Returns the names of what was restored."""
     restored: List[str] = []
     pp = _tuning.profile_path(state_dir)
@@ -166,15 +196,34 @@ def restore_state(state_dir: os.PathLike) -> List[str]:
                 restored.append("tuning profile")
         except _tuning.ProfileError:
             pass
+    if mesh is not None:
+        want = _topology.from_mesh(mesh)
+        tp = _topology.topology_path(want, directory=state_dir)
+        if tp.is_file():
+            try:
+                topo = _topology.load(tp)
+                if (topo.fingerprint == want.fingerprint
+                        and topo.signature() == want.signature()):
+                    _topology.set_active(dataclasses.replace(
+                        topo, source="persisted"))
+                    restored.append("topology")
+            except _topology.TopologyError:
+                pass
     return restored
 
 
-def snapshot_state(state_dir: os.PathLike) -> List[pathlib.Path]:
-    """Snapshot the active tuning profile into ``state_dir`` so the next
-    run starts from it.  Returns the written paths."""
+def snapshot_state(state_dir: os.PathLike, mesh=None) -> List[pathlib.Path]:
+    """Snapshot the active tuning profile (and, given the serving mesh,
+    the topology resolved for it) into ``state_dir`` so the next run
+    starts from this run's calibration.  Returns the written paths."""
     prof = _tuning.active()
-    return [_tuning.save(prof, _tuning.profile_path(state_dir,
-                                                    prof.fingerprint))]
+    paths = [_tuning.save(prof, _tuning.profile_path(state_dir,
+                                                     prof.fingerprint))]
+    if mesh is not None:
+        topo = _topology.for_mesh(mesh)
+        paths.append(_topology.save(
+            topo, _topology.topology_path(topo, directory=state_dir)))
+    return paths
 
 
 def batch_accounting(done: List[Request], *, device="cuda"):

@@ -8,8 +8,8 @@ data pipeline -> async checkpointing -> fault-tolerance runtime
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 5
 
-Runs on the card unless ``--device cpu`` is given.  Not carried: the mesh
-and shardings (ROADMAP Queue 1 items 11 and 12c).
+Runs on the card unless ``--device cpu`` is given.  Not carried: the
+shardings of a training mesh (ROADMAP Queue 1 item 12c).
 """
 from __future__ import annotations
 

@@ -25,7 +25,9 @@ PyTorch ops, as they are XLA ops in the JAX package.
 
 Static-shape contract: data-dependent result sizes (unique values, groups,
 join pairs, runs) come back as fixed-size padded tensors + a valid count.
-Not carried: the mesh variants (ROADMAP Queue 1 item 11).
+``unique``, ``group_by`` and ``join`` take ``mesh``/``axis_name``: the
+sort backbone goes mesh-global (``engine.samplesort``) and the post-pass
+runs on the mesh's first entry's device, ``device`` aside.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.mesh import Mesh
 from repro_torch.core.sortspec import resolve_device
 from repro_torch.relational.relspec import AGGS, OPS, RelSpec  # noqa: F401
 # module handles bound BEFORE the wrapper defs below shadow the submodule
@@ -68,6 +71,10 @@ def run(spec: RelSpec, x, values=None, *, device="cuda"):
     """Execute ``spec`` on ``device``.  ``x`` is the (key) column;
     ``values`` is the payload column (group_by) or the right key column
     (join)."""
+    # a mesh op's post-pass runs where the mesh sort returns: the first
+    # entry's device (``canonical`` refuses anything but a Mesh)
+    if isinstance(spec.mesh, Mesh):
+        device = spec.mesh.devices.flat[0]
     dev = resolve_device(device)
     x, values = _on(x, dev), _on(values, dev)
     spec = spec.canonical(x, values)
@@ -115,13 +122,15 @@ def group_by(keys, values, *, agg: Union[str, Tuple[str, ...]] = "sum",
 
 
 def join(left_keys, right_keys, *, size: Optional[int] = None,
-         fill_value=None, method: Optional[str] = None,
-         device="cuda") -> Join:
+         fill_value=None, method: Optional[str] = None, mesh=None,
+         axis_name: Optional[str] = None, device="cuda") -> Join:
     """Sorted equi-join -> matching (left, right) index pairs, padded to
     ``size`` (default ``n_l * n_r``; pass a real bound for large
-    columns)."""
+    columns).  With ``mesh`` both columns' stable orders come from the
+    mesh sort."""
     return run(RelSpec(op="join", size=size, fill_value=fill_value,
-                       method=method), left_keys, right_keys, device=device)
+                       method=method, mesh=mesh, axis_name=axis_name),
+               left_keys, right_keys, device=device)
 
 
 def run_length_encode(x, *, assume_sorted: bool = False, fill_value=None,

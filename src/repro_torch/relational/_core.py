@@ -94,10 +94,11 @@ def pad_tail(arr: torch.Tensor, valid: torch.Tensor, fill) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def resolve_plan(spec: RelSpec, n: int, dtype, device):
-    """-> (method, plan).  Sketches and group_ranks return (None, None).
-    An explicit method skips pricing; "auto" goes through the relational
-    cost entries (``planner.choose_relational_cached``)."""
-    if spec.op not in SORT_OPS:
+    """-> (method, plan).  Sketches, group_ranks and mesh specs (the mesh
+    sort plans its own strategy) return (None, None).  An explicit method
+    skips pricing; "auto" goes through the relational cost entries
+    (``planner.choose_relational_cached``)."""
+    if spec.mesh is not None or spec.op not in SORT_OPS:
         return None, None
     if spec.method != "auto":
         return spec.method, None
@@ -113,7 +114,8 @@ def span(spec: RelSpec, n: int):
     """Obs span of one relational op (the no-op span when obs is off),
     plus the per-op invocation counter."""
     from repro_torch.obs import trace as _obs
-    sp = _obs.trace(f"relational.{spec.op}", n=n, method=spec.method)
+    sp = _obs.trace(f"relational.{spec.op}", n=n, method=spec.method,
+                    distributed=spec.mesh is not None)
     if _obs.enabled():
         from repro_torch.obs import metrics as _m
         _m.counter(f"relational.{spec.op}").inc()
@@ -142,23 +144,35 @@ def finish(sp, spec: RelSpec, plan, n: int) -> None:
         measured_ns / predicted)
 
 
-def sorted_column(x: torch.Tensor, method: str,
-                  values: Optional[torch.Tensor] = None):
-    """The op's sort backbone on the column's device: the planner-picked
-    (or pinned) backend; with ``values`` a stable key-value sort.  A
-    ``spill`` result (a CPU tensor) comes back to the column's device."""
+def sorted_column(x: torch.Tensor, method: Optional[str],
+                  values: Optional[torch.Tensor] = None, spec=None):
+    """The op's sort backbone on the column's device: the mesh-global
+    sample sort when ``spec`` has a mesh, else the planner-picked (or
+    pinned) backend; with ``values`` a stable key-value sort.  A ``spill``
+    result (a CPU tensor) comes back to the column's device."""
     import repro_torch.sort as rsort
+    if spec is not None and spec.mesh is not None:
+        if values is not None:
+            return tuple(t.to(x.device) for t in rsort.sort_kv(
+                x, values, mesh=spec.mesh, axis_name=spec.axis_name))
+        return rsort.sort(x, mesh=spec.mesh,
+                          axis_name=spec.axis_name).to(x.device)
     if values is not None:
         return tuple(t.to(x.device) for t in rsort.sort_kv(
             x, values, method=method, stable=True, device=x.device))
     return rsort.sort(x, method=method, device=x.device).to(x.device)
 
 
-def stable_order(x: torch.Tensor, method: str) -> torch.Tensor:
+def stable_order(x: torch.Tensor, method: Optional[str],
+                 spec=None) -> torch.Tensor:
     """Stable ascending permutation (int32) of a 1-D column through the
-    front door; a non-stable backend runs the engine's stable merge
-    pipeline instead, as ``cost_model.relational_cost_ns`` prices it."""
+    front door (over the mesh when ``spec`` has one); a non-stable backend
+    runs the engine's stable merge pipeline instead, as
+    ``cost_model.relational_cost_ns`` prices it."""
     import repro_torch.sort as rsort
+    if spec is not None and spec.mesh is not None:
+        return rsort.argsort(x, mesh=spec.mesh,
+                             axis_name=spec.axis_name).to(x.device)
     return rsort.argsort(x, stable=True, method=method,
                          device=x.device).to(x.device)
 

@@ -119,7 +119,8 @@ def run(spec: RelSpec, keys: torch.Tensor, values: torch.Tensor) -> GroupBy:
     sp = _core.span(spec, n)
     with sp:
         # the stable sort fixes each group's summation order (input order)
-        sk, sv = _core.sorted_column(keys, method, values=values)
+        sk, sv = _core.sorted_column(keys, method, values=values,
+                                         spec=spec)
         s = keycodec.to_signed(sk)
         ukeys, n_groups, seg, lengths = _core.compact_sorted(
             s, _core.boundary_mask(s))

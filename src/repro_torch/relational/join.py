@@ -40,9 +40,9 @@ def run(spec: RelSpec, lk: torch.Tensor, rk: torch.Tensor) -> Join:
     method, plan = _core.resolve_plan(spec, max(nl, nr), lk.dtype, dev)
     sp = _core.span(spec, nl + nr)
     with sp:
-        ol = _core.stable_order(lk, method).to(torch.int64)
+        ol = _core.stable_order(lk, method, spec).to(torch.int64)
         sl = _core.search_key(lk)[ol]
-        orr = _core.stable_order(rk, method).to(torch.int64)
+        orr = _core.stable_order(rk, method, spec).to(torch.int64)
         sr = _core.search_key(rk)[orr]
         # merge-scan: each left-sorted element's matching run on the right
         # (in the search order: -0.0 matches +0.0, NaN matches NaN)

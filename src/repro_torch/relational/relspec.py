@@ -14,9 +14,13 @@ Static-shape contract, as in the JAX package: results whose true size
 depends on the data (unique values, groups, join pairs, runs) come back as
 fixed-size padded tensors plus a valid count.
 
-Not carried: the mesh variants (``mesh``/``axis_name``, ROADMAP Queue 1
-item 11) raise ``NotImplementedError``; the Pallas ``interpret`` knob has
-no counterpart (the caller picks the device).
+``mesh``/``axis_name`` run an op over a device mesh
+(``core.mesh.Mesh``): the op's sort backbone is the mesh-global sample
+sort and the post-pass runs on the mesh's first entry's device.  The JAX
+package composes unique and group_by over a mesh; the port also runs
+join there, whose backbone is a stable permutation, which the port's mesh
+sort gives (the reference's is not stable).  The Pallas ``interpret``
+knob has no counterpart (the caller picks the device).
 """
 from __future__ import annotations
 
@@ -49,8 +53,9 @@ STABLE_OPS = frozenset({"group_by", "join", "group_ranks"})
 # group-by reductions (mean is the float32 sum over the count)
 AGGS = ("sum", "min", "max", "count", "mean")
 
-# ops the JAX package composes over a device mesh (not ported here)
-MESH_OPS = frozenset({"unique", "group_by"})
+# ops that compose over a device mesh (the JAX package: unique, group_by;
+# the port adds join, see the module docstring)
+MESH_OPS = frozenset({"unique", "group_by", "join"})
 
 
 def is_integer(dtype) -> bool:
@@ -73,8 +78,8 @@ class RelSpec:
       num_bins / lo / hi      histogram shape
       qs                      quantile fractions in [0, 1]
       num_groups              group_ranks key domain (0 <= key < num_groups)
-      mesh / axis_name        the JAX package's distributed variant (not
-                              ported: raises)
+      mesh / axis_name        run over a ``core.mesh.Mesh`` (unique,
+                              group_by, join; see the module docstring)
       method                  sorting backend (None -> "auto")
     """
     op: str = "unique"
@@ -135,13 +140,32 @@ class RelSpec:
                 raise ValueError(
                     f"method must be one of {names}, got {method!r}")
 
-        # ---- mesh: the distributed tier is not ported
-        if self.axis_name is not None and self.mesh is None:
+        # ---- mesh: only the ops where local op == global op compose
+        axis_name = self.axis_name
+        if axis_name is not None and self.mesh is None:
             raise ValueError("axis_name requires a mesh")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh-distributed relational ops (mesh/axis_name) are not "
-                "ported yet: " + NOT_PORTED["distributed"])
+            if op not in MESH_OPS:
+                raise ValueError(
+                    f"distributed relational variants exist for "
+                    f"{tuple(sorted(MESH_OPS))}; op {op!r} has none")
+            from repro_torch.core.mesh import Mesh
+            from repro_torch.engine.samplesort import _axes_tuple
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(
+                    f"mesh must be a repro_torch.core.mesh.Mesh, got "
+                    f"{type(self.mesh).__name__}")
+            axis_name = _axes_tuple(self.mesh, axis_name)
+            if method not in ("auto", "distributed"):
+                raise ValueError(
+                    "mesh-distributed relational ops run the 'distributed' "
+                    f"sort; method must be 'auto' or 'distributed', "
+                    f"got {method!r}")
+            if not keycodec.supports(x.dtype):
+                raise ValueError(
+                    f"distributed {op} needs a keycodec dtype "
+                    f"({keycodec.SUPPORTED}), got "
+                    f"{keycodec.dtype_name(x.dtype)}")
 
         # ---- per-op field combos
         if (self.return_inverse or self.return_counts) and op != "unique":
@@ -216,7 +240,7 @@ class RelSpec:
             raise ValueError("qs is a quantile-only field")
 
         return dataclasses.replace(
-            self, op=op, agg=agg, method=method, qs=qs,
+            self, op=op, agg=agg, method=method, axis_name=axis_name, qs=qs,
             size=None if self.size is None else int(self.size),
             num_bins=None if self.num_bins is None else int(self.num_bins),
             num_groups=None if self.num_groups is None
@@ -225,7 +249,9 @@ class RelSpec:
     def static_key(self, shape, dtype) -> tuple:
         """Hashable reduction to the statics an external cache may key on
         (mirrors the JAX package's ``RelSpec.static_key``)."""
+        mesh_key = None if self.mesh is None else self.mesh.key()
         return (self.op, self.agg, self.return_inverse, self.return_counts,
                 self.size, self.fill_value, self.assume_sorted,
                 self.num_bins, self.lo, self.hi, self.qs, self.num_groups,
-                self.method, tuple(shape), keycodec.dtype_name(dtype))
+                mesh_key, self.axis_name, self.method, tuple(shape),
+                keycodec.dtype_name(dtype))

@@ -40,7 +40,7 @@ def run(spec: RelSpec, x: torch.Tensor) -> Unique:
     method, plan = _core.resolve_plan(spec, n, x.dtype, x.device)
     sp = _core.span(spec, n)
     with sp:
-        s = keycodec.to_signed(_core.sorted_column(x, method))
+        s = keycodec.to_signed(_core.sorted_column(x, method, spec=spec))
         uvals, n_unique, _, lengths = _core.compact_sorted(
             s, _core.boundary_mask(s))
         valid = _core.valid_mask(n_unique, n)

@@ -12,7 +12,7 @@ Python (clocks and signals), the same on the CPU and on a card.
   * ElasticPlan — given the surviving device count, the largest usable
     (pod, data, model) mesh with the model axis intact, and the
     grad-accumulation that keeps the global batch: single-process
-    arithmetic; the port runs no mesh yet (ROADMAP item 11).
+    arithmetic; the training path runs no mesh yet (ROADMAP item 12c).
 """
 from __future__ import annotations
 

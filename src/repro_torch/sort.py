@@ -14,6 +14,7 @@ one is ``run(spec, x, device=...)``.  The wrappers build the spec::
     rsort.segment_sort(x, segment_ids=seg)         # ragged groups
     rsort.sort(batch, valid_lengths=lengths)       # padded rows
     rsort.sort(huge_host_keys)                     # > 4 GiB: spill tier
+    rsort.sort(x, mesh=mesh)                       # mesh-global sort
 
 Validation happens once, at the spec layer; execution is
 ``repro_torch.engine``'s.  Every entry point takes ``device=`` (default
@@ -21,7 +22,8 @@ Validation happens once, at the spec layer; execution is
 without a card raises ``RuntimeError``.  A sort planned onto the spill
 tier (``method="spill"``, or ``auto`` above the profile's
 ``spill_threshold_bytes``) leaves its input where it is and returns a CPU
-tensor.
+tensor.  A spec with ``mesh`` (``core.mesh.Mesh``) runs on the mesh's
+devices, whatever ``device`` says, and returns on its first entry's.
 """
 from __future__ import annotations
 
@@ -62,10 +64,23 @@ def run(spec: SortSpec, x, *, device="cuda") -> Union[_T, Tuple[_T, _T]]:
       ``segment_ids`` /    (sorted values, grouped segment ids); with
       ``row_splits``       ``indices``/``values`` as a plain sort does
       ``valid_lengths``    padded rows, valid prefixes sorted
+
+    With ``mesh`` the sort is mesh-global (the ``distributed`` backend:
+    sample sort, odd-even or the two-level schedule, planner-priced) and
+    the result lies on the mesh's first entry's device.
     """
     from repro_torch import engine
     x = torch.as_tensor(x)
     spec = spec.canonical(x)
+    if spec.mesh is not None:
+        be = get_backend("distributed")
+        if spec.k is not None:
+            return be.topk_mesh(x, spec.k, spec.mesh, spec.axis_name)
+        if spec.indices:
+            return be.argsort_mesh(x, spec.mesh, spec.axis_name,
+                                   descending=spec.descending)
+        return be.sort_mesh(x, spec.mesh, spec.axis_name,
+                            values=spec.values, descending=spec.descending)
     if spec.valid_lengths is not None:
         if spec.indices or spec.values is not None:
             raise ValueError("valid_lengths supports value sorts only")
@@ -122,9 +137,11 @@ def sort(x, *, axis: int = -1, descending: bool = False,
          axis_name: Optional[str] = None, device="cuda") -> _T:
     """Sort along ``axis``; with ``valid_lengths``, sort each row's valid
     prefix of a padded (rows, L) batch and write ``fill_value`` over the
-    tail (the scheduler's fixed-shape buckets).  ``mesh``/``axis_name``
-    are the JAX package's distributed form; they raise
-    ``NotImplementedError`` until the distributed tier is ported."""
+    tail (the scheduler's fixed-shape buckets).  With ``mesh``/
+    ``axis_name`` a flat tensor is sorted globally over the mesh (the
+    sample sort; ``axis_name=None`` spans every axis, taking the
+    two-level schedule on a two-axis mesh; odd-even for small sorts on
+    one axis)."""
     return run(SortSpec(axis=axis, descending=descending, method=method,
                         run_len=run_len, valid_lengths=valid_lengths,
                         fill_value=fill_value, mesh=mesh,
@@ -133,13 +150,15 @@ def sort(x, *, axis: int = -1, descending: bool = False,
 
 def argsort(x, *, axis: int = -1, descending: bool = False,
             stable: bool = False, method: Optional[str] = None,
-            run_len: Optional[int] = None, device="cuda") -> _T:
+            run_len: Optional[int] = None, mesh=None,
+            axis_name: Optional[str] = None, device="cuda") -> _T:
     """The sorting permutation (ties keep ascending index order in both
     directions on every backend; ``stable=True`` forces a stable
-    pipeline)."""
+    pipeline).  With ``mesh`` the permutation of a mesh-global sort
+    (int32 global positions; the mesh sort is stable)."""
     return run(SortSpec(axis=axis, descending=descending, stable=stable,
-                        indices=True, method=method, run_len=run_len),
-               x, device=device)
+                        indices=True, method=method, run_len=run_len,
+                        mesh=mesh, axis_name=axis_name), x, device=device)
 
 
 def topk(x, k: int, *, axis: int = -1, method: Optional[str] = None,
@@ -150,7 +169,10 @@ def topk(x, k: int, *, axis: int = -1, method: Optional[str] = None,
     k-aware: ``auto`` weighs radix selection (``select``, K4) against
     ``cuda``'s bitonic top-k (K5) and sort-prefix on the other backends.
     ``select`` and ``torch`` rank +0.0 above -0.0 (``lax.top_k``);
-    ``cuda`` and the other network backends compare numerically."""
+    ``cuda`` and the other network backends compare numerically.  With
+    ``mesh`` a flat tensor is selected globally: a radix select a shard
+    and ONE candidate all-gather, ``lax.top_k``'s bits (indices are
+    global positions)."""
     return run(SortSpec(axis=axis, k=k, descending=True, method=method,
                         run_len=run_len, mesh=mesh, axis_name=axis_name),
                x, device=device)
@@ -161,7 +183,9 @@ def sort_kv(keys, values, *, axis: int = -1, descending: bool = False,
             run_len: Optional[int] = None, mesh=None,
             axis_name: Optional[str] = None, device="cuda"
             ) -> Tuple[_T, _T]:
-    """Sort ``keys`` carrying ``values`` -> (sorted keys, permuted values)."""
+    """Sort ``keys`` carrying ``values`` -> (sorted keys, permuted values);
+    with ``mesh`` globally over the mesh (the payload rides the
+    exchanges)."""
     return run(SortSpec(axis=axis, descending=descending, stable=stable,
                         values=torch.as_tensor(values), method=method,
                         run_len=run_len, mesh=mesh, axis_name=axis_name),

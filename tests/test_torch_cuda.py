@@ -1177,3 +1177,78 @@ def test_smoke_train_step_on_the_card_matches_the_cpu():
                       for a, b in zip(tree.leaves(pc), tree.leaves(pg))])
     assert float((diff > 1e-4).float().mean()) <= 1e-3
     assert float(diff.max()) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# the distributed tier: K3's bucket histogram and a sample sort on one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bins", [2, 9, 257, 1024])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16, torch.int8])
+def test_k3_bucket_hist_matches_plain(bins, dtype):
+    """``radix_bucket_hist`` against its plain version (the reference's
+    tiled one-hot histogram of the interval ids) on a sorted shard with
+    runs of ties on the splitters, at D + 1 bins; 1025 bins raise."""
+    info = torch.iinfo(dtype)
+    g = torch.Generator(device="cuda").manual_seed(bins)
+    k = torch.randint(max(info.min, -300), min(info.max, 300) + 1,
+                      (1 << 20,), generator=g, device="cuda",
+                      dtype=torch.int32).sort().values.to(dtype)
+    sp = k[torch.randint(0, k.shape[0], (bins - 2,), generator=g,
+                         device="cuda")].sort().values
+    got = rsk.bucket_hist(k, sp)
+    want = rsk.bucket_hist_plain(k.cpu(), sp.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert int(got.sum()) == k.shape[0] and int(got[-1]) == 0
+    with pytest.raises(ValueError, match="1024"):
+        rsk.bucket_hist(k, torch.cat([sp, sp[:1]]) if bins == 1024
+                        else k[:1023].sort().values)
+
+
+@pytest.mark.parametrize("shape", [(8,), (2, 4)])
+def test_sample_sort_on_one_card_matches_torch_sort(shape):
+    """Eight mesh entries on cuda:0 (flat and 2 x 4): keys against
+    ``torch.sort``'s, the permutation against its stable one; the flat
+    sort launches ``radix_bucket_hist`` once a shard."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.engine import samplesort as ss
+    mesh = make_mesh(shape, ("a", "b")[:len(shape)], "cuda:0")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(-1000, 1000, (1 << 20,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    _build.reset_launches()
+    k, perm = ss.sample_sort(x, mesh, None, return_indices=True,
+                             descending=True)
+    ref = torch.sort(x, descending=True, stable=True)
+    assert torch.equal(k, ref.values)
+    assert torch.equal(perm.long(), ref.indices)
+    if shape == (8,):
+        assert _build.launches.get("radix_bucket_hist") == 8
+
+
+@pytest.mark.parametrize("n,k,share", [(40, 8, 0.15), (64, 8, 0.15),
+                                       (128256, 50, 0.15),
+                                       (128256, 50, 0.0002),
+                                       (1 << 20, 256, 0.001)])
+def test_k5_kernels_rank_nan_first_like_plain(n, k, share):
+    """K5's one-pass kernels (k <= 256: the short, stream and merge
+    launches) on rows with NaNs against their plain version: NaN ranks
+    above every number, in index order (``lax.top_k``'s rule), also where
+    NaNs come after the admission bound has risen.  The k > 256 network
+    route assumes NaN-free keys, as the sorts do (ROADMAP 3c)."""
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn((6, n), generator=g, device="cuda")
+    mask = torch.rand((6, n), generator=g, device="cuda") < share
+    x[mask] = float("nan")
+    v, i = btk.topk_rows(x, k)
+    pv, pi = btk.topk_rows_plain(x, k)
+    _same(v, pv)
+    _same(i, pi)
+    want = torch.sort(torch.where(torch.isnan(x), float("inf"), x),
+                      dim=-1, descending=True, stable=True).indices[:, :k]
+    nan_rank = torch.isnan(x).sum(-1).clamp(max=k)
+    for r in range(6):
+        first = int(nan_rank[r])
+        assert torch.isnan(v[r, :first]).all()
+        if first < k:
+            assert torch.equal(i[r, first:].long(), want[r, first:k])

@@ -316,13 +316,23 @@ def test_result_on_requested_device_from_numpy_input():
     {"mesh": object()},
     {"axis_name": "data"}, {"method": "distributed"}])
 def test_fields_not_ported_fail_loudly(kwargs):
-    """What the port does not carry yet raises, naming its ROADMAP item
-    (segments, padded rows, ``select``, ``imc`` and ``spill`` are ported
-    now)."""
-    x = np.zeros((1, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every field of the JAX package's spec is carried now (the
+    distributed tier last): a mesh that is not a ``core.mesh.Mesh`` and an
+    ``axis_name`` without a mesh fail loudly, as the reference's do, and
+    ``method="distributed"`` sorts each row over the host mesh of its
+    device (one CPU entry here).  Nothing stands in ``NOT_PORTED``."""
+    from repro_torch.core import sortspec as tspec
+    assert tspec.NOT_PORTED == {}
+    x = np.array([[3.0, 1.0, 2.0, 0.5]], np.float32)
+    if "method" in kwargs:
+        out = tsort.sort(x, device="cpu", **kwargs)
+        assert out.tolist() == [[0.5, 1.0, 2.0, 3.0]]
+        return
+    err = TypeError if "mesh" in kwargs else ValueError
+    with pytest.raises(err, match="Mesh" if "mesh" in kwargs
+                       else "requires a mesh"):
         tsort.sort(x, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises((TypeError, ValueError)):
         tsort.run(tsort.SortSpec(segment_ids=torch.zeros(4), mesh=object()),
                   x, device="cpu")
 
@@ -382,6 +392,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "from repro_torch.relational import relspec, unique, groupby, "
             "join, encode, sketch\n"
             "from repro_torch.obs import report\n"
+            "from repro_torch.core import mesh, topology, distributed_sort\n"
+            "from repro_torch.engine import samplesort, collectives\n"
+            "from repro_torch.launch import mesh as launch_mesh\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"

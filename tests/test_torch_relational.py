@@ -527,16 +527,29 @@ def test_relspec_validation_errors(kw, x, values, match):
 
 @pytest.mark.parametrize("op", ["unique", "group_by", "join"])
 def test_relspec_mesh_waits_for_the_distributed_tier(op):
-    """The reference rejects a mesh for join and runs unique/group_by over
-    it; the port raises for every op until the distributed tier is
-    ported.  The spill tier is ported: ``method="spill"`` runs, as in the
+    """The distributed tier is ported: unique, group_by and join (the
+    port's addition: its stable mesh sort gives join's order) run over a
+    mesh and equal their single-device results; the reference rejects a
+    mesh for join.  A mesh that is not a ``core.mesh.Mesh`` fails loudly.
+    The spill tier is ported: ``method="spill"`` runs, as in the
     reference."""
+    from repro_torch.core.mesh import make_mesh
     x = torch.zeros(3, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         TRelSpec(op=op, mesh=object()).canonical(x, x)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trel.unique(x, mesh=object(), axis_name="data", device="cpu")
-    col = np.array([3, 1, 3, 2], np.int32)
+    if op == "join":
+        with pytest.raises(ValueError, match="distributed relational"):
+            JRelSpec(op=op, mesh=object()).canonical(
+                jnp.zeros(3, jnp.int32), jnp.zeros(3, jnp.int32))
+    mesh = make_mesh((4,), ("data",), "cpu")
+    col = np.array([3, 1, 3, 2, 7, 1, 3, 0, 2], np.int32)
+    other = np.array([1, 3, 5, 3], np.int32)
+    fn = {"unique": lambda **kw: trel.unique(_t(col), **kw),
+          "group_by": lambda **kw: trel.group_by(_t(col), _t(col), **kw),
+          "join": lambda **kw: trel.join(_t(col), _t(other), **kw)}[op]
+    for a, b in zip(fn(device="cpu"), fn(mesh=mesh, axis_name="data")):
+        for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert (u is None and v is None) or torch.equal(u, v)
     _same(jrel.unique(jnp.asarray(col), method="spill"),
           trel.unique(_t(col), method="spill", device="cpu"), op)
 

@@ -100,8 +100,26 @@ def test_requests_match_the_reference_stream():
 
 
 def test_mesh_paths_wait_for_the_distributed_tier():
-    with pytest.raises(NotImplementedError, match="distributed tier"):
-        tserve.LengthSortedScheduler(4, mesh=object(), device="cpu")
+    """The scheduler's mesh path is ported: a backlog under
+    ``distributed_min`` keeps the local argsort, one at or over it sorts
+    over the mesh, and both give the same batches."""
+    from repro_torch.core.mesh import make_mesh
+    mesh = make_mesh((4,), ("data",), "cpu")
+    rng = np.random.default_rng(5)
+    lens = rng.integers(4, 60, 40)
+    batches = {}
+    for name, kw in (("local", {}), ("small", dict(mesh=mesh)),
+                     ("mesh", dict(mesh=mesh, distributed_min=16))):
+        s = tserve.LengthSortedScheduler(4, device="cpu", **kw)
+        for i, n in enumerate(lens):
+            s.submit(tserve.Request(rid=i, prompt=np.zeros(n, np.int32)))
+        got = []
+        while s.queue:
+            got.append([r.rid for r in s.next_batch()])
+        batches[name] = (got, s.mesh_sorts)
+    assert batches["small"] == (batches["local"][0], 0)
+    assert batches["mesh"][0] == batches["local"][0]
+    assert batches["mesh"][1] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -380,3 +398,33 @@ def test_slo_and_markdown_reports_match_the_reference():
         for obs in (jobs, tobs):
             obs.clear()
             obs.disable()
+
+
+def test_topology_state_dir_round_trip(tmp_path, monkeypatch):
+    """Given the serving mesh, the snapshot carries its topology beside
+    the profile and the next start restores it; a topology of another
+    mesh shape is skipped, never trusted."""
+    from repro_torch.core import topology
+    from repro_torch.core.mesh import make_mesh
+    monkeypatch.setenv(topology.TOPOLOGY_DIR_ENV, str(tmp_path / "cache"))
+    monkeypatch.setenv(tuning.PROFILE_DIR_ENV, str(tmp_path / "prof"))
+    mesh = make_mesh((2, 4), ("host", "dev"), "cpu")
+    topology.set_active(None)
+    try:
+        cal = topology.calibrate(mesh, small_bytes=256, large_bytes=4096,
+                                 reps=1)
+        paths = tserve.snapshot_state(tmp_path, mesh=mesh)
+        assert len(paths) == 2 and all(p.is_file() for p in paths)
+        topology.set_active(None)
+        assert tserve.restore_state(tmp_path, mesh=mesh) == \
+            ["tuning profile", "topology"]
+        got = topology.active()
+        assert got.source == "persisted" and got.axes == cal.axes
+        topology.set_active(None)
+        other = make_mesh((4, 2), ("host", "dev"), "cpu")
+        assert tserve.restore_state(tmp_path, mesh=other) == \
+            ["tuning profile"]
+        assert topology.active() is None
+    finally:
+        topology.set_active(None)
+        tuning.set_active(None)

@@ -279,3 +279,59 @@ def test_topk_rows_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="short"):
         tbt.topk_rows(torch.zeros(2, 300), 32, tbt.RowPlan("short",
                                                            lanes=32))
+
+
+# ---------------------------------------------------------------------------
+# NaN pins: the probe of 40 float32 values with 6 NaNs (seed 0, k = 8)
+# ---------------------------------------------------------------------------
+
+def _nan_probe(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(40).astype(np.float32)
+    x[rng.choice(40, 6, replace=False)] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_cuda_topk_ranks_nan_first_like_select_and_lax(seed):
+    """The port's ``cuda`` top-k (K5's plain version on the CPU) ranks NaN
+    above every number, in index order, as the reference's ``select`` and
+    ``jax.lax.top_k`` do: a serve on ``cuda`` picks a NaN logit exactly
+    where ``lax.top_k`` would."""
+    x = _nan_probe(seed)
+    lv, li = jax.lax.top_k(jnp.asarray(x), 8)
+    sv, si = jsort.topk(jnp.asarray(x), 8, method="select", interpret=True)
+    tv, ti = tsort.topk(torch.from_numpy(x), 8, method="cuda", device="cpu")
+    np.testing.assert_array_equal(np.asarray(li), np.asarray(si))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(li))
+    assert_same(lv, tv)
+    if seed == 0:
+        assert ti.tolist() == [9, 12, 20, 23, 28, 39, 21, 6]
+
+
+def test_reference_pallas_topk_does_not_skip_nan():
+    """Pinned fault of the reference: its ``pallas`` top-k neither ranks
+    NaN first nor skips it.  On the seed-0 probe it returns a set that is
+    not the top 8 of the non-NaN values (it drops the 2nd and 3rd
+    largest); the port does not follow it there."""
+    x = _nan_probe(0)
+    _, pi = jsort.topk(jnp.asarray(x), 8, method="pallas", interpret=True)
+    pi = np.asarray(pi).tolist()
+    assert pi == [21, 7, 24, 38, 19, 5, 35, 0]
+    finite = np.flatnonzero(~np.isnan(x))
+    top8 = finite[np.argsort(-x[finite], kind="stable")[:8]].tolist()
+    assert top8 == [21, 6, 19, 7, 24, 38, 2, 33]
+    assert set(pi) != set(top8)
+
+
+@pytest.mark.parametrize("share", [0.15, 0.0005])
+def test_cuda_topk_ranks_nan_first_on_long_rows(share):
+    """The stream route's plain version (rows of the vocabulary, cut into
+    CTAs and warps) ranks NaN first too, where NaNs are many and where
+    they are rare: ``lax.top_k``'s indices."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 128256)).astype(np.float32)
+    x[rng.random(x.shape) < share] = np.nan
+    _, li = jax.lax.top_k(jnp.asarray(x), 50)
+    tv, ti = tsort.topk(torch.from_numpy(x), 50, method="cuda", device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(li))
