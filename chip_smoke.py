@@ -129,7 +129,34 @@ Phases, each printed as one JSON line:
             and K6 once a layer and prefill batch; prefill ms, decode
             tokens/s, peak memory and the top-k plans are printed; then K6
             against its plain version at (8, 1024) x 16/16 heads of 128;
-5c. train   moonshot at full width, depth cut to 3 (one dense prefix
+5c. families
+            the ssm, hybrid, encdec and vlm families and the dense configs
+            this slice added, each at full width with random weights from
+            the seed, through ``serve`` with K6 on (8 requests in one batch,
+            prompts up to 1023 tokens, 16 tokens each by top-k, k = 50),
+            one model at a time, freed before the next: mamba2-1.3b (48
+            layers), recurrentgemma-2b (26), gemma-2b (18), whisper-tiny
+            (4 + 4, frames (8, 1500, 384)), and cut in depth where the
+            weights do not fit: qwen2-vl-72b 8 of 80 layers, deepseek-67b 8
+            of 95, nemotron-4-340b 2 of 96.  The counts are set to 0 just
+            before each serve and read just after: K6 once an attention
+            layer a prefill batch (head dim 256 for gemma and
+            recurrentgemma, 192 for nemotron; none for mamba2 and whisper),
+            K5's sampling launch once a decode step.  Then each family's
+            checks on the same weights: mamba2's float32 decode step at
+            position 300 against a 301-token prefill; recurrentgemma's
+            (1, 4096) prefill through K6 and through the einsum path (the
+            2048-key window bites) and 8 decode steps across the ring
+            buffer from both; gemma's and nemotron's (8, 1024) prefill both
+            ways; qwen2-vl's (2, 2048) prefill with (2, 1024, 8192) vision
+            embeddings and the M-RoPE ids of a 32 x 32 patch grid both
+            ways (each within 0.2 and one K6 launch an attention layer);
+            the long_500k shape for mamba2 and recurrentgemma (a
+            524288-deep decode state no larger than a 4096-deep one, no
+            cache past 2048 slots, 8 finite decode steps from position
+            524280).  One line a model: prefill ms, decode tokens/s, peak
+            GiB, the card's name and power limit;
+5d. train   moonshot at full width, depth cut to 3 (one dense prefix
             layer, a stacked body of two MoE layers, 1.93 B parameters),
             AdamW over ``SyntheticLM`` batches of 4 x 1024: one step's
             gradients with the router on K5 against the same step with
@@ -141,7 +168,7 @@ Phases, each printed as one JSON line:
             Then the smoke model: one float32 step on the card against the
             CPU (``SMOKE_TOL``), and ``launch.train`` saved, restored and
             continued on the card (the step count carries on);
-5d. data    2^20 token rows of 128 with a tenth planted as copies:
+5e. data    2^20 token rows of 128 with a tenth planted as copies:
             ``dedup_rows`` on ``method="radix"`` (its ``unique`` exactly
             one K3 histogram and 4 passes) and on ``auto``, and
             ``global_dedup`` through the spill tier in 4 chunks (K3 a
@@ -185,7 +212,9 @@ Phases, each printed as one JSON line:
             kernel (with its merge launch) at the vocabulary, sampling and
             2^24 rows, each also ascending (every key admitted), its merge
             launch alone, the serve's sampling rows through radix, cuda and
-            ``torch.topk``, and its network kernel (k > 256) as before.
+            ``torch.topk``, and its network kernel (k > 256) as before;
+            K6 at minitron's, moonshot's, gemma-2b's (H = 256, MQA) and
+            nemotron-4-340b's (H = 192) prefill batches.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -194,6 +223,7 @@ It needs a card: without one it exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -222,10 +252,12 @@ SERVE = dict(n_requests=16, batch_size=8, decode_steps=32, topk=50,
              max_len=4096)        # prompts of 4 to 1023 tokens
 ATTN_SHAPES = ((8, 1024), (1, 32768))    # (B, S) of K6's rows: the serve's
 ATTN_HEADS = (24, 8, 128)                # prefill batch and prefill_32k
-# every K6 row: (B, S) and (query heads, kv heads, head dim); the last is
-# moonshot's prefill batch
+# every K6 row: (B, S) and (query heads, kv heads, head dim); then
+# moonshot's prefill batch, and the families phase's wide heads: gemma-2b's
+# (MQA, 256) and nemotron-4-340b's (192)
 K6_ROWS = tuple((bs, ATTN_HEADS) for bs in ATTN_SHAPES) \
-    + (((8, 1024), (16, 16, 128)),)
+    + (((8, 1024), (16, 16, 128)), ((8, 1024), (8, 1, 256)),
+       ((8, 1024), (96, 8, 192)))
 K6_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # max |kernel - plain|
 # ... and the largest |kernel - plain|_2 / |plain|_2 over query rows: an
 # absolute limit is loose where outputs are small (a row that sees n keys
@@ -522,8 +554,9 @@ def phase_kernels(rng) -> dict:
 
 
 def check_k6() -> int:
-    """K6 against its plain version: float32 and bf16, G = 1 and 3
-    (minitron's), causal with and without a window, non-causal, an
+    """K6 against its plain version: float32 and bf16, head dims 128, 192
+    (nemotron-4-340b's) and 256 (gemma-2b's, recurrentgemma-2b's), G = 1
+    and 3 (minitron's), causal with and without a window, non-causal, an
     absolute offset past T's start, and lengths off the 128-row blocks; its
     own generator, as K7's.  Emits the largest errors; returns the number
     of cases."""
@@ -531,22 +564,21 @@ def check_k6() -> int:
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     cases, worst = 0, {}
-    for name in K6_TOL:
-        for g in (1, 3):
-            for s, t, off, causal, window in (
-                    (1000, 1000, 0, True, 0), (1000, 1000, 0, True, 256),
-                    (77, 77, 0, True, 0), (300, 1300, 1000, True, 0),
-                    (300, 1300, 1000, True, 100), (200, 333, 0, False, 0)):
-                q, k, v = attn_rows(gen, 4, g, s, t, 128, getattr(torch, name))
-                errs = attn_within(
-                    fa.flash_rows(q, k, v, off, causal=causal, window=window),
-                    fa.flash_rows_plain(q, k, v, off, causal=causal,
-                                        window=window),
-                    f"K6 {name} g={g} s={s} t={t} off={off} "
-                    f"causal={causal} window={window}")
-                worst[name] = [max(a, b) for a, b in
-                               zip(worst.get(name, (0.0, 0.0)), errs)]
-                cases += 1
+    for name, h, g in itertools.product(K6_TOL, (128, 192, 256), (1, 3)):
+        for s, t, off, causal, window in (
+                (1000, 1000, 0, True, 0), (1000, 1000, 0, True, 256),
+                (77, 77, 0, True, 0), (300, 1300, 1000, True, 0),
+                (300, 1300, 1000, True, 100), (200, 333, 0, False, 0)):
+            q, k, v = attn_rows(gen, 4, g, s, t, h, getattr(torch, name))
+            errs = attn_within(
+                fa.flash_rows(q, k, v, off, causal=causal, window=window),
+                fa.flash_rows_plain(q, k, v, off, causal=causal,
+                                    window=window),
+                f"K6 {name} h={h} g={g} s={s} t={t} off={off} "
+                f"causal={causal} window={window}")
+            worst[name] = [max(a, b) for a, b in
+                           zip(worst.get(name, (0.0, 0.0)), errs)]
+            cases += 1
     emit({"phase": "kernels", "k6_max_abs_err_and_row_rel_err": worst,
           "limits": [K6_TOL, K6_ROW_REL]})
     return cases
@@ -1775,7 +1807,7 @@ def phase_serve() -> dict:
     sched = srv.LengthSortedScheduler(bsz, method=cfg.sort_method,
                                       device="cuda")
     for r in srv.make_requests(cfg.vocab_size, n_req, SERVE["max_len"],
-                               steps, SEED):
+                               steps, np.random.default_rng(SEED)):
         sched.submit(r)
     errs, control, decided, replayed, k6_errs = [], [], 0, 0, []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1916,7 +1948,7 @@ def decode_split(model, params, toks, max_len) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 5b-5d: the MoE family, the training path, the data pipeline
+# phases 5b, 5d, 5e: the MoE family, the training path, the data pipeline
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "moonshot-v1-16b-a3b"
@@ -2033,6 +2065,325 @@ def phase_moe_serve() -> dict:
                                                       K6_ROW_REL["bfloat16"]]})
     del q, k, v
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the ssm, hybrid, encdec and vlm families and the dense configs
+# ---------------------------------------------------------------------------
+
+FAMILY_SERVE = dict(n_requests=8, batch_size=8, decode_steps=16, topk=50,
+                    max_len=4096)     # one batch, prompts of 4 to 1023 tokens
+# (arch, layers served: None for the full depth; the depth cuts keep the
+# weights of the widest layers within the card's 80 GB with room for the
+# checks: 80 of qwen2-vl-72b's layers are 145 GB in bf16, deepseek-67b's 95
+# 125 GB, nemotron-4-340b's 96 632 GB)
+FAMILIES = (("mamba2-1.3b", None), ("recurrentgemma-2b", None),
+            ("gemma-2b", None), ("whisper-tiny", None),
+            ("qwen2-vl-72b", 8), ("deepseek-67b", 8),
+            ("nemotron-4-340b", 2))
+# K6's head dim and kv heads where this phase asserts them: 256 with MQA
+# (gemma-2b), 256 (recurrentgemma-2b), 192 (nemotron-4-340b)
+K6_WIDE = {"gemma-2b": (256, 1), "recurrentgemma-2b": (256, 1),
+           "nemotron-4-340b": (192, 8)}
+LONG_CONTEXT = 524288        # the long_500k shape's cache depth
+WINDOW_PREFILL = (1, 4096)   # recurrentgemma: twice its 2048-key window
+VISION_PREFILL = (2, 2048)   # qwen2-vl: a 32 x 32 patch grid, then text
+VISION_GRID = 32
+DECODE_TOL = 1e-2   # float32: a decode step against a longer prefill
+
+
+def serve_cut(cfg, n_requests, batch_size, decode_steps, topk, max_len):
+    """``serve.serve``'s own steps for a config whose depth is cut (the
+    whole model does not fit the card): the model, its serve step, the
+    sampling noise, the scheduler and request stream from the seed, and
+    ``serve._serve_loop``.  Returns (requests done, stats) as ``serve``
+    does."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model_zoo
+    model = model_zoo.build(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    step = steps_lib.make_serve_step(
+        model, ShapeSpec("serve", max_len, batch_size, "decode"),
+        sample_topk=topk)
+    noise = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    sched = srv.LengthSortedScheduler(batch_size, method=cfg.sort_method,
+                                      device="cuda")
+    rng = np.random.default_rng(SEED)
+    for r in srv.make_requests(cfg.vocab_size, n_requests, max_len,
+                               decode_steps, rng):
+        sched.submit(r)
+    done = []
+    stats = {"batches": 0, "padding_waste": [], "prefill_ms": [],
+             "decode_tps": []}
+    srv._serve_loop(sched, model, params, step, noise, decode_steps,
+                    max_len, done, stats, rng=rng)
+    stats["length_groups"] = srv.batch_accounting(done, device="cuda")
+    return done, stats
+
+
+def grid_positions(b, s, prefix, side):
+    """(3, B, S) int32 M-RoPE ids on the card: a side x side patch grid at
+    t = 0 over the first ``prefix`` positions (h = row, w = column), then
+    text from ``side`` on with t = h = w (Qwen2-VL's layout)."""
+    import torch
+    pos = torch.zeros((3, b, s), dtype=torch.int32, device="cuda")
+    i = torch.arange(prefix, device="cuda")
+    pos[1, :, :prefix] = (i // side).to(torch.int32)
+    pos[2, :, :prefix] = (i % side).to(torch.int32)
+    pos[:, :, prefix:] = (side + torch.arange(s - prefix, device="cuda")).to(
+        torch.int32)
+    return pos
+
+
+def flash_vs_einsum(cfg, params, batch, what, max_len):
+    """The prefill of ``batch`` with K6 (counted: one launch an attention
+    layer) and with the einsum attention on the same weights; fails unless
+    the last logits agree within ``PREFILL_LOGITS_TOL``.  Returns (max
+    |diff|, the two decode states)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import model_zoo
+    out = {}
+    for flash in (True, False):
+        m = model_zoo.build(dataclasses.replace(cfg, flash_prefill=flash),
+                            device="cuda")
+        _build.reset_launches()
+        out[flash] = m.prefill(params, batch, max_len=max_len)
+        torch.cuda.synchronize()
+        k6 = _build.launches.get("flash_attention_fwd", 0)
+        n_attn = sum(cfg.layer_kind(i) == "attn"
+                     for i in range(cfg.n_layers))
+        if k6 != (n_attn if flash else 0):
+            raise AssertionError(f"{what}: K6 launched {k6} times with "
+                                 f"flash={flash}, expected {n_attn}")
+    err = within(out[True][0], out[False][0], PREFILL_LOGITS_TOL,
+                 f"{what}: flash vs einsum prefill logits")
+    return err, out[True][1], out[False][1]
+
+
+def state_bytes(state) -> int:
+    """Bytes of every tensor of a decode state."""
+    import torch
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    if isinstance(state, dict):
+        return sum(state_bytes(v) for v in state.values())
+    if isinstance(state, (list, tuple)):
+        return sum(state_bytes(v) for v in state)
+    return 0
+
+
+def long_context(model, params) -> dict:
+    """The long_500k shape: ``decode_state(1, 524288)`` holds no cache
+    slot past the window (its bytes equal a 4096-deep state's and no
+    sequence axis exceeds 2048), and eight decode steps from position
+    524280 give finite logits."""
+    import torch
+    st = model.decode_state(1, LONG_CONTEXT)
+    small = state_bytes(model.decode_state(1, 4096))
+    seq = [x.shape[-3] for layer in st["prefix"] + [st["body"]]
+           if layer is not None and hasattr(layer, "k")
+           for x in (layer.k, layer.v)]
+    if state_bytes(st) != small or any(n > 2048 for n in seq):
+        raise AssertionError(f"{model.cfg.name}: a {LONG_CONTEXT}-deep "
+                             f"decode state holds {state_bytes(st)} bytes "
+                             f"(4096-deep: {small}), cache lengths {seq}")
+    st["t"] = torch.full((), LONG_CONTEXT - 8, dtype=torch.int32,
+                         device="cuda")
+    tok = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    for _ in range(8):
+        logits, st = model.decode_step(params, tok, st)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{model.cfg.name}: non-finite logits at "
+                                 f"t = {int(st['t']) - 1}")
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    return {"state_bytes": state_bytes(st), "cache_lengths": sorted(set(seq)),
+            "decoded_to": int(st["t"])}
+
+
+def family_checks(arch, cfg, model, params) -> dict:
+    """The per-family checks on the served model's weights (rebuilt from
+    the same seed): what each family adds to the path."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model_zoo
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    out = {}
+    if arch == "mamba2-1.3b":
+        # decode continues prefill: decode_step at position s against a
+        # prefill of s + 1 tokens, in float32 (and bf16, reported)
+        toks = torch.randint(0, cfg.vocab_size, (2, 301), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        wide = model_zoo.build(dataclasses.replace(cfg, dtype="float32"),
+                               device="cuda")
+        for name, m, p in (("float32", wide, as_float(params)),
+                           ("bfloat16", model, params)):
+            full, _ = m.prefill(p, {"tokens": toks}, max_len=512)
+            _, st = m.prefill(p, {"tokens": toks[:, :300]}, max_len=512)
+            step, _ = m.decode_step(p, toks[:, 300:], st)
+            tol = DECODE_TOL if name == "float32" else float("inf")
+            out[f"decode_vs_prefill_{name}_max_abs_err"] = within(
+                step, full, tol, f"mamba2 {name} decode vs prefill")
+            del p, st
+        out["logits_max_abs"] = full[:, :cfg.vocab_size].abs().max().item()
+        out["long_context"] = long_context(model, params)
+    elif arch == "recurrentgemma-2b":
+        b, s = WINDOW_PREFILL
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        err, sf, se = flash_vs_einsum(cfg, params, {"tokens": toks},
+                                      "recurrentgemma (1, 4096)", s + 8)
+        out["window_prefill"] = [b, s]
+        out["flash_vs_einsum_max_abs_err"] = err
+        # eight steps across the 2048-slot ring buffer from both states
+        errs, tok = [], toks[:, -1:]
+        for _ in range(8):
+            lf, sf = model.decode_step(params, tok, sf)
+            le, se = model.decode_step(params, tok, se)
+            errs.append(within(lf, le, PREFILL_LOGITS_TOL,
+                               "recurrentgemma decode after the window"))
+            tok = le.argmax(-1, keepdim=True).to(torch.int32)
+        out["ring_decode_max_abs_err"] = errs
+        del sf, se
+        out["long_context"] = long_context(model, params)
+    elif arch in ("gemma-2b", "nemotron-4-340b"):
+        toks = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        err, _, _ = flash_vs_einsum(cfg, params, {"tokens": toks},
+                                    f"{arch} (8, 1024)", 1024)
+        out["flash_vs_einsum_max_abs_err"] = err
+    elif arch == "qwen2-vl-72b":
+        b, s = VISION_PREFILL
+        prefix = VISION_GRID * VISION_GRID
+        if prefix != cfg.vision_prefix:
+            raise AssertionError(f"qwen2-vl: vision prefix "
+                                 f"{cfg.vision_prefix}, grid {prefix}")
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32),
+                 "vision_embeds": (torch.randn((b, prefix, cfg.d_model),
+                                               generator=gen, device="cuda")
+                                   * 0.1).bfloat16(),
+                 "positions": grid_positions(b, s, prefix, VISION_GRID)}
+        err, _, _ = flash_vs_einsum(cfg, params, batch,
+                                    "qwen2-vl vision prefill", s)
+        out["vision_prefill"] = [b, s, prefix]
+        out["flash_vs_einsum_max_abs_err"] = err
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_families() -> dict:
+    """The ssm (mamba2-1.3b), hybrid (recurrentgemma-2b), encdec
+    (whisper-tiny) and vlm (qwen2-vl-72b) families and the dense gemma-2b,
+    deepseek-67b and nemotron-4-340b, each at full width (the depth cut
+    where the weights do not fit, ``FAMILIES``), random weights from the
+    seed, with K6 on, through ``serve`` (through ``serve_cut``, its own
+    steps, where the depth is cut), one at a time and freed before the
+    next.  The counts are set to 0 just before each serve and read just
+    after: K6 once an attention layer a prefill batch (none for mamba2 and
+    whisper), K5's sampling (``topk_rows_stream``) once a decode step.
+    Then each family's own checks (``family_checks``).  Returns the
+    counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import engine
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import model_zoo
+
+    bsz, steps, n_req = (FAMILY_SERVE["batch_size"],
+                         FAMILY_SERVE["decode_steps"],
+                         FAMILY_SERVE["n_requests"])
+    smi = card()
+    total = {}
+    for arch, layers in FAMILIES:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        encdec = cfg.family == "encdec"
+        n_attn = 0 if encdec else sum(cfg.layer_kind(i) == "attn"
+                                      for i in range(cfg.n_layers))
+        if arch in K6_WIDE and (cfg.resolved_head_dim,
+                                cfg.n_kv_heads) != K6_WIDE[arch]:
+            raise AssertionError(f"{arch}: K6 at head dim "
+                                 f"{cfg.resolved_head_dim}, "
+                                 f"{cfg.n_kv_heads} kv heads; expected "
+                                 f"{K6_WIDE[arch]}")
+        plan = engine.choose(cfg.padded_vocab, bsz, torch.float32,
+                             k=FAMILY_SERVE["topk"], device="cuda")
+        if plan.method != "cuda":
+            raise AssertionError(f"{arch}: the sampling top-k is planned on "
+                                 f"{plan.method}, not K5")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if layers is None:
+            done, stats = srv.serve(arch, smoke=False, seed=SEED,
+                                    device="cuda", flash_prefill=True,
+                                    **FAMILY_SERVE)
+        else:
+            done, stats = serve_cut(
+                dataclasses.replace(cfg, flash_prefill=True), **FAMILY_SERVE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_attention_fwd": n_attn * stats["batches"],
+                "topk_rows_stream": stats["batches"] * (steps - 1)}
+        wrong = {k: counts.get(k, 0) for k, v in want.items()
+                 if counts.get(k, 0) != v}
+        if wrong:
+            raise AssertionError(f"{arch}: launches {wrong}, expected "
+                                 f"{want} (counts {counts})")
+        check_k3_sorts(arch, counts, None)
+        if sorted(r.rid for r in done) != list(range(n_req)):
+            raise AssertionError(f"{arch}: {len(done)} of {n_req} answered")
+        for r in done:
+            if r.out is None or len(r.out) != steps or not (
+                    (r.out >= 0) & (r.out < cfg.vocab_size)).all():
+                raise AssertionError(f"{arch}: request {r.rid} got {r.out}")
+        lens, per_len = np.unique([len(r.prompt) for r in done],
+                                  return_counts=True)
+        if stats["length_groups"] != [(int(k), int(c), float(steps))
+                                      for k, c in zip(lens, per_len)]:
+            raise AssertionError(f"{arch}: length accounting "
+                                 f"{stats['length_groups']}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        prompt_lens = sorted(len(r.prompt) for r in done)
+        del done
+        torch.cuda.empty_cache()
+        tc = time.perf_counter()
+        model = model_zoo.build(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        checks = family_checks(arch, cfg, model, params)
+        del model, params
+        torch.cuda.empty_cache()
+        emit({"phase": "families", "model": arch, "family": cfg.family,
+              "layers": cfg.n_layers, "n_params": cfg.n_params(),
+              "reduced": None if layers is None else
+              f"depth {get_config(arch).n_layers} -> {layers} layers",
+              "k6_head_dim": cfg.resolved_head_dim if n_attn else None,
+              "k6_launches": counts.get("flash_attention_fwd", 0),
+              "sampling_k5_launches": counts.get("topk_rows_stream", 0),
+              "launches": counts, "batches": stats["batches"],
+              "prompt_lens": prompt_lens,
+              "prefill_ms": stats["prefill_ms"],
+              "decode_tok_s": stats["decode_tps"],
+              "peak_memory_gib": peak / 2 ** 30, "serve_seconds": seconds,
+              "checks": checks, "checks_seconds": time.perf_counter() - tc,
+              "nvidia_smi": smi})
+    return total
 
 
 def _train_smoke_on_card_vs_cpu() -> dict:
@@ -3172,8 +3523,10 @@ def time_k5(row, gen) -> None:
 
 def time_k6(row, gen) -> None:
     """K6's kernel-table rows: minitron's serve prefill batch, (8, 1024) x
-    24/8 heads of 128, prefill_32k's length at batch 1, and moonshot's
-    prefill batch, (8, 1024) x 16/16 heads of 128, bf16; beside SDPA on
+    24/8 heads of 128, prefill_32k's length at batch 1, moonshot's
+    prefill batch, (8, 1024) x 16/16 heads of 128, and the families
+    phase's wide heads at (8, 1024): gemma-2b's 8/1 of 256 and
+    nemotron-4-340b's 96/8 of 192, bf16; beside SDPA on
     the same (B, N, S, H) tensors (causal from position 0: S = T).  Bound:
     the causal half of QK^T and PV over the bf16 tensor rate, against q, k,
     v and o read or written once."""
@@ -3472,6 +3825,11 @@ def main() -> int:
     emit({"phase": "moe_serve", "seconds": time.perf_counter() - ts})
 
     ts = time.perf_counter()
+    family_launches = phase_families()
+    emit({"phase": "families", "total_launches": family_launches,
+          "seconds": time.perf_counter() - ts})
+
+    ts = time.perf_counter()
     train_launches = phase_train()
     emit({"phase": "train", "total_launches": train_launches,
           "seconds": time.perf_counter() - ts})
@@ -3494,7 +3852,8 @@ def main() -> int:
 
     launches = dict(main_res["launches"])
     for counts in (rel_launches, dist_launches, serve_launches, moe_launches,
-                   train_launches, data_launches, spill_launches):
+                   family_launches, train_launches, data_launches,
+                   spill_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 

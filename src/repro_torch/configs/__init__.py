@@ -1,8 +1,7 @@
 """repro_torch.configs — workload configurations of the port: the paper's
 sorting unit (``adsimc_paper``), the model configurations (one module per
-architecture: ``minitron_4b``, ``moonshot_v1_16b``, ``dbrx_132b``) and
-the shape registry."""
+architecture of ``ARCH_IDS``) and the shape registry."""
 from repro_torch.configs.adsimc_paper import PAPER_UNIT, SortUnitConfig  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
-    ALIASES, SHAPES, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig,
-    ShapeSpec, get_config, get_smoke_config)
+    ALIASES, ARCH_IDS, SHAPES, ModelConfig, MoEConfig, RGLRUConfig,
+    SSMConfig, ShapeSpec, get_config, get_smoke_config)

@@ -2,12 +2,10 @@
 
 The port's copy of the JAX package's ``configs/base.py``: the same
 dataclasses and fields, so a configuration means the same model in both
-packages.  ``param_dtype`` answers in torch dtypes.  Each architecture the
-port carries is a ``ModelConfig`` in its own module under
-``repro_torch.configs`` (``minitron_4b``, ``moonshot_v1_16b``,
-``dbrx_132b`` so far); ``get_config(name)``
-resolves them, and each also provides a ``smoke()`` reduction (same
-family, tiny dims) for CPU tests.
+packages.  ``param_dtype`` answers in torch dtypes.  Every architecture
+of ``ARCH_IDS`` is a ``ModelConfig`` in its own module under
+``repro_torch.configs``; ``get_config(name)`` resolves them, and each also
+provides a ``smoke()`` reduction (same family, tiny dims) for CPU tests.
 
 Input-shape cells are ``ShapeSpec`` instances:
   train_4k     seq 4096  x global batch 256   -> train_step
@@ -180,8 +178,13 @@ SHAPES: Dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
-# display name -> module id (every architecture of the JAX package; the
-# port carries the modules of the ones it serves)
+ARCH_IDS = (
+    "whisper_tiny", "deepseek_67b", "minitron_4b", "gemma_2b",
+    "nemotron_4_340b", "moonshot_v1_16b", "dbrx_132b",
+    "recurrentgemma_2b", "qwen2_vl_72b", "mamba2_13b",
+)
+
+# display name -> module id
 ALIASES = {
     "whisper-tiny": "whisper_tiny", "deepseek-67b": "deepseek_67b",
     "minitron-4b": "minitron_4b", "gemma-2b": "gemma_2b",
@@ -194,16 +197,7 @@ ALIASES = {
 
 def _module(name: str):
     mod_name = ALIASES.get(name, name.replace("-", "_"))
-    try:
-        return importlib.import_module(f"repro_torch.configs.{mod_name}")
-    except ModuleNotFoundError as e:
-        if e.name != f"repro_torch.configs.{mod_name}":
-            raise
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (the port carries "
-            f"minitron-4b, moonshot-v1-16b-a3b and dbrx-132b; the other "
-            f"families and dense configs are ROADMAP Queue 1 item 12b)"
-        ) from e
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -102,13 +102,21 @@ def _leaf(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+# the leaves the reference keeps float32 in every model dtype: a MoE
+# layer's router, the SSM's decay, skip and step bias, the RG-LRU's gate
+# biases and decay parameter
+FLOAT32_LEAVES = ("router", "a_log", "d_skip", "dt_bias", "b_a", "b_i",
+                  "lam")
+
+
 def params_from_jax(params: Any, cfg: ModelConfig, *, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Any:
     """The port's parameter tree for ``cfg`` from the JAX package's (nested
     dicts/lists of numpy arrays, ``prefix`` lists and stacked ``body``
     leaves alike): every leaf a tensor of ``dtype`` (default
-    ``cfg.param_dtype()``) on ``device`` (default ``"cuda"``), but a MoE
-    layer's ``router``, which stays float32 as the reference keeps it."""
+    ``cfg.param_dtype()``) on ``device`` (default ``"cuda"``), but the
+    leaves of :data:`FLOAT32_LEAVES`, which stay float32 as the reference
+    keeps them."""
     dev = resolve_device(device)
     dtype = dtype or cfg.param_dtype()
 
@@ -117,6 +125,7 @@ def params_from_jax(params: Any, cfg: ModelConfig, *, device="cuda",
             return {k: conv(v, k) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return [conv(v) for v in tree]
-        return _leaf(tree, torch.float32 if key == "router" else dtype, dev)
+        return _leaf(tree, torch.float32 if key in FLOAT32_LEAVES else dtype,
+                     dev)
 
     return conv(params)

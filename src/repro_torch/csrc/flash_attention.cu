@@ -39,12 +39,20 @@
 // The mask is evaluated only on tiles that need it (the diagonal, the
 // window's lower edge, the tile past T).
 //
-// bf16 / fp16 at H = 16 and 32 (first version): one CTA of 4 warps per
-// (query row, 64-query tile), K/V tiles of 64 keys double-buffered with
-// cp.async (zero-filled past T), rows padded by 16 bytes; QK^T and PV as
-// mma.sync m16n8k16 with float32 accumulation.  float32: the same tiles
-// with plain FMA, q scaled in float32 first, the score and probability
-// tile in shared memory (TF32 tensor cores would miss its 1e-4 limit).
+// bf16 / fp16 at H = 16, 32, 192 and 256 (first version): one CTA of 4
+// warps per (query row, 64-query tile), K/V tiles of 64 keys
+// double-buffered with cp.async (zero-filled past T), rows padded by 16
+// bytes; QK^T and PV as mma.sync m16n8k16 with float32 accumulation.  The
+// Q tile stays in shared memory and its fragments are read a k-step at a
+// time, so a thread holds only S (32 floats) and O (H / 2 floats) across a
+// tile: 128 floats of O at H = 256 leave room under the 255 registers.
+// Shared memory: (64 + 4 x 64) x (H + 8) x 2 bytes, 165 KB at H = 256 (the
+// wgmma ring of 3 x 128-key K/V tiles would need 448 KB there).  float32:
+// the same tiles with plain FMA, q scaled in float32 first, the score and
+// probability tile in shared memory (TF32 tensor cores would miss its 1e-4
+// limit); the V tile is staged into the K tile's buffer once the scores
+// are formed, so at H = 256 the kernel needs 214 KB (K and V side by side
+// would need 280 KB, over the 227 KB a CTA may have).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -196,7 +204,6 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qr = warp * 16 + gid;        // this thread's rows: qr, qr + 8
   const int qpos[2] = {q_start + qr, q_start + qr + 8};
 
-  uint32_t qf[KT][4];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[NT][4];
 #pragma unroll
@@ -216,28 +223,26 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (c == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        const T* p = qs + qr * LD + kk * 16 + 2 * tig;
-        qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-        qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-      }
-    }
     const T* kb = ks + buf * kTile * LD;
     const T* vb = vs + buf * kTile * LD;
 
-    // S = Q K^T: 8 n-tiles of 8 keys
+    // S = Q K^T: 8 n-tiles of 8 keys, a k-step of Q's fragment at a time
     float s[8][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < 8; ++nt)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qf[4];
+      const T* pq = qs + qr * LD + kk * 16 + 2 * tig;
+      qf[0] = *reinterpret_cast<const uint32_t*>(pq);
+      qf[1] = *reinterpret_cast<const uint32_t*>(pq + 8 * LD);
+      qf[2] = *reinterpret_cast<const uint32_t*>(pq + 8);
+      qf[3] = *reinterpret_cast<const uint32_t*>(pq + 8 * LD + 8);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
         const T* p = kb + (nt * 8 + gid) * LD + kk * 16 + 2 * tig;
-        Mma<T>::run(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(p),
+        Mma<T>::run(s[nt], qf, *reinterpret_cast<const uint32_t*>(p),
                     *reinterpret_cast<const uint32_t*>(p + 8));
       }
     }
@@ -342,9 +347,8 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int LDP = kTile + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);   // (64, H), pre-scaled
-  float* ks = qs + kTile * H;                  // (64, LDK)
-  float* vs = ks + kTile * LDK;                // (64, H)
-  float* ps = vs + kTile * H;                  // (64, LDP)
+  float* ks = qs + kTile * H;                  // (64, LDK): K, then V
+  float* ps = ks + kTile * LDK;                // (64, LDP)
   float* os = ps + kTile * LDP;                // (64, H)
   float* ms = os + kTile * H;                  // (64,)
   float* ls = ms + kTile;                      // (64,)
@@ -377,10 +381,8 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int i = tid; i < kTile * H; i += kThreads) {
       const int r = i / H, d = i - r * H;
-      const bool ok = k0 + r < a.t;
-      const size_t gi = static_cast<size_t>(k0) * H + i;
-      ks[r * LDK + d] = ok ? kg[gi] : 0.f;
-      vs[i] = ok ? vg[gi] : 0.f;
+      ks[r * LDK + d] =
+          k0 + r < a.t ? kg[static_cast<size_t>(k0) * H + i] : 0.f;
     }
     __syncthreads();
     for (int i = tid; i < kTile * kTile; i += kThreads) {
@@ -393,6 +395,11 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                                                  : kNegInf;
     }
     __syncthreads();
+    for (int i = tid; i < kTile * H; i += kThreads) {  // K is read: V
+      const int r = i / H, d = i - r * H;              // takes its buffer
+      ks[r * LDK + d] =
+          k0 + r < a.t ? vg[static_cast<size_t>(k0) * H + i] : 0.f;
+    }
     if (tid < kTile) {
       float* pr = ps + tid * LDP;
       float mx = ms[tid];
@@ -414,7 +421,7 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* pr = ps + r * LDP;
       float x = 0.f;
 #pragma unroll 8
-      for (int kc = 0; kc < kTile; ++kc) x = fmaf(pr[kc], vs[kc * H + d], x);
+      for (int kc = 0; kc < kTile; ++kc) x = fmaf(pr[kc], ks[kc * LDK + d], x);
       os[i] = os[i] * cs[r] + x;
     }
   }
@@ -928,9 +935,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 template <int H>
 int launch_fp32(const void* q, const void* k, const void* v, void* o,
                 long long rows, const Args& a, cudaStream_t stream) {
+  // q, o, the K-then-V tile, the score tile and m / l / corr
   const size_t smem =
       (static_cast<size_t>(kTile) * H * 2 + kTile * (H + 1) +
-       kTile * H + kTile * (kTile + 1) + 3 * kTile) *
+       kTile * (kTile + 1) + 3 * kTile) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fp32_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -950,12 +958,12 @@ int launch(int code, const void* q, const void* k, const void* v, void* o,
   switch (code) {
     case 0: return launch_fp32<H>(q, k, v, o, rows, a, stream);
     case 1:
-      if constexpr (H >= 64)
+      if constexpr (H == 64 || H == 128)
         return launch_wgmma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
       else
         return launch_mma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
     case 2:
-      if constexpr (H >= 64)
+      if constexpr (H == 64 || H == 128)
         return launch_wgmma<__half, H>(q, k, v, o, rows, a, stream);
       else
         return launch_mma<__half, H>(q, k, v, o, rows, a, stream);
@@ -967,7 +975,8 @@ int launch(int code, const void* q, const void* k, const void* v, void* o,
 
 // Forward attention over rows: q (rows, s, H), k/v (rows / g, t, H), all
 // contiguous, 16-byte aligned, of one dtype (code 0 float32, 1 bfloat16,
-// 2 float16), H in {16, 32, 64, 128}; o (rows, s, H) of the same dtype.
+// 2 float16), H in {16, 32, 64, 128, 192, 256}; o (rows, s, H) of the same
+// dtype.
 // Query i of a row sits at position i + q_offset; causal keeps keys at or
 // before it, window > 0 keeps the last `window` of those.  Returns the
 // cudaError_t of the launch.
@@ -983,6 +992,8 @@ extern "C" int flash_attention_fwd(int code, int head_dim, const void* q,
     case 32: return launch<32>(code, q, k, v, o, rows, a, st);
     case 64: return launch<64>(code, q, k, v, o, rows, a, st);
     case 128: return launch<128>(code, q, k, v, o, rows, a, st);
+    case 192: return launch<192>(code, q, k, v, o, rows, a, st);
+    case 256: return launch<256>(code, q, k, v, o, rows, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

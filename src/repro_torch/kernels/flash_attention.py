@@ -39,7 +39,7 @@ __all__ = ["Q_BLOCK", "K_BLOCK", "HEAD_DIMS", "NEG_INF", "flash_rows",
 NEG_INF = -1e30
 Q_BLOCK = 128         # csrc/flash_attention.cu kQBlock
 K_BLOCK = 128         # csrc/flash_attention.cu kKBlock
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -146,8 +146,8 @@ def flash_rows(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
     dtype.  ``q_offset``: the absolute position of q2's first query.  The
     kernel for CUDA tensors (float32, bfloat16 or float16, H in
     ``HEAD_DIMS``, contiguous, ``Q_BLOCK``-query blocks over ``K_BLOCK``-key
-    tiles; bf16 / fp16 at H = 64 and 128 on wgmma fed by TMA), the plain
-    version for CPU tensors."""
+    tiles; bf16 / fp16 at H = 64 and 128 on wgmma fed by TMA, at 16, 32,
+    192 and 256 on mma.sync), the plain version for CPU tensors."""
     g = _check(q2, k2, v2, "flash_rows")
     if not q2.is_cuda:
         if q2.device.type != "cpu" or k2.device != q2.device \

@@ -155,11 +155,12 @@ def left_pad(batch: List[Request]) -> np.ndarray:
 
 
 def make_requests(vocab_size: int, n_requests: int, max_len: int,
-                  decode_steps: int, seed: int) -> List[Request]:
+                  decode_steps: int, rng: np.random.Generator
+                  ) -> List[Request]:
     """The reference's request stream: prompt lengths in [4, max_len / 4)
-    and tokens from ``numpy.random.default_rng(seed)``, so both packages
-    serve the same requests from the same seed."""
-    rng = np.random.default_rng(seed)
+    and tokens drawn from ``rng`` (``numpy.random.default_rng(seed)`` in
+    ``serve``, which goes on to draw an encoder-decoder's frames), so both
+    packages serve the same requests from the same seed."""
     reqs = []
     for rid in range(n_requests):
         plen = int(rng.integers(4, max_len // 4))
@@ -278,8 +279,10 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
 
     sched = LengthSortedScheduler(batch_size, method=cfg.sort_method,
                                   device=dev)
+    # one numpy stream: the requests, then an encoder-decoder's frames
+    rng = np.random.default_rng(seed)
     for req in make_requests(cfg.vocab_size, n_requests, max_len,
-                             decode_steps, seed):
+                             decode_steps, rng):
         sched.submit(req)
 
     done: List[Request] = []
@@ -287,7 +290,7 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
              "decode_tps": []}
     try:
         _serve_loop(sched, model, params, serve_step, noise, decode_steps,
-                    max_len, done, stats)
+                    max_len, done, stats, rng=rng)
     finally:
         # shutdown snapshot, also on an exception mid-run
         if sdir is not None:
@@ -311,8 +314,12 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
 
 
 def _serve_loop(sched, model, params, serve_step, noise, decode_steps,
-                max_len, done, stats):
+                max_len, done, stats, rng=None):
+    """Prefill and decode the scheduler's batches until it is empty.  An
+    encoder-decoder's batch gets frames (B, enc_seq, d_model) of standard
+    normals x 0.1 from ``rng`` (the reference's feed)."""
     dev = model.device
+    cfg = model.cfg
     while True:
         batch = sched.next_batch()
         if not batch:
@@ -328,6 +335,10 @@ def _serve_loop(sched, model, params, serve_step, noise, decode_steps,
                 stats["padding_waste"][-1])
             _metrics.counter("serve.requests").inc(len(batch))
         feed = {"tokens": torch.from_numpy(left_pad(batch)).to(dev)}
+        if model.is_encdec:
+            feed["frames"] = torch.from_numpy(rng.standard_normal(
+                (len(batch), cfg.enc_seq, cfg.d_model)) * 0.1).to(
+                    device=dev, dtype=torch.float32)
         t0 = time.monotonic()
         logits, state = model.prefill(params, feed, max_len=max_len)
         nxt = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)

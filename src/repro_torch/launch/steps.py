@@ -103,6 +103,9 @@ def make_train_step(model: Model, cfg: ModelConfig, shape: ShapeSpec,
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(model: Model, shape: ShapeSpec):
+    """``prefill_step(params, batch) -> (last logits, decode state)``: the
+    whole batch goes to the model (``tokens``, and ``frames`` /
+    ``vision_embeds`` / ``positions`` where the family takes them)."""
     def prefill_step(params, batch):
         return model.prefill(params, batch, max_len=shape.seq_len)
     return prefill_step

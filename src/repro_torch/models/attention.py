@@ -1,5 +1,5 @@
-"""Attention: MHA/GQA/MQA with RoPE, causal + sliding-window masks, and a
-prefill/decode KV cache.
+"""Attention: MHA/GQA/MQA with RoPE/M-RoPE, causal + sliding-window masks,
+cross-attention (enc-dec), and a prefill/decode KV cache.
 
 The port of the JAX package's ``models/attention.py`` on one device: the
 ``policy`` (sharding) arguments are gone, so the stored kv-head count is
@@ -33,7 +33,7 @@ class AttentionConfig:
     n_heads: int
     n_kv_heads: int
     head_dim: int
-    rope_type: str = "standard"        # standard | none (mrope: not ported)
+    rope_type: str = "standard"        # standard | mrope | none
     rope_theta: float = 10000.0
     mrope_sections: Tuple[int, ...] = (16, 24, 24)
     causal: bool = True
@@ -59,8 +59,8 @@ def _rope(cfg: AttentionConfig, x, positions):
     if cfg.rope_type == "none" or positions is None:
         return x
     if cfg.rope_type == "mrope":
-        raise NotImplementedError(
-            "M-RoPE waits for the vlm family (ROADMAP Queue 1 item 12)")
+        return layers.apply_mrope(x, positions, cfg.rope_theta,
+                                  cfg.mrope_sections)
     return layers.apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -118,31 +118,36 @@ def causal_mask(s: int, t_offset: int = 0, window: int = 0, device=None):
     return m[None, None]
 
 
-def apply(params, cfg: AttentionConfig, x, positions=None, *,
+def apply(params, cfg: AttentionConfig, x, positions=None, *, kv=None,
           use_flash: bool = False):
-    """Full-sequence self-attention (prefill).
+    """Full-sequence attention (prefill, training, the encoder).
 
-    use_flash: causal attention through K6 (``kernels.flash_attention``;
-    forward-only).  Returns (out, KVCache(k, v)) — the repeated K/V for the
-    cache.  Cross-attention and explicit masks (the encdec and vlm
-    families) are not ported yet.
+    kv: the source hidden states of a cross-attention (no rotary).
+    use_flash: causal self-attention through K6
+    (``kernels.flash_attention``; forward-only), as the reference routes
+    only that case to its flash kernel.  Returns (out, KVCache(k, v)) — the
+    repeated K/V for the cache.
     """
     b, s, _ = x.shape
     n, h = cfg.n_heads, cfg.head_dim
-    q = _rope(cfg, (x @ params["wq"]).reshape(b, s, n, h), positions)
-    k = _rope(cfg, (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, h),
-              positions)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, h)
+    src = x if kv is None else kv
+    q = (x @ params["wq"]).reshape(b, s, n, h)
+    k = (src @ params["wk"]).reshape(b, src.shape[1], cfg.n_kv_heads, h)
+    v = (src @ params["wv"]).reshape(b, src.shape[1], cfg.n_kv_heads, h)
+    if kv is None:                       # self-attention: rotary applies
+        q = _rope(cfg, q, positions)
+        k = _rope(cfg, k, positions)
     k = _repeat_kv(cfg, k)
     v = _repeat_kv(cfg, v)
-    if use_flash and cfg.causal:
+    self_causal = cfg.causal and kv is None
+    if use_flash and self_causal:
         from repro_torch.kernels.flash_attention import flash_attention
         out = flash_attention(q, k, v, causal=True, window=cfg.window)
-    elif cfg.causal and s > 2048 and s % 1024 == 0:
+    elif self_causal and s > 2048 and s % 1024 == 0:
         out = _attend_q_chunked(cfg, q, k, v, q_chunk=1024)
     else:
         mask = causal_mask(s, window=cfg.window, device=x.device) \
-            if cfg.causal else None
+            if self_causal else None
         out = _attend(cfg, q, k, v, mask)
     out = out.reshape(b, s, n * h)
     return out @ params["wo"], KVCache(k=k, v=v)
@@ -158,7 +163,8 @@ def init_cache(cfg: AttentionConfig, batch: int, max_len: int, dtype,
 
 def decode_step(params, cfg: AttentionConfig, x, cache: KVCache, t):
     """Single-token decode. x: (B, 1, D); t: 0-dim int tensor, the current
-    position.  Writes the new K/V into ``cache`` in place (ring slot t mod
+    position, rotated as positions (B, 1), or (3, B, 1) under M-RoPE (t = h
+    = w).  Writes the new K/V into ``cache`` in place (ring slot t mod
     window on sliding-window layers) and returns (out, cache)."""
     b = x.shape[0]
     n, h = cfg.n_heads, cfg.head_dim
@@ -166,7 +172,8 @@ def decode_step(params, cfg: AttentionConfig, x, cache: KVCache, t):
     k = (x @ params["wk"]).reshape(b, 1, cfg.n_kv_heads, h)
     v = (x @ params["wv"]).reshape(b, 1, cfg.n_kv_heads, h)
     t = torch.as_tensor(t, device=x.device)
-    positions = t.to(torch.int32).expand(b, 1)
+    lead = (3, b, 1) if cfg.rope_type == "mrope" else (b, 1)
+    positions = t.to(torch.int32).expand(*lead)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
     k = _repeat_kv(cfg, k)

@@ -11,7 +11,8 @@ single-device until the sharding item).
 Numerics follow the reference: norms compute in float32 and cast back, the
 norm scale is ``1 + scale``, ``rope_freqs`` is ``1 / theta ** (arange(half)
 / half)`` in float32, logits are cast to float32 after the product and
-padded vocabulary slots are set to -1e30.
+padded vocabulary slots are set to -1e30.  ``apply_mrope`` is Qwen2-VL's
+multimodal rotary embedding, a position stream a section of the spectrum.
 """
 from __future__ import annotations
 
@@ -123,6 +124,58 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL §3): the rotary spectrum is split into
+    (temporal, height, width) sections, each rotated by its own position
+    id.  x: (B, S, N, H); positions: (3, B, S) int (text: t = h = w)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"half the head dim {half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)    # (half,)
+    # position stream i drives frequency band i; the bounds are Python ints,
+    # so nothing here waits on the card
+    bounds = [0]
+    for n in sections:
+        bounds.append(bounds[-1] + n)
+    ang = torch.cat([positions[i, ..., None].float() * freqs[lo:hi]
+                     for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))],
+                    dim=-1)                                    # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers' pieces (ssm, rglru)
+# ---------------------------------------------------------------------------
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` with no linear cut-off (``jax.nn.softplus``;
+    torch's ``F.softplus`` returns x above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def conv1d(params, x, conv_width: int, conv_state=None):
+    """Causal depthwise conv1d over (B, S, C) plus its bias; returns (out,
+    the last ``conv_width - 1`` inputs: the next call's ``conv_state``)."""
+    w = params["conv_w"].to(x.dtype)                       # (W, C)
+    pad = conv_width - 1
+    if conv_state is None:
+        padded = F.pad(x, (0, 0, pad, 0))
+    else:
+        padded = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    out = padded[:, 0:s, :] * w[0]
+    for i in range(1, conv_width):
+        out = out + padded[:, i:i + s, :] * w[i]
+    return out + params["conv_b"].to(x.dtype), padded[:, -pad:, :]
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""build(config) -> a uniform Model facade over the ported families.
+"""build(config) -> a uniform Model facade over every architecture family.
 
 The port of the JAX package's ``models/model_zoo.py``; the facade exposes
 what ``launch/`` and the tests need:
@@ -9,6 +9,10 @@ what ``launch/`` and the tests need:
     model.decode_state(batch_size, max_len) -> empty decode state
     model.decode_step(params, token, state) -> (logits, state)
     model.input_specs(shape)     -> meta tensors standing in for each input
+
+A batch is a dict of tensors: ``tokens`` always; ``frames`` (B, enc_seq, D)
+for the encoder-decoder; ``vision_embeds`` (B, vision_prefix, D) and
+``positions`` (3, B, S) for the vlm.
 """
 from __future__ import annotations
 
@@ -19,13 +23,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.sortspec import resolve_device
+from repro_torch.models.encdec import EncDecTransformer
 from repro_torch.models.transformer import Transformer
 
 
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-    impl: Any                  # Transformer
+    impl: Any                  # Transformer | EncDecTransformer
+
+    @property
+    def is_encdec(self) -> bool:
+        return isinstance(self.impl, EncDecTransformer)
 
     @property
     def device(self) -> torch.device:
@@ -38,9 +47,16 @@ class Model:
         return self.impl.loss(params, batch)
 
     def prefill(self, params, batch, max_len: int):
-        return self.impl.prefill(params, batch["tokens"], max_len)
+        if self.is_encdec:
+            return self.impl.prefill(params, batch["frames"],
+                                     batch["tokens"], max_len)
+        return self.impl.prefill(params, batch["tokens"], max_len,
+                                 positions=batch.get("positions"),
+                                 vision_embeds=batch.get("vision_embeds"))
 
     def decode_state(self, batch_size: int, max_len: int):
+        if self.is_encdec:
+            raise NotImplementedError("enc-dec state comes from prefill")
         return self.impl.init_state(batch_size, max_len)
 
     def decode_step(self, params, token, state):
@@ -49,15 +65,25 @@ class Model:
     def input_specs(self, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
         """Meta tensors (shape and dtype, no storage) for each input of the
         step function this shape exercises."""
+        cfg = self.cfg
         b, s = shape.global_batch, shape.seq_len
 
-        def spec(*dims):
-            return torch.empty(dims, dtype=torch.int32, device="meta")
+        def spec(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
 
-        if shape.kind == "train":
-            return {"tokens": spec(b, s), "labels": spec(b, s)}
-        if shape.kind == "prefill":
-            return {"tokens": spec(b, s)}
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": spec(b, s)}
+            if shape.kind == "train":
+                specs["labels"] = spec(b, s)
+            if self.is_encdec:
+                specs["frames"] = spec(b, cfg.enc_seq, cfg.d_model,
+                                       dtype=torch.bfloat16)
+            if cfg.vision_prefix:
+                specs["vision_embeds"] = spec(b, cfg.vision_prefix,
+                                              cfg.d_model,
+                                              dtype=torch.bfloat16)
+                specs["positions"] = spec(3, b, s)
+            return specs
         # decode: one new token against a seq_len-deep cache
         return {"token": spec(b, 1)}
 
@@ -65,4 +91,5 @@ class Model:
 def build(cfg: ModelConfig, *, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (default ``"cuda"``;
     ``"cuda"`` without a card raises ``RuntimeError``)."""
-    return Model(cfg=cfg, impl=Transformer(cfg, device=resolve_device(device)))
+    cls = EncDecTransformer if cfg.family == "encdec" else Transformer
+    return Model(cfg=cfg, impl=cls(cfg, device=resolve_device(device)))

@@ -1,23 +1,29 @@
-"""Decoder-only transformer trunk: dense and MoE attention stacks.
+"""Decoder-only transformer trunk: the dense, moe, ssm, hybrid and vlm
+families (whisper's encoder-decoder is ``encdec.py``).
 
-The port of the JAX package's ``models/transformer.py`` for the ``dense``
-and ``moe`` families.  The layout follows the reference's rule: layers of
-one signature (mixer kind, MoE or dense FFN) after the leading dense
-layers form a stacked ``body`` (``(L, ...)`` leaves) when there are more
-than one of them, the rest are ``prefix`` layers, one tree each; a
-homogeneous stack is all body.  The reference scans the body; here a loop
-over the layers indexes the stacked tensors, so the parameter and
-decode-state trees keep the reference's shape leaf for leaf: the decode
-state is ``{"prefix": [...], "body": KVCache((L, B, S, R, H) x 2), "t":
-0-dim int32}``.
+The port of the JAX package's ``models/transformer.py``.  Each layer's
+mixer is ``cfg.layer_kind(i)``: attention (dense / GQA / MQA, global or
+windowed), Mamba-2 SSD (``ssm``; such a layer has one norm and no FFN) or
+RG-LRU (``rglru``); FFNs are dense MLPs or sort-routed MoE.  The layout
+follows the reference's rule: layers of one signature (mixer kind, MoE or
+dense FFN) after the leading dense layers form a stacked ``body`` (``(L,
+...)`` leaves) when there are more than one of them, the rest are
+``prefix`` layers, one tree each; a homogeneous stack is all body (mamba2),
+a mixed one all prefix (recurrentgemma's rglru, rglru, attn pattern).  The
+reference scans the body; here a loop over the layers indexes the stacked
+tensors, so the parameter and decode-state trees keep the reference's
+shape leaf for leaf: the decode state is ``{"prefix": [...], "body": one
+stacked state, "t": 0-dim int32}`` with a ``KVCache``, ``SSMState`` or
+``RGLRUState`` a layer.  Decode updates every layer's state in place.
+
+The vlm family feeds ``vision_embeds`` into the leading ``vision_prefix``
+positions and rotates with M-RoPE over (3, B, S) positions (t = h = w for
+text by default).
 
 Training: ``loss`` is the reference's (masked cross-entropy over float32
 logits, plus ``0.01 * lb + 1e-3 * z`` of the MoE layers' aux losses), its
 attention the einsum path (K6 is forward-only and refuses a tensor that
 requires grad).
-
-The families the port does not carry (ssm, hybrid, encdec, vlm) raise
-``NotImplementedError``; they are ROADMAP Queue 1 item 12b.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, rglru, ssm
+
+_STATES = (attention.KVCache, ssm.SSMState, rglru.RGLRUState)
 
 
 def _attn_config(cfg: ModelConfig) -> attention.AttentionConfig:
@@ -43,27 +51,21 @@ def _layer_signature(cfg: ModelConfig, i: int) -> Tuple[str, bool]:
     return (cfg.layer_kind(i), has_moe)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's transformer does not carry yet."""
-    if cfg.family not in ("dense", "moe") or cfg.ssm is not None \
-            or cfg.rglru is not None or (cfg.family == "moe") != (
-                cfg.moe is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port carries dense and moe attention stacks (ssm, hybrid, "
-            f"encdec and vlm are ROADMAP Queue 1 item 12b)")
-    if cfg.vision_prefix or cfg.rope_type == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: vlm inputs (vision prefix, M-RoPE) are not ported "
-            f"yet (ROADMAP Queue 1 item 12b)")
+def check_config(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a family without the sub-config it needs."""
+    need = {"ssm": ("ssm", cfg.ssm), "hybrid": ("rglru", cfg.rglru),
+            "moe": ("moe", cfg.moe)}
+    if cfg.family in need and need[cfg.family][1] is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family needs a "
+                         f"{need[cfg.family][0]!r} config")
 
 
 def _layer(tree, i: int):
     """Layer i's slice of a stacked (L, ...) tree."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, attention.KVCache):
-        return attention.KVCache(k=tree.k[i], v=tree.v[i])
+    if isinstance(tree, _STATES):
+        return type(tree)(*(x[i] for x in tree))
     return tree[i]
 
 
@@ -73,14 +75,18 @@ class Transformer:
     device: torch.device
 
     def __post_init__(self):
-        check_supported(self.cfg)
+        check_config(self.cfg)
         self.device = torch.device(self.device)
-        self.attn_cfg = _attn_config(self.cfg)
-        self.norm = layers.norm_fn(self.cfg.norm_type)
+        cfg = self.cfg
+        self.attn_cfg = _attn_config(cfg)
+        self.norm = layers.norm_fn(cfg.norm_type)
+        if cfg.ssm is not None:
+            self.ssm_dims = ssm.SSMDims.from_config(cfg.d_model, cfg.ssm)
+        self.rglru_width = (0 if cfg.rglru is None else
+                            (cfg.rglru.lru_width or cfg.d_model))
         # the reference's layout: a stacked body of the layers after the
         # leading dense ones when they share one signature and are more
         # than one; all body for a homogeneous stack; else all prefix
-        cfg = self.cfg
         sigs = [_layer_signature(cfg, i) for i in range(cfg.n_layers)]
         first = cfg.moe.first_dense_layers if cfg.moe else 0
         body = sigs[first:]
@@ -95,15 +101,23 @@ class Transformer:
     def _init_layer(self, gen: torch.Generator, i: int, lead=()):
         cfg = self.cfg
         dtype, dev = cfg.param_dtype(), self.device
-        _, has_moe = _layer_signature(cfg, i)
+        kind, has_moe = _layer_signature(cfg, i)
         params = {
             "ln1": layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev,
                                     lead)[0],
             "ln2": layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev,
                                     lead)[0],
-            "mixer": attention.init(gen, self.attn_cfg, dtype, lead),
         }
-        if has_moe:
+        if kind == "attn":
+            params["mixer"] = attention.init(gen, self.attn_cfg, dtype, lead)
+        elif kind == "ssm":
+            params["mixer"] = ssm.init(gen, self.ssm_dims, dtype, lead)
+        else:
+            params["mixer"] = rglru.init(gen, cfg.d_model, self.rglru_width,
+                                         cfg.rglru, dtype, lead)
+        if kind == "ssm":
+            del params["ln2"]          # mamba blocks: one norm a layer
+        elif has_moe:
             params["ffn"] = moe.init(gen, cfg.d_model, cfg.moe, cfg.mlp_type,
                                      dtype, lead)
         else:
@@ -135,21 +149,42 @@ class Transformer:
         return params
 
     def _layers(self, params, state=None):
-        """(layer params, layer state or None) for every layer, in order."""
+        """(layer index, layer params, layer state or None) for every
+        layer, in order; a body layer's are views into the stacks."""
         out = []
         for i, lp in enumerate(params["prefix"]):
-            out.append((lp, None if state is None else state["prefix"][i]))
+            out.append((i, lp,
+                        None if state is None else state["prefix"][i]))
         for i in range(self.n_body if self.scan_body else 0):
-            out.append((_layer(params["body"], i),
+            out.append((self.n_prefix + i, _layer(params["body"], i),
                         None if state is None else _layer(state["body"], i)))
         return out
 
     # ------------------------------------------------------------- forwards
+    def _mix(self, lp, h, i: int, positions, use_flash: bool = False,
+             init_state=None):
+        """The layer's mixer over a whole sequence: (out, its state: the
+        repeated K/V of an attention layer, the final state of a recurrent
+        one)."""
+        cfg = self.cfg
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
+            return attention.apply(lp["mixer"], self.attn_cfg, h, positions,
+                                   use_flash=use_flash)
+        if kind == "ssm":
+            return ssm.apply(lp["mixer"], h, self.ssm_dims, init_state)
+        return rglru.apply(lp["mixer"], h, self.rglru_width, cfg.rglru,
+                           init_state)
+
     def _ffn(self, lp, x, i: int, aux=None):
         """x + the layer's FFN (dense MLP or MoE) of its second norm; a MoE
-        layer's aux losses are added into ``aux`` when it is given."""
+        layer's aux losses are added into ``aux`` when it is given; an ssm
+        layer has none."""
+        kind, has_moe = _layer_signature(self.cfg, i)
+        if kind == "ssm":
+            return x
         h = self.norm(lp["ln2"], x)
-        if _layer_signature(self.cfg, i)[1]:
+        if has_moe:
             f, moe_aux = moe.apply(lp["ffn"], h, self.cfg.moe,
                                    self.cfg.mlp_type)
             if aux is not None:
@@ -159,33 +194,47 @@ class Transformer:
             f = layers.mlp_apply(lp["ffn"], h, self.cfg.mlp_type)
         return x + f
 
-    def _positions(self, tokens):
+    def _default_positions(self, tokens):
         b, s = tokens.shape
-        return torch.arange(s, dtype=torch.int32,
-                            device=tokens.device).expand(b, s)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=tokens.device).expand(b, s)
+        if self.cfg.rope_type == "mrope":
+            return pos.expand(3, b, s)
+        return pos
 
-    def forward(self, params, tokens) -> Tuple[torch.Tensor, Dict]:
-        """Token ids -> (final hidden states (B, S, D), aux): ``aux`` sums
-        the MoE layers' ``moe_lb_loss`` and ``moe_z_loss`` (empty for a
-        dense stack), in layer order as the reference."""
+    def _embed(self, params, tokens, vision_embeds=None):
         cfg = self.cfg
         x = layers.embed(params["embed"], tokens, cfg.emb_scale, cfg.d_model)
-        positions = self._positions(tokens)
+        if vision_embeds is not None and cfg.vision_prefix:
+            # the vision prefix's patch embeddings replace its positions
+            x = torch.cat([vision_embeds.to(x.dtype),
+                           x[:, cfg.vision_prefix:]], dim=1)
+        return x
+
+    def forward(self, params, tokens, positions=None,
+                vision_embeds=None) -> Tuple[torch.Tensor, Dict]:
+        """Token ids -> (final hidden states (B, S, D), aux): ``aux`` sums
+        the MoE layers' ``moe_lb_loss`` and ``moe_z_loss`` (empty without
+        MoE), in layer order as the reference."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, vision_embeds)
+        if positions is None:
+            positions = self._default_positions(tokens)
         aux: Dict[str, torch.Tensor] = {}
-        for i, (lp, _) in enumerate(self._layers(params)):
+        for i, lp, _ in self._layers(params):
             if i == self.n_prefix and self.scan_body and cfg.moe is not None:
                 # the reference's scan starts its aux carry at zero
                 for k in ("moe_lb_loss", "moe_z_loss"):
                     aux.setdefault(k, torch.zeros((), dtype=torch.float32,
                                                   device=x.device))
-            mix, _ = attention.apply(lp["mixer"], self.attn_cfg,
-                                     self.norm(lp["ln1"], x), positions)
+            mix, _ = self._mix(lp, self.norm(lp["ln1"], x), i, positions)
             x = self._ffn(lp, x + mix, i, aux)
         return self.norm(params["final_ln"], x), aux
 
-    def hidden_states(self, params, tokens):
+    def hidden_states(self, params, tokens, positions=None,
+                      vision_embeds=None):
         """Token ids -> final hidden states (B, S, D)."""
-        return self.forward(params, tokens)[0]
+        return self.forward(params, tokens, positions, vision_embeds)[0]
 
     def logits(self, params, hidden):
         cfg = self.cfg
@@ -196,11 +245,13 @@ class Transformer:
 
     # ------------------------------------------------------------- training
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        """batch: {tokens, labels}; labels are next-token ids with -100 =
-        masked.  -> (total, aux): cross-entropy plus, for a MoE stack,
-        ``0.01 * moe_lb_loss + 1e-3 * moe_z_loss``; aux also holds
-        ``ce_loss``."""
-        hidden, aux = self.forward(params, batch["tokens"])
+        """batch: {tokens, labels, (positions), (vision_embeds)}; labels
+        are next-token ids with -100 = masked.  -> (total, aux):
+        cross-entropy plus, for a MoE stack, ``0.01 * moe_lb_loss + 1e-3 *
+        moe_z_loss``; aux also holds ``ce_loss``."""
+        hidden, aux = self.forward(params, batch["tokens"],
+                                   batch.get("positions"),
+                                   batch.get("vision_embeds"))
         logits = self.logits(params, hidden)
         ce = layers.cross_entropy_loss(logits, batch["labels"])
         total = ce
@@ -212,30 +263,51 @@ class Transformer:
         return total, aux
 
     # ------------------------------------------------------ prefill / decode
+    def _init_layer_state(self, i: int, batch: int, max_len: int):
+        kind = self.cfg.layer_kind(i)
+        dtype, dev = self.cfg.param_dtype(), self.device
+        if kind == "attn":
+            return attention.init_cache(self.attn_cfg, batch, max_len, dtype,
+                                        dev)
+        if kind == "ssm":
+            return ssm.init_state(self.ssm_dims, batch, dtype, dev)
+        return rglru.init_state(self.rglru_width, self.cfg.rglru, batch,
+                                dtype, dev)
+
     def init_state(self, batch: int, max_len: int):
-        """An empty decode state: zero caches, t = 0."""
-        dtype = self.cfg.param_dtype()
-
-        def cache(lead=()):
-            one = attention.init_cache(self.attn_cfg, batch, max_len, dtype,
-                                       self.device)
-            return attention.KVCache(
-                k=one.k.expand(*lead, *one.k.shape).contiguous(),
-                v=one.v.expand(*lead, *one.v.shape).contiguous())
-
-        return {"prefix": [cache() for _ in range(self.n_prefix)],
-                "body": cache((self.n_body,)) if self.scan_body else None,
+        """An empty decode state: zero caches and recurrent states, t = 0.
+        Only a global attention layer's cache grows with ``max_len``."""
+        body = None
+        if self.scan_body:
+            one = self._init_layer_state(self.n_prefix, batch, max_len)
+            body = type(one)(*(x.expand(self.n_body, *x.shape).contiguous()
+                               for x in one))
+        return {"prefix": [self._init_layer_state(i, batch, max_len)
+                           for i in range(self.n_prefix)],
+                "body": body,
                 "t": torch.zeros((), dtype=torch.int32, device=self.device)}
 
     def decode_step(self, params, token, state):
         """One decode step. token: (B, 1) int32. Returns (logits, state);
-        the caches of ``state`` are updated in place."""
+        every layer's state in ``state`` is updated in place."""
         cfg = self.cfg
         t = state["t"]
         x = layers.embed(params["embed"], token, cfg.emb_scale, cfg.d_model)
-        for i, (lp, st) in enumerate(self._layers(params, state)):
-            mix, _ = attention.decode_step(lp["mixer"], self.attn_cfg,
-                                           self.norm(lp["ln1"], x), st, t)
+        for i, lp, st in self._layers(params, state):
+            h = self.norm(lp["ln1"], x)
+            kind = cfg.layer_kind(i)
+            if kind == "attn":
+                mix, _ = attention.decode_step(lp["mixer"], self.attn_cfg, h,
+                                               st, t)
+            else:
+                if kind == "ssm":
+                    mix, new = ssm.decode_step(lp["mixer"], h, self.ssm_dims,
+                                               st)
+                else:
+                    mix, new = rglru.decode_step(lp["mixer"], h,
+                                                 self.rglru_width, cfg.rglru,
+                                                 st)
+                _copy_state(st, new)
             x = self._ffn(lp, x + mix, i)
         hidden = self.norm(params["final_ln"], x)
         logits = self.logits(params, hidden)
@@ -243,23 +315,30 @@ class Transformer:
                      "t": t + 1}
         return logits[:, 0], new_state
 
-    def prefill(self, params, tokens, max_len: int):
+    def prefill(self, params, tokens, max_len: int, positions=None,
+                vision_embeds=None):
         """Run the full prompt, build the decode state, return the last
-        position's logits.  With ``cfg.flash_prefill`` the attention runs
-        through K6."""
+        position's logits.  With ``cfg.flash_prefill`` the causal
+        self-attention runs through K6; recurrent layers keep their final
+        states."""
         cfg = self.cfg
         b, s = tokens.shape
-        if s > max_len and not cfg.window:
+        global_attn = not cfg.window and any(
+            cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+        if s > max_len and global_attn:
             raise ValueError(f"prefill of {s} tokens exceeds max_len "
                              f"{max_len}")
-        x = layers.embed(params["embed"], tokens, cfg.emb_scale, cfg.d_model)
-        positions = self._positions(tokens)
+        x = self._embed(params, tokens, vision_embeds)
+        if positions is None:
+            positions = self._default_positions(tokens)
         state = self.init_state(b, max_len)
-        for i, (lp, cache) in enumerate(self._layers(params, state)):
-            mix, kv = attention.apply(lp["mixer"], self.attn_cfg,
-                                      self.norm(lp["ln1"], x), positions,
-                                      use_flash=cfg.flash_prefill)
-            self._fill_cache(cache, kv)
+        for i, lp, st in self._layers(params, state):
+            mix, new = self._mix(lp, self.norm(lp["ln1"], x), i, positions,
+                                 use_flash=cfg.flash_prefill)
+            if cfg.layer_kind(i) == "attn":
+                self._fill_cache(st, new)
+            else:
+                _copy_state(st, new)
             x = self._ffn(lp, x + mix, i)
         hidden = self.norm(params["final_ln"], x)
         logits = self.logits(params, hidden[:, -1:, :])
@@ -278,3 +357,9 @@ class Transformer:
                 dst[:, :s] = src
             else:
                 dst.copy_(torch.roll(src[:, -cap:], (s - cap) % cap, dims=1))
+
+
+def _copy_state(dst, src) -> None:
+    """A recurrent layer's new state into its slot of the decode state."""
+    for d, x in zip(dst, src):
+        d.copy_(x)

@@ -700,7 +700,7 @@ def _row_rel_err(got, want):
 
 
 @pytest.mark.parametrize("name", ["float32", "bfloat16", "float16"])
-@pytest.mark.parametrize("h", [16, 32, 64, 128])
+@pytest.mark.parametrize("h", [16, 32, 64, 128, 192, 256])
 @pytest.mark.parametrize("g,s,t,q_offset,causal,window", [
     (1, 64, 64, 0, True, 0),
     (3, 100, 100, 0, True, 0),        # S not a multiple of the block
@@ -835,6 +835,36 @@ def test_model_prefill_on_the_card_flash_on_vs_off(name):
     assert (l0 - l1).abs().max().item() <= tol
     for a, b in ((s0["body"].k, s1["body"].k), (s0["body"].v, s1["body"].v)):
         assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("arch,layers", [("gemma-2b", 2),
+                                         ("recurrentgemma-2b", 3),
+                                         ("nemotron-4-340b", 1)])
+def test_wide_head_prefill_on_the_card_flash_on_vs_off(arch, layers):
+    """K6 at head dims 256 (gemma-2b's MQA, recurrentgemma's windowed
+    layers) and 192 (nemotron-4-340b) inside a bf16 model of the full
+    widths, cut in depth: one launch an attention layer, the logits within
+    the serve phase's 0.2 of the einsum path's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              vocab_size=4096)
+    params = model_zoo.build(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, 4096, (2, 2304), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), dtype=torch.int32)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(layers))
+    out = {}
+    for flash in (False, True):
+        m = model_zoo.build(dataclasses.replace(cfg, flash_prefill=flash))
+        _build.reset_launches()
+        out[flash] = m.prefill(params, {"tokens": tokens}, max_len=2304)[0]
+        torch.cuda.synchronize()
+        assert _build.launches.get("flash_attention_fwd", 0) == \
+            (n_attn if flash else 0)
+    assert (out[False] - out[True]).abs().max().item() <= 0.2
 
 
 # ---------------------------------------------------------------------------

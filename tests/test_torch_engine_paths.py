@@ -395,6 +395,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "from repro_torch.core import mesh, topology, distributed_sort\n"
             "from repro_torch.engine import samplesort, collectives\n"
             "from repro_torch.launch import mesh as launch_mesh\n"
+            "from repro_torch.models import ssm, rglru, encdec\n"
+            "from repro_torch.configs import gemma_2b, deepseek_67b, "
+            "nemotron_4_340b, mamba2_13b, recurrentgemma_2b, whisper_tiny, "
+            "qwen2_vl_72b\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"

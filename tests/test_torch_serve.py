@@ -91,7 +91,8 @@ def test_scheduler_padding_waste_and_left_pad():
 
 
 def test_requests_match_the_reference_stream():
-    reqs = tserve.make_requests(256, 6, 64, 8, seed=0)
+    reqs = tserve.make_requests(256, 6, 64, 8,
+                                np.random.default_rng(0))
     rng = np.random.default_rng(0)
     for r in reqs:
         plen = int(rng.integers(4, 16))
@@ -168,7 +169,8 @@ def test_greedy_serving_matches_jax_oracle(pair, flash):
     model = tzoo.build(cfg, device="cpu")
     sched = tserve.LengthSortedScheduler(BATCH, device="cpu")
     ref = tserve.LengthSortedScheduler(BATCH, device="cpu")
-    for r in tserve.make_requests(cfg.vocab_size, N_REQ, MAX_LEN, STEPS, 0):
+    for r in tserve.make_requests(cfg.vocab_size, N_REQ, MAX_LEN, STEPS,
+                                  np.random.default_rng(0)):
         sched.submit(r)
         ref.submit(dataclasses.replace(r))
     batches = []
@@ -317,7 +319,8 @@ def test_tuning_profile_state_dir_round_trip(tmp_path, monkeypatch):
 def test_batch_accounting_matches_the_reference():
     """The served requests of the reference's stream (16 prompts, ties
     among their lengths) accounted by both packages' group_by."""
-    reqs = tserve.make_requests(256, 16, 64, 8, seed=2)
+    reqs = tserve.make_requests(256, 16, 64, 8,
+                                np.random.default_rng(2))
     rng = np.random.default_rng(3)
     for r in reqs:
         r.out = np.zeros(int(rng.integers(1, 9)), np.int32)
