@@ -17,8 +17,9 @@ Phases, each printed as one JSON line:
             of each K7 kernel's main loop by pipe, and the INT32 ALU
             instructions a pair costs (the ops of K7's bound), no K7
             kernel holding a min/max instruction;
-            K6's bf16 H = 128 kernel must hold ``HGMMA`` and ``UTMALDG``
-            (wgmma fed by TMA); K1's ALU instructions a compare-exchange,
+            K6's bf16 kernels at H = 128, 192 and 256 must hold ``HGMMA``
+            and ``UTMALDG`` (wgmma fed by TMA); K1's ALU instructions a
+            compare-exchange,
             counted in the in-thread merge that closes each stage (the ops
             of K1's bound);
 2. kernels  every kernel against its plain PyTorch version on the card,
@@ -214,7 +215,8 @@ Phases, each printed as one JSON line:
             launch alone, the serve's sampling rows through radix, cuda and
             ``torch.topk``, and its network kernel (k > 256) as before;
             K6 at minitron's, moonshot's, gemma-2b's (H = 256, MQA) and
-            nemotron-4-340b's (H = 192) prefill batches.
+            nemotron-4-340b's (H = 192) prefill batches, and at H = 32
+            (the mma.sync kernel) on (8, 1024) x 8/8 heads.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -253,11 +255,12 @@ SERVE = dict(n_requests=16, batch_size=8, decode_steps=32, topk=50,
 ATTN_SHAPES = ((8, 1024), (1, 32768))    # (B, S) of K6's rows: the serve's
 ATTN_HEADS = (24, 8, 128)                # prefill batch and prefill_32k
 # every K6 row: (B, S) and (query heads, kv heads, head dim); then
-# moonshot's prefill batch, and the families phase's wide heads: gemma-2b's
-# (MQA, 256) and nemotron-4-340b's (192)
+# moonshot's prefill batch, the families phase's wide heads: gemma-2b's
+# (MQA, 256) and nemotron-4-340b's (192), and H = 32, the mma.sync
+# kernel's width
 K6_ROWS = tuple((bs, ATTN_HEADS) for bs in ATTN_SHAPES) \
     + (((8, 1024), (16, 16, 128)), ((8, 1024), (8, 1, 256)),
-       ((8, 1024), (96, 8, 192)))
+       ((8, 1024), (96, 8, 192)), ((8, 1024), (8, 8, 32)))
 K6_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # max |kernel - plain|
 # ... and the largest |kernel - plain|_2 / |plain|_2 over query rows: an
 # absolute limit is loose where outputs are small (a row that sees n keys
@@ -3526,7 +3529,8 @@ def time_k6(row, gen) -> None:
     24/8 heads of 128, prefill_32k's length at batch 1, moonshot's
     prefill batch, (8, 1024) x 16/16 heads of 128, and the families
     phase's wide heads at (8, 1024): gemma-2b's 8/1 of 256 and
-    nemotron-4-340b's 96/8 of 192, bf16; beside SDPA on
+    nemotron-4-340b's 96/8 of 192 (all on the wgmma kernel), then 8/8 of
+    32 (the mma.sync kernel's width), bf16; beside SDPA on
     the same (B, N, S, H) tensors (causal from position 0: S = T).  Bound:
     the causal half of QK^T and PV over the bf16 tensor rate, against q, k,
     v and o read or written once."""
@@ -3558,12 +3562,16 @@ NO_SPILLS = ("bitserial_cas", "bitonic_sort", "bitonic_topk",
 
 def check_ptxas(_build) -> None:
     """Print what ``ptxas -v`` said of the K7, K3, K1, K5, K6, K2 and K4
-    kernels (registers, stack frame, spills), one line a kernel, and K6's
-    build warnings and performance notes; fail unless every kernel of
+    kernels (registers, stack frame, spills), one line a kernel, the K6
+    wgmma kernels' at H = 192 and 256 once more on a line of their own
+    (ptxas counts the launch bound's 168 registers a thread there:
+    ``check_k6_sass`` reads what the consumers use after setmaxnreg), and
+    K6's build warnings and performance notes; fail unless every kernel of
     ``NO_SPILLS`` has no stack frame and no spills, and if ptxas
     serialised K6's wgmma products (its C7520 note: the products then run
     one after another with nothing overlapping them)."""
-    bad = []
+    import re
+    bad, wide = [], {}
     for name in ("bitserial_cas", "radix_sort") + NO_SPILLS[1:]:
         for u in _build.ptxas_usage(name):
             emit({"phase": "build", "ptxas": name, **u})
@@ -3571,6 +3579,14 @@ def check_ptxas(_build) -> None:
                     u.get("stack") != 0 or u.get("spill_stores") != 0
                     or u.get("spill_loads") != 0):
                 bad.append(u["kernel"])
+            if re.search(r"flash_wgmma_kernel<[^,]+, (\(int\))?(192|256)>",
+                         u["kernel"]):
+                wide[u["kernel"]] = {k: u.get(k) for k in (
+                    "registers", "stack", "spill_stores", "spill_loads")}
+    emit({"phase": "build", "ptxas_k6_wide_wgmma": wide})
+    if len(wide) != 4:
+        raise AssertionError(f"K6's wgmma kernels at H = 192 / 256 in "
+                             f"bf16 and fp16: found {sorted(wide)}")
     log = _build._lib_path("flash_attention").with_suffix(".log")
     warnings = [ln.strip() for ln in log.read_text().splitlines()
                 if "warning" in ln.lower() or "Performance Loss" in ln]
@@ -3584,25 +3600,34 @@ def check_ptxas(_build) -> None:
 
 
 def check_k6_sass(_build) -> None:
-    """K6's bf16 H = 128 kernel, the serve's, must run its products on
+    """K6's bf16 kernels at H = 128 (the serve's), 192 (nemotron-4-340b's)
+    and 256 (gemma-2b's, recurrentgemma-2b's) must run their products on
     ``wgmma`` (``HGMMA`` in the SASS) fed by TMA (``UTMALDG``); prints
-    both counts for every wgmma kernel."""
+    both counts for every wgmma kernel, fp16's too, and the highest
+    register a kernel's machine code names (its consumers' use after
+    setmaxnreg, which ``ptxas -v`` does not report)."""
+    import re
     funcs = sass_functions(_build.sass("flash_attention"))
-    found = False
+    found = set()
     for name, ins in funcs.items():
         if "flash_wgmma_kernel" not in name:
             continue
         ops = [op for _, op, _ in ins]
         counts = {"HGMMA": ops.count("HGMMA"), "UTMALDG": ops.count("UTMALDG")}
-        emit({"phase": "build", "sass": name, **counts})
-        if "__nv_bfloat16" in name and "Li128E" in name:
-            found = True
-            if not all(counts.values()):
-                raise AssertionError(f"K6 bf16 H=128 kernel {name}: "
-                                     f"{counts}, needs HGMMA and UTMALDG")
-    if not found:
-        raise AssertionError(f"no bf16 H=128 wgmma kernel among "
-                             f"{sorted(funcs)}")
+        top = max((int(r) for _, _, t in ins
+                   for r in re.findall(r"\bR(\d+)\b", t)), default=-1)
+        emit({"phase": "build", "sass": name, **counts,
+              "highest_register": top})
+        for h in (128, 192, 256):
+            if "__nv_bfloat16" in name and f"Li{h}E" in name:
+                found.add(h)
+                if not all(counts.values()):
+                    raise AssertionError(f"K6 bf16 H={h} kernel {name}: "
+                                         f"{counts}, needs HGMMA and "
+                                         f"UTMALDG")
+    if found != {128, 192, 256}:
+        raise AssertionError(f"bf16 wgmma kernels at H = 128 / 192 / 256: "
+                             f"found {sorted(found)} among {sorted(funcs)}")
 
 
 def check_k1_sass(_build) -> dict:

@@ -5,7 +5,11 @@ timed side by side on one CUDA card.
 Run from the repository root on a machine with the card and the CUDA
 toolkit::
 
-    python3 scripts/k6_ablation.py
+    python3 scripts/k6_ablation.py [--heads 192,256] [variant ...]
+
+``--heads`` keeps the rows of those head dims (default: every row of
+``chip_smoke.K6_ROWS`` that the wgmma kernel serves, H >= 64); variants
+default to all of them.
 
 Each variant is ``src/repro_torch/csrc/flash_attention.cu`` with a few
 textual edits, compiled with the port's own ``nvcc`` flags into
@@ -16,14 +20,17 @@ part of the work, so their outputs are wrong by design and only timed:
   no_kv_loads     the producer issues no K/V loads (the barriers still run)
   no_softmax      the online softmax skipped (P is the raw scores)
   no_products     no wgmma issued: softmax, barriers and glue alone
-  two_stages      a K/V ring of 2 stages instead of 3 (correct output)
+  two_stages      a K/V ring of 2 stages at every H (correct output; the
+                  kernel's own at H = 256)
   wait_in_fence   the V wait moved between wgmma.fence and the products
                   (correct output; ptxas then serialises every wgmma)
+  mma_sync        bf16 at H = 192 and 256 on the first-version mma.sync
+                  kernel, the route before the wgmma kernel took these
+                  widths (correct output)
 
 One JSON line a (shape, variant): mean ms over 10 launches with the card
-held back while the host queues them (``chip_smoke.kernel_ms``), the
-shapes of ``chip_smoke.ATTN_SHAPES`` beside SDPA, and the ptxas notes on
-serialised wgmma of each build.
+held back while the host queues them (``chip_smoke.kernel_ms``), K6's
+rows beside SDPA, and the ptxas notes on serialised wgmma of each build.
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ _PV = ("    Wgmma<T>::pv(acc, pa[kk],",
        "    if (va == 0xffffffffu)\n    Wgmma<T>::pv(acc, pa[kk],")
 _V_WAIT = "      mbar_wait(vfull0 + 8 * st, (c / kStages) & 1);\n"
 _FENCE = ("      turn_wait(my_turn);\n      wgmma_fence();\n"
-          "      issue_qk<T, H>(s, qa, kv0 + nst * 2 * L::kKVBytes);\n")
+          "      issue_qk<T, H, kKTile>(s, qa, kv0 + nst * 2 * L::kKVBytes);\n")
 
 VARIANTS = {
     "kernel": [],
@@ -65,12 +72,15 @@ VARIANTS = {
          "      if (k0 >= 0) { corr[0] = corr[1] = 1.f; return; }\n"),
     ],
     "no_products": [_QK, _PV],
-    "two_stages": [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+    "two_stages": [("kStages = H == 256 ? 2 : 3;", "kStages = 2;")],
     "wait_in_fence": [
         (_V_WAIT + _FENCE, _FENCE.replace(
             "      issue_qk", _V_WAIT + "      issue_qk", 1)),
     ],
+    "mma_sync": [("    case 1:\n      if constexpr (H >= 64)",
+                  "    case 1:\n      if constexpr (H == 64 || H == 128)")],
 }
+CORRECT = ("kernel", "two_stages", "wait_in_fence", "mma_sync")
 
 
 def variant_source(edits) -> str:
@@ -118,7 +128,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k6_ablation: no CUDA device", file=sys.stderr)
         return 2
-    names = sys.argv[1:] or list(VARIANTS)
+    args = sys.argv[1:]
+    heads = None
+    if args[:1] == ["--heads"]:
+        heads = {int(h) for h in args[1].split(",")}
+        args = args[2:]
+    names = args or list(VARIANTS)
+    rows = [(bs, nrh) for bs, nrh in cs.K6_ROWS
+            if nrh[2] >= 64 and (heads is None or nrh[2] in heads)]
     libs = build(names)
     print(cs.card(), flush=True)
 
@@ -134,8 +151,7 @@ def main() -> int:
         return out
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    n, r, h = cs.ATTN_HEADS
-    for b, s in cs.ATTN_SHAPES:
+    for (b, s), (n, r, h) in rows:
         q, k, v = cs.attn_rows(gen, b * r, n // r, s, s, h, torch.bfloat16)
         q4, k4, v4 = (x.view(b, -1, s, h) for x in (q, k, v))
         sdpa = cs.kernel_ms(lambda: F.scaled_dot_product_attention(
@@ -145,7 +161,7 @@ def main() -> int:
             lib, serialised = libs[name]
             got = run(lib, q, k, v)
             err = None
-            if name in ("kernel", "two_stages", "wait_in_fence"):
+            if name in CORRECT:
                 err = cs.attn_within(got, want, f"K6 {name}")
             del got
             ms = cs.kernel_ms(lambda: run(lib, q, k, v), 10)[0]

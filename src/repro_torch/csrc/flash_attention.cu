@@ -14,45 +14,57 @@
 // the running max m, the normaliser l and the accumulator live in registers.
 //
 // Blocks: every kernel visits, for the queries of a 128-query block
-// (kQBlock), the 128-key tiles (kKBlock) below the block's causal bound
+// (kQBlock), the 128-key slots (kKBlock) below the block's causal bound
 // (kpos < min(T, block start + q_offset + 128)); kernels with smaller tiles
 // walk the same key slots.  Masking uses -1e30 as the reference does (not
-// -inf), so a query that sees no key in those tiles averages their values
+// -inf), so a query that sees no key in those slots averages their values
 // (keys past T count as zero vectors), as there.
 //
-// bf16 / fp16 at H = 64 and 128 (the serve's path), designed for Hopper:
-// one CTA of three warpgroups a (query row, 128-query block), the heaviest
-// causal blocks first.  Warpgroup 2 is the producer: one thread issues TMA
-// loads (descriptors from cuTensorMapEncodeTiled, reached through
+// Which kernel serves which head dim H:
+//
+// bf16 / fp16 at H = 64, 128, 192 and 256, designed for Hopper: one CTA of
+// three warpgroups a (query row, 128-query block), the heaviest causal
+// blocks first.  Warpgroup 2 is the producer: one thread issues TMA loads
+// (descriptors from cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so no libcuda link) of the Q tile once and of
-// K/V tiles of 128 keys into a ring of 3 stages in 128-byte swizzle,
-// guarded by mbarriers (K landed, V landed, stage free); it gives its
-// registers up with setmaxnreg.  Warpgroups 0 and 1 each own 64 queries:
-// S = Q K^T runs as wgmma m64n128k16 from shared memory; the softmax stays
-// in registers, exp2 (one MUFU.EX2) with scale * log2(e) folded into one
+// K/V tiles into a ring in 128-byte swizzle, guarded by mbarriers (K
+// landed, V landed, stage free); it gives its registers up with
+// setmaxnreg.  Warpgroups 0 and 1 each own 64 queries: S = Q K^T runs as
+// wgmma m64nKk16 (K keys a tile) from shared memory; the softmax stays in
+// registers, exp2 (one MUFU.EX2) with scale * log2(e) folded into one
 // FFMA; P is rounded to the input type in registers and is the register A
-// operand of the PV wgmma (V read transposed from its swizzled tile); O
-// accumulates in float32 registers.  S of tile c + 1 and PV of tile c go
-// to the tensor cores together, and the softmax of tile c + 1 runs while
-// PV of tile c still does; the two warpgroups take turns (named
+// operand of the PV wgmma, m64nHk16 (V read transposed from its swizzled
+// tile); O accumulates in float32 registers.  S of tile c + 1 and PV of
+// tile c go to the tensor cores together, and the softmax of tile c + 1
+// runs while PV of tile c still does; the two warpgroups take turns (named
 // barriers), so one's products also run while the other's softmax does.
 // The mask is evaluated only on tiles that need it (the diagonal, the
-// window's lower edge, the tile past T).
+// window's lower edge, the tile past T).  The ring's shape is set by the
+// 227 KB of shared memory a CTA may have (WsLayout):
+//   H = 64, 128: tiles of 128 keys, 3 stages: 32 + 3 x 64 = 224 KB at 128;
+//   H = 192: one 128-key stage is 96 KB beside a 48 KB Q tile, so tiles of
+//     64 keys (two a slot), 3 stages: 48 + 3 x 48 = 192 KB;
+//   H = 256: a 128-key stage is 128 KB beside 64 KB of Q: 64-key tiles, 2
+//     stages: 64 + 2 x 64 = 192 KB.
+// A slot's 64-key tile wholly past T is not loaded (its keys' share of l
+// is added at the end).  Registers (setmaxnreg: 40 the producer's, 232 a
+// consumer's): a consumer thread holds O (H / 2 floats), S (K / 2) and P
+// (K / 4 words) while PV of a tile and S of the next run, 128 + 32 + 16 at
+// H = 256.
 //
-// bf16 / fp16 at H = 16, 32, 192 and 256 (first version): one CTA of 4
-// warps per (query row, 64-query tile), K/V tiles of 64 keys
-// double-buffered with cp.async (zero-filled past T), rows padded by 16
-// bytes; QK^T and PV as mma.sync m16n8k16 with float32 accumulation.  The
-// Q tile stays in shared memory and its fragments are read a k-step at a
-// time, so a thread holds only S (32 floats) and O (H / 2 floats) across a
-// tile: 128 floats of O at H = 256 leave room under the 255 registers.
-// Shared memory: (64 + 4 x 64) x (H + 8) x 2 bytes, 165 KB at H = 256 (the
-// wgmma ring of 3 x 128-key K/V tiles would need 448 KB there).  float32:
-// the same tiles with plain FMA, q scaled in float32 first, the score and
-// probability tile in shared memory (TF32 tensor cores would miss its 1e-4
-// limit); the V tile is staged into the K tile's buffer once the scores
-// are formed, so at H = 256 the kernel needs 214 KB (K and V side by side
-// would need 280 KB, over the 227 KB a CTA may have).
+// bf16 / fp16 at H = 16 and 32 (first version; a row of 32 or 64 bytes
+// fills no 128-byte swizzle region): one CTA of 4 warps per (query row,
+// 64-query tile), K/V tiles of 64 keys double-buffered with cp.async
+// (zero-filled past T), rows padded by 16 bytes; QK^T and PV as mma.sync
+// m16n8k16 with float32 accumulation; Q's fragments are read from shared
+// memory a k-step at a time.
+//
+// float32 at every H: the same 64-row tiles as mma.sync with plain FMA, q
+// scaled in float32 first, the score and probability tile in shared memory
+// (TF32 tensor cores would miss its 1e-4 limit); the V tile is staged into
+// the K tile's buffer once the scores are formed, so at H = 256 the kernel
+// needs 214 KB (K and V side by side would need 280 KB, over the 227 KB a
+// CTA may have).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -65,7 +77,7 @@
 namespace {
 
 constexpr int kQBlock = 128;          // queries of a block (Q_BLOCK)
-constexpr int kKBlock = 128;          // keys of a tile (K_BLOCK)
+constexpr int kKBlock = 128;          // keys of a slot (K_BLOCK)
 constexpr int kTile = 64;             // the mma.sync / float32 kernels' tiles
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -434,29 +446,37 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 at H = 64 and 128: warp-specialised, TMA + wgmma
+// bf16 / fp16 at H = 64, 128, 192 and 256: warp-specialised, TMA + wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kStages = 3;             // K/V ring depth: 224 KB at H = 128
 constexpr int kConsumers = 2;          // warpgroups of 64 queries
 constexpr int kWsThreads = (kConsumers + 1) * 128;
 constexpr int kProducerRegs = 40;      // setmaxnreg: 40 x 128 + 232 x 256
 constexpr int kConsumerRegs = 232;     // = 64512 of the SM's 65536
 
+// The ring's shape by head dim.  Up to H = 128: tiles of 128 keys (one
+// 128-key slot each) in 3 stages, 224 KB at 128.  At 192 and 256 one
+// stage of 128-key K and V tiles alone is 96 / 128 KB beside a 48 / 64 KB
+// Q tile, so the tiles hold 64 keys (two a slot), in 3 stages at 192 and 2
+// at 256: 48 + 144 = 64 + 128 = 192 KB.
 // Shared memory from a 1024-byte aligned base: the Q tile, kStages x (K
 // tile, V tile), the barriers (K full[kStages], V full[kStages],
-// empty[kStages], q).  A tile
-// of R rows and H columns is H / 64 regions of R rows x 128 bytes (64
-// columns), each as TMA writes it in 128-byte swizzle.
+// empty[kStages], q).  A tile of R rows and H columns is H / 64 regions of
+// R rows x 128 bytes (64 columns), each as TMA writes it in 128-byte
+// swizzle.
 template <int H>
 struct WsLayout {
+  static constexpr int kKTile = H > 128 ? 64 : kKBlock;   // keys of a tile
+  static constexpr int kStages = H == 256 ? 2 : 3;      // K/V ring depth
   static constexpr int kRegions = H / 64;
   static constexpr int kQRegion = kQBlock * 128;
-  static constexpr int kKRegion = kKBlock * 128;
+  static constexpr int kKRegion = kKTile * 128;
   static constexpr int kQBytes = kRegions * kQRegion;
   static constexpr int kKVBytes = kRegions * kKRegion;
   static constexpr int kBars = kQBytes + 2 * kStages * kKVBytes;
   static constexpr size_t kSmem = 1024 + kBars + 8 * (3 * kStages + 1);
+  static_assert(kSmem <= 232448, "over the 227 KB a CTA may have");
+  static_assert(kKBlock % kKTile == 0, "tiles split the 128-key slots");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -555,26 +575,30 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63"
-// S = Q K^T step: m64n128k16, d[64]
-#define WGMMA_SS_N128(TY)                                                  \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                \
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY     \
-               " {" WG_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"              \
-               : WG_D32(0), WG_D32(32)                                     \
+#define WG_R96                                                             \
+  WG_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, "  \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "  \
+  "%90, %91, %92, %93, %94, %95"
+#define WG_R128                                                            \
+  WG_R96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, " \
+  "%107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "      \
+  "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+// S = Q K^T step: m64nNk16 over N keys, d[N / 2]; RN: d's operands, DA /
+// DB / SC: the numbers of da, db and scale_d
+#define WGMMA_SS(N, RN, DA, DB, SC, TY, ...)                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" SC ", 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+               " {" RN "}, %" DA ", %" DB ", p, 1, 1, 0, 0;\n}\n"          \
+               : __VA_ARGS__                                               \
                : "l"(da), "l"(db), "r"(scale_d))
-// O += P V step: m64n128k16 (d[64]) or m64n64k16 (d[32])
-#define WGMMA_RS_N128(TY)                                                  \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                \
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY     \
-               " {" WG_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
-               : WG_D32(0), WG_D32(32)                                     \
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
-                 "r"(scale_d))
-#define WGMMA_RS_N64(TY)                                                   \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY      \
-               " {" WG_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
-               : WG_D32(0)                                                 \
+// O += P V step: m64nHk16 over H columns, d[H / 2]; A0: the number of
+// a[0], then a[1..3], db and scale_d
+#define WGMMA_RS(N, RN, A0, A1, A2, A3, DB, SC, TY, ...)                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" SC ", 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+               " {" RN "}, {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" DB     \
+               ", p, 1, 1, 1;\n}\n"                                        \
+               : __VA_ARGS__                                               \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
                  "r"(scale_d))
 
@@ -586,49 +610,69 @@ struct Wgmma;
   struct Wgmma<T> {                                                        \
     static __device__ __forceinline__ void qk(float (&d)[64], uint64_t da, \
                                               uint64_t db, int scale_d) {  \
-      WGMMA_SS_N128(TY);                                                   \
+      WGMMA_SS(128, WG_R64, "64", "65", "66", TY, WG_D32(0), WG_D32(32));  \
     }                                                                      \
-    static __device__ __forceinline__ void pv(float (&d)[64],              \
-                                              const uint32_t (&a)[4],      \
-                                              uint64_t db) {               \
-      const int scale_d = 1;                                               \
-      WGMMA_RS_N128(TY);                                                   \
+    static __device__ __forceinline__ void qk(float (&d)[32], uint64_t da, \
+                                              uint64_t db, int scale_d) {  \
+      WGMMA_SS(64, WG_R32, "32", "33", "34", TY, WG_D32(0));               \
     }                                                                      \
     static __device__ __forceinline__ void pv(float (&d)[32],              \
                                               const uint32_t (&a)[4],      \
                                               uint64_t db) {               \
       const int scale_d = 1;                                               \
-      WGMMA_RS_N64(TY);                                                    \
+      WGMMA_RS(64, WG_R32, "32", "33", "34", "35", "36", "37", TY,         \
+               WG_D32(0));                                                 \
+    }                                                                      \
+    static __device__ __forceinline__ void pv(float (&d)[64],              \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t db) {               \
+      const int scale_d = 1;                                               \
+      WGMMA_RS(128, WG_R64, "64", "65", "66", "67", "68", "69", TY,        \
+               WG_D32(0), WG_D32(32));                                     \
+    }                                                                      \
+    static __device__ __forceinline__ void pv(float (&d)[96],              \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t db) {               \
+      const int scale_d = 1;                                               \
+      WGMMA_RS(192, WG_R96, "96", "97", "98", "99", "100", "101", TY,      \
+               WG_D32(0), WG_D32(32), WG_D32(64));                         \
+    }                                                                      \
+    static __device__ __forceinline__ void pv(float (&d)[128],             \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t db) {               \
+      const int scale_d = 1;                                               \
+      WGMMA_RS(256, WG_R128, "128", "129", "130", "131", "132", "133", TY, \
+               WG_D32(0), WG_D32(32), WG_D32(64), WG_D32(96));             \
     }                                                                      \
   };
 WGMMA_TYPE(__nv_bfloat16, "bf16")
 WGMMA_TYPE(__half, "f16")
 
-// S (64 queries x 128 keys) = Q K^T over H in k-steps of 16 columns: step
+// S (64 queries x KT keys) = Q K^T over H in k-steps of 16 columns: step
 // kk reads region kk / 4 of both tiles at byte kk % 4 * 32 of each row;
 // 8-row groups 1024 bytes apart
-template <typename T, int H>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t qa,
+template <typename T, int H, int KT>
+__device__ __forceinline__ void issue_qk(float (&s)[KT / 2], uint32_t qa,
                                          uint32_t ka) {
 #pragma unroll
   for (int kk = 0; kk < H / 16; ++kk) {
     const uint32_t off = (kk >> 2) * (kQBlock * 128) + (kk & 3) * 32;
-    const uint32_t koff = (kk >> 2) * (kKBlock * 128) + (kk & 3) * 32;
+    const uint32_t koff = (kk >> 2) * (KT * 128) + (kk & 3) * 32;
     Wgmma<T>::qk(s, sw128_desc(qa + off, 16, 1024),
            sw128_desc(ka + koff, 16, 1024), kk > 0);
   }
 }
 
-// O (64 x H) += P (64 x 128 keys) V in k-steps of 16 keys: V's rows
+// O (64 x H) += P (64 x KT keys) V in k-steps of 16 keys: V's rows
 // 16 kk .. 16 kk + 15 (2048 bytes a step), its 64-column regions LBO apart
-template <typename T, int H>
+template <typename T, int H, int KT>
 __device__ __forceinline__ void issue_pv(float (&acc)[H / 2],
-                                         const uint32_t (&pa)[8][4],
+                                         const uint32_t (&pa)[KT / 16][4],
                                          uint32_t va) {
 #pragma unroll
-  for (int kk = 0; kk < kKBlock / 16; ++kk)
+  for (int kk = 0; kk < KT / 16; ++kk)
     Wgmma<T>::pv(acc, pa[kk],
-           sw128_desc(va + kk * 2048, kKBlock * 128, 1024));
+           sw128_desc(va + kk * 2048, KT * 128, 1024));
 }
 
 template <typename T, int H>
@@ -638,6 +682,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv,
                    T* __restrict__ o, Args a) {
   typedef WsLayout<H> L;
+  constexpr int kStages = L::kStages, kKTile = L::kKTile;
+  constexpr int kS = kKTile / 2;              // S's floats a thread
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t qs = base;
@@ -653,7 +699,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = j * kQBlock;
   const int q_start = q0 + a.q_offset;
   const int hi = a.causal ? min(a.t, q_start + kQBlock) : a.t;
-  const int n_kv = hi > 0 ? (hi + kKBlock - 1) / kKBlock : 0;
+  // tiles of the 128-key slots below the bound, but those wholly past T
+  // (see the end)
+  const int n_kv = hi > 0 ? (hi + kKTile - 1) / kKTile : 0;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -681,12 +729,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t kst = kv0 + st * 2 * L::kKVBytes;
         mbar_expect_tx(full, L::kKVBytes);        // K first: S needs it a
         for (int r = 0; r < L::kRegions; ++r)     // tile before PV needs V
-          tma_load(kst + r * L::kKRegion, &tk, 64 * r, c * kKBlock, kv_row,
+          tma_load(kst + r * L::kKRegion, &tk, 64 * r, c * kKTile, kv_row,
                    full);
         mbar_expect_tx(vfull, L::kKVBytes);
         for (int r = 0; r < L::kRegions; ++r)
           tma_load(kst + L::kKVBytes + r * L::kKRegion, &tv, 64 * r,
-                   c * kKBlock, kv_row, vfull);
+                   c * kKTile, kv_row, vfull);
       }
     }
   } else {
@@ -702,8 +750,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    float s[64], corr[2];
-    uint32_t pa[8][4];
+    float s[kS], corr[2];
+    uint32_t pa[kKTile / 16][4];
 
     // the online softmax of tile k0's scores, in place: s becomes
     // 2^(s * sl2 - m) with the running max m (log2 units) raised to the
@@ -711,13 +759,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // Only a tile with a key past T, above a query or below a window
     // evaluates the mask.
     auto softmax = [&](int k0) {
-      const bool edge = k0 + kKBlock > a.t ||
-                        (a.causal && k0 + kKBlock - 1 > lo_pos) ||
+      const bool edge = k0 + kKTile > a.t ||
+                        (a.causal && k0 + kKTile - 1 > lo_pos) ||
                         (a.window && k0 <= hi_pos - a.window);
       float mx[2] = {kNegInf, kNegInf};
       if (edge) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kS; ++i) {
           const int kpos = k0 + (i >> 2) * 8 + col + (i & 1);
           const int qpos = q_start + r0 + ((i >> 1) & 1) * 8;
           const float x = visible(kpos, qpos, a.t, a.causal, a.window)
@@ -735,10 +783,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           m[r] = mx[r];
         }
 #pragma unroll
-        for (int i = 0; i < 64; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+        for (int i = 0; i < kS; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < kS; ++i)
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -749,12 +797,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           m[r] = mx[r];
         }
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < kS; ++i)
           s[i] = ex2(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
       }
       float rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 64; ++i) rs[(i >> 1) & 1] += s[i];
+      for (int i = 0; i < kS; ++i) rs[(i >> 1) & 1] += s[i];
       // l stays per thread (this thread's columns) until the end
       l[0] = l[0] * corr[0] + rs[0];
       l[1] = l[1] * corr[1] + rs[1];
@@ -762,7 +810,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // P's accumulator layout is the A fragment of the PV product
     auto pack_p = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kKTile / 16; ++kk) {
         pa[kk][0] = Mma<T>::pack(s[8 * kk], s[8 * kk + 1]);
         pa[kk][1] = Mma<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
         pa[kk][2] = Mma<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
@@ -785,7 +833,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(full0, 0);
       turn_wait(my_turn);
       wgmma_fence();
-      issue_qk<T, H>(s, qa, kv0);
+      issue_qk<T, H, kKTile>(s, qa, kv0);
       wgmma_commit();
       turn_pass(other_turn);
       wgmma_wait<0>();
@@ -801,14 +849,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(vfull0 + 8 * st, (c / kStages) & 1);
       turn_wait(my_turn);
       wgmma_fence();
-      issue_qk<T, H>(s, qa, kv0 + nst * 2 * L::kKVBytes);
+      issue_qk<T, H, kKTile>(s, qa, kv0 + nst * 2 * L::kKVBytes);
       wgmma_commit();
-      issue_pv<T, H>(acc, pa, kv0 + st * 2 * L::kKVBytes + L::kKVBytes);
+      issue_pv<T, H, kKTile>(acc, pa,
+                             kv0 + st * 2 * L::kKVBytes + L::kKVBytes);
       wgmma_commit();
       if (wg == 0 || next) turn_pass(other_turn);   // none unmatched
       wgmma_wait<1>();               // S of tile c + 1 is in
       fence_regs(s);
-      if (next) softmax((c + 1) * kKBlock);
+      if (next) softmax((c + 1) * kKTile);
       wgmma_wait<0>();               // and PV of tile c
       fence_regs(acc);
       mbar_arrive(empty0 + 8 * st);
@@ -821,6 +870,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      if constexpr (kKTile < kKBlock) {
+        // A slot's tile wholly past T (zero keys, all masked) changes
+        // nothing where a query has seen a key; where one has not (m still
+        // -1e30) each of its keys adds p = 1 to l and nothing to O, as on
+        // the other kernels' walk: its kKTile / 4 keys a thread are added
+        // here instead of loaded
+        const int unwalked =
+            hi > 0 ? (hi + kKBlock - 1) / kKBlock * (kKBlock / kKTile) - n_kv
+                   : 0;
+        if (m[r] == kNegInf)
+          l[r] += static_cast<float>(unwalked * kKTile / 4);
+      }
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = 1.f / fmaxf(l[r], 1e-20f);
@@ -918,8 +979,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (!tensor_map(enc, &tq, dt, q, rows, a.s, H, kQBlock))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.t > 0 &&      // t == 0: no block visits a tile, the maps go unread
-      (!tensor_map(enc, &tk, dt, k, rows / a.g, a.t, H, kKBlock) ||
-       !tensor_map(enc, &tv, dt, v, rows / a.g, a.t, H, kKBlock)))
+      (!tensor_map(enc, &tk, dt, k, rows / a.g, a.t, H, L::kKTile) ||
+       !tensor_map(enc, &tv, dt, v, rows / a.g, a.t, H, L::kKTile)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -958,12 +1019,12 @@ int launch(int code, const void* q, const void* k, const void* v, void* o,
   switch (code) {
     case 0: return launch_fp32<H>(q, k, v, o, rows, a, stream);
     case 1:
-      if constexpr (H == 64 || H == 128)
+      if constexpr (H >= 64)
         return launch_wgmma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
       else
         return launch_mma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
     case 2:
-      if constexpr (H == 64 || H == 128)
+      if constexpr (H >= 64)
         return launch_wgmma<__half, H>(q, k, v, o, rows, a, stream);
       else
         return launch_mma<__half, H>(q, k, v, o, rows, a, stream);

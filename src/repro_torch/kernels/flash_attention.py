@@ -38,7 +38,7 @@ __all__ = ["Q_BLOCK", "K_BLOCK", "HEAD_DIMS", "NEG_INF", "flash_rows",
 
 NEG_INF = -1e30
 Q_BLOCK = 128         # csrc/flash_attention.cu kQBlock
-K_BLOCK = 128         # csrc/flash_attention.cu kKBlock
+K_BLOCK = 128         # csrc/flash_attention.cu kKBlock (a slot)
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -145,9 +145,20 @@ def flash_rows(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
     """q2: (RQ, S, H); k2/v2: (RK, T, H); RQ = RK * G -> (RQ, S, H) in q2's
     dtype.  ``q_offset``: the absolute position of q2's first query.  The
     kernel for CUDA tensors (float32, bfloat16 or float16, H in
-    ``HEAD_DIMS``, contiguous, ``Q_BLOCK``-query blocks over ``K_BLOCK``-key
-    tiles; bf16 / fp16 at H = 64 and 128 on wgmma fed by TMA, at 16, 32,
-    192 and 256 on mma.sync), the plain version for CPU tensors."""
+    ``HEAD_DIMS``, contiguous; ``Q_BLOCK``-query blocks over the
+    ``K_BLOCK``-key slots below their causal bound), the plain version for
+    CPU tensors.  Which kernel serves which H (``csrc/flash_attention.cu``):
+
+    * bf16 / fp16 at H = 64, 128, 192 and 256: warp-specialised, TMA into
+      a ring of K/V tiles, ``wgmma`` products.  The ring fits the 227 KB of
+      shared memory a CTA may have: 128-key tiles in 3 stages up to H = 128
+      (224 KB at 128); at 192 / 256 a 128-key stage alone is 96 / 128 KB
+      beside a 48 / 64 KB Q tile, so 64-key tiles (two a slot) in 3 / 2
+      stages, 192 KB each.
+    * bf16 / fp16 at H = 16 and 32: ``mma.sync`` over 64-key tiles
+      (a row of 32 or 64 bytes fills no 128-byte swizzle region).
+    * float32 at every H: plain FMA over 64-key tiles (TF32 tensor cores
+      would miss its 1e-4 limit)."""
     g = _check(q2, k2, v2, "flash_rows")
     if not q2.is_cuda:
         if q2.device.type != "cpu" or k2.device != q2.device \

@@ -708,6 +708,20 @@ def _row_rel_err(got, want):
     (3, 130, 130, 0, False, 0),
     (3, 70, 200, 130, True, 0),       # absolute positions from q_offset
     (1, 96, 160, 64, True, 40),
+    # where 64-key tiles (H = 192 / 256) differ from 128-key ones: lengths
+    # one past a tile, a slot and short of the next (129: a slot's second
+    # tile wholly past T, not walked)
+    (1, 65, 65, 0, True, 0),
+    (3, 129, 129, 0, True, 0),
+    (1, 191, 191, 0, True, 0),
+    (3, 100, 300, 40, True, 0),       # a q_offset off the 64-key tiles
+    (1, 300, 300, 0, True, 100),      # a window edge inside a 64-key tile
+    (12, 130, 130, 0, True, 0),       # nemotron-4-340b's grouping
+    # queries that see no key: they average the visited slots, T past a
+    # slot's first tile (200) and inside it (150: its second tile is not
+    # walked)
+    (1, 70, 200, 400, True, 100),
+    (1, 70, 150, 400, True, 100),
 ])
 def test_k6_kernel_matches_plain(name, h, g, s, t, q_offset, causal,
                                  window):
@@ -969,15 +983,34 @@ def test_relational_group_ranks_on_the_card(shape, groups):
     ids = torch.from_numpy(rng.integers(0, groups, shape).astype(np.int32)
                            ).cuda()
     got, counts = _launched(lambda: rel.group_ranks(ids, groups))
+    runs = [got]
     if len(shape) == 1:
+        # the sort path: the kernels the card's plan names on `auto`, and
+        # K3 on `radix`
+        from repro_torch import engine
+        plan = engine.choose(shape[0], 1, torch.int32, device="cuda")
+        if plan.method == "radix":
+            want_kernels = K3
+        elif plan.method == "torch":
+            want_kernels = ()
+        else:
+            want_kernels = K3 + ("merge_path_partition",)
+        for kernel in want_kernels:
+            assert counts.get(kernel, 0) > 0, (plan.method, kernel, counts)
+        if not want_kernels:
+            assert not counts, (plan.method, counts)
+        radix, counts = _launched(lambda: rel.group_ranks(ids, groups,
+                                                          method="radix"))
         assert counts.get("radix_onesweep_hist", 0) > 0, counts
+        runs.append(radix)
     order = torch.sort(ids, dim=-1, stable=True)
     start = torch.searchsorted(order.values, order.values, side="left")
     pos = torch.arange(shape[-1], device="cuda").expand_as(start)
     want = torch.empty_like(start).scatter_(-1, order.indices, pos - start)
-    _same(got.ranks, want.to(torch.int32))
-    _same(got.counts, torch.nn.functional.one_hot(
-        ids.long(), groups).sum(-2).to(torch.int32))
+    for r in runs:
+        _same(r.ranks, want.to(torch.int32))
+        _same(r.counts, torch.nn.functional.one_hot(
+            ids.long(), groups).sum(-2).to(torch.int32))
 
 
 def test_relational_float_sums_on_the_card_match_the_cpu():
@@ -1043,14 +1076,14 @@ def test_spill_nan_runs_merge_on_k2_by_order_key():
 
 @pytest.mark.parametrize("descending", [False, True])
 def test_spill_on_the_card_matches_torch_sort(descending):
-    """The spill tier on the card (host input, many chunks, K3 chunk sorts,
-    K2 block merges on the copy streams) against ``torch.sort(stable=
-    True)``; overlap off gives the same bits."""
+    """The spill tier on the card (host input, many chunks, K3 chunk sorts
+    on ``method="radix"``, K2 block merges on the copy streams) against
+    ``torch.sort(stable=True)``; overlap off gives the same bits."""
     from repro_torch.engine import spill
     rng = np.random.default_rng(8)
     k = torch.from_numpy(rng.integers(0, 1000, 1 << 20).astype(np.int32))
     (order, counts) = _launched(lambda: spill.spill_argsort(
-        k, descending=descending, chunk_bytes=1 << 18))
+        k, descending=descending, chunk_bytes=1 << 18, method="radix"))
     chunks = (1 << 20) // (1 << 16)
     assert counts.get("radix_onesweep_hist") == chunks, counts
     assert counts.get("radix_onesweep_pass") == 4 * chunks, counts
@@ -1060,7 +1093,8 @@ def test_spill_on_the_card_matches_torch_sort(descending):
     want = torch.sort(k.cuda(), descending=descending, stable=True)
     _same(order, want.indices.to(torch.int32).cpu())
     _same(order, spill.spill_argsort(k, descending=descending,
-                                     chunk_bytes=1 << 18, overlap=False))
+                                     chunk_bytes=1 << 18, method="radix",
+                                     overlap=False))
     x = torch.from_numpy(rng.standard_normal(1 << 20).astype(np.float32))
     x[::1001] = float("nan")
     got = spill.spill_sort(x, descending=descending, chunk_bytes=1 << 18)

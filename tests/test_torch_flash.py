@@ -66,6 +66,15 @@ CASES = [
     (1, _B15, 2, 1, 128, True, 24),
     (2, _B15R, 1, 2, 128, True, 24),
 ]
+# the wide heads: nemotron-4-340b's H = 192 at its G = 12, gemma-2b's 256
+# with one kv head (MQA); a window of 100 whose lower edge falls inside a
+# 64-key tile, as the kernel walks these widths
+WIDE = [
+    (1, _B15R, 12, 1, 192, True, 0),
+    (1, _B15R, 12, 2, 192, True, 100),
+    (2, _B15R, 8, 1, 256, True, 0),
+    (1, _B15R, 8, 1, 256, True, 100),
+]
 
 
 def _plain_blocks(q, k, v, **kw):
@@ -79,7 +88,7 @@ def _plain_blocks(q, k, v, **kw):
     return out.reshape(b, n, s, h).transpose(1, 2)
 
 
-@pytest.mark.parametrize("b,s,g,r,h,causal,window", CASES)
+@pytest.mark.parametrize("b,s,g,r,h,causal,window", CASES + WIDE)
 def test_plain_matches_jax_attend_fp32(b, s, g, r, h, causal, window):
     q, k, v = _inputs(b, s, s, g * r, r, h, seed=s * 7 + g * 3 + h)
     got = tfa.flash_attention(to_torch(q), to_torch(k), to_torch(v),
@@ -137,7 +146,7 @@ def test_plain_at_the_kernel_blocks_matches_jax_attend(s, t, q_offset,
                                atol=3e-5, rtol=0)
 
 
-@pytest.mark.parametrize("b,s,g,r,h,causal,window", CASES[:6])
+@pytest.mark.parametrize("b,s,g,r,h,causal,window", CASES[:6] + WIDE)
 def test_plain_bf16_matches_fp32_oracle(b, s, g, r, h, causal, window):
     q, k, v = _inputs(b, s, s, g * r, r, h, seed=s + h,
                       dtype=jnp.bfloat16)
