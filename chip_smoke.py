@@ -164,11 +164,25 @@ Phases, each printed as one JSON line:
             ``router_method="torch"`` (within ``TRAIN_GRAD_TOL`` of each
             leaf's largest value); then 5 steps without a codec and 5 with
             the top-k codec (an eighth of each tensor), each step counted
-            (the router's K5 once a MoE layer) with its loss, grad norm,
-            ms, tokens/s and peak memory; the loss finite and falling.
+            (the router's K5 twice a MoE layer: the forward and its remat
+            recompute) with its loss, grad norm, ms, tokens/s and peak
+            memory; the loss finite and falling.
             Then the smoke model: one float32 step on the card against the
             CPU (``SMOKE_TOL``), and ``launch.train`` saved, restored and
             continued on the card (the step count carries on);
+5d2. families_train
+            every architecture but nemotron-4-340b at full width, at the
+            depth the one-card dry run (``launch.dryrun``, fake tensors)
+            fits in 80% of the card's memory, built with remat from the
+            seed: 5 steps of 4 x 1024 tokens (qwen2-vl 2 x 2048) with the
+            plan's optimizer, frames and vision feeds where the family takes
+            them; each loss finite and falling; K5's router launches twice a
+            MoE layer and step, no kernel on a dense stack; one line a model
+            with the predicted and measured peak, step ms (CUDA events),
+            the roofline's bound and the MFU.  Then remat on against off
+            (float32 gradients within 1e-6) for one architecture of each
+            kind at smoke size, and nemotron-4-340b's dry-run record (it
+            does not fit; no step);
 5e. data    2^20 token rows of 128 with a tenth planted as copies:
             ``dedup_rows`` on ``method="radix"`` (its ``unique`` exactly
             one K3 histogram and 4 passes) and on ``auto``, and
@@ -2443,8 +2457,11 @@ def phase_train() -> dict:
     ``SyntheticLM`` batches of 4 x 1024: one step's gradients with the
     router on K5 against the same step with ``router_method="torch"``;
     then 5 steps without a codec and 5 with the top-k codec (an eighth of
-    each tensor), each step counted (the router's K5 once a MoE layer in
-    the forward) and timed; the loss finite and falling.  Then the smoke
+    each tensor), each step counted and timed; the loss finite and
+    falling.  The model keeps only each layer's inputs through the
+    forward (remat, the default while a gradient is taken), so a MoE
+    layer's forward runs again in the backward and its router's K5
+    launches twice a gradient: in the forward and in the recompute.  Then the smoke
     model: one step on the card against the CPU, and a save, restore and
     continue of ``launch.train`` (the step count carries on).  Returns the
     launches."""
@@ -2491,9 +2508,10 @@ def phase_train() -> dict:
     _build.reset_launches()
     la, _, ga = steps_lib.loss_and_grads(model, params, batch)
     torch.cuda.synchronize()
-    if _build.launches.get("topk_rows_short", 0) != n_moe:
+    if _build.launches.get("topk_rows_short", 0) != 2 * n_moe:
         raise AssertionError(f"train: router K5 launches "
-                             f"{dict(_build.launches)}, expected {n_moe}")
+                             f"{dict(_build.launches)}, expected "
+                             f"{2 * n_moe} (forward + remat recompute)")
     ref = model_zoo.build(dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, router_method="torch")), device="cuda")
     lb, _, gb = steps_lib.loss_and_grads(ref, params, batch)
@@ -2538,9 +2556,10 @@ def phase_train() -> dict:
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             counts = dict(_build.launches)
-            if counts.get("topk_rows_short", 0) != n_moe:
+            if counts.get("topk_rows_short", 0) != 2 * n_moe:
                 raise AssertionError(f"train: router K5 launches {counts}, "
-                                     f"expected {n_moe} a step")
+                                     f"expected {2 * n_moe} a step "
+                                     f"(forward + remat recompute)")
             check_k3_sorts("train", counts, None)
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
@@ -2579,6 +2598,196 @@ def phase_train() -> dict:
     emit({"phase": "train", "smoke_card_vs_cpu": smoke,
           "limits": SMOKE_TOL, "smoke_losses": first + more,
           "resumed_at": 6, "latest_checkpoint": latest})
+    return launches
+
+
+# the families_train phase: every architecture but nemotron-4-340b at full
+# width, cut to the depth the dry run fits on the card (FIT_SHARE of its
+# memory: room for the dry run's misses, 0-23% on the card, and for the
+# allocator's fragmentation: after the earlier phases moonshot's 6 layers,
+# fitted to 0.85, found 9.7 GiB reserved but unallocated and ran out)
+TRAIN_ARCHS = ("whisper-tiny", "mamba2-1.3b", "recurrentgemma-2b",
+               "gemma-2b", "minitron-4b", "moonshot-v1-16b-a3b",
+               "deepseek-67b", "qwen2-vl-72b", "dbrx-132b")
+# Adam's first steps move every weight by ~lr in a coherent direction, a
+# product's output by ~lr x its fan-in: the learning rate falls with the
+# widest fan-in, max(d_model, d_ff) (0.1 / 1536 = 6.5e-5 for whisper-tiny,
+# 0.1 / 29568 = 3.4e-6 for qwen2-vl-72b), so that a fresh model's loss
+# falls from the first step
+FAMILY_TRAIN = dict(batch=4, seq=1024, steps=5, lr_x_fan_in=0.1)
+
+
+def family_lr(cfg) -> float:
+    return FAMILY_TRAIN["lr_x_fan_in"] / max(cfg.d_model, cfg.d_ff)
+VLM_TRAIN = (2, 2048)     # qwen2-vl: its 1024-token vision prefix, then text
+FIT_SHARE = 0.8
+REMAT_ARCHS = ("minitron-4b", "mamba2-1.3b", "recurrentgemma-2b",
+               "whisper-tiny", "moonshot-v1-16b-a3b")
+REMAT_TOL = 1e-6          # float32 gradients, remat on against off
+
+
+def _remat_check() -> dict:
+    """One architecture of each kind (dense, ssm, hybrid, encdec, MoE) at
+    smoke size in float32 on the card: the gradients with remat equal
+    those without, within ``REMAT_TOL``."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model_zoo
+    out = {}
+    for arch in REMAT_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                      global_batch=2, seed=SEED))
+        batch = to_device(train_lib.train_batch(data, cfg, 0, SEED), "cuda")
+        on = model_zoo.build(cfg, device="cuda", remat=True)
+        off = model_zoo.build(cfg, device="cuda", remat=False)
+        params = on.init(torch.Generator(device="cuda").manual_seed(SEED))
+        la, _, ga = steps_lib.loss_and_grads(on, params, batch)
+        lb, _, gb = steps_lib.loss_and_grads(off, params, batch)
+        err = max((x - y).abs().max().item()
+                  for x, y in zip(tree.leaves(ga), tree.leaves(gb)))
+        if err > REMAT_TOL or float(la) != float(lb):
+            raise AssertionError(f"remat {arch}: gradients differ by {err} "
+                                 f"(loss {float(la)} vs {float(lb)})")
+        out[arch] = err
+    return out
+
+
+def phase_families_train() -> dict:
+    """Every architecture but nemotron-4-340b trained on the card at full
+    width (``TRAIN_ARCHS``), one at a time and freed before the next.  For
+    each: the dry run (``repro_torch.launch.dryrun.fit_depth``, fake
+    tensors) picks the deepest cut whose predicted peak is within
+    ``FIT_SHARE`` of the card's memory, and the roofline bounds its step;
+    then the model is built with remat (the default) from the seed and
+    takes ``FAMILY_TRAIN["steps"]`` steps of 4 x 1024 tokens (qwen2-vl 2 x
+    2048) with the plan's optimizer (AdamW; Adafactor for dbrx), the
+    encoder-decoder's and the vlm's batches carrying their frame and
+    vision feeds (``launch.train.train_batch``).  The counts are set to 0
+    just before the steps and read just after: under remat a MoE router's
+    K5 (``topk_rows_short``) launches twice a MoE layer, microbatch and
+    step (the forward and its recompute in the backward), and a dense
+    stack launches no kernel.  Each loss finite, the last below the first.
+    One line a model: depth, predicted and measured peak, step ms (CUDA
+    events; the first step apart), the roofline's bound and the MFU.
+    Then the remat check (``_remat_check``) and nemotron-4-340b's dry-run
+    record, which does not fit (it takes no step).  Returns the launches."""
+    import gc
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model_zoo
+
+    smi = card()
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    limit = FIT_SHARE * capacity
+    n_steps = FAMILY_TRAIN["steps"]
+    launches: dict = {}
+    for arch in TRAIN_ARCHS:
+        full = get_config(arch)
+        b, s = VLM_TRAIN if full.vision_prefix else (FAMILY_TRAIN["batch"],
+                                                      FAMILY_TRAIN["seq"])
+        shape = ShapeSpec("families_train", s, b, "train")
+        plan = dryrun.train_plan(arch, shape)
+        td = time.perf_counter()
+        cfg, rec = dryrun.fit_depth(arch, shape, plan, limit)
+        dry_s = time.perf_counter() - td
+        row = roofline.analyze_record(rec)
+        predicted = rec["memory"]["peak_bytes"]
+        emit({"phase": "families_train", "model": arch,
+              "dry_run": {"layers": cfg.n_layers, "of": full.n_layers,
+                          "peak_gib": predicted / 2 ** 30,
+                          "limit_gib": limit / 2 ** 30,
+                          "traced": rec["traced"], "seconds": dry_s}})
+        n_moe = (cfg.n_layers - cfg.moe.first_dense_layers
+                 if cfg.moe is not None else 0)
+        want = ({"topk_rows_short": 2 * n_moe * plan.microbatch * n_steps}
+                if n_moe else {})
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = model_zoo.build(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        fn, opt = steps_lib.make_train_step(
+            model, cfg, shape, optimizer_name=plan.optimizer,
+            microbatch=plan.microbatch,
+            accum_dtype=(torch.bfloat16 if plan.accum == "bfloat16"
+                         else torch.float32),
+            peak_lr=family_lr(cfg), total_steps=n_steps)
+        state = opt.init(params)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                      global_batch=b, seed=SEED))
+        batches = [to_device(train_lib.train_batch(data, cfg, i, SEED),
+                             "cuda") for i in range(n_steps)]
+        losses, ms = [], []
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for step in range(n_steps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            params, state, met = fn(params, state, step, batches[step])
+            t1.record()
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        counts = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        if counts != want:
+            raise AssertionError(f"families_train {arch}: launches {counts}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"families_train {arch}: losses {losses} "
+                                 f"not finite and falling")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        step_ms = sum(ms[1:]) / len(ms[1:])
+        emit({"phase": "families_train", "model": arch,
+              "family": cfg.family, "layers": cfg.n_layers,
+              "reduced": None if cfg.n_layers == full.n_layers else
+              f"depth {full.n_layers} -> {cfg.n_layers} layers (dry run)",
+              "n_params": cfg.n_params(), "tokens_a_step": b * s,
+              "optimizer": plan.optimizer, "microbatch": plan.microbatch,
+              "peak_lr": family_lr(cfg),
+              "losses": losses, "first_step_ms": ms[0], "step_ms": step_ms,
+              "steps_ms": ms, "tokens_s": b * s / step_ms * 1e3,
+              "peak_gib": peak / 2 ** 30,
+              "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+              "predicted_peak_gib": predicted / 2 ** 30,
+              "peak_over_predicted": peak / predicted,
+              "bound_ms": row["t_bound_s"] * 1e3,
+              "bound_by": row["dominant"],
+              "mfu_bound": row["mfu_bound"],
+              "mfu": roofline.mfu(row, step_ms / 1e3),
+              "launches": counts, "nvidia_smi": smi})
+        del model, params, state, fn, opt, met, batches
+        torch.cuda.empty_cache()
+
+    emit({"phase": "families_train", "check": "remat on vs off, float32",
+          "max_abs_err": _remat_check(), "limit": REMAT_TOL})
+    nemo = "nemotron-4-340b"
+    shape = ShapeSpec("families_train", FAMILY_TRAIN["seq"],
+                      FAMILY_TRAIN["batch"], "train")
+    rec = dryrun.lower_cell(nemo, shape.name,
+                            plan=dryrun.train_plan(nemo, shape), shape=shape,
+                            capacity_bytes=limit, verbose=False)
+    if rec["ok"]:
+        raise AssertionError(f"{nemo}: the dry run fits it on one card")
+    emit({"phase": "families_train", "model": nemo, "trained": False,
+          "dry_run": {k: rec[k] for k in ("ok", "reason", "memory",
+                                          "n_layers", "plan", "traced")}})
     return launches
 
 
@@ -3860,6 +4069,12 @@ def main() -> int:
           "seconds": time.perf_counter() - ts})
 
     ts = time.perf_counter()
+    families_train_launches = phase_families_train()
+    emit({"phase": "families_train",
+          "total_launches": families_train_launches,
+          "seconds": time.perf_counter() - ts})
+
+    ts = time.perf_counter()
     data_launches = phase_data(rng)
     emit({"phase": "data", "total_launches": data_launches,
           "seconds": time.perf_counter() - ts})
@@ -3877,8 +4092,8 @@ def main() -> int:
 
     launches = dict(main_res["launches"])
     for counts in (rel_launches, dist_launches, serve_launches, moe_launches,
-                   family_launches, train_launches, data_launches,
-                   spill_launches):
+                   family_launches, train_launches, families_train_launches,
+                   data_launches, spill_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 

@@ -4,4 +4,4 @@ architecture of ``ARCH_IDS``) and the shape registry."""
 from repro_torch.configs.adsimc_paper import PAPER_UNIT, SortUnitConfig  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
     ALIASES, ARCH_IDS, SHAPES, ModelConfig, MoEConfig, RGLRUConfig,
-    SSMConfig, ShapeSpec, get_config, get_smoke_config)
+    SSMConfig, ShapeSpec, cell_is_supported, get_config, get_smoke_config)

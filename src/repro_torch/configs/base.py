@@ -97,6 +97,14 @@ class ModelConfig:
             return self.vocab_size
         return ((self.vocab_size + 511) // 512) * 512
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
     def layer_kind(self, i: int) -> str:
         """Mixer for layer i: attn | ssm | rglru."""
         if self.family == "ssm":
@@ -206,3 +214,11 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+def cell_is_supported(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether an (arch x shape) dry-run cell applies: a 524288-deep
+    decode only for a sub-quadratic architecture (the reference's rule)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: 500k dense KV unsupported"
+    return True, ""

@@ -40,32 +40,48 @@ def loss_and_grads(model: Model, params, batch):
     return loss.detach(), aux, _tree.unflatten(params, grads)
 
 
+def batch_axis(name: str) -> int:
+    """The batch axis of a batch entry: 1 for the vlm's (3, B, S)
+    ``positions``, 0 for every other.  Chosen by name: the reference tests
+    ``shape[0] == 3`` (ROADMAP Queue 3), which a global batch of 3 would
+    also meet."""
+    return 1 if name == "positions" else 0
+
+
 def build_train_step(model: Model, optimizer: opt_lib.Optimizer,
                      shape: ShapeSpec, microbatch: int = 1,
                      accum_dtype=torch.float32, grad_compressor=None):
     """``train_step(params, opt_state, step, batch) -> (params, opt_state,
     metrics)``.  ``batch``: ``{"tokens", "labels"}`` tensors on the
-    model's device; ``microbatch`` splits it along the batch axis and
+    model's device (and ``frames``, or ``vision_embeds`` and ``positions``,
+    where the family takes them); ``microbatch`` splits each entry along
+    its batch axis (``batch_axis``) and
     accumulates the gradients in ``accum_dtype``; ``grad_compressor`` is a
     codec's ``apply`` (``optim.grad_compress.make_compressor``)."""
     del shape          # the reference's shardings; one device here
 
     def train_step(params, opt_state, step, batch):
         if microbatch > 1:
-            b = next(iter(batch.values())).shape[0]
+            b = batch["tokens"].shape[0]
+            if b % microbatch:
+                raise ValueError(f"a batch of {b} does not split into "
+                                 f"{microbatch} microbatches")
             per = b // microbatch
             gsum, lsum = None, 0.0
             for j in range(microbatch):
-                mb = {k: v[j * per:(j + 1) * per] for k, v in batch.items()}
+                mb = {k: v.narrow(batch_axis(k), j * per, per)
+                      for k, v in batch.items()}
                 loss, _, grads = loss_and_grads(model, params, mb)
                 if gsum is None:
                     gsum = _tree.map(lambda g: g.to(accum_dtype), grads)
                 else:
-                    gsum = _tree.map(lambda a, g: a + g.to(accum_dtype),
-                                     gsum, grads)
+                    gsum = _tree.map(lambda a, g: a.add_(g.to(accum_dtype)),
+                                     gsum, grads)        # in place
+                del grads          # not held through the next microbatch
                 lsum = lsum + loss
-            grads = _tree.map(lambda g: g.to(torch.float32) / microbatch,
-                              gsum)
+            grads = _tree.map(lambda g: g.to(torch.float32).div_(microbatch),
+                              gsum)                      # in place if float32
+            del gsum
             loss = lsum / microbatch
         else:
             loss, _, grads = loss_and_grads(model, params, batch)

@@ -6,26 +6,54 @@ data pipeline -> async checkpointing -> fault-tolerance runtime
 (preemption save, step watchdog, resume from the latest checkpoint).
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
-      --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 5
+      --arch mamba2-1.3b --smoke --device cpu --steps 5
 
-Runs on the card unless ``--device cpu`` is given.  Not carried: the
+Every architecture trains: the encoder-decoder's and the vlm's batches
+carry the reference's frame and vision feeds (``train_batch``), and the
+model keeps only each layer's inputs through the forward (remat).  Runs
+on the card unless ``--device cpu`` is given.  Not carried: the
 shardings of a training mesh (ROADMAP Queue 1 item 12c).
 """
 from __future__ import annotations
 
 import argparse
-from typing import List
+from typing import Dict, List
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs.base import ShapeSpec, get_config, get_smoke_config
+from repro_torch.configs.base import (ModelConfig, ShapeSpec, get_config,
+                                      get_smoke_config)
 from repro_torch.core.sortspec import resolve_device
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model_zoo import build
 from repro_torch.runtime.fault_tolerance import (PreemptionHandler,
                                                  StepWatchdog)
+
+
+def train_batch(data: SyntheticLM, cfg: ModelConfig, step: int,
+                seed: int) -> Dict[str, np.ndarray]:
+    """The numpy batch of ``step``, drawn as the reference's training
+    loop draws it: ``data``'s tokens and labels; for the encoder-decoder
+    ``frames`` (B, enc_seq, D) from ``default_rng((seed, step, 7))``; for
+    the vlm ``vision_embeds`` (B, vision_prefix, D) from ``(seed, step,
+    8)`` and (3, B, S) ``positions`` (t = h = w = the token's index).
+    Embeddings are float32 scaled by 0.1; the model casts them."""
+    out = data.global_batch_at(step)
+    b, s = data.cfg.global_batch, data.cfg.seq_len
+    if cfg.family == "encdec":
+        rng = np.random.default_rng((seed, step, 7))
+        out["frames"] = rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32) * 0.1
+    if cfg.vision_prefix:
+        rng = np.random.default_rng((seed, step, 8))
+        out["vision_embeds"] = rng.standard_normal(
+            (b, cfg.vision_prefix, cfg.d_model)).astype(np.float32) * 0.1
+        out["positions"] = np.broadcast_to(
+            np.arange(s, dtype=np.int32), (3, b, s)).copy()
+    return out
 
 
 def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
@@ -67,7 +95,7 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     losses: List[float] = []
     try:
         for step in range(start_step, steps):
-            dev_batch = to_device(data.global_batch_at(step), dev)
+            dev_batch = to_device(train_batch(data, cfg, step, seed), dev)
             watchdog.start()
             params, opt_state, metrics = fn(params, opt_state, step,
                                             dev_batch)

@@ -8,6 +8,9 @@ sinusoids).  LayerNorm + GELU + MHA (n_kv == n_heads), pre-norm; no
 rotary, and no attention here goes through K6 (the reference sends only
 the decoder-only stacks' causal self-attention to its flash kernel).
 
+Training keeps only each encoder and decoder layer's inputs while a
+gradient is taken (``remat``, on by default as in the reference).
+
 Decode keeps two caches a decoder layer: the self-attention KV cache
 (updated in place) and the cross-attention K/V computed once from the
 encoder output by ``prefill`` and frozen.
@@ -19,9 +22,11 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers
+from repro_torch.models.transformer import remat_active
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -39,6 +44,7 @@ def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
 class EncDecTransformer:
     cfg: ModelConfig
     device: torch.device
+    remat: bool = True
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -89,16 +95,24 @@ class EncDecTransformer:
 
     # -------------------------------------------------------------- encoder
     def encode(self, params, frames):
-        """frames: (B, S_enc, D) stubbed audio embeddings -> (B, S_enc, D)."""
+        """frames: (B, S_enc, D) stubbed audio embeddings -> (B, S_enc, D).
+        Each layer under ``checkpoint`` while a gradient is taken
+        (``remat_active``)."""
         x = frames.to(self.cfg.param_dtype())
         x = x + sinusoids(x.shape[1], x.shape[2], x.device).to(x.dtype)[None]
+        remat = remat_active(self.remat, params)
         for p in params["enc"]:
-            h = layers.layernorm(p["ln1"], x)
-            mix, _ = attention.apply(p["attn"], self.enc_attn, h)
-            x = x + mix
-            h2 = layers.layernorm(p["ln2"], x)
-            x = x + layers.mlp_apply(p["mlp"], h2, "gelu")
+            x = (checkpoint(self._enc_layer, p, x, use_reentrant=False,
+                            preserve_rng_state=False)
+                 if remat else self._enc_layer(p, x))
         return layers.layernorm(params["enc_ln"], x)
+
+    def _enc_layer(self, p, x):
+        h = layers.layernorm(p["ln1"], x)
+        mix, _ = attention.apply(p["attn"], self.enc_attn, h)
+        x = x + mix
+        h2 = layers.layernorm(p["ln2"], x)
+        return x + layers.mlp_apply(p["mlp"], h2, "gelu")
 
     # -------------------------------------------------------------- decoder
     def _embed(self, params, tokens):
@@ -115,16 +129,24 @@ class EncDecTransformer:
         return x + layers.mlp_apply(p["mlp"], h2, "gelu")
 
     def decode_hidden(self, params, tokens, enc_out):
+        """The decoder over whole sequences -> (B, S, D); each layer under
+        ``checkpoint`` while a gradient is taken."""
         x = self._embed(params, tokens)
+        remat = remat_active(self.remat, params)
         for p in params["dec"]:
-            h = layers.layernorm(p["ln1"], x)
-            mix, _ = attention.apply(p["self_attn"], self.dec_attn, h)
-            x = x + mix
-            hx = layers.layernorm(p["lnx"], x)
-            cross, _ = attention.apply(p["cross_attn"], self.cross_attn, hx,
-                                       kv=enc_out)
-            x = self._tail(p, x, cross)
+            x = (checkpoint(self._dec_layer, p, x, enc_out,
+                            use_reentrant=False, preserve_rng_state=False)
+                 if remat else self._dec_layer(p, x, enc_out))
         return layers.layernorm(params["dec_ln"], x)
+
+    def _dec_layer(self, p, x, enc_out):
+        h = layers.layernorm(p["ln1"], x)
+        mix, _ = attention.apply(p["self_attn"], self.dec_attn, h)
+        x = x + mix
+        hx = layers.layernorm(p["lnx"], x)
+        cross, _ = attention.apply(p["cross_attn"], self.cross_attn, hx,
+                                   kv=enc_out)
+        return self._tail(p, x, cross)
 
     def _logits(self, params, hidden):
         return layers.logits_from_hidden(hidden, params["embed"], None,

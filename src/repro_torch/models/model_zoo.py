@@ -88,8 +88,12 @@ class Model:
         return {"token": spec(b, 1)}
 
 
-def build(cfg: ModelConfig, *, device="cuda") -> Model:
+def build(cfg: ModelConfig, *, device="cuda", remat: bool = True) -> Model:
     """The model of ``cfg`` on ``device`` (default ``"cuda"``;
-    ``"cuda"`` without a card raises ``RuntimeError``)."""
+    ``"cuda"`` without a card raises ``RuntimeError``).  ``remat`` (the
+    reference's default) keeps only each layer's inputs while a gradient
+    is taken and runs the layer again in the backward; it changes no
+    forward without a gradient."""
     cls = EncDecTransformer if cfg.family == "encdec" else Transformer
-    return Model(cfg=cfg, impl=cls(cfg, device=resolve_device(device)))
+    return Model(cfg=cfg, impl=cls(cfg, device=resolve_device(device),
+                                   remat=remat))

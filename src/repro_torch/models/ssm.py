@@ -112,8 +112,12 @@ def _ssd_chunked(xh, dt, bmat, cmat, a, dims: SSMDims, init_state=None):
     da = dtq * a                                            # (B,nc,Q,H) <= 0
     cum = torch.cumsum(da, dim=2)                           # within-chunk
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,Q,Q,H)
-    causal = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
-    l_mat = torch.where(causal[None, None, :, :, None], seg.exp_(), 0.0)
+    causal = torch.ones((q, q), dtype=torch.bool,
+                        device=xh.device).tril()[None, None, :, :, None]
+    # -inf above the diagonal before the exp: there seg > 0 can overflow
+    # to inf, and the backward of a where over inf is 0 * inf = NaN
+    seg.masked_fill_(~causal, float("-inf"))
+    l_mat = torch.where(causal, seg.exp_(), 0.0)
     del seg
 
     # intra-chunk (dual / attention-like form): the decay-weighted scores

@@ -23,7 +23,9 @@ text by default).
 Training: ``loss`` is the reference's (masked cross-entropy over float32
 logits, plus ``0.01 * lb + 1e-3 * z`` of the MoE layers' aux losses), its
 attention the einsum path (K6 is forward-only and refuses a tensor that
-requires grad).
+requires grad).  With ``remat`` (the default, as the reference's
+``build``) each layer's forward runs again in the backward, so a MoE
+router's top-k launches twice a layer and step.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as _tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, moe, rglru, ssm
 
@@ -69,10 +73,30 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int):
+    """The n layer trees of a stacked (L, ...) parameter tree, each leaf
+    ``unbind`` once: the backward stacks the n layers' gradients in one op,
+    where n separate ``tree[i]`` would each add a whole (L, ...) gradient."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def remat_active(remat: bool, params) -> bool:
+    """Whether a forward keeps only each layer's inputs (the reference's
+    ``jax.checkpoint(..., nothing_saveable)`` a layer): ``remat`` is on,
+    autograd records, and some parameter leaf takes a gradient.  Prefill,
+    decode and serve take none, so they run exactly as without remat."""
+    return remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in _tree.leaves(params))
+
+
 @dataclasses.dataclass
 class Transformer:
     cfg: ModelConfig
     device: torch.device
+    remat: bool = True
 
     def __post_init__(self):
         check_config(self.cfg)
@@ -155,9 +179,10 @@ class Transformer:
         for i, lp in enumerate(params["prefix"]):
             out.append((i, lp,
                         None if state is None else state["prefix"][i]))
-        for i in range(self.n_body if self.scan_body else 0):
-            out.append((self.n_prefix + i, _layer(params["body"], i),
-                        None if state is None else _layer(state["body"], i)))
+        if self.scan_body:
+            for i, lp in enumerate(_unstack(params["body"], self.n_body)):
+                out.append((self.n_prefix + i, lp, None if state is None
+                            else _layer(state["body"], i)))
         return out
 
     # ------------------------------------------------------------- forwards
@@ -215,21 +240,39 @@ class Transformer:
                 vision_embeds=None) -> Tuple[torch.Tensor, Dict]:
         """Token ids -> (final hidden states (B, S, D), aux): ``aux`` sums
         the MoE layers' ``moe_lb_loss`` and ``moe_z_loss`` (empty without
-        MoE), in layer order as the reference."""
+        MoE), in layer order as the reference.  While a gradient is taken
+        (``remat_active``) each layer runs under ``checkpoint``: only its
+        inputs are kept, and the backward runs its forward again."""
         cfg = self.cfg
         x = self._embed(params, tokens, vision_embeds)
         if positions is None:
             positions = self._default_positions(tokens)
         aux: Dict[str, torch.Tensor] = {}
+        remat = remat_active(self.remat, params)
         for i, lp, _ in self._layers(params):
             if i == self.n_prefix and self.scan_body and cfg.moe is not None:
                 # the reference's scan starts its aux carry at zero
                 for k in ("moe_lb_loss", "moe_z_loss"):
                     aux.setdefault(k, torch.zeros((), dtype=torch.float32,
                                                   device=x.device))
-            mix, _ = self._mix(lp, self.norm(lp["ln1"], x), i, positions)
-            x = self._ffn(lp, x + mix, i, aux)
+            if remat:
+                x, layer_aux = checkpoint(self._layer_fwd, lp, x, i,
+                                          positions, use_reentrant=False,
+                                          preserve_rng_state=False)
+            else:
+                x, layer_aux = self._layer_fwd(lp, x, i, positions)
+            for k, v in layer_aux.items():
+                aux[k] = aux[k] + v if k in aux else v
         return self.norm(params["final_ln"], x), aux
+
+    def _layer_fwd(self, lp, x, i: int, positions):
+        """One layer of the training forward: (x after the layer, the MoE
+        aux losses it adds, ``{}`` for a dense FFN or an ssm layer).  The
+        aux losses leave as outputs, so the layer can run under
+        ``checkpoint``."""
+        mix, _ = self._mix(lp, self.norm(lp["ln1"], x), i, positions)
+        aux: Dict[str, torch.Tensor] = {}
+        return self._ffn(lp, x + mix, i, aux), aux
 
     def hidden_states(self, params, tokens, positions=None,
                       vision_embeds=None):

@@ -10,6 +10,9 @@ Unlike the reference's functional update, ``update`` works in place: each
 state tensor is overwritten with its new value and the same state dict is
 returned, and the gradients are clipped a tensor at a time inside the
 update (the same numbers without a whole float32 copy of the gradients).
+A leaf's update runs the reference's ops in its order through two float32
+buffers of the leaf's size, so the largest leaf (an embedding) sets the
+optimizer's working memory.
 Keys of the state other than the optimizer's own (the gradient codec's
 ``_ef`` buffer) are carried through, where the reference's AdamW and
 Adafactor return only their own keys and so drop it (ROADMAP Queue 3).
@@ -103,13 +106,17 @@ def adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.95,
         with torch.no_grad():
             for g, mst, m, v in zip(*(_tree.leaves(x) for x in (
                     grads, state["master"], state["m"], state["v"]))):
-                g = g.to(torch.float32) * scale
-                m.mul_(b1).add_((1 - b1) * g)
-                v.mul_(b2).add_((1 - b2) * g * g)
-                mhat = m / c1
-                vhat = v / c2
-                mst.sub_(lr * (mhat / (torch.sqrt(vhat) + eps)
-                               + weight_decay * mst))
+                # the reference's ops in its order, in two float32
+                # buffers a leaf (a and b)
+                a = g.to(torch.float32) * scale
+                b = torch.mul(a, 1 - b1)
+                m.mul_(b1).add_(b)                       # m
+                torch.mul(a, 1 - b2, out=b).mul_(a)
+                v.mul_(b2).add_(b)                       # v
+                torch.div(v, c2, out=b).sqrt_().add_(eps)
+                torch.div(m, c1, out=a).div_(b)          # mhat / (...)
+                a.add_(torch.mul(mst, weight_decay, out=b)).mul_(lr)
+                mst.sub_(a)
         return state, {"grad_norm": gnorm, "lr": lr}
 
     return Optimizer(init=init, update=update)
@@ -148,26 +155,30 @@ def adafactor(schedule: Schedule, eps: float = 1e-30,
             for g, mst, mom in zip(_tree.leaves(grads),
                                    _tree.leaves(state["master"]),
                                    _moment_dicts(state["v"])):
+                # the reference's ops in its order, in two float32
+                # buffers a leaf (g, then u)
                 g = g.to(torch.float32) * scale
-                g2 = g * g + eps
+                u = torch.mul(g, g).add_(eps)            # g2
                 if "vr" in mom:
                     mom["vr"].copy_(beta2 * mom["vr"]
-                                    + (1 - beta2) * g2.mean(dim=-1))
+                                    + (1 - beta2) * u.mean(dim=-1))
                     mom["vc"].copy_(beta2 * mom["vc"]
-                                    + (1 - beta2) * g2.mean(dim=-2))
+                                    + (1 - beta2) * u.mean(dim=-2))
                     vr, vc = mom["vr"], mom["vc"]
                     denom = torch.clamp(vr.mean(dim=-1, keepdim=True),
                                         min=eps)
-                    pre = (vr[..., None] / denom[..., None]) \
-                        * vc[..., None, :]
-                    u = g * torch.rsqrt(pre + eps)
+                    torch.mul(vr[..., None] / denom[..., None],
+                              vc[..., None, :], out=u)   # pre
+                    u.add_(eps)
                 else:
-                    mom["v"].copy_(beta2 * mom["v"] + (1 - beta2) * g2)
-                    u = g * torch.rsqrt(mom["v"] + eps)
+                    mom["v"].mul_(beta2).add_(u.mul_(1 - beta2))
+                    torch.add(mom["v"], eps, out=u)
+                u.rsqrt_().mul_(g)                       # g * rsqrt(...)
+                del g
                 # relative step clipping (RMS(u) <= 1)
                 rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-                u = u / torch.clamp(rms_u, min=1.0)
-                mst.sub_(lr * (u + weight_decay * mst))
+                u.div_(torch.clamp(rms_u, min=1.0))
+                mst.sub_(u.add_(weight_decay * mst).mul_(lr))
         return state, {"grad_norm": gnorm, "lr": lr}
 
     return Optimizer(init=init, update=update)

@@ -1203,7 +1203,8 @@ def test_smoke_train_step_on_the_card_matches_the_cpu():
     within 1e-5 relative of the same step on the CPU, the parameters within
     1e-4 but for at most 0.1% of them, which stay within 2 lr (Adam turns a
     1-ulp gradient difference where |g| is near eps into up to ~2 lr, lr
-    1e-2 here); the router's K5 runs once a MoE layer."""
+    1e-2 here); the router's K5 runs twice a MoE layer: in the forward and
+    in its remat recompute."""
     import dataclasses
     from repro_torch import tree
     from repro_torch.configs import get_smoke_config
@@ -1233,7 +1234,7 @@ def test_smoke_train_step_on_the_card_matches_the_cpu():
         params, state, met = fn(params, state, 1, batch)
         out[dev] = (params, met, dict(_build.launches))
     (pc, mc, _), (pg, mg, lg) = out["cpu"], out["cuda"]
-    assert lg.get("topk_rows_short") == cfg.n_layers - 1
+    assert lg.get("topk_rows_short") == 2 * (cfg.n_layers - 1)
     assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
     assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
                                                    rel=1e-5)
@@ -1241,6 +1242,109 @@ def test_smoke_train_step_on_the_card_matches_the_cpu():
                       for a, b in zip(tree.leaves(pc), tree.leaves(pg))])
     assert float((diff > 1e-4).float().mean()) <= 1e-3
     assert float(diff.max()) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# every family trains on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["whisper-tiny", "deepseek-67b", "minitron-4b", "gemma-2b",
+                "nemotron-4-340b", "moonshot-v1-16b-a3b", "dbrx-132b",
+                "recurrentgemma-2b", "qwen2-vl-72b", "mamba2-1.3b"]
+
+
+def _family_batch(cfg, b, s, dev):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import train
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                  global_batch=b, seed=0))
+    return to_device(train.train_batch(data, cfg, 0, 0), dev)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_train_step_on_the_card_matches_the_cpu(arch):
+    """One AdamW step of each architecture's smoke model (float32, remat
+    on, its family's feeds) on the card against the CPU, with the limits
+    of ``test_smoke_train_step_on_the_card_matches_the_cpu``."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    init = model_zoo.build(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = model_zoo.build(cfg, device=dev)
+        params = tree.map(lambda p: p.to(dev, copy=True), init)
+        fn, opt = steps.make_train_step(model, cfg,
+                                        ShapeSpec("t", 32, 4, "train"),
+                                        peak_lr=1e-2, total_steps=10)
+        state = opt.init(params)
+        params, state, met = fn(params, state, 1,
+                                _family_batch(cfg, 4, 32, dev))
+        out[dev] = (params, met)
+    (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=1e-5)
+    diff = torch.cat([(a - b.cpu()).abs().reshape(-1)
+                      for a, b in zip(tree.leaves(pc), tree.leaves(pg))])
+    assert float((diff > 1e-4).float().mean()) <= 1e-3
+    assert float(diff.max()) <= 2e-2
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_remat_gradients_on_the_card_equal_no_remat(arch):
+    """The recurrent families' chunk loop and scan run again in the
+    backward: float32 gradients with remat equal those without, within
+    1e-6."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    on = model_zoo.build(cfg, device="cuda", remat=True)
+    off = model_zoo.build(cfg, device="cuda", remat=False)
+    params = on.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = _family_batch(cfg, 2, 64, "cuda")
+    la, _, ga = steps.loss_and_grads(on, params, batch)
+    lb, _, gb = steps.loss_and_grads(off, params, batch)
+    assert float(la) == float(lb)
+    for a, b in zip(tree.leaves(ga), tree.leaves(gb)):
+        assert float((a - b).abs().max()) <= 1e-6
+
+
+def test_dry_run_peak_matches_the_cards_for_gemma():
+    """The dry run's peak of a train step against
+    ``torch.cuda.max_memory_allocated`` of the same step: gemma-2b at full
+    width cut to 2 layers, (2, 256) tokens (a smoke model's tensors are
+    below the allocator's 512-byte blocks), within 10%."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import model_zoo
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=2)
+    shape = ShapeSpec("t", 256, 2, "train")
+    rec = dryrun.lower_cell("gemma-2b", "t", cfg=cfg, shape=shape,
+                            verbose=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = model_zoo.build(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    fn, opt = steps.make_train_step(model, cfg, shape)
+    state = opt.init(params)
+    fn(params, state, 0, _family_batch(cfg, 2, 256, "cuda"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak == pytest.approx(rec["memory"]["peak_bytes"], rel=0.1)
 
 
 # ---------------------------------------------------------------------------
