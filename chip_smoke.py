@@ -183,6 +183,23 @@ Phases, each printed as one JSON line:
             (float32 gradients within 1e-6) for one architecture of each
             kind at smoke size, and nemotron-4-340b's dry-run record (it
             does not fit; no step);
+            minitron-4b's losses again on one fixed batch (5 steps);
+5d3. sharding
+            a one-rank NCCL group on the card and a (1, 1) ``("data",
+            "model")`` DeviceMesh: full-width minitron-4b served through
+            ``launch.serve`` with a ``ShardingPolicy`` (bf16, 8 requests,
+            batch 8, 16 tokens), its tokens equal to the same serve without
+            a policy under the same uniforms and its K6 and K5 launches
+            equal; then K6's context-parallel decomposition (the per-rank
+            work of ``_run_cp_flash``): at (8, 1024) and (1, 32768) x 24/8
+            heads of 128, bf16, the queries cut into tp = 2, 4 and 8
+            blocks at ``q_offset = i * S / tp`` against the whole K/V, the
+            blocks' concatenation equal bit for bit to the whole and each
+            block within K6's limits of its plain version, each block
+            timed; then two full-width minitron-4b train steps at 2 layers
+            under the policy: the first loss equal to the unsharded step's,
+            the second within 1e-4 relative;
+            the group is destroyed;
 5e. data    2^20 token rows of 128 with a tenth planted as copies:
             ``dedup_rows`` on ``method="radix"`` (its ``unique`` exactly
             one K3 histogram and 4 passes) and on ``auto``, and
@@ -230,7 +247,10 @@ Phases, each printed as one JSON line:
             ``torch.topk``, and its network kernel (k > 256) as before;
             K6 at minitron's, moonshot's, gemma-2b's (H = 256, MQA) and
             nemotron-4-340b's (H = 192) prefill batches, and at H = 32
-            (the mma.sync kernel) on (8, 1024) x 8/8 heads.
+            (the mma.sync kernel) on (8, 1024) x 8/8 heads; and K6 on the
+            last context-parallel block of minitron's two prefill shapes
+            at tp = 8 (``q_offset = 7 S / 8``), beside SDPA with the
+            block's mask.
 
 The last three lines are the card (``nvidia-smi`` name, power limit), the
 kernel table, and ``{"ok": true, "device": ...}``.  Any failed build,
@@ -283,6 +303,20 @@ K6_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # max |kernel - plain|
 # ~2^-4.5; float32: FMA order and expf, ~2^-20
 K6_ROW_REL = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -6}
 PREFILL_LOGITS_TOL = 0.2     # max |flash - einsum| of the served prefill
+# the sharding phase: the policy serve (minitron-4b, full width), the
+# context-parallel block counts, the 2-layer train step
+SHARD_SERVE = dict(n_requests=8, batch_size=8, decode_steps=16, topk=50,
+                   max_len=4096)
+CP_TPS = (2, 4, 8)
+SHARD_TRAIN = dict(layers=2, batch=4, seq=1024, steps=2)
+# the (1, 1) policy step's losses against the unsharded step's: the first
+# (the same forward) equal; after an AdamW step within 1e-4 relative (the
+# sharded backward sums some products in another order, and an update's
+# bf16 rounding of a parameter near a rounding boundary then differs)
+SHARD_LOSS_REL = 1e-4
+K6_NAMES = ("flash_attention_fwd",)
+K5_NAMES = ("topk_rows_stream", "topk_rows_merge", "topk_rows_short",
+            "bitonic_topk_blocks")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -2615,6 +2649,7 @@ TRAIN_ARCHS = ("whisper-tiny", "mamba2-1.3b", "recurrentgemma-2b",
 # 0.1 / 29568 = 3.4e-6 for qwen2-vl-72b), so that a fresh model's loss
 # falls from the first step
 FAMILY_TRAIN = dict(batch=4, seq=1024, steps=5, lr_x_fan_in=0.1)
+FIXED_BATCH_ARCH = "minitron-4b"    # also trained on one fixed batch
 
 
 def family_lr(cfg) -> float:
@@ -2753,6 +2788,24 @@ def phase_families_train() -> dict:
                                  f"not finite and falling")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+        if arch == FIXED_BATCH_ARCH:
+            # the same steps again on one fixed batch: whether the losses'
+            # rises above come from the batches (variance) or the steps
+            del params, state, met
+            torch.cuda.empty_cache()
+            params = model.init(torch.Generator(device="cuda")
+                                .manual_seed(SEED))
+            state = opt.init(params)
+            fixed = []
+            for step in range(n_steps):
+                params, state, met = fn(params, state, step, batches[0])
+                fixed.append(float(met["loss"]))
+            emit({"phase": "families_train", "model": arch,
+                  "fixed_batch_losses": fixed,
+                  "falls_at_each_step": all(
+                      b_ < a for a, b_ in zip(fixed, fixed[1:])),
+                  "varied_batch_losses": losses,
+                  "peak_lr": family_lr(cfg)})
         step_ms = sum(ms[1:]) / len(ms[1:])
         emit({"phase": "families_train", "model": arch,
               "family": cfg.family, "layers": cfg.n_layers,
@@ -2788,6 +2841,187 @@ def phase_families_train() -> dict:
     emit({"phase": "families_train", "model": nemo, "trained": False,
           "dry_run": {k: rec[k] for k in ("ok", "reason", "memory",
                                           "n_layers", "plan", "traced")}})
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def cp_blocks(gen) -> list:
+    """K6's context-parallel decomposition on the card: at each of
+    ``ATTN_SHAPES`` x ``ATTN_HEADS`` (bf16), the whole causal output, then
+    the queries cut into ``tp`` blocks (``CP_TPS``), block i at ``q_offset
+    = i * S / tp`` against the whole K/V: the concatenation equal bit for
+    bit to the whole (S / tp is a multiple of ``Q_BLOCK``, so a block's
+    queries visit the whole's key tiles in its order), each block within
+    K6's limits of its plain version and timed.  Returns the rows."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    rows = []
+    n, r, h = ATTN_HEADS
+    for b, s in ATTN_SHAPES:
+        q, k, v = attn_rows(gen, b * r, n // r, s, s, h, torch.bfloat16)
+        whole = fa.flash_rows(q, k, v)
+        for tp in CP_TPS:
+            blk = s // tp
+            if blk % fa.Q_BLOCK:
+                raise AssertionError(f"CP block {blk} not a multiple of "
+                                     f"{fa.Q_BLOCK}")
+            outs = []
+            for i in range(tp):
+                qb = q[:, i * blk:(i + 1) * blk].contiguous()
+                off = i * blk
+                got = fa.flash_rows(qb, k, v, off)
+                outs.append(got)
+                err = attn_within(got, fa.flash_rows_plain(qb, k, v, off),
+                                  f"K6 CP block {i}/{tp} at {(b, s)}")
+                ms, _ = cuda_ms(lambda: fa.flash_rows(qb, k, v, off), 10,
+                                lead=True)
+                pairs = fa.visible_pairs(blk, s, off)
+                seen = min(off + blk, s)
+                nbytes = (2 * qb.numel() + 2 * k.shape[0] * seen * h) * 2
+                bound, by = _bound(nbytes, 4 * h * q.shape[0] * pairs,
+                                   BF16_OPS_PER_S)
+                rows.append({"shape": [b, s, n, r, h], "tp": tp, "block": i,
+                             "q_offset": off, "ms": ms, "bound_ms": bound,
+                             "bound_by": by, "max_abs_err": err[0],
+                             "max_row_rel_err": err[1]})
+                emit({"phase": "sharding", "cp_block": rows[-1]})
+                del qb
+            cat = torch.cat(outs, dim=1)
+            if not torch.equal(cat, whole):
+                raise AssertionError(f"K6 CP at {(b, s)} tp={tp}: the blocks "
+                                     f"differ from the whole, max |diff| "
+                                     f"{(cat.float() - whole.float()).abs().max().item()}")
+            del outs, cat
+        del q, k, v, whole
+    return rows
+
+
+def phase_sharding() -> dict:
+    """The sharding policy on the card (one rank): a one-rank NCCL group
+    and a (1, 1) ``("data", "model")`` DeviceMesh.  Minitron-4b served at
+    full width with and without a ``ShardingPolicy`` (the launch counts set
+    to 0 just before each serve and read just after): the same tokens
+    under the same uniforms, and the same K6 and K5 launches.  Then K6's
+    context-parallel blocks (``cp_blocks``), and two full-width
+    minitron-4b train steps at 2 layers with and without the policy: the
+    first losses equal, the rest within ``SHARD_LOSS_REL``.  The group is destroyed at the end.
+    Returns the launches of the serves and the steps."""
+    import dataclasses
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model_zoo
+    from repro_torch.sharding.partitioning import ShardingPolicy, full_tensor
+
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_device_mesh((1, 1), device="cuda")
+        policy = ShardingPolicy(mesh=mesh)
+        emit({"phase": "sharding", "mesh": str(mesh),
+              "backend": dist.get_backend()})
+        outs, counts = {}, {}
+        for name, pol in (("plain", None), ("policy", policy)):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            done, stats = srv.serve("minitron-4b", smoke=False, seed=SEED,
+                                    device="cuda", flash_prefill=True,
+                                    policy=pol, **SHARD_SERVE)
+            torch.cuda.synchronize()
+            counts[name] = dict(_build.launches)
+            add(counts[name])
+            outs[name] = {r.rid: r.out.tolist() for r in done}
+            emit({"phase": "sharding", "serve": name,
+                  "requests": len(done), "batches": stats["batches"],
+                  "launches": counts[name],
+                  "prefill_ms": stats["prefill_ms"],
+                  "decode_tok_s": stats["decode_tps"],
+                  "seconds": time.perf_counter() - t0})
+            del done, stats
+            torch.cuda.empty_cache()
+        if outs["plain"] != outs["policy"]:
+            bad = [rid for rid in outs["plain"]
+                   if outs["plain"][rid] != outs["policy"].get(rid)]
+            raise AssertionError(f"sharding: the policy serve's tokens "
+                                 f"differ for requests {bad}")
+        for names, what in ((K6_NAMES, "K6"), (K5_NAMES, "K5")):
+            a = {k: counts["plain"].get(k, 0) for k in names}
+            b = {k: counts["policy"].get(k, 0) for k in names}
+            if a != b or not sum(a.values()):
+                raise AssertionError(f"sharding: {what} launches {b} under "
+                                     f"the policy, {a} without")
+        emit({"phase": "sharding", "tokens_equal": True,
+              "k6_launches": {k: counts["policy"].get(k, 0)
+                              for k in K6_NAMES},
+              "k5_launches": {k: counts["policy"].get(k, 0)
+                              for k in K5_NAMES}})
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+        cp_blocks(gen)
+        torch.cuda.empty_cache()
+
+        cfg = dataclasses.replace(get_config("minitron-4b"),
+                                  n_layers=SHARD_TRAIN["layers"])
+        b, s = SHARD_TRAIN["batch"], SHARD_TRAIN["seq"]
+        shape = ShapeSpec("sharding_train", s, b, "train")
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                      global_batch=b, seed=SEED))
+        batch = to_device(train_lib.train_batch(data, cfg, 0, SEED), "cuda")
+        losses = {}
+        for name, pol in (("plain", None), ("policy", policy)):
+            model = model_zoo.build(cfg, device="cuda", policy=pol)
+            fn, opt = steps_lib.make_train_step(
+                model, cfg, shape, peak_lr=family_lr(cfg),
+                total_steps=SHARD_TRAIN["steps"] + 1)
+            params = model.init(torch.Generator(device="cuda")
+                                .manual_seed(SEED))
+            state = opt.init(params)
+            params, state = steps_lib.place_train_state(model, opt, params,
+                                                        state)
+            feed = steps_lib.place_batch(model, batch)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = []
+            for step in range(SHARD_TRAIN["steps"]):
+                params, state, met = fn(params, state, step, feed)
+                got.append(float(full_tensor(met["loss"])))
+            add(dict(_build.launches))
+            losses[name] = got
+            del model, fn, opt, params, state, feed, met
+            torch.cuda.empty_cache()
+        rel = max(abs(a - b_) / abs(a) for a, b_ in zip(losses["plain"],
+                                                        losses["policy"]))
+        if not all(math.isfinite(x) for x in losses["policy"]) or \
+                losses["plain"][0] != losses["policy"][0] or \
+                rel > SHARD_LOSS_REL:
+            raise AssertionError(f"sharding: train losses {losses}")
+        emit({"phase": "sharding", "train": f"minitron-4b, "
+              f"{SHARD_TRAIN['layers']} layers, {b} x {s} tokens",
+              "losses": losses, "max_rel_diff": rel,
+              "limit": SHARD_LOSS_REL})
+    finally:
+        dist.destroy_process_group()
     return launches
 
 
@@ -3759,6 +3993,35 @@ def time_k6(row, gen) -> None:
             ops_per_s=BF16_OPS_PER_S, check=attn_within,
             shape=[b, s, n, r, h], dtype="bfloat16")
         del q, k, v, q4, k4, v4
+    # the last context-parallel block of minitron's prefill shapes at the
+    # widest split: its queries at q_offset = 7 S / 8 see every key.
+    # SDPA takes the block's causal mask and K/V repeated to the query
+    # heads (its memory-efficient kernel; it has no offset argument)
+    n, r, h = ATTN_HEADS
+    tp = CP_TPS[-1]
+    for b, s in ATTN_SHAPES:
+        blk = s // tp
+        off = s - blk
+        q, k, v = attn_rows(gen, b * r, n // r, s, s, h, torch.bfloat16)
+        qb = q[:, off:].contiguous()
+        del q
+        q4 = qb.view(b, n, blk, h)
+        k4, v4 = (x.view(b, r, s, h).repeat_interleave(n // r, dim=1)
+                  for x in (k, v))
+        pos = torch.arange(s, device="cuda")
+        mask = pos[None, :] <= (off + pos[:blk])[:, None]
+        row("flash_attention_fwd", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:101",
+            lambda: (fa.flash_rows(qb, k, v, off),),
+            lambda: (fa.flash_rows_plain(qb, k, v, off),),
+            (2 * qb.numel() + 2 * k.numel()) * 2,
+            4 * h * n * b * fa.visible_pairs(blk, s, off),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=mask),
+            ops_per_s=BF16_OPS_PER_S, check=attn_within,
+            shape=[b, s, n, r, h], dtype="bfloat16", q_offset=off,
+            cp_block=f"{tp - 1} of {tp}")
+        del qb, k, v, q4, k4, v4, mask
 
 
 # sources whose kernels must keep everything in registers: no stack frame,
@@ -4075,6 +4338,12 @@ def main() -> int:
           "seconds": time.perf_counter() - ts})
 
     ts = time.perf_counter()
+    torch.cuda.empty_cache()
+    sharding_launches = phase_sharding()
+    emit({"phase": "sharding", "total_launches": sharding_launches,
+          "seconds": time.perf_counter() - ts})
+
+    ts = time.perf_counter()
     data_launches = phase_data(rng)
     emit({"phase": "data", "total_launches": data_launches,
           "seconds": time.perf_counter() - ts})
@@ -4093,7 +4362,7 @@ def main() -> int:
     launches = dict(main_res["launches"])
     for counts in (rel_launches, dist_launches, serve_launches, moe_launches,
                    family_launches, train_launches, families_train_launches,
-                   data_launches, spill_launches):
+                   sharding_launches, data_launches, spill_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 

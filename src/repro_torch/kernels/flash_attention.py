@@ -11,6 +11,11 @@ reads kv row ``r // G`` (blocked GQA, matching ``attention._attend``).
   ``(rows, S, k_block)`` score block at a time, so it never holds S x S.
 * :func:`flash_rows` — on a CUDA tensor it launches K6
   (``csrc/flash_attention.cu``); on a CPU tensor it runs the plain version.
+  Both go through one ``torch.library`` custom op,
+  ``repro_torch::flash_rows``, whose fake implementation gives the output's
+  shape and dtype only: under ``FakeTensorMode`` (the dry run) neither
+  route runs, and a flop formula registered for the op counts the
+  attention's products (4 H flops a query-key pair it sees).
 * :func:`flash_attention` — the ``(B, S, N, H)`` wrapper of the reference,
   with its reshapes to and from rows.
 
@@ -159,7 +164,64 @@ def flash_rows(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
       (a row of 32 or 64 bytes fills no 128-byte swizzle region).
     * float32 at every H: plain FMA over 64-key tiles (TF32 tensor cores
       would miss its 1e-4 limit)."""
-    g = _check(q2, k2, v2, "flash_rows")
+    _check(q2, k2, v2, "flash_rows")
+    return torch.ops.repro_torch.flash_rows(q2, k2, v2, _offset(q_offset),
+                                            bool(causal), int(window))
+
+
+@torch.library.custom_op("repro_torch::flash_rows", mutates_args=())
+def _flash_rows_op(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
+                   q_offset: int, causal: bool,
+                   window: int) -> torch.Tensor:
+    """K6 on a CUDA tensor, its plain version on a CPU one."""
+    return _flash_rows_device(q2, k2, v2, q_offset, causal=causal,
+                              window=window)
+
+
+@_flash_rows_op.register_fake
+def _flash_rows_fake(q2, k2, v2, q_offset, causal, window):
+    return q2.new_empty(q2.shape)
+
+
+def visible_pairs(s: int, t: int, q_offset: int = 0, causal: bool = True,
+                  window: int = 0) -> int:
+    """The (query, key) pairs a row of ``s`` queries at ``q_offset`` sees
+    among ``t`` keys: key j for query position p when j < t, j <= p
+    (causal) and j > p - window (a window)."""
+    total = 0
+    if not causal and not window:
+        return s * t
+    if not window:
+        # sum of min(p + 1, t) over p in [q_offset, q_offset + s)
+        lo, hi = q_offset + 1, q_offset + s
+        top = min(hi, t)
+        if top >= lo:
+            total += (lo + top) * (top - lo + 1) // 2
+        return total + t * max(0, hi - max(lo - 1, t))
+    for p in range(q_offset, q_offset + s):
+        hi = min(p + 1, t) if causal else t
+        lo = max(0, p - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_rows)
+    def _flops(q_shape, k_shape, v_shape, q_offset, causal, window, *args,
+               out_shape=None, **kwargs):
+        rq, s, h = q_shape
+        return 4 * h * rq * visible_pairs(s, k_shape[1], q_offset, causal,
+                                          window)
+
+
+_register_flops()
+
+
+def _flash_rows_device(q2: torch.Tensor, k2: torch.Tensor,
+                       v2: torch.Tensor, q_offset, *, causal: bool,
+                       window: int) -> torch.Tensor:
     if not q2.is_cuda:
         if q2.device.type != "cpu" or k2.device != q2.device \
                 or v2.device != q2.device:
@@ -167,6 +229,7 @@ def flash_rows(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
                              f"{k2.device}, {v2.device}")
         return flash_rows_plain(q2, k2, v2, q_offset, causal=causal,
                                 window=window)
+    g = q2.shape[0] // k2.shape[0]
     if k2.device != q2.device or v2.device != q2.device:
         raise ValueError("flash_rows: q/k/v on different devices")
     if q2.dtype not in _DTYPES:

@@ -1,8 +1,19 @@
-"""One-card dry run: trace the exact step of an (arch x shape) cell.
+"""Dry run: trace the exact step of an (arch x shape) cell on one card or
+on a production mesh.
 
 The port's counterpart of the JAX package's ``launch/dryrun.py``, which
-lowers and compiles every cell on a production mesh.  Here a cell is one
-H100.  Per cell this module:
+lowers and compiles every cell on a production mesh.  ``--mesh 1`` (the
+default) is one H100; ``--mesh 16x16`` / ``2x16x16`` the reference's
+production meshes (``launch.mesh.make_production_mesh``: axes ``data`` x
+``model``, or ``pod`` x ``data`` x ``model``, over a ``fake`` process group
+whose collectives carry no data), with the reference's ``ShardingPolicy``
+from the cell's plan: ``seq_shard`` for train cells, ``layout`` ``tp`` |
+``dp`` | ``cp`` (the DP-heavy serve layouts transform the layer weights'
+specs, ``serve_param_specs``; ``cp`` also shards the prefill's queries
+over ``model``).  On a mesh the trace is rank 0's local program: the
+record's bytes (arguments, temporaries, peak) are one device's, its flops
+the local ops' (``hlo_analysis.OpTrace.flops``), its collectives rank 0's
+by kind.  Per cell this module:
 
   1. builds the model and the EXACT step function of ``launch/steps.py``
      (``make_train_step`` with the cell's plan, ``make_prefill_step``, or
@@ -22,17 +33,20 @@ H100.  Per cell this module:
 Top-k routes are the card's: the router's and the sampling top-k go to
 the method the planner picks on the card (K5's ``cuda`` for the shapes
 here), whose wrapper runs its plain version on the fake (CPU) tensors with
-the kernel's output shapes and dtypes.  A ``--flash`` prefill is refused:
-K6 has no fake-tensor rule yet, and its plain version (which would count
-score tiles the kernel keeps on chip) reads its loop count from a tensor.
+the kernel's output shapes and dtypes.  A ``--flash`` prefill runs K6's
+custom op, whose fake implementation gives its output's shape and dtype
+and whose flop formula counts the query-key pairs it sees.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch nemotron-4-340b \
+      --shape train_4k --mesh 16x16
   python -m repro_torch.launch.dryrun --all [--tag baseline]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import difflib
 import functools
@@ -51,14 +65,18 @@ from repro_torch import tree as _tree
 from repro_torch.configs.base import (ALIASES, ARCH_IDS, SHAPES, ModelConfig,
                                       ShapeSpec, cell_is_supported,
                                       get_config)
+from repro_torch.kernels import flash_attention as _k6  # noqa: F401 (flops)
 from repro_torch.launch import hlo_analysis
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model_zoo import build
+from repro_torch.sharding.partitioning import ShardingPolicy
 
 RESULTS = (pathlib.Path(__file__).resolve().parents[3] / "results"
            / "dryrun_torch")
 H100_BYTES = 80e9              # the H100 SXM's 80 GB of device memory
-MESH = "1"                     # one card; the production meshes are item 12c
+MESH = "1"                     # one card (the default)
+MESHES = {"1": None, "16x16": False, "2x16x16": True}   # -> multi_pod
 SAMPLE_TOPK = 50
 
 
@@ -72,7 +90,7 @@ class CellPlan:
     optimizer: str = "adamw"
     accum: str = "float32"
     flash: bool = False        # prefill attention through K6
-    layout: str = "tp"         # tp | dp (DP-heavy serve layout)
+    layout: str = "tp"         # tp | dp | cp (DP-heavy serve layouts)
 
 
 TRAIN_PLAN = {
@@ -141,13 +159,39 @@ def _fake_inputs(model, shape: ShapeSpec):
 
 
 def tree_bytes(*trees) -> int:
-    """Bytes of the distinct storages under ``trees``."""
+    """Bytes of the distinct storages under ``trees`` (a DTensor's: its
+    local shard's)."""
     seen = {}
     for t in _tree.leaves(trees):
         if isinstance(t, torch.Tensor):
-            st = t.untyped_storage()
+            st = hlo_analysis._local(t).untyped_storage()
             seen[id(st)] = st.nbytes()
     return sum(seen.values())
+
+
+def make_policy(mesh, plan: CellPlan, shape: ShapeSpec):
+    """The reference's ``ShardingPolicy`` of a cell on ``mesh`` (None on
+    one card)."""
+    if mesh is None:
+        return None
+    return ShardingPolicy(
+        mesh=mesh, dp_axes=mesh_lib.dp_axes_of(mesh),
+        seq_shard=(plan.seq_shard and shape.kind == "train")
+        or plan.layout == "cp",
+        serve_layout=plan.layout in ("dp", "cp"),
+        cp_layout=plan.layout == "cp")
+
+
+def param_specs(model, policy, plan: CellPlan):
+    """The model's parameter specs, the serve layouts' layer weights
+    transformed as the reference's dry run does."""
+    specs = model.param_specs()
+    if plan.layout in ("dp", "cp"):
+        for sub in ("prefix", "body", "enc", "dec"):
+            if sub in specs:
+                specs[sub] = policy.serve_param_specs(
+                    specs[sub], keep_data=plan.layout == "cp")
+    return specs
 
 
 def depth_units(cfg: ModelConfig):
@@ -189,31 +233,42 @@ def _extrapolate(vals: dict, us, ms, units: int, micro: int) -> float:
     return lin(micro, ms[0], ms[1], at(ms[0]), at(ms[1]))
 
 
-def _step(cfg: ModelConfig, shape: ShapeSpec, plan: CellPlan):
+def _step(cfg: ModelConfig, shape: ShapeSpec, plan: CellPlan, mesh=None):
     """(step function, its arguments) of the cell, built on the fake
     tensors of the active ``FakeTensorMode``: the train step with params,
     optimizer state and batch; the prefill with params and batch; the
     decode step with params, a token, the decode state (the
-    encoder-decoder's from a 32-token prefill) and sampling uniforms."""
-    model = build(cfg, device="cpu")
+    encoder-decoder's from a 32-token prefill) and sampling uniforms.  On
+    a ``mesh`` the model carries the cell's policy and every argument is
+    a DTensor placed by its specs (each rank's shard its own storage)."""
+    policy = make_policy(mesh, plan, shape)
+    if plan.flash:
+        cfg = dataclasses.replace(cfg, flash_prefill=True)
+    model = build(cfg, device="cpu", policy=policy)
     params = model.init(torch.Generator().manual_seed(0))
+    specs = None if policy is None else param_specs(model, policy, plan)
     if shape.kind == "train":
         accum = torch.bfloat16 if plan.accum == "bfloat16" else torch.float32
         fn, optimizer = steps_lib.make_train_step(
             model, cfg, shape, optimizer_name=plan.optimizer,
             microbatch=plan.microbatch, accum_dtype=accum)
-        return fn, (params, optimizer.init(params), 0,
-                    _fake_inputs(model, shape))
+        opt_state = optimizer.init(params)
+        params, opt_state = steps_lib.place_train_state(
+            model, optimizer, params, opt_state, specs)
+        return fn, (params, opt_state, 0, steps_lib.place_batch(
+            model, _fake_inputs(model, shape)))
+    params = model.place(params, specs)
     if shape.kind == "prefill":
         return (steps_lib.make_prefill_step(model, shape),
-                (params, _fake_inputs(model, shape)))
+                (params, steps_lib.place_batch(model,
+                                               _fake_inputs(model, shape))))
     b = shape.global_batch
     if model.is_encdec:
         with torch.no_grad():
-            state = model.prefill(params, {
+            state = model.prefill(params, steps_lib.place_batch(model, {
                 "tokens": torch.zeros((b, 32), dtype=torch.int32),
                 "frames": torch.zeros((b, cfg.enc_seq, cfg.d_model),
-                                      dtype=torch.bfloat16)},
+                                      dtype=torch.bfloat16)}),
                 max_len=shape.seq_len)[1]
     else:
         state = model.decode_state(b, shape.seq_len)
@@ -222,45 +277,58 @@ def _step(cfg: ModelConfig, shape: ShapeSpec, plan: CellPlan):
              torch.full((b, SAMPLE_TOPK), 0.5)))
 
 
+def _mesh(mesh_name: str):
+    """The production mesh of ``mesh_name`` (None for one card)."""
+    if MESHES[mesh_name] is None:
+        return None
+    return mesh_lib.make_production_mesh(multi_pod=MESHES[mesh_name])
+
+
 @functools.lru_cache(maxsize=32)
-def _trace(cfg: ModelConfig, shape: ShapeSpec, plan: CellPlan) -> dict:
+def _trace(cfg: ModelConfig, shape: ShapeSpec, plan: CellPlan,
+           mesh_name: str = MESH) -> dict:
     """One step of ``cfg`` at ``shape`` under ``FakeTensorMode``, traced:
     its flops, op bytes and ops, the bytes of its arguments, its peak of
     live bytes, the bytes of its outputs (fresh, and aliasing an
-    argument) and its largest results."""
+    argument), its largest results and (on a mesh) its collectives."""
     t0 = time.time()
+    mesh = _mesh(mesh_name)
     with FakeTensorMode():
-        fn, args = _step(cfg, shape, plan)
+        fn, args = _step(cfg, shape, plan, mesh)
         t_lower = time.time() - t0
-        trace = hlo_analysis.OpTrace()
+        trace = hlo_analysis.OpTrace(local=mesh is not None)
         held = trace.hold(args)
         t0 = time.time()
-        with FlopCounterMode(display=False) as counter, trace:
+        counter = FlopCounterMode(display=False) if mesh is None else None
+        with (counter or contextlib.nullcontext()), trace:
             out = fn(*args)
         t_compile = time.time() - t0
-        arg_ids = {id(t.untyped_storage()) for t in _tree.leaves(args)
-                   if isinstance(t, torch.Tensor)}
+        arg_ids = {id(t.untyped_storage())
+                   for t in hlo_analysis._tensors(args)}
         outs = {}
-        for t in _tree.leaves(out):
-            if isinstance(t, torch.Tensor):
-                st = t.untyped_storage()
-                outs[id(st)] = st.nbytes()
+        for t in hlo_analysis._tensors(out):
+            st = t.untyped_storage()
+            outs[id(st)] = st.nbytes()
         del out
-    return {"flops": float(counter.get_total_flops()),
+    return {"flops": float(counter.get_total_flops() if counter is not None
+                           else trace.flops),
             "hbm_bytes": trace.hbm_bytes, "n_ops": trace.n_ops,
             "held": held, "peak": trace.peak, "timeline": trace.timeline,
             "output": sum(b for k, b in outs.items() if k not in arg_ids),
             "alias": sum(b for k, b in outs.items() if k in arg_ids),
             "top": hlo_analysis.top_tensors(trace, 10),
+            "collective_counts": dict(trace.collective_counts),
+            "collective_bytes": dict(trace.collective_bytes),
             "lower_s": t_lower, "compile_s": t_compile}
 
 
 def _argument_bytes(cfg: ModelConfig, shape: ShapeSpec,
-                    plan: CellPlan) -> int:
-    """The bytes the whole-depth step is handed, counted on fake
-    tensors."""
+                    plan: CellPlan, mesh_name: str = MESH) -> int:
+    """The bytes the whole-depth step is handed (one device's on a mesh),
+    counted on fake tensors."""
+    mesh = _mesh(mesh_name)
     with FakeTensorMode():
-        return tree_bytes(_step(cfg, shape, plan)[1])
+        return tree_bytes(_step(cfg, shape, plan, mesh)[1])
 
 
 def _extrapolate_peak(traces: dict, us, m: int, units: int) -> float:
@@ -296,14 +364,27 @@ def _extrapolate_peak(traces: dict, us, m: int, units: int) -> float:
     return peak
 
 
-def lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
-               microbatch=None, flash=None, *, cfg: ModelConfig = None,
-               shape: ShapeSpec = None, capacity_bytes: float = H100_BYTES,
-               exact: bool = False, verbose: bool = True) -> dict:
+def lower_cell(*args, mesh: str = MESH, **kw) -> dict:
+    """``_lower_cell``; a production mesh's ``fake`` process group is
+    destroyed after the cell (nothing of it outlives the call)."""
+    try:
+        return _lower_cell(*args, mesh=mesh, **kw)
+    finally:
+        if mesh != MESH:
+            mesh_lib.release_fake_world()
+
+
+def _lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
+                microbatch=None, flash=None, *, cfg: ModelConfig = None,
+                shape: ShapeSpec = None, capacity_bytes: float = H100_BYTES,
+                exact: bool = False, verbose: bool = True,
+                mesh: str = MESH, layout: Optional[str] = None) -> dict:
     """Build and trace one cell's step; return its record.  ``cfg`` (a
     cut of ``arch``'s config) and ``shape`` (a ShapeSpec in place of
     ``SHAPES[shape_name]``) size another model with the same code;
     ``capacity_bytes`` is the card's memory the peak is held to.
+    ``mesh``: ``"1"`` (one card), ``"16x16"`` or ``"2x16x16"``;
+    ``layout`` overrides the plan's.
 
     The scan correction (the reference's trip-count correction): a depth
     of more than 3 repeating units (``depth_units``) is traced at 2 and 3
@@ -325,10 +406,10 @@ def lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
         plan = dataclasses.replace(plan, microbatch=microbatch)
     if flash:
         plan = dataclasses.replace(plan, flash=True)
-    if plan.flash:
-        raise ValueError("flash: K6 has no fake-tensor rule, and its plain "
-                         "version reads its loop count from a tensor, which "
-                         "a fake tensor does not hold")
+    if layout is not None:
+        plan = dataclasses.replace(plan, layout=layout)
+    if mesh not in MESHES:
+        raise ValueError(f"mesh {mesh!r} is not one of {list(MESHES)}")
     limits = []
     micro = plan.microbatch if shape.kind == "train" else 1
     if shape.global_batch % micro:
@@ -346,7 +427,7 @@ def lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
             traces[(u, m)] = _trace(
                 cfg if u == units else cut(u),
                 dataclasses.replace(shape, global_batch=per * m),
-                dataclasses.replace(plan, microbatch=m))
+                dataclasses.replace(plan, microbatch=m), mesh)
     if len(us) > 1 or len(ms) > 1:
         limits.append(f"scan correction: traced at {list(us)} of "
                       f"{units} depth units x {list(ms)} of {micro} "
@@ -356,19 +437,34 @@ def lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
         return _extrapolate({k: v[key] for k, v in traces.items()}, us,
                             m_points, units, micro)
 
-    analysis = hlo_analysis.analyze(ext("flops"), ext("hbm_bytes"),
-                                    ext("n_ops"))
+    kinds = sorted({k for t in traces.values()
+                    for k in t["collective_counts"]})
+
+    def ext_kind(key, kind):
+        return _extrapolate({k: v[key].get(kind, 0)
+                             for k, v in traces.items()}, us, ms, units,
+                            micro)
+
+    analysis = hlo_analysis.analyze(
+        ext("flops"), ext("hbm_bytes"), ext("n_ops"),
+        {k: ext_kind("collective_counts", k) for k in kinds},
+        {k: ext_kind("collective_bytes", k) for k in kinds})
     peak = _extrapolate_peak(traces, us, ms[-1], units)
     argument_bytes = (traces[(us[0], ms[0])]["held"] if len(traces) == 1
-                      else _argument_bytes(cfg, shape, plan))
+                      else _argument_bytes(cfg, shape, plan, mesh))
     memory = {"argument_bytes": int(argument_bytes),
               "output_bytes": int(round(ext("output"))),
               "temp_bytes": int(round(peak - argument_bytes)),
               "alias_bytes": int(round(ext("alias"))),
               "code_bytes": 0,
               "peak_bytes": int(round(peak))}
+    n_devices = 1
+    for n in (mesh_lib.PRODUCTION_SHAPES[MESHES[mesh]][0]
+              if MESHES[mesh] is not None else ()):
+        n_devices *= n
     record = {
-        "arch": arch, "shape": shape_name, "mesh": MESH, "n_devices": 1,
+        "arch": arch, "shape": shape_name, "mesh": mesh,
+        "n_devices": n_devices,
         "kind": shape.kind, "plan": dataclasses.asdict(plan),
         "n_layers": cfg.n_layers, "seq_len": shape.seq_len,
         "global_batch": shape.global_batch,
@@ -376,7 +472,9 @@ def lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
         "flops": analysis["flops"], "bytes_accessed": analysis["hbm_bytes"],
         "memory": memory,
         "capacity_bytes": float(capacity_bytes),
-        "collectives": {"counts": {}, "bytes": {}, "total_bytes": 0},
+        "collectives": {"counts": analysis["collective_counts"],
+                        "bytes": analysis["collective_bytes"],
+                        "total_bytes": analysis["collective_total_bytes"]},
         "hlo_analysis": analysis,
         "top_tensors": traces[(us[-1], ms[-1])]["top"],
         "traced": {"depth_units": units, "units": list(us),
@@ -401,7 +499,8 @@ def lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
 
 
 def fit_depth(arch: str, shape: ShapeSpec, plan: CellPlan,
-              limit_bytes: float, cfg: ModelConfig = None):
+              limit_bytes: float, cfg: ModelConfig = None,
+              mesh: str = MESH):
     """(cfg, record): the deepest cut of ``arch`` (whole depth units,
     ``depth_units``) whose dry-run peak at ``shape`` under ``plan`` is at
     most ``limit_bytes``, and that cut's record.  The peak is affine in
@@ -415,7 +514,8 @@ def fit_depth(arch: str, shape: ShapeSpec, plan: CellPlan,
     def record(u):
         return lower_cell(arch, shape.name, plan=plan,
                           cfg=base if u == units else cut(u), shape=shape,
-                          capacity_bytes=limit_bytes, verbose=False)
+                          capacity_bytes=limit_bytes, verbose=False,
+                          mesh=mesh)
 
     rec = record(units)
     if not rec.get("oom"):
@@ -436,15 +536,16 @@ def fit_depth(arch: str, shape: ShapeSpec, plan: CellPlan,
                      f"{rec['reason']}")
 
 
-def cell_name(arch: str, shape_name: str, tag: str = "") -> str:
-    return f"{arch}_{shape_name}_{MESH}" + (f"_{tag}" if tag else "")
+def cell_name(arch: str, shape_name: str, tag: str = "",
+              mesh: str = MESH) -> str:
+    return f"{arch}_{shape_name}_{mesh}" + (f"_{tag}" if tag else "")
 
 
 def run_cell(arch: str, shape_name: str, tag: str = "",
              results_dir: Optional[pathlib.Path] = None, **kw) -> dict:
     """``lower_cell`` with its failure recorded, written to
     ``results_dir`` (default ``results/dryrun_torch``)."""
-    name = cell_name(arch, shape_name, tag)
+    name = cell_name(arch, shape_name, tag, kw.get("mesh", MESH))
     print(f"[dryrun] {name} ...", flush=True)
     t0 = time.time()
     try:
@@ -453,7 +554,8 @@ def run_cell(arch: str, shape_name: str, tag: str = "",
         status = ("SKIP" if rec.get("skipped") else
                   "OOM" if rec.get("oom") else "OK")
     except Exception as e:  # noqa: BLE001 — record and continue the sweep
-        rec = {"arch": arch, "shape": shape_name, "mesh": MESH,
+        rec = {"arch": arch, "shape": shape_name,
+               "mesh": kw.get("mesh", MESH),
                "ok": False, "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-4000:]}
         status = "FAIL"
@@ -473,11 +575,18 @@ def main():
     ap.add_argument("--tag", default="")
     ap.add_argument("--microbatch", type=int, default=None)
     ap.add_argument("--flash", action="store_true")
+    ap.add_argument("--mesh", default=MESH, choices=list(MESHES),
+                    help="1 (one card, default), 16x16 or 2x16x16 (the "
+                         "production meshes over a fake process group)")
+    ap.add_argument("--layout", default=None, choices=("tp", "dp", "cp"),
+                    help="the serve layout of a prefill or decode cell")
     ap.add_argument("--capacity-gb", type=float, default=H100_BYTES / 1e9,
                     help="device memory the peak is held to (default 80)")
     args = ap.parse_args()
 
-    kw = {"capacity_bytes": args.capacity_gb * 1e9}
+    kw = {"capacity_bytes": args.capacity_gb * 1e9, "mesh": args.mesh}
+    if args.layout is not None:
+        kw["layout"] = args.layout
     if args.microbatch is not None:
         kw["microbatch"] = args.microbatch
     if args.flash:

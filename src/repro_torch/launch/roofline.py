@@ -7,7 +7,16 @@ SXM (NVIDIA's data sheet, dense rates, at its 700 W limit):
     compute    = flops / PEAK_FLOPS        (989e12 flop/s, bf16 tensor cores)
     memory     = bytes / HBM_BW            (3.35e12 B/s)
     collective = collective bytes / NVLINK_BW   (450e9 B/s a direction;
-                 0 on one card: ROADMAP item 12c's mesh will use it)
+                 0 on one card)
+
+On a production mesh (a ``--mesh 16x16`` or ``2x16x16`` record) every term
+is one device's: the flops and collective bytes of rank 0's local program
+(``hlo_analysis``), and for memory its traced op-by-op bytes (the
+analytic model below is one card's: it has no FSDP gather and no
+sharded activation).  A 16-wide ``model`` axis spans two 8-card NVLink
+domains on H100 nodes (8 cards a node), so part of its traffic crosses
+the slower inter-node network: ``NVLINK_BW`` makes the collective term a
+lower bound there.
 
 ``flops`` is the dry run's count (``hlo_analysis``: the flop counter over
 every aten op of the traced step, remat recompute included).  ``bytes`` is
@@ -158,7 +167,7 @@ def analyze_record(rec: dict) -> Optional[dict]:
     flops = h.get("flops", 0.0)
     hbm_upper = h.get("hbm_bytes", 0.0)
     analytic = analytic_bytes_per_device(rec)
-    hbm = analytic["total"]
+    hbm = analytic["total"] if rec.get("n_devices", 1) == 1 else hbm_upper
     coll = h.get("collective_total_bytes", 0.0)
     t_compute = flops / PEAK_FLOPS
     t_memory = hbm / HBM_BW

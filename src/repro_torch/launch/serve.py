@@ -1,6 +1,6 @@
 """Serving driver: prefill + decode with a length-sorted batch scheduler.
 
-The port of the JAX package's ``launch/serve.py`` on one device.  Requests
+The port of the JAX package's ``launch/serve.py``.  Requests
 are sorted by prompt length through the port's ``argsort`` so each prefill
 batch is length-homogeneous; each batch is left-padded to its longest
 prompt (the pad tokens are attended to, as in the reference), prefilled
@@ -15,6 +15,10 @@ accounted by prompt length with one ``relational.group_by``
 With a ``mesh`` (``core.mesh.Mesh``) the scheduler sorts a backlog of at
 least ``distributed_min`` requests over the mesh, and ``restore_state`` /
 ``snapshot_state`` carry the mesh's topology beside the tuning profile.
+With a sharding ``policy`` (``sharding.partitioning.ShardingPolicy`` on a
+``DeviceMesh``, one process a rank) the model's weights are DTensors
+placed by its specs and every prefill and decode step runs sharded; the
+tokens come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model_zoo import build
 from repro_torch.obs import metrics as _metrics, report as _obs_report, \
     trace as _obs
+from repro_torch.sharding.partitioning import full_tensor
 
 # where serve persists its tuning snapshot between runs (the --state-dir
 # flag overrides; unset means no persistence)
@@ -250,13 +255,14 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
           batch_size: int = 8, decode_steps: int = 32, topk: int = 50,
           seed: int = 0, max_len: int = 256,
           state_dir: Optional[str] = None, *, device="cuda",
-          flash_prefill: Optional[bool] = None):
+          flash_prefill: Optional[bool] = None, policy=None):
     """Serve ``n_requests`` random requests of ``arch`` (``smoke``: its
     reduced config) on ``device`` (default ``"cuda"``) with weights drawn
     from ``seed``.  ``flash_prefill`` overrides the config's flag (K6 for
     the prefill's attention).  ``state_dir`` (or
     ``REPRO_TORCH_SERVE_STATE_DIR``) restores the snapshotted tuning profile
-    on startup and snapshots the active one on shutdown.
+    on startup and snapshots the active one on shutdown.  ``policy``
+    shards the model over its mesh (None: one device).
 
     Returns (requests done, stats): ``batches``, per-batch
     ``padding_waste``, ``prefill_ms`` and ``decode_tps``, and
@@ -270,8 +276,9 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
         got = restore_state(sdir)
         if got:
             print(f"[serve] restored {' + '.join(got)} from {sdir}")
-    model = build(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    model = build(cfg, device=dev, policy=policy)
+    params = model.place(model.init(
+        torch.Generator(device=dev).manual_seed(seed)))
     shape = ShapeSpec("serve", max_len, batch_size, "decode")
     serve_step = steps_lib.make_serve_step(model, shape, sample_topk=topk)
     # the sampling noise: its own stream, not the weights'
@@ -341,7 +348,8 @@ def _serve_loop(sched, model, params, serve_step, noise, decode_steps,
                     device=dev, dtype=torch.float32)
         t0 = time.monotonic()
         logits, state = model.prefill(params, feed, max_len=max_len)
-        nxt = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        nxt = torch.argmax(full_tensor(logits), dim=-1)[:, None].to(
+            torch.int32)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         stats["prefill_ms"].append((time.monotonic() - t0) * 1e3)
@@ -349,6 +357,7 @@ def _serve_loop(sched, model, params, serve_step, noise, decode_steps,
         t0 = time.monotonic()
         for _ in range(decode_steps - 1):
             nxt, state = serve_step(params, nxt, state, noise)
+            nxt = full_tensor(nxt)
             outs.append(nxt)
         gen = torch.cat(outs, dim=1).cpu().numpy()     # waits for the card
         dt = time.monotonic() - t0

@@ -1,6 +1,6 @@
 """Training driver.
 
-The port of the JAX package's ``launch/train.py`` on one device: config
+The port of the JAX package's ``launch/train.py``: config
 registry -> model -> train step (``steps.make_train_step``) -> synthetic
 data pipeline -> async checkpointing -> fault-tolerance runtime
 (preemption save, step watchdog, resume from the latest checkpoint).
@@ -11,8 +11,16 @@ data pipeline -> async checkpointing -> fault-tolerance runtime
 Every architecture trains: the encoder-decoder's and the vlm's batches
 carry the reference's frame and vision feeds (``train_batch``), and the
 model keeps only each layer's inputs through the forward (remat).  Runs
-on the card unless ``--device cpu`` is given.  Not carried: the
-shardings of a training mesh (ROADMAP Queue 1 item 12c).
+on the card unless ``--device cpu`` is given.
+
+With a sharding ``policy`` (``sharding.partitioning.ShardingPolicy`` on a
+``launch.mesh.make_host_device_mesh``; one process a rank) the parameters
+and optimizer state are DTensors placed by the model's specs and the
+optimizer's ``state_specs``, and each batch by ``steps.batch_specs``.  A
+checkpoint holds whole tensors (gathered a leaf at a time into host
+memory, written by rank 0: ``host_copies``) and is restored whole and
+placed by the specs: the reference's elastic path, so a run may resume on
+another mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model_zoo import build
 from repro_torch.runtime.fault_tolerance import (PreemptionHandler,
                                                  StepWatchdog)
+from repro_torch.sharding.partitioning import full_tensor, is_dtensor
+from repro_torch import tree as _tree
 
 
 def train_batch(data: SyntheticLM, cfg: ModelConfig, step: int,
@@ -56,18 +66,35 @@ def train_batch(data: SyntheticLM, cfg: ModelConfig, step: int,
     return out
 
 
+def host_copies(tree, keep: bool):
+    """``tree`` with each DTensor leaf gathered whole into host memory, a
+    leaf at a time: every rank joins each gather, only a rank that
+    ``keep``s holds the copies (the others get None), and the card holds
+    no more than one whole leaf beyond the placed state at any time (the
+    reference's checkpointer snapshots each leaf to the host alike).
+    Other leaves are returned as they are (the checkpointer copies
+    them)."""
+    def one(t):
+        if not is_dtensor(t):
+            return t
+        whole = t.full_tensor()
+        return whole.cpu() if keep else None
+
+    return _tree.map(one, tree)
+
+
 def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
           seq: int = 128, microbatch: int = 1, lr: float = 3e-3,
           ckpt_dir: str = "", ckpt_every: int = 25, optimizer: str = "adamw",
           log_every: int = 5, resume: bool = True, seed: int = 0, *,
-          device="cuda") -> List[float]:
+          device="cuda", policy=None) -> List[float]:
     """Train ``arch`` (``smoke``: its reduced config) for ``steps`` steps
     on ``device`` (default ``"cuda"``) from weights drawn from ``seed``,
-    or from the latest checkpoint in ``ckpt_dir``.  Returns the losses of
-    the steps run."""
+    or from the latest checkpoint in ``ckpt_dir``; ``policy`` shards the
+    model over its mesh.  Returns the losses of the steps run."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     dev = resolve_device(device)
-    model = build(cfg, device=dev)
+    model = build(cfg, device=dev, policy=policy)
     shape = ShapeSpec("custom", seq, batch, "train", microbatch)
     fn, optimizer_obj = steps_lib.make_train_step(
         model, cfg, shape, optimizer_name=optimizer, microbatch=microbatch,
@@ -87,6 +114,10 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
             start_step = int(extra.get("next_step", latest))
             print(f"[train] resumed from step {latest} "
                   f"-> starting at {start_step}")
+    params, opt_state = steps_lib.place_train_state(model, optimizer_obj,
+                                                    params, opt_state)
+    writer = policy is None or not policy.places or \
+        torch.distributed.get_rank() == 0
 
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=seed))
@@ -95,10 +126,12 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     losses: List[float] = []
     try:
         for step in range(start_step, steps):
-            dev_batch = to_device(train_batch(data, cfg, step, seed), dev)
+            dev_batch = steps_lib.place_batch(
+                model, to_device(train_batch(data, cfg, step, seed), dev))
             watchdog.start()
             params, opt_state, metrics = fn(params, opt_state, step,
                                             dev_batch)
+            metrics = {k: full_tensor(v) for k, v in metrics.items()}
             loss = float(metrics["loss"])            # waits for the card
             dt = watchdog.stop(step)
             losses.append(loss)
@@ -110,8 +143,11 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
                 (step + 1) % ckpt_every == 0 or preempt.preempted
                 or step == steps - 1)
             if should_save:
-                ckpt.save(step + 1, {"params": params, "opt": opt_state},
-                          extra={"next_step": step + 1})
+                whole = host_copies({"params": params, "opt": opt_state},
+                                    keep=writer)
+                if writer:
+                    ckpt.save(step + 1, whole, extra={"next_step": step + 1})
+                del whole
             if preempt.preempted:
                 print(f"[train] preemption requested — saved at "
                       f"{step + 1}, exiting")

@@ -5,14 +5,21 @@ dicts of tensors in the JAX package's layout — a matmul weight is
 ``(d_in, d_out)`` and applied as ``x @ w`` — so a JAX parameter tree
 carries over leaf for leaf (``repro_torch.convert.params_from_jax``).  Every
 ``*_init`` takes an explicit ``torch.Generator`` and makes its tensors on
-that generator's device; there are no partition specs (the port is
-single-device until the sharding item).
+that generator's device.  The partition specs the reference's ``*_init``
+returns beside its parameters come from the matching ``*_specs`` here
+(``sharding.partitioning.PartitionSpec`` leaves): 2-D "FSDP x TP", matmul
+weights sharded on both mesh axes ('data' on the input dim, 'model' on the
+output dim, or transposed for down-projections), vectors replicated.
 
 Numerics follow the reference: norms compute in float32 and cast back, the
 norm scale is ``1 + scale``, ``rope_freqs`` is ``1 / theta ** (arange(half)
 / half)`` in float32, logits are cast to float32 after the product and
 padded vocabulary slots are set to -1e30.  ``apply_mrope`` is Qwen2-VL's
 multimodal rotary embedding, a position stream a section of the spectrum.
+On DTensors (a policy with a mesh) the embedding gather and the
+cross-entropy's true logit run on each rank's shard of the table or the
+logits (``policy.run_summed``): a vocab-sharded one contributes a partial
+sum, so neither the table nor the (B, S, V) logits are gathered.
 """
 from __future__ import annotations
 
@@ -21,6 +28,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.partitioning import (P, is_dtensor, partial_grads,
+                                               settle)
 
 
 # elements a float32 draw covers at once: a larger leaf (a stacked expert
@@ -66,6 +76,13 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
+
+def norm_specs(norm_type: str):
+    """The reference's specs of a norm: replicated vectors."""
+    if norm_type == "rmsnorm":
+        return {"scale": P(None)}
+    return {"scale": P(None), "bias": P(None)}
+
 
 def rmsnorm_init(d: int, dtype, device, lead=()):
     return {"scale": torch.zeros((*lead, d), dtype=dtype, device=device)}
@@ -199,14 +216,70 @@ def mlp_init(gen: torch.Generator, d: int, f: int, mlp_type: str, dtype,
     return params
 
 
+def mlp_specs(mlp_type: str):
+    specs = {"wi": P("data", "model")}
+    if mlp_type in ("swiglu", "geglu"):
+        specs["wg"] = P("data", "model")
+    specs["wo"] = P("model", "data")
+    return specs
+
+
+def matmul(x, w, local: bool = False):
+    """``x @ w``.  A DTensor ``x`` with more than one sharded leading
+    dimension (a batch- and sequence-sharded activation: the context-
+    parallel layout, sequence-parallel blocks), or any DTensor ``x`` with
+    ``local``, runs on each rank's block (``local_map``): DTensor's matmul
+    flattens the leading dimensions and cannot place two sharded ones
+    flattened, nor, in the backward, such a flattened gradient.  On each
+    mesh dimension: rows of ``x`` split there keep ``w`` whole there; a
+    contraction split there takes ``w``'s matching rows and leaves a
+    partial sum, reduced at once; an ``x`` whole there keeps ``w``'s
+    column shard (the output's columns split alike) or gathers it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not is_dtensor(x):
+        return x @ w
+    last = x.ndim - 1
+    lead = [p for p in x.placements
+            if isinstance(p, Shard) and p.dim < last]
+    if not local and len({p.dim for p in lead}) < 2:
+        return x @ w
+    from torch.distributed.tensor.experimental import local_map
+    x = settle(x)                            # a partial sum, reduced
+    w_pl, out_pl, x_grad = [], [], []
+    for p, q in zip(x.placements, w.placements):
+        if p == Shard(last):
+            w_pl.append(Shard(0))
+            out_pl.append(Partial())
+            x_grad.append(p)
+        elif isinstance(p, Shard):
+            w_pl.append(Replicate())
+            out_pl.append(p)
+            x_grad.append(p)
+        elif q == Shard(1):
+            # each rank's columns: its share of x's gradient
+            w_pl.append(q)
+            out_pl.append(Shard(last))
+            x_grad.append(Partial())
+        else:
+            w_pl.append(Replicate())
+            out_pl.append(Replicate())
+            x_grad.append(p)
+    w = w.redistribute(w.device_mesh, w_pl)
+    w_grad = partial_grads(x.placements, w_pl)
+    return settle(local_map(lambda a, b: a @ b, out_placements=(tuple(out_pl),),
+                            in_placements=(tuple(x.placements), tuple(w_pl)),
+                            in_grad_placements=(tuple(x_grad), w_grad),
+                            device_mesh=x.device_mesh)(x, w))
+
+
 def mlp_apply(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     act = _ACTS[mlp_type]
-    h = x @ params["wi"]
+    h = matmul(x, params["wi"])
     if "wg" in params:
-        h = act(x @ params["wg"]) * h
+        h = act(matmul(x, params["wg"])) * h
     else:
         h = act(h)
-    return h @ params["wo"]
+    return matmul(h, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -218,8 +291,44 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype):
     return {"embedding": truncnorm_init(gen, (vocab, d), 0.02, dtype)}
 
 
-def embed(params, tokens: torch.Tensor, scale: bool, d: int) -> torch.Tensor:
-    x = params["embedding"][tokens.long()]
+def embedding_specs(tied: bool = False):
+    """Untied tables shard D over BOTH mesh axes (the token gather then
+    partitions trivially); tied tables keep V on 'model' so the logits
+    product stays vocab-sharded."""
+    return {"embedding": P("model", "data") if tied
+            else P(None, ("data", "model"))}
+
+
+def _gather_rows(table, tokens: torch.Tensor, policy) -> torch.Tensor:
+    """``table[tokens]`` of a DTensor table: each rank gathers from its
+    shard with every token (the tokens are replicated); a vocab-sharded
+    table's rank contributes its own rows and zeros for the rest, a
+    ``Partial`` sum over the mesh dimensions that shard the vocabulary."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pl = tuple(table.placements)
+    out_pl = tuple(Partial() if p == Shard(0) else
+                   Shard(2) if p == Shard(1) else Replicate() for p in pl)
+
+    def local(start, tab, tok):
+        rows = tab.shape[0]
+        idx = tok.long() - start
+        hit = (idx >= 0) & (idx < rows)
+        out = tab[idx.clamp(0, rows - 1)]
+        return torch.where(hit[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                            device=out.device))
+
+    return policy.run_summed(local, table, 0, (tokens,),
+                             others_pl=(Replicate(),) * len(pl),
+                             out_pl=out_pl)
+
+
+def embed(params, tokens: torch.Tensor, scale: bool, d: int,
+          policy=None) -> torch.Tensor:
+    table = params["embedding"]
+    if is_dtensor(table):
+        x = _gather_rows(table, tokens, policy)
+    else:
+        x = table[tokens.long()]
     if scale:
         x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
     return x
@@ -230,17 +339,74 @@ def unembed_init(gen: torch.Generator, vocab: int, d: int, dtype):
                                           1.0 / math.sqrt(d), dtype)}
 
 
-def cross_entropy_loss(logits: torch.Tensor,
-                       labels: torch.Tensor) -> torch.Tensor:
+def unembed_specs():
+    return {"unembedding": P("data", "model")}
+
+
+def _true_logit(logits, safe: torch.Tensor, policy) -> torch.Tensor:
+    """``logits[..., safe]`` of DTensor logits: each rank reads the labels
+    in its vocabulary shard, a ``Partial`` sum over the mesh dimensions
+    that shard the vocabulary (the reference's one-hot contraction, which
+    reduces over V locally + one all-reduce)."""
+    def local(start, lg, lab):
+        cols = lg.shape[-1]
+        idx = lab - start
+        hit = (idx >= 0) & (idx < cols)
+        got = lg.gather(-1, idx.clamp(0, cols - 1)[..., None])[..., 0]
+        return torch.where(hit, got, torch.zeros((), dtype=got.dtype,
+                                                 device=got.device))
+
+    return policy.run_summed(local, logits, -1, (safe,))
+
+
+def batch_major(x):
+    """A DTensor (B, ..., D) with its inner dimensions gathered (the
+    sequence of a sequence-parallel residual): DTensor's matmul flattens
+    the leading dimensions, and cannot place two sharded ones flattened.
+    Only the batch (dimension 0) and the last dimension stay sharded."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and 0 < p.dim < x.ndim - 1
+          else p for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def _sum_exp(logits, m, policy):
+    """``exp(logits - m).sum(-1)`` of DTensor logits, each rank over its
+    vocabulary shard (a ``Partial`` sum, reduced): only (B, S) tensors
+    cross the mesh, forward and backward."""
+    return policy.run_summed(
+        lambda _, lg, mm: torch.exp(lg - mm[..., None]).sum(dim=-1),
+        logits, -1, (m,))
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       policy=None) -> torch.Tensor:
     """Masked mean cross-entropy over (B, S, V) float32 logits; labels < 0
     are masked.  The reference's formulation: ``z = max + log(sum(exp(
     logits - max)))`` and the true logit taken by index (the reference's
-    one-hot contraction gives the same value)."""
+    one-hot contraction gives the same value).  With a policy the logits
+    are vocab-sharded (``shard_logits``) and never gathered."""
+    if policy is not None:
+        logits = policy.shard_logits(logits)
+        labels = policy.as_dtensor(labels) if policy.places \
+            else labels
     mask = (labels >= 0).to(torch.float32)
     safe = labels.clamp(min=0).to(torch.int64)
-    m = logits.amax(dim=-1)
-    z = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
-    true_logit = logits.gather(-1, safe[..., None])[..., 0]
+    if is_dtensor(logits):
+        # the max only steadies the exponentials: its gradient cancels (z's
+        # is the softmax whatever m is), and DTensor's backward of a max
+        # over a sharded vocabulary gathers the whole (B, S, V) gradient
+        m = logits.detach().amax(dim=-1)
+        z = m + torch.log(_sum_exp(logits, m, policy))
+    else:
+        m = logits.amax(dim=-1)
+        z = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    if is_dtensor(logits):
+        true_logit = _true_logit(logits, safe, policy)
+    else:
+        true_logit = logits.gather(-1, safe[..., None])[..., 0]
     ll = true_logit - z
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -248,7 +414,13 @@ def cross_entropy_loss(logits: torch.Tensor,
 def logits_from_hidden(x: torch.Tensor, emb_params, unemb_params, tie: bool,
                        softcap: float = 0.0,
                        true_vocab: int = 0) -> torch.Tensor:
-    if tie:
+    if is_dtensor(x):
+        # each rank's rows against its vocabulary columns
+        x = batch_major(x)
+        w = emb_params["embedding"].T if tie else \
+            unemb_params["unembedding"]
+        logits = matmul(x, w, local=True)
+    elif tie:
         logits = x @ emb_params["embedding"].T          # (V_pad, D)
     else:
         logits = x @ unemb_params["unembedding"]
@@ -256,5 +428,10 @@ def logits_from_hidden(x: torch.Tensor, emb_params, unemb_params, tie: bool,
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     if true_vocab and true_vocab < logits.shape[-1]:
-        logits[..., true_vocab:] = -1e30
+        if is_dtensor(logits):
+            pad = torch.arange(logits.shape[-1],
+                               device=logits.device) >= true_vocab
+            logits = torch.where(pad, -1e30, logits)
+        else:
+            logits[..., true_vocab:] = -1e30
     return logits

@@ -3,7 +3,8 @@
 The port of the JAX package's ``models/model_zoo.py``; the facade exposes
 what ``launch/`` and the tests need:
 
-    model.init(generator)        -> params (no partition specs)
+    model.init(generator)        -> params
+    model.param_specs()          -> the reference's partition-spec tree
     model.loss(params, batch)    -> (scalar, aux)       [training]
     model.prefill(params, batch, max_len) -> (last logits, decode state)
     model.decode_state(batch_size, max_len) -> empty decode state
@@ -13,6 +14,10 @@ what ``launch/`` and the tests need:
 A batch is a dict of tensors: ``tokens`` always; ``frames`` (B, enc_seq, D)
 for the encoder-decoder; ``vision_embeds`` (B, vision_prefix, D) and
 ``positions`` (3, B, S) for the vlm.
+
+With a sharding ``policy`` (``build(cfg, policy=...)``) the model places
+its parameters (``place``: DTensors by ``param_specs``) and runs every
+forward on them as the reference's model runs under its policy.
 """
 from __future__ import annotations
 
@@ -40,8 +45,25 @@ class Model:
     def device(self) -> torch.device:
         return self.impl.device
 
+    @property
+    def policy(self):
+        return self.impl.policy
+
     def init(self, gen: torch.Generator):
         return self.impl.init(gen)
+
+    def param_specs(self):
+        return self.impl.param_specs()
+
+    def place(self, params, specs=None):
+        """``params`` (whole tensors, the same on every rank) as DTensors
+        placed by ``specs`` (default ``param_specs()``, sanitized against
+        each leaf); unchanged without a policy or mesh."""
+        pol = self.policy
+        if pol is None or not pol.places:
+            return params
+        return pol.param_sharding(self.param_specs() if specs is None
+                                  else specs, params)
 
     def loss(self, params, batch):
         return self.impl.loss(params, batch)
@@ -88,12 +110,15 @@ class Model:
         return {"token": spec(b, 1)}
 
 
-def build(cfg: ModelConfig, *, device="cuda", remat: bool = True) -> Model:
+def build(cfg: ModelConfig, *, device="cuda", remat: bool = True,
+          policy=None) -> Model:
     """The model of ``cfg`` on ``device`` (default ``"cuda"``;
     ``"cuda"`` without a card raises ``RuntimeError``).  ``remat`` (the
     reference's default) keeps only each layer's inputs while a gradient
     is taken and runs the layer again in the backward; it changes no
-    forward without a gradient."""
+    forward without a gradient.  ``policy``: a
+    ``sharding.partitioning.ShardingPolicy`` (None: one device, as
+    before)."""
     cls = EncDecTransformer if cfg.family == "encdec" else Transformer
     return Model(cfg=cfg, impl=cls(cfg, device=resolve_device(device),
-                                   remat=remat))
+                                   remat=remat, policy=policy))

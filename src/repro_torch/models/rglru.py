@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import RGLRUConfig
 from repro_torch.models import layers
+from repro_torch.sharding.partitioning import P
 
 _C = 8.0
 
@@ -58,6 +59,15 @@ def init(gen: torch.Generator, d_model: int, width: int, cfg: RGLRUConfig,
         "lam": f32(lam),
         "out": layers.dense_init(gen, width, d_model, dtype, lead=lead),
     }
+
+
+def specs():
+    """The reference's specs of ``init``'s tree."""
+    return {"in_x": P("data", "model"), "in_gate": P("data", "model"),
+            "conv_w": P(None, "model"), "conv_b": P("model"),
+            "w_a": P("data", "model"), "b_a": P(None),
+            "w_i": P("data", "model"), "b_i": P(None),
+            "lam": P(None), "out": P("model", "data")}
 
 
 def _gates(params, xw):
@@ -98,8 +108,15 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
 
 
 def apply(params, x, width: int, cfg: RGLRUConfig,
-          init_state: RGLRUState = None) -> Tuple[torch.Tensor, RGLRUState]:
-    """Full-sequence block. x: (B,S,D) -> (out, final state)."""
+          init_state: RGLRUState = None,
+          policy=None) -> Tuple[torch.Tensor, RGLRUState]:
+    """Full-sequence block. x: (B,S,D) -> (out, final state).  With a
+    policy on a mesh the whole block runs on each rank's batch rows
+    (``policy.run_rows``)."""
+    if policy is not None and policy.places:
+        return policy.run_rows(
+            lambda p, xl, st: apply(p, xl, width, cfg, st), params, x,
+            init_state, RGLRUState)
     xb = x @ params["in_x"]
     gate = F.gelu(x @ params["in_gate"], approximate="tanh")
     xw, conv_tail = layers.conv1d(

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.models import layers
+from repro_torch.sharding.partitioning import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +77,14 @@ def init(gen: torch.Generator, dims: SSMDims, dtype, lead=()):
         "norm": layers.rmsnorm_init(di, dtype, dev, lead),
         "out_proj": layers.dense_init(gen, di, d, dtype, lead=lead),
     }
+
+
+def specs():
+    """The reference's specs of ``init``'s tree."""
+    return {"in_proj": P("data", "model"), "conv_w": P(None, "model"),
+            "conv_b": P("model"),
+            "a_log": P(None), "d_skip": P(None), "dt_bias": P(None),
+            "norm": {"scale": P(None)}, "out_proj": P("model", "data")}
 
 
 def _split(params, x, dims: SSMDims):
@@ -151,9 +160,14 @@ def _ssd_chunked(xh, dt, bmat, cmat, a, dims: SSMDims, init_state=None):
     return y.reshape(b, s, h, p)[:, :s_orig], carry
 
 
-def apply(params, x, dims: SSMDims, init_state: SSMState = None
-          ) -> Tuple[torch.Tensor, SSMState]:
-    """Full-sequence mixer. x: (B,S,D) -> (out, final state)."""
+def apply(params, x, dims: SSMDims, init_state: SSMState = None,
+          policy=None) -> Tuple[torch.Tensor, SSMState]:
+    """Full-sequence mixer. x: (B,S,D) -> (out, final state).  With a
+    policy on a mesh the whole mixer runs on each rank's batch rows
+    (``policy.run_rows``)."""
+    if policy is not None and policy.places:
+        return policy.run_rows(lambda p, xl, st: apply(p, xl, dims, st),
+                               params, x, init_state, SSMState)
     bsz, s, _ = x.shape
     h, p, n = dims.n_heads, dims.head_dim, dims.d_state
     z, xbc, dt = _split(params, x, dims)

@@ -1,7 +1,6 @@
 """Mixed-precision optimizers: AdamW and Adafactor.
 
-The port of the JAX package's ``optim/optimizers.py`` on one device (no
-partition specs): parameters live in their model dtype (bf16), the state
+The port of the JAX package's ``optim/optimizers.py``: parameters live in their model dtype (bf16), the state
 carries the float32 master copy and the moments, and a step's numbers are
 the reference's — gradients clipped to a global norm, the same moment and
 bias-correction formulas, the new parameters cast from the master.
@@ -16,6 +15,11 @@ optimizer's working memory.
 Keys of the state other than the optimizer's own (the gradient codec's
 ``_ef`` buffer) are carried through, where the reference's AdamW and
 Adafactor return only their own keys and so drop it (ROADMAP Queue 3).
+``state_specs(param_specs, params)`` is the reference's spec tree of the
+state (the parameters' specs for the master and AdamW's moments;
+Adafactor's factored moments drop the last or the second-to-last entry);
+a sharded step places the state by it (``launch.steps.place_train_state``)
+and the update runs on the DTensors as on tensors.
 Leaves are visited in the reference's order (``repro_torch.tree``), so the
 global norm sums them in the same order.
 """
@@ -28,6 +32,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.sharding.partitioning import P
 
 
 class Schedule(NamedTuple):
@@ -56,6 +61,8 @@ class Optimizer:
     init: Callable[[Any], Any]
     # (grads, state, step) -> (state, info); the state is updated in place
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]
+    # (param specs, params or their shapes) -> the state's spec tree
+    state_specs: Callable[..., Any] = None
 
 
 def _global_norm(grads) -> torch.Tensor:
@@ -119,7 +126,10 @@ def adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.95,
                 mst.sub_(a)
         return state, {"grad_norm": gnorm, "lr": lr}
 
-    return Optimizer(init=init, update=update)
+    def state_specs(param_specs, params=None):
+        return {"master": param_specs, "m": param_specs, "v": param_specs}
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +191,20 @@ def adafactor(schedule: Schedule, eps: float = 1e-30,
                 mst.sub_(u.add_(weight_decay * mst).mul_(lr))
         return state, {"grad_norm": gnorm, "lr": lr}
 
-    return Optimizer(init=init, update=update)
+    def state_specs(param_specs, params):
+        def moments_spec(spec, p):
+            if _factored(p.shape):
+                axes = tuple(spec)
+                # pad spec to rank (specs may be shorter than the shape)
+                axes = axes + (None,) * (len(p.shape) - len(axes))
+                return {"vr": P(*axes[:-1]),
+                        "vc": P(*(axes[:-2] + axes[-1:]))}
+            return {"v": spec}
+
+        return {"master": param_specs,
+                "v": _tree.map(moments_spec, param_specs, params)}
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 def _moment_dicts(v_tree):

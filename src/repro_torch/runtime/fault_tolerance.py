@@ -12,7 +12,8 @@ Python (clocks and signals), the same on the CPU and on a card.
   * ElasticPlan — given the surviving device count, the largest usable
     (pod, data, model) mesh with the model axis intact, and the
     grad-accumulation that keeps the global batch: single-process
-    arithmetic; the training path runs no mesh yet (ROADMAP item 12c).
+    arithmetic; ``launch.train`` restores a checkpoint whole and places it
+    on whatever mesh its policy holds, so a plan's mesh can resume it.
 """
 from __future__ import annotations
 

@@ -49,7 +49,9 @@ def map(fn: Callable, tree, *rest):
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         out = [map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
-        return out if isinstance(tree, list) else tuple(out)
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     return fn(tree, *rest)
 
 

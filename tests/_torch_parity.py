@@ -2,10 +2,24 @@
 
 Inputs are made once with numpy from a seed and handed to both packages;
 results are compared as raw bit patterns, so -0.0 vs +0.0 counts.
+
+Under pytest-xdist each worker process takes its share of the machine's
+cores for torch's intra-op pool.  By default every worker starts a pool of
+one thread a core, so N workers hold N times the cores, and an op on the
+tests' small tensors waits for pool threads that are not running (on an
+8-core x86 host, in one process, a 36864-element float32 ``sqrt`` took
+1-7 ms on an 8-thread pool and 0.012 ms on one thread).  A test run in
+one process keeps torch's default.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
 
 _UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 _TORCH_CARRIER = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,

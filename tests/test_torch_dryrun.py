@@ -168,18 +168,21 @@ def test_peak_extrapolation_pairs_the_update_ops_by_name():
 def test_prefill_and_decode_cells_trace_on_the_cards_routes(tmp_path):
     """A MoE prefill and decode plan the router and the sampling top-k as
     the card would (K5's ``cuda``); an encoder-decoder decode starts from
-    its prefill's state; a flash prefill is refused (K6 has no fake-tensor
-    rule).  ``run_cell`` writes each record where ``report`` and the
-    roofline read them."""
+    its prefill's state; a flash prefill traces through K6's custom op
+    (its fake implementation; its flop formula counts the causal pairs,
+    fewer than the einsum's whole score blocks).  ``run_cell`` writes each
+    record where ``report`` and the roofline read them."""
     cells = [("moonshot-v1-16b-a3b", ShapeSpec("prefill_t", 64, 2,
                                                "prefill")),
              ("moonshot-v1-16b-a3b", ShapeSpec("decode_t", 64, 2,
                                                "decode")),
              ("whisper-tiny", ShapeSpec("decode_w", 64, 2, "decode"))]
+    recs = []
     for arch, shape in cells:
         rec = dryrun.run_cell(arch, shape.name, results_dir=tmp_path,
                               cfg=get_smoke_config(arch), shape=shape,
                               verbose=False)
+        recs.append(rec)
         assert rec["ok"], rec
         assert rec["kind"] == shape.kind and rec["flops"] > 0
         if arch.startswith("moonshot"):
@@ -191,10 +194,12 @@ def test_prefill_and_decode_cells_trace_on_the_cards_routes(tmp_path):
         "1", results_dir=tmp_path)
     rows = roofline.load_all(results_dir=tmp_path)
     assert len(rows) == 3 and all(r["mesh"] == "1" for r in rows)
-    with pytest.raises(ValueError, match="fake-tensor rule"):
-        dryrun.lower_cell("moonshot-v1-16b-a3b", "prefill_t", flash=True,
-                          cfg=get_smoke_config("moonshot-v1-16b-a3b"),
-                          shape=cells[0][1], verbose=False)
+    flash = dryrun.lower_cell("moonshot-v1-16b-a3b", "prefill_t",
+                              flash=True,
+                              cfg=get_smoke_config("moonshot-v1-16b-a3b"),
+                              shape=cells[0][1], verbose=False)
+    assert flash["ok"] and flash["plan"]["flash"], flash
+    assert 0 < flash["flops"] < recs[0]["flops"]
 
 
 def test_hlo_analysis_counts_2mnk_and_op_bytes_over_a_chain():
