@@ -17,8 +17,9 @@ Phases, each printed as one JSON line:
             of each K7 kernel's main loop by pipe, and the INT32 ALU
             instructions a pair costs (the ops of K7's bound), no K7
             kernel holding a min/max instruction;
-            K6's bf16 kernels at H = 128, 192 and 256 must hold ``HGMMA``
-            and ``UTMALDG`` (wgmma fed by TMA); K1's ALU instructions a
+            K6's bf16 kernels at H = 16, 32, 128, 192 and 256 must hold
+            ``HGMMA`` and ``UTMALDG`` (wgmma fed by TMA); K1's ALU
+            instructions a
             compare-exchange,
             counted in the in-thread merge that closes each stage (the ops
             of K1's bound);
@@ -183,7 +184,12 @@ Phases, each printed as one JSON line:
             (float32 gradients within 1e-6) for one architecture of each
             kind at smoke size, and nemotron-4-340b's dry-run record (it
             does not fit; no step);
-            minitron-4b's losses again on one fixed batch (5 steps);
+            minitron-4b's losses again on one fixed batch (5 steps), then
+            ``settle_3e``'s four lines on that batch: 5 steps at lr 0
+            (losses equal), the loss along the step whose loss rose, 5
+            steps at a tenth of the lr, and the first AdamW update of four
+            leaves against one written out in float64 (fails on (a) or
+            (d));
 5d3. sharding
             a one-rank NCCL group on the card and a (1, 1) ``("data",
             "model")`` DeviceMesh: full-width minitron-4b served through
@@ -247,7 +253,7 @@ Phases, each printed as one JSON line:
             ``torch.topk``, and its network kernel (k > 256) as before;
             K6 at minitron's, moonshot's, gemma-2b's (H = 256, MQA) and
             nemotron-4-340b's (H = 192) prefill batches, and at H = 32
-            (the mma.sync kernel) on (8, 1024) x 8/8 heads; and K6 on the
+            and 16 on (8, 1024) x 8/8 heads; and K6 on the
             last context-parallel block of minitron's two prefill shapes
             at tp = 8 (``q_offset = 7 S / 8``), beside SDPA with the
             block's mask.
@@ -290,11 +296,12 @@ ATTN_SHAPES = ((8, 1024), (1, 32768))    # (B, S) of K6's rows: the serve's
 ATTN_HEADS = (24, 8, 128)                # prefill batch and prefill_32k
 # every K6 row: (B, S) and (query heads, kv heads, head dim); then
 # moonshot's prefill batch, the families phase's wide heads: gemma-2b's
-# (MQA, 256) and nemotron-4-340b's (192), and H = 32, the mma.sync
-# kernel's width
+# (MQA, 256) and nemotron-4-340b's (192), and H = 32 and 16, the narrow
+# widths (the card tests' smoke configs run 16)
 K6_ROWS = tuple((bs, ATTN_HEADS) for bs in ATTN_SHAPES) \
     + (((8, 1024), (16, 16, 128)), ((8, 1024), (8, 1, 256)),
-       ((8, 1024), (96, 8, 192)), ((8, 1024), (8, 8, 32)))
+       ((8, 1024), (96, 8, 192)), ((8, 1024), (8, 8, 32)),
+       ((8, 1024), (8, 8, 16)))
 K6_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # max |kernel - plain|
 # ... and the largest |kernel - plain|_2 / |plain|_2 over query rows: an
 # absolute limit is loose where outputs are small (a row that sees n keys
@@ -323,6 +330,10 @@ FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # H100 SXM INT32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+# H100 SXM exponent unit: 16 MUFU.EX2 a clock an SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0) x 132
+# SMs x 1.98 GHz boost; K6 takes one exp2 a visible score
+MUFU_EX2_PER_S = 132 * 16 * 1.98e9
 # the card's head start a timed call (~0.2 ms at 1.98 GHz) in the kernel
 # timings: more than a wrapper's host time, so the queue never runs dry
 LEAD_CYCLES_PER_CALL = 400_000
@@ -1638,7 +1649,7 @@ def phase_distributed(rng, cols) -> dict:
     del key
 
     # the flat sort under the profiler, its phases apart: phase 1 (local
-    # sorts, splitters, bucket histograms) must launch bucket_hist_kernel
+    # sorts, splitters, bucket histograms) must launch bucket_search_kernel
     # once a shard; the exchange and merge no sort kernel, and K2 as the
     # merge tree says
     from torch.autograd import DeviceType
@@ -1665,9 +1676,9 @@ def phase_distributed(rng, cols) -> dict:
         torch.cuda.synchronize()
     p1 = dict(_build.launches)
     hist = sum(c for k, (c, _) in device_kernels(prof).items()
-               if "bucket_hist_kernel" in k)
+               if "bucket_search_kernel" in k)
     if hist != DIST_ENTRIES or p1.get("radix_bucket_hist") != DIST_ENTRIES:
-        raise AssertionError(f"phase 1: bucket_hist_kernel {hist} traced, "
+        raise AssertionError(f"phase 1: bucket_search_kernel {hist} traced, "
                              f"{p1} counted, expected {DIST_ENTRIES} (one a "
                              f"shard)")
     cap = ss._round_capacity(int(table.max()), m)
@@ -2693,6 +2704,175 @@ def _remat_check() -> dict:
     return out
 
 
+# fault 3e: the fixed-batch run's alphas along the step after which its
+# loss rose (step 1 -> 2), the smaller lr, the leaves AdamW is checked on
+# by hand (an attention projection, an MLP matrix, the embedding, a norm
+# gain) and that check's limit: |port - by hand| of a leaf's first update
+# within this share of lr, beside the float32 rounding of the master
+SETTLE_ALPHAS = (0.0, 0.25, 0.5, 1.0)
+SETTLE_LR_X_FAN_IN = 0.01
+SETTLE_LEAVES = ("['wq']", "['wi']", "['embedding']", "['scale']")
+SETTLE_UPDATE_TOL = 1e-3
+
+
+def settle_3e(model, cfg, shape, plan, batch, n_steps, device="cuda"
+              ) -> dict:
+    """Whether fault 3e (minitron-4b's fixed-batch losses rise and fall at
+    full width) is the port's or the step size's: four checks on the same
+    model, cut and batch, one line each.  (a) ``n_steps`` steps at lr 0:
+    the losses must be equal (else something outside the update moves).
+    (b) The float32 masters before and after step 1 (the loss rose after
+    it): the loss (forward only, the step's microbatches) at theta_1 +
+    alpha (theta_2 - theta_1) for ``SETTLE_ALPHAS``; a loss that falls
+    and then rises along the step says the step is too long.  (c)
+    ``n_steps`` steps at ``SETTLE_LR_X_FAN_IN``.  (d) The first update of
+    ``SETTLE_LEAVES`` against AdamW written out here in float64 from the
+    same gradients (optax.adamw's formula with the reference's b1, b2,
+    eps and weight decay on every leaf, after the global-norm clip).
+    Raises if (a) or (d) fails."""
+    import math
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps as steps_lib
+
+    accum = torch.bfloat16 if plan.accum == "bfloat16" else torch.float32
+
+    def make(lr):
+        return steps_lib.make_train_step(
+            model, cfg, shape, optimizer_name=plan.optimizer,
+            microbatch=plan.microbatch, accum_dtype=accum, peak_lr=lr,
+            total_steps=n_steps)
+
+    def fresh(opt):
+        params = model.init(torch.Generator(device=device).manual_seed(SEED))
+        return params, opt.init(params)
+
+    def micro(j):
+        per = batch["tokens"].shape[0] // plan.microbatch
+        return {k: v.narrow(steps_lib.batch_axis(k), j * per, per)
+                for k, v in batch.items()}
+
+    out, chunk = {}, 1 << 24
+    # (a) lr 0
+    fn, opt = make(0.0)
+    params, state = fresh(opt)
+    la = []
+    for step in range(n_steps):
+        params, state, met = fn(params, state, step, batch)
+        la.append(float(met["loss"]))
+    out["a"] = {"losses": la, "equal": all(x == la[0] for x in la)}
+    emit({"phase": "families_train", "fault": "3e", "check": "(a) lr 0",
+          **out["a"]})
+    del params, state, fn, opt, met
+
+    # (b) along step 1
+    torch.cuda.empty_cache()
+    lr = family_lr(cfg)
+    fn, opt = make(lr)
+    params, state = fresh(opt)
+    steps_loss = []
+    params, state, met = fn(params, state, 0, batch)
+    steps_loss.append(float(met["loss"]))
+    # theta_1 waits in host memory (a float32 copy of the model)
+    theta1 = [m.to("cpu", copy=True) for m in tree.leaves(state["master"])]
+    params, state, met = fn(params, state, 1, batch)
+    steps_loss.append(float(met["loss"]))
+    along = {}
+    with torch.no_grad():
+        for alpha in SETTLE_ALPHAS:
+            for p, t1, t2 in zip(tree.leaves(params), theta1,
+                                 tree.leaves(state["master"])):
+                for c0 in range(0, p.numel(), chunk):
+                    p.view(-1)[c0:c0 + chunk].copy_(torch.lerp(
+                        t1.view(-1)[c0:c0 + chunk].to(t2.device),
+                        t2.view(-1)[c0:c0 + chunk], alpha))
+            along[alpha] = sum(float(model.loss(params, micro(j))[0])
+                               for j in range(plan.microbatch)) \
+                / plan.microbatch
+    lowest = min(along, key=along.get)
+    out["b"] = {"step_losses": steps_loss, "alpha_losses": along,
+                "lowest_at_alpha": lowest,
+                "falls_then_rises": 0 < lowest < 1 and all(
+                    along[x] > along[y] for x, y in
+                    zip(SETTLE_ALPHAS, SETTLE_ALPHAS[1:]) if y <= lowest)
+                and all(along[x] < along[y] for x, y in
+                        zip(SETTLE_ALPHAS, SETTLE_ALPHAS[1:])
+                        if x >= lowest)}
+    emit({"phase": "families_train", "fault": "3e",
+          "check": "(b) along step 1 -> 2", "lr": lr, **out["b"]})
+    del params, state, fn, opt, met, theta1
+    torch.cuda.empty_cache()
+
+    # (c) a tenth of the learning rate
+    small = SETTLE_LR_X_FAN_IN / max(cfg.d_model, cfg.d_ff)
+    fn, opt = make(small)
+    params, state = fresh(opt)
+    lc = []
+    for step in range(n_steps):
+        params, state, met = fn(params, state, step, batch)
+        lc.append(float(met["loss"]))
+    out["c"] = {"lr": small, "losses": lc,
+                "falls_at_each_step": all(b_ < a_ for a_, b_ in
+                                          zip(lc, lc[1:]))}
+    emit({"phase": "families_train", "fault": "3e",
+          "check": "(c) lr_x_fan_in 0.01", **out["c"]})
+    del params, state, fn, opt, met
+
+    # (d) AdamW by hand on the first update, from the same gradients
+    torch.cuda.empty_cache()
+    b1, b2, eps, wd, clip = 0.9, 0.95, 1e-8, 0.1, 1.0
+    fn, opt = make(lr)
+    params, state = fresh(opt)
+    _, _, grads = steps_lib.loss_and_grads(model, params, micro(0))
+    gl = tree.leaves(grads)
+    norm = math.sqrt(sum(float(g.reshape(-1)[c0:c0 + chunk].double()
+                               .square().sum())
+                         for g in gl for c0 in range(0, g.numel(), chunk)))
+    scale = min(1.0, clip / (norm + 1e-9))
+    # lr at step 0: warmup min(500, n_steps // 10) = 0, so the cosine at
+    # its start, peak_lr (a warmup of w > 0 would give 0)
+    warm = min(500, n_steps // 10)
+    lr0 = 0.0 if warm > 0 else lr
+    paths = [k for k, _ in tree.leaves_with_path(state["master"])]
+    picked = [next(i for i, k in enumerate(paths) if k.endswith(name))
+              for name in SETTLE_LEAVES]
+    before = {i: tree.leaves(state["master"])[i].to("cpu", copy=True)
+              for i in picked}
+    opt.update(grads, state, 0)
+    leaves_d = {}
+    ok = True
+    for i in picked:
+        t0 = before[i].reshape(-1)
+        g = gl[i].reshape(-1)
+        port = tree.leaves(state["master"])[i].reshape(-1)
+        worst = 0.0
+        for c0 in range(0, t0.numel(), chunk):
+            th = t0[c0:c0 + chunk].to(g.device).double()
+            gc = g[c0:c0 + chunk].double() * scale
+            m = (1 - b1) * gc
+            v = (1 - b2) * gc * gc
+            mhat, vhat = m / (1 - b1), v / (1 - b2)
+            hand = th - lr0 * (mhat / (vhat.sqrt() + eps) + wd * th)
+            # beyond the float32 rounding of the master (an ulp of theta)
+            err = (port[c0:c0 + chunk].double() - hand).abs() \
+                - th.abs() * 2.0 ** -23
+            worst = max(worst, float(err.max()))
+        rel = worst / lr0 if lr0 else worst
+        ok = ok and rel <= SETTLE_UPDATE_TOL
+        leaves_d[paths[i]] = {"shape": list(gl[i].shape),
+                              "max_err_over_lr": rel}
+    out["d"] = {"lr": lr0, "grad_norm": norm, "clip_scale": scale,
+                "leaves": leaves_d, "limit": SETTLE_UPDATE_TOL,
+                "within": ok}
+    emit({"phase": "families_train", "fault": "3e",
+          "check": "(d) AdamW by hand, first update", **out["d"]})
+    del params, state, fn, opt, grads, gl, before
+    if not out["a"]["equal"] or not ok:
+        raise AssertionError(f"fault 3e: a port fault: (a) {out['a']}, "
+                             f"(d) {out['d']}")
+    return out
+
+
 def phase_families_train() -> dict:
     """Every architecture but nemotron-4-340b trained on the card at full
     width (``TRAIN_ARCHS``), one at a time and freed before the next.  For
@@ -2806,6 +2986,10 @@ def phase_families_train() -> dict:
                       b_ < a for a, b_ in zip(fixed, fixed[1:])),
                   "varied_batch_losses": losses,
                   "peak_lr": family_lr(cfg)})
+            del params, state, met
+            torch.cuda.empty_cache()
+            settle_3e(model, cfg, shape, plan, batches[0], n_steps)
+            params = state = met = None
         step_ms = sum(ms[1:]) / len(ms[1:])
         emit({"phase": "families_train", "model": arch,
               "family": cfg.family, "layers": cfg.n_layers,
@@ -2885,7 +3069,7 @@ def cp_blocks(gen) -> list:
                 seen = min(off + blk, s)
                 nbytes = (2 * qb.numel() + 2 * k.shape[0] * seen * h) * 2
                 bound, by = _bound(nbytes, 4 * h * q.shape[0] * pairs,
-                                   BF16_OPS_PER_S)
+                                   BF16_OPS_PER_S, q.shape[0] * pairs)
                 rows.append({"shape": [b, s, n, r, h], "tp": tp, "block": i,
                              "q_offset": off, "ms": ms, "bound_ms": bound,
                              "bound_by": by, "max_abs_err": err[0],
@@ -3512,12 +3696,25 @@ def kernel_ms(fn, reps: int):
     return cuda_ms(fn, reps, lead=True)
 
 
-def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S,
+           ex2: float = 0):
     """(least ms, what bounds it): bytes over the memory rate against
     operations over the card's peak rate for their type (FP32 by
-    default; K7's logic ops are INT32)."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    default; K7's logic ops are INT32), and exponentials over the
+    exponent unit's rate (K6's ``ex2``, one a visible score)."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(ops / ops_per_s, ex2 / MUFU_EX2_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def search_rounds(n: int) -> int:
+    """Dependent rounds of K3's 33-ary search over n sorted keys: each
+    leaves at most ceil(len / 33) keys, until 32 or fewer are read at
+    once."""
+    rounds = 1
+    while n > 32:
+        n, rounds = -(-n // 33), rounds + 1
+    return rounds
 
 
 def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
@@ -3548,7 +3745,7 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
                    for g, w in zip(kernel(), plain()))
 
     def row(name, source, replaces, kernel, plain, nbytes, ops, library,
-            err=0.0, ops_per_s=FP32_OPS_PER_S, check=None, **extra):
+            err=0.0, ops_per_s=FP32_OPS_PER_S, check=None, ex2=0, **extra):
         """Kernel and plain outputs bit for bit, unless ``check(got, want,
         what)``: K6's comparison of its one output, returning (max
         |kernel - plain|, max row relative error)."""
@@ -3561,7 +3758,7 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
             err = max([err] + [same_bits(g, w, f"{name} vs plain")
                                for g, w in zip(got, want)])
         del got, want
-        b, by = _bound(nbytes, ops, ops_per_s)
+        b, by = _bound(nbytes, ops, ops_per_s, ex2)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": launches.get(name, 0),
@@ -3698,23 +3895,25 @@ def phase_timing(launches, run_len, radix_tile, digit_bits, k7_ops, k1_ops):
 
     # K3's bucket histogram at the flat sample sort's shape: one sorted
     # 2^25-key shard of signed-order keys against the 7 splitters of an
-    # 8-entry mesh (one read of the keys bounds it); torch.searchsorted of
-    # the splitters, the binary-search route, is the library call
+    # 8-entry mesh; torch.searchsorted of the splitters, the binary-search
+    # route, is the library call.  Its bound: the bytes the search needs,
+    # 32 keys a splitter a round (5 dependent rounds at 2^25 keys: latency,
+    # not bytes, is its real limit), the splitters and the counts
     shard = torch.sort(torch.randint(-(1 << 31), 1 << 31,
                                      (DIST_N // DIST_ENTRIES,), generator=gen,
                                      device="cuda", dtype=torch.int64)
                        .to(torch.int32)).values
     sp = shard[torch.arange(1, DIST_ENTRIES, device="cuda")
                * (shard.numel() // DIST_ENTRIES)].contiguous()
+    rounds = search_rounds(shard.numel())
     row("radix_bucket_hist", "src/repro_torch/csrc/radix_sort.cu",
         "src/repro/kernels/radix_sort.py:123",
         lambda: (rsk.bucket_hist(shard, sp),),
         lambda: (rsk.bucket_hist_plain(shard, sp),),
-        shard.numel() * 4 + sp.numel() * 4 + (DIST_ENTRIES + 1) * 4,
-        shard.numel() * (DIST_ENTRIES - 1).bit_length(),
+        sp.numel() * (rounds * 32 + 1) * 4 + (DIST_ENTRIES + 1) * 4, 0,
         lambda: torch.searchsorted(shard, sp, right=True),
-        ops_per_s=INT32_OPS_PER_S, keys=shard.numel(),
-        buckets=DIST_ENTRIES, used_by="src/repro/engine/samplesort.py:130")
+        keys=shard.numel(), buckets=DIST_ENTRIES, search_rounds=rounds,
+        used_by="src/repro/engine/samplesort.py:130")
     del shard, sp
 
     # K4: the first (all-active) pass over the 2^24 float32 row of the
@@ -3972,26 +4171,37 @@ def time_k6(row, gen) -> None:
     24/8 heads of 128, prefill_32k's length at batch 1, moonshot's
     prefill batch, (8, 1024) x 16/16 heads of 128, and the families
     phase's wide heads at (8, 1024): gemma-2b's 8/1 of 256 and
-    nemotron-4-340b's 96/8 of 192 (all on the wgmma kernel), then 8/8 of
-    32 (the mma.sync kernel's width), bf16; beside SDPA on
-    the same (B, N, S, H) tensors (causal from position 0: S = T).  Bound:
-    the causal half of QK^T and PV over the bf16 tensor rate, against q, k,
-    v and o read or written once."""
+    nemotron-4-340b's 96/8 of 192, then 8/8 of 32 and of 16 (the narrow
+    widths), bf16, all on the wgmma kernel; beside SDPA on the same (B, N,
+    S, H) tensors (causal from position 0: S = T).  Bound: the largest of
+    q, k, v and o read or written once over the memory rate, QK^T and PV
+    over the visible scores (4 H flops each) over the bf16 tensor rate,
+    and one exp2 a visible score over the exponent unit's rate (it bounds
+    H = 16 and 32)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+
+    def terms(nbytes, pairs, h):
+        return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                "flops": 4 * h * pairs / BF16_OPS_PER_S * 1e3,
+                "ex2": pairs / MUFU_EX2_PER_S * 1e3}
+
     for (b, s), (n, r, h) in K6_ROWS:
         q, k, v = attn_rows(gen, b * r, n // r, s, s, h, torch.bfloat16)
         q4, k4, v4 = (x.view(b, -1, s, h) for x in (q, k, v))
+        pairs = b * n * fa.visible_pairs(s, s)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * 2
         row("flash_attention_fwd", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:101",
             lambda: (fa.flash_rows(q, k, v),),
             lambda: (fa.flash_rows_plain(q, k, v),),
-            (2 * q.numel() + 2 * k.numel()) * 2, 2 * 2 * s * s / 2 * h * n * b,
+            nbytes, 4 * h * pairs,
             lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                    enable_gqa=True),
-            ops_per_s=BF16_OPS_PER_S, check=attn_within,
-            shape=[b, s, n, r, h], dtype="bfloat16")
+            ops_per_s=BF16_OPS_PER_S, check=attn_within, ex2=pairs,
+            shape=[b, s, n, r, h], dtype="bfloat16",
+            bound_terms_ms=terms(nbytes, pairs, h))
         del q, k, v, q4, k4, v4
     # the last context-parallel block of minitron's prefill shapes at the
     # widest split: its queries at q_offset = 7 S / 8 see every key.
@@ -4010,17 +4220,19 @@ def time_k6(row, gen) -> None:
                   for x in (k, v))
         pos = torch.arange(s, device="cuda")
         mask = pos[None, :] <= (off + pos[:blk])[:, None]
+        pairs = b * n * fa.visible_pairs(blk, s, off)
+        nbytes = (2 * qb.numel() + 2 * k.numel()) * 2
         row("flash_attention_fwd", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:101",
             lambda: (fa.flash_rows(qb, k, v, off),),
             lambda: (fa.flash_rows_plain(qb, k, v, off),),
-            (2 * qb.numel() + 2 * k.numel()) * 2,
-            4 * h * n * b * fa.visible_pairs(blk, s, off),
+            nbytes, 4 * h * pairs,
             lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                    attn_mask=mask),
-            ops_per_s=BF16_OPS_PER_S, check=attn_within,
+            ops_per_s=BF16_OPS_PER_S, check=attn_within, ex2=pairs,
             shape=[b, s, n, r, h], dtype="bfloat16", q_offset=off,
-            cp_block=f"{tp - 1} of {tp}")
+            cp_block=f"{tp - 1} of {tp}",
+            bound_terms_ms=terms(nbytes, pairs, h))
         del qb, k, v, q4, k4, v4, mask
 
 
@@ -4035,15 +4247,16 @@ NO_SPILLS = ("bitserial_cas", "bitonic_sort", "bitonic_topk",
 def check_ptxas(_build) -> None:
     """Print what ``ptxas -v`` said of the K7, K3, K1, K5, K6, K2 and K4
     kernels (registers, stack frame, spills), one line a kernel, the K6
-    wgmma kernels' at H = 192 and 256 once more on a line of their own
-    (ptxas counts the launch bound's 168 registers a thread there:
-    ``check_k6_sass`` reads what the consumers use after setmaxnreg), and
+    wgmma kernels' at H = 192 and 256, and at 16 and 32, once more on a
+    line of their own (ptxas counts the launch bound's 168 registers a
+    thread there: ``check_k6_sass`` reads what the consumers use after
+    setmaxnreg), and
     K6's build warnings and performance notes; fail unless every kernel of
     ``NO_SPILLS`` has no stack frame and no spills, and if ptxas
     serialised K6's wgmma products (its C7520 note: the products then run
     one after another with nothing overlapping them)."""
     import re
-    bad, wide = [], {}
+    bad, wide, narrow = [], {}, {}
     for name in ("bitserial_cas", "radix_sort") + NO_SPILLS[1:]:
         for u in _build.ptxas_usage(name):
             emit({"phase": "build", "ptxas": name, **u})
@@ -4051,14 +4264,18 @@ def check_ptxas(_build) -> None:
                     u.get("stack") != 0 or u.get("spill_stores") != 0
                     or u.get("spill_loads") != 0):
                 bad.append(u["kernel"])
-            if re.search(r"flash_wgmma_kernel<[^,]+, (\(int\))?(192|256)>",
-                         u["kernel"]):
-                wide[u["kernel"]] = {k: u.get(k) for k in (
-                    "registers", "stack", "spill_stores", "spill_loads")}
+            h = re.search(r"flash_wgmma_kernel<[^,]+, (\(int\))?(\d+)>",
+                          u["kernel"])
+            if h and h.group(2) in ("192", "256", "16", "32"):
+                (wide if int(h.group(2)) > 128 else narrow)[u["kernel"]] = {
+                    k: u.get(k) for k in ("registers", "stack",
+                                          "spill_stores", "spill_loads")}
     emit({"phase": "build", "ptxas_k6_wide_wgmma": wide})
-    if len(wide) != 4:
-        raise AssertionError(f"K6's wgmma kernels at H = 192 / 256 in "
-                             f"bf16 and fp16: found {sorted(wide)}")
+    emit({"phase": "build", "ptxas_k6_narrow_wgmma": narrow})
+    if len(wide) != 4 or len(narrow) != 4:
+        raise AssertionError(f"K6's wgmma kernels at H = 16 / 32 / 192 / "
+                             f"256 in bf16 and fp16: found {sorted(wide)}, "
+                             f"{sorted(narrow)}")
     log = _build._lib_path("flash_attention").with_suffix(".log")
     warnings = [ln.strip() for ln in log.read_text().splitlines()
                 if "warning" in ln.lower() or "Performance Loss" in ln]
@@ -4071,10 +4288,14 @@ def check_ptxas(_build) -> None:
         raise AssertionError(f"K6's wgmma products are serialised: {serial}")
 
 
+K6_SASS_HEADS = (16, 32, 128, 192, 256)
+
+
 def check_k6_sass(_build) -> None:
-    """K6's bf16 kernels at H = 128 (the serve's), 192 (nemotron-4-340b's)
-    and 256 (gemma-2b's, recurrentgemma-2b's) must run their products on
-    ``wgmma`` (``HGMMA`` in the SASS) fed by TMA (``UTMALDG``); prints
+    """K6's bf16 kernels at H = 128 (the serve's), 192 (nemotron-4-340b's),
+    256 (gemma-2b's, recurrentgemma-2b's), 32 and 16 (the narrow widths)
+    must run their products on ``wgmma`` (``HGMMA`` in the SASS) fed by
+    TMA (``UTMALDG``); prints
     both counts for every wgmma kernel, fp16's too, and the highest
     register a kernel's machine code names (its consumers' use after
     setmaxnreg, which ``ptxas -v`` does not report)."""
@@ -4090,15 +4311,15 @@ def check_k6_sass(_build) -> None:
                    for r in re.findall(r"\bR(\d+)\b", t)), default=-1)
         emit({"phase": "build", "sass": name, **counts,
               "highest_register": top})
-        for h in (128, 192, 256):
+        for h in K6_SASS_HEADS:
             if "__nv_bfloat16" in name and f"Li{h}E" in name:
                 found.add(h)
                 if not all(counts.values()):
                     raise AssertionError(f"K6 bf16 H={h} kernel {name}: "
                                          f"{counts}, needs HGMMA and "
                                          f"UTMALDG")
-    if found != {128, 192, 256}:
-        raise AssertionError(f"bf16 wgmma kernels at H = 128 / 192 / 256: "
+    if found != set(K6_SASS_HEADS):
+        raise AssertionError(f"bf16 wgmma kernels at H = {K6_SASS_HEADS}: "
                              f"found {sorted(found)} among {sorted(funcs)}")
 
 

@@ -8,8 +8,7 @@ toolkit::
     python3 scripts/k6_ablation.py [--heads 192,256] [variant ...]
 
 ``--heads`` keeps the rows of those head dims (default: every row of
-``chip_smoke.K6_ROWS`` that the wgmma kernel serves, H >= 64); variants
-default to all of them.
+``chip_smoke.K6_ROWS``); variants default to all of them.
 
 Each variant is ``src/repro_torch/csrc/flash_attention.cu`` with a few
 textual edits, compiled with the port's own ``nvcc`` flags into
@@ -24,9 +23,13 @@ part of the work, so their outputs are wrong by design and only timed:
                   kernel's own at H = 256)
   wait_in_fence   the V wait moved between wgmma.fence and the products
                   (correct output; ptxas then serialises every wgmma)
-  mma_sync        bf16 at H = 192 and 256 on the first-version mma.sync
-                  kernel, the route before the wgmma kernel took these
-                  widths (correct output)
+  mma_sync        bf16 at H = 16, 32, 192 and 256 on the first-version
+                  mma.sync kernel, the route before the wgmma kernel took
+                  these widths (correct output)
+  tile_128        H = 16 / 32 on 128-key tiles in 3 stages and one CTA an
+                  SM, as at H = 64 / 128 (correct output)
+  one_cta         H = 16 / 32 on one CTA an SM (registers 40 / 232), the
+                  64-key tiles and 4 stages kept (correct output)
 
 One JSON line a (shape, variant): mean ms over 10 launches with the card
 held back while the host queues them (``chip_smoke.kernel_ms``), K6's
@@ -49,11 +52,14 @@ sys.path.insert(0, str(ROOT))
 SOURCE = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu"
 OUT = ROOT / "build" / "k6_ablation"
 
-_QK = ("    Wgmma<T>::qk(s, sw128_desc(qa + off, 16, 1024),",
+_QK = ("    Wgmma<T>::qk(s, sw_desc<R>(qa + off, 16, 8 * R),",
        "    if (qa == 0xffffffffu)\n"
-       "    Wgmma<T>::qk(s, sw128_desc(qa + off, 16, 1024),")
+       "    Wgmma<T>::qk(s, sw_desc<R>(qa + off, 16, 8 * R),")
 _PV = ("    Wgmma<T>::pv(acc, pa[kk],",
        "    if (va == 0xffffffffu)\n    Wgmma<T>::pv(acc, pa[kk],")
+_KTILE = "kKTile = H == 64 || H == 128 ? kKBlock : 64;"
+_CTAS = "kCtas = H <= 32 ? 2 : 1;"
+_STAGES = "kStages = H == 256 ? 2 : H <= 32 ? 4 : 3;"
 _V_WAIT = "      mbar_wait(vfull0 + 8 * st, (c / kStages) & 1);\n"
 _FENCE = ("      turn_wait(my_turn);\n      wgmma_fence();\n"
           "      issue_qk<T, H, kKTile>(s, qa, kv0 + nst * 2 * L::kKVBytes);\n")
@@ -72,15 +78,21 @@ VARIANTS = {
          "      if (k0 >= 0) { corr[0] = corr[1] = 1.f; return; }\n"),
     ],
     "no_products": [_QK, _PV],
-    "two_stages": [("kStages = H == 256 ? 2 : 3;", "kStages = 2;")],
+    "two_stages": [(_STAGES, "kStages = 2;")],
     "wait_in_fence": [
         (_V_WAIT + _FENCE, _FENCE.replace(
             "      issue_qk", _V_WAIT + "      issue_qk", 1)),
     ],
-    "mma_sync": [("    case 1:\n      if constexpr (H >= 64)",
-                  "    case 1:\n      if constexpr (H == 64 || H == 128)")],
+    "mma_sync": [("template <int H>\nconstexpr bool kOnWgmma = true;",
+                  "template <int H>\n"
+                  "constexpr bool kOnWgmma = H == 64 || H == 128;")],
+    "tile_128": [(_KTILE, "kKTile = H <= 128 ? kKBlock : 64;"),
+                 (_CTAS, "kCtas = 1;"),
+                 (_STAGES, "kStages = H == 256 ? 2 : 3;")],
+    "one_cta": [(_CTAS, "kCtas = 1;")],
 }
-CORRECT = ("kernel", "two_stages", "wait_in_fence", "mma_sync")
+CORRECT = ("kernel", "two_stages", "wait_in_fence", "mma_sync", "tile_128",
+           "one_cta")
 
 
 def variant_source(edits) -> str:
@@ -135,7 +147,7 @@ def main() -> int:
         args = args[2:]
     names = args or list(VARIANTS)
     rows = [(bs, nrh) for bs, nrh in cs.K6_ROWS
-            if nrh[2] >= 64 and (heads is None or nrh[2] in heads)]
+            if heads is None or nrh[2] in heads]
     libs = build(names)
     print(cs.card(), flush=True)
 

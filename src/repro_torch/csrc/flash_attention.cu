@@ -22,16 +22,18 @@
 //
 // Which kernel serves which head dim H:
 //
-// bf16 / fp16 at H = 64, 128, 192 and 256, designed for Hopper: one CTA of
-// three warpgroups a (query row, 128-query block), the heaviest causal
-// blocks first.  Warpgroup 2 is the producer: one thread issues TMA loads
-// (descriptors from cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint, so no libcuda link) of the Q tile once and of
-// K/V tiles into a ring in 128-byte swizzle, guarded by mbarriers (K
-// landed, V landed, stage free); it gives its registers up with
-// setmaxnreg.  Warpgroups 0 and 1 each own 64 queries: S = Q K^T runs as
-// wgmma m64nKk16 (K keys a tile) from shared memory; the softmax stays in
-// registers, exp2 (one MUFU.EX2) with scale * log2(e) folded into one
+// bf16 / fp16 at every H (16, 32, 64, 128, 192 and 256), designed for
+// Hopper: one CTA of three warpgroups a (query row, 128-query block), the
+// heaviest causal blocks first.  Warpgroup 2 is the producer: one thread
+// issues TMA loads (descriptors from cuTensorMapEncodeTiled, reached
+// through cudaGetDriverEntryPoint, so no libcuda link) of the Q tile once
+// and of K/V tiles into a ring, swizzled (128-byte regions of 64 columns
+// from H = 64; at 32 and 16 a row of 64 / 32 bytes is one region in 64- /
+// 32-byte swizzle, which TMA and the wgmma descriptors both name), guarded
+// by mbarriers (K landed, V landed, stage free); it gives its registers up
+// with setmaxnreg.  Warpgroups 0 and 1 each own 64 queries: S = Q K^T runs
+// as wgmma m64nKk16 (K keys a tile) from shared memory; the softmax stays
+// in registers, exp2 (one MUFU.EX2) with scale * log2(e) folded into one
 // FFMA; P is rounded to the input type in registers and is the register A
 // operand of the PV wgmma, m64nHk16 (V read transposed from its swizzled
 // tile); O accumulates in float32 registers.  S of tile c + 1 and PV of
@@ -41,6 +43,12 @@
 // The mask is evaluated only on tiles that need it (the diagonal, the
 // window's lower edge, the tile past T).  The ring's shape is set by the
 // 227 KB of shared memory a CTA may have (WsLayout):
+//   H = 16, 32: a visible score costs 4 H = 64 / 128 tensor flops beside
+//     one exp2, and the exponent unit (16 MUFU.EX2 a clock an SM) bounds
+//     the work, not the products or the bytes; what the kernel meets is
+//     latency (a tile's S, softmax and PV form one chain a warpgroup), so
+//     two CTAs run on an SM, each with tiles of 64 keys in 4 stages (a
+//     consumer's O, S and P fit the 104 registers that leaves);
 //   H = 64, 128: tiles of 128 keys, 3 stages: 32 + 3 x 64 = 224 KB at 128;
 //   H = 192: one 128-key stage is 96 KB beside a 48 KB Q tile, so tiles of
 //     64 keys (two a slot), 3 stages: 48 + 3 x 48 = 192 KB;
@@ -48,16 +56,16 @@
 //     stages: 64 + 2 x 64 = 192 KB.
 // A slot's 64-key tile wholly past T is not loaded (its keys' share of l
 // is added at the end).  Registers (setmaxnreg: 40 the producer's, 232 a
-// consumer's): a consumer thread holds O (H / 2 floats), S (K / 2) and P
-// (K / 4 words) while PV of a tile and S of the next run, 128 + 32 + 16 at
-// H = 256.
+// consumer's; 24 and 104 at two CTAs an SM): a consumer thread holds O (H
+// / 2 floats), S (K / 2) and P (K / 4 words) while PV of a tile and S of
+// the next run, 128 + 32 + 16 at H = 256, 16 + 32 + 16 at H = 32.
 //
-// bf16 / fp16 at H = 16 and 32 (first version; a row of 32 or 64 bytes
-// fills no 128-byte swizzle region): one CTA of 4 warps per (query row,
-// 64-query tile), K/V tiles of 64 keys double-buffered with cp.async
-// (zero-filled past T), rows padded by 16 bytes; QK^T and PV as mma.sync
-// m16n8k16 with float32 accumulation; Q's fragments are read from shared
-// memory a k-step at a time.
+// The first version's mma.sync kernel (one CTA of 4 warps per (query row,
+// 64-query tile), K/V tiles of 64 keys double-buffered with cp.async, rows
+// padded by 16 bytes, mma.sync m16n8k16, Q's fragments read from shared
+// memory a k-step at a time) served bf16 / fp16 at H = 16 and 32 until
+// the wgmma kernel took them; no route reaches it now.  It stays as the
+// baseline of scripts/k6_ablation.py's mma_sync variant.
 //
 // float32 at every H: the same 64-row tiles as mma.sync with plain FMA, q
 // scaled in float32 first, the score and probability tile in shared memory
@@ -177,7 +185,8 @@ __device__ __forceinline__ int visited_tiles(int q0, const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16: tensor cores
+// bf16 / fp16, the first version: mma.sync (no route; the ablation's
+// baseline)
 // ---------------------------------------------------------------------------
 
 template <typename T, int H>
@@ -446,36 +455,52 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 at H = 64, 128, 192 and 256: warp-specialised, TMA + wgmma
+// bf16 / fp16 at every H: warp-specialised, TMA + wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kConsumers = 2;          // warpgroups of 64 queries
 constexpr int kWsThreads = (kConsumers + 1) * 128;
-constexpr int kProducerRegs = 40;      // setmaxnreg: 40 x 128 + 232 x 256
-constexpr int kConsumerRegs = 232;     // = 64512 of the SM's 65536
 
-// The ring's shape by head dim.  Up to H = 128: tiles of 128 keys (one
+// The ring's shape by head dim.  At H = 64 and 128: tiles of 128 keys (one
 // 128-key slot each) in 3 stages, 224 KB at 128.  At 192 and 256 one
 // stage of 128-key K and V tiles alone is 96 / 128 KB beside a 48 / 64 KB
 // Q tile, so the tiles hold 64 keys (two a slot), in 3 stages at 192 and 2
-// at 256: 48 + 144 = 64 + 128 = 192 KB.
+// at 256: 48 + 144 = 64 + 128 = 192 KB.  At 16 and 32 latency, not room,
+// sets the shape: two CTAs an SM (four consumer warpgroups to overlap one
+// CTA's loads, barriers and turns with another's softmax), whose registers
+// hold O, S and P of 64-key tiles, in 4 stages (40 / 72 KB).  setmaxnreg
+// moves registers only within a CTA's launch allocation (kLaunchRegs a
+// thread: 168 at one CTA an SM, 80 at two), so the producer's and the
+// consumers' counts must fit it: 40 x 128 + 232 x 256 = 384 x 168 at one
+// CTA, 24 x 128 + 104 x 256 <= 384 x 80 at two (more would block the
+// consumers' setmaxnreg.inc for ever).
 // Shared memory from a 1024-byte aligned base: the Q tile, kStages x (K
 // tile, V tile), the barriers (K full[kStages], V full[kStages],
-// empty[kStages], q).  A tile of R rows and H columns is H / 64 regions of
-// R rows x 128 bytes (64 columns), each as TMA writes it in 128-byte
-// swizzle.
+// empty[kStages], q).  A tile of R rows and H columns is kRegions regions
+// of R rows x kRow bytes, each as TMA writes it in kRow-byte swizzle:
+// H / 64 regions of 128 bytes from H = 64, one of 2 H bytes (64-byte
+// swizzle at H = 32, 32-byte at 16) below.
 template <int H>
 struct WsLayout {
-  static constexpr int kKTile = H > 128 ? 64 : kKBlock;   // keys of a tile
-  static constexpr int kStages = H == 256 ? 2 : 3;      // K/V ring depth
-  static constexpr int kRegions = H / 64;
-  static constexpr int kQRegion = kQBlock * 128;
-  static constexpr int kKRegion = kKTile * 128;
+  static constexpr int kKTile = H == 64 || H == 128 ? kKBlock : 64;  // keys
+  static constexpr int kCtas = H <= 32 ? 2 : 1;          // CTAs an SM
+  static constexpr int kStages = H == 256 ? 2 : H <= 32 ? 4 : 3;
+  static constexpr int kLaunchRegs = 65536 / (kWsThreads * kCtas) / 8 * 8;
+  static constexpr int kProducerRegs = kCtas == 2 ? 24 : 40;
+  static constexpr int kConsumerRegs = kCtas == 2 ? 104 : 232;
+  static constexpr int kRow = H >= 64 ? 128 : 2 * H;    // bytes: swizzle
+  static constexpr int kBox = kRow / 2;                 // columns a region
+  static constexpr int kRegions = H / kBox;
+  static constexpr int kQRegion = kQBlock * kRow;
+  static constexpr int kKRegion = kKTile * kRow;
   static constexpr int kQBytes = kRegions * kQRegion;
   static constexpr int kKVBytes = kRegions * kKRegion;
   static constexpr int kBars = kQBytes + 2 * kStages * kKVBytes;
   static constexpr size_t kSmem = 1024 + kBars + 8 * (3 * kStages + 1);
-  static_assert(kSmem <= 232448, "over the 227 KB a CTA may have");
+  static_assert(kSmem * kCtas <= 232448, "over the 227 KB of an SM");
+  static_assert(128 * (kProducerRegs + 2 * kConsumerRegs) <=
+                    kWsThreads * kLaunchRegs,
+                "setmaxnreg past the CTA's launch registers");
   static_assert(kKBlock % kKTile == 0, "tiles split the 128-key slots");
 };
 
@@ -506,7 +531,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
         : "memory");
   } while (!done);
 }
-// TMA: the (64 columns, rows, 1) box at (col, row, mat) of a 3-d map into
+// TMA: the (columns, rows, 1) box at (col, row, mat) of a 3-d map into
 // shared memory at dst; completes `bar`'s transaction bytes
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          int col, int row, int mat,
@@ -518,13 +543,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(bar)
       : "memory");
 }
-// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory descriptor of an operand in W-byte swizzle (W =
+// 128, 64 or 32: layout 1, 2 or 3): start address, leading and stride byte
+// offsets (16-byte units)
+template <int W>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  constexpr uint64_t layout = W == 128 ? 1 : W == 64 ? 2 : 3;
+  static_assert(W == 128 || W == 64 || W == 32, "a swizzle of 32-128 B");
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -567,10 +596,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define WG_D32(i)                                                          \
   WG_D4(i), WG_D4(i + 4), WG_D4(i + 8), WG_D4(i + 12), WG_D4(i + 16),      \
       WG_D4(i + 20), WG_D4(i + 24), WG_D4(i + 28)
+#define WG_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_R16 WG_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_R32                                                             \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31"
+  WG_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31"
 #define WG_R64                                                             \
   WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
@@ -616,6 +646,20 @@ struct Wgmma;
                                               uint64_t db, int scale_d) {  \
       WGMMA_SS(64, WG_R32, "32", "33", "34", TY, WG_D32(0));               \
     }                                                                      \
+    static __device__ __forceinline__ void pv(float (&d)[8],               \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t db) {               \
+      const int scale_d = 1;                                               \
+      WGMMA_RS(16, WG_R8, "8", "9", "10", "11", "12", "13", TY, WG_D4(0),  \
+               WG_D4(4));                                                  \
+    }                                                                      \
+    static __device__ __forceinline__ void pv(float (&d)[16],              \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t db) {               \
+      const int scale_d = 1;                                               \
+      WGMMA_RS(32, WG_R16, "16", "17", "18", "19", "20", "21", TY,         \
+               WG_D4(0), WG_D4(4), WG_D4(8), WG_D4(12));                   \
+    }                                                                      \
     static __device__ __forceinline__ void pv(float (&d)[32],              \
                                               const uint32_t (&a)[4],      \
                                               uint64_t db) {               \
@@ -648,35 +692,37 @@ struct Wgmma;
 WGMMA_TYPE(__nv_bfloat16, "bf16")
 WGMMA_TYPE(__half, "f16")
 
-// S (64 queries x KT keys) = Q K^T over H in k-steps of 16 columns: step
-// kk reads region kk / 4 of both tiles at byte kk % 4 * 32 of each row;
-// 8-row groups 1024 bytes apart
+// S (64 queries x KT keys) = Q K^T over H in k-steps of 16 columns (32
+// bytes): step kk reads region 32 kk / R of both tiles at byte 32 kk % R
+// of each row (R = kRow bytes a region's row); 8-row groups 8 R apart
 template <typename T, int H, int KT>
 __device__ __forceinline__ void issue_qk(float (&s)[KT / 2], uint32_t qa,
                                          uint32_t ka) {
+  constexpr int R = WsLayout<H>::kRow;
 #pragma unroll
   for (int kk = 0; kk < H / 16; ++kk) {
-    const uint32_t off = (kk >> 2) * (kQBlock * 128) + (kk & 3) * 32;
-    const uint32_t koff = (kk >> 2) * (KT * 128) + (kk & 3) * 32;
-    Wgmma<T>::qk(s, sw128_desc(qa + off, 16, 1024),
-           sw128_desc(ka + koff, 16, 1024), kk > 0);
+    const uint32_t off = kk * 32 / R * (kQBlock * R) + kk * 32 % R;
+    const uint32_t koff = kk * 32 / R * (KT * R) + kk * 32 % R;
+    Wgmma<T>::qk(s, sw_desc<R>(qa + off, 16, 8 * R),
+           sw_desc<R>(ka + koff, 16, 8 * R), kk > 0);
   }
 }
 
 // O (64 x H) += P (64 x KT keys) V in k-steps of 16 keys: V's rows
-// 16 kk .. 16 kk + 15 (2048 bytes a step), its 64-column regions LBO apart
+// 16 kk .. 16 kk + 15 (16 R bytes a step), its regions KT R apart
 template <typename T, int H, int KT>
 __device__ __forceinline__ void issue_pv(float (&acc)[H / 2],
                                          const uint32_t (&pa)[KT / 16][4],
                                          uint32_t va) {
+  constexpr int R = WsLayout<H>::kRow;
 #pragma unroll
   for (int kk = 0; kk < KT / 16; ++kk)
     Wgmma<T>::pv(acc, pa[kk],
-           sw128_desc(va + kk * 2048, KT * 128, 1024));
+           sw_desc<R>(va + kk * 16 * R, KT * R, 8 * R));
 }
 
 template <typename T, int H>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(kWsThreads, WsLayout<H>::kCtas)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
@@ -717,11 +763,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = threadIdx.x >> 7;
   if (wg == kConsumers) {
     // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        L::kProducerRegs));
     if (threadIdx.x == kConsumers * 128 && n_kv > 0) {
       mbar_expect_tx(qbar, L::kQBytes);
       for (int r = 0; r < L::kRegions; ++r)
-        tma_load(qs + r * L::kQRegion, &tq, 64 * r, q0, row, qbar);
+        tma_load(qs + r * L::kQRegion, &tq, L::kBox * r, q0, row, qbar);
       for (int c = 0; c < n_kv; ++c) {
         const int st = c % kStages;
         if (c >= kStages) mbar_wait(empty0 + 8 * st, (c / kStages - 1) & 1);
@@ -729,23 +776,24 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t kst = kv0 + st * 2 * L::kKVBytes;
         mbar_expect_tx(full, L::kKVBytes);        // K first: S needs it a
         for (int r = 0; r < L::kRegions; ++r)     // tile before PV needs V
-          tma_load(kst + r * L::kKRegion, &tk, 64 * r, c * kKTile, kv_row,
-                   full);
+          tma_load(kst + r * L::kKRegion, &tk, L::kBox * r, c * kKTile,
+                   kv_row, full);
         mbar_expect_tx(vfull, L::kKVBytes);
         for (int r = 0; r < L::kRegions; ++r)
-          tma_load(kst + L::kKVBytes + r * L::kKRegion, &tv, 64 * r,
+          tma_load(kst + L::kKVBytes + r * L::kKRegion, &tv, L::kBox * r,
                    c * kKTile, kv_row, vfull);
       }
     }
   } else {
     // consumer warpgroup wg: queries q0 + 64 wg .. q0 + 64 wg + 63
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        L::kConsumerRegs));
     const int tid = threadIdx.x & 127, lane = tid & 31;
     const int r0 = wg * 64 + (tid >> 5) * 16 + (lane >> 2);  // rows r0, r0+8
     const int col = 2 * (lane & 3);
     const int lo_pos = q_start + wg * 64, hi_pos = lo_pos + 63;
     const float sl2 = a.scale * kLog2e;       // scores to log2 units
-    const uint32_t qa = qs + wg * 64 * 128;
+    const uint32_t qa = qs + wg * 64 * L::kRow;
     float acc[H / 2];
 #pragma unroll
     for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
@@ -946,8 +994,9 @@ EncodeTiled encode_tiled() {
 }
 
 // a contiguous (mats, len, H) tensor of 2-byte values as a 3-d map of
-// (64 columns, box_rows rows, 1) boxes in 128-byte swizzle; rows past len
+// (W / 2 columns, box_rows rows, 1) boxes in W-byte swizzle; rows past len
 // load as zeros
+template <int W>
 bool tensor_map(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType dt,
                 const void* p, long long mats, int len, int h,
                 int box_rows) {
@@ -956,10 +1005,13 @@ bool tensor_map(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType dt,
                               static_cast<cuuint64_t>(mats)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(h) * 2,
                                  static_cast<cuuint64_t>(len) * h * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {W / 2, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = W == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
   return enc(map, dt, 3, const_cast<void*>(p), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -976,11 +1028,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   CUtensorMap tq, tk, tv;
   memset(&tk, 0, sizeof(tk));
   memset(&tv, 0, sizeof(tv));
-  if (!tensor_map(enc, &tq, dt, q, rows, a.s, H, kQBlock))
+  if (!tensor_map<L::kRow>(enc, &tq, dt, q, rows, a.s, H, kQBlock))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.t > 0 &&      // t == 0: no block visits a tile, the maps go unread
-      (!tensor_map(enc, &tk, dt, k, rows / a.g, a.t, H, L::kKTile) ||
-       !tensor_map(enc, &tv, dt, v, rows / a.g, a.t, H, L::kKTile)))
+      (!tensor_map<L::kRow>(enc, &tk, dt, k, rows / a.g, a.t, H,
+                            L::kKTile) ||
+       !tensor_map<L::kRow>(enc, &tv, dt, v, rows / a.g, a.t, H,
+                            L::kKTile)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1013,18 +1067,24 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 / fp16 at every H run on the wgmma kernel; the mma.sync kernel is
+// reached from no route here (scripts/k6_ablation.py's mma_sync variant
+// routes widths back to it as its baseline)
+template <int H>
+constexpr bool kOnWgmma = true;
+
 template <int H>
 int launch(int code, const void* q, const void* k, const void* v, void* o,
            long long rows, const Args& a, cudaStream_t stream) {
   switch (code) {
     case 0: return launch_fp32<H>(q, k, v, o, rows, a, stream);
     case 1:
-      if constexpr (H >= 64)
+      if constexpr (kOnWgmma<H>)
         return launch_wgmma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
       else
         return launch_mma<__nv_bfloat16, H>(q, k, v, o, rows, a, stream);
     case 2:
-      if constexpr (H >= 64)
+      if constexpr (kOnWgmma<H>)
         return launch_wgmma<__half, H>(q, k, v, o, rows, a, stream);
       else
         return launch_mma<__half, H>(q, k, v, o, rows, a, stream);

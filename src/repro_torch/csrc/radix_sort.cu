@@ -38,13 +38,24 @@
 //    keys by splitter interval with the interval id as the digit): the
 //    counts of searchsorted(splitters, key, side="left") over the D
 //    buckets of D - 1 splitters, plus the reference's pad bin (always 0
-//    here: the kernel reads exactly n keys), so D + 1 bins <= 1024.  Each
-//    CTA copies the splitters into shared memory, binary-searches every
-//    key there (4 keys a thread in flight), adds a warp's keys of one
-//    bucket with one shared atomic (__match_any_sync: a sorted shard puts
-//    whole warps in one bucket), and adds its nonzero bins to the global
-//    counts with one atomic each.  Integer counts: exact in any order.
-//    Bound: one read of the keys, 2^25 int32 keys 0.040 ms at 3.35 TB/s.
+//    here: the kernel reads exactly n keys), so D + 1 bins <= 1024.
+//    Contract: the shard is ascending in signed order and the splitters
+//    are ascending, as every caller (bucket_bounds) has them; then the
+//    count of bucket b is pos[b] - pos[b - 1], pos[j] = #{keys <=
+//    splitter[j]} (pos[-1] = 0, pos[D - 1] = n), ties and repeated
+//    splitters included.  One warp a bin finds pos[b] and pos[b - 1] with
+//    two interleaved 33-ary searches: each round its 32 lanes read 32
+//    evenly spaced keys of the interval left, and __ballot_sync(key <=
+//    splitter) with __popc picks one of the 33 sub-intervals; once 32 keys
+//    or fewer are left, one read of them ends it.  ceil(log33 n) dependent
+//    rounds: 5 at 2^25 keys, each one read of 32 adjacent-in-rank keys a
+//    splitter.  Every bin is written (no zeroed buffer, one launch), one
+//    warp a bin over ceil((D + 1) / 4) CTAs, so up to 1023 bins never
+//    wait on one another.
+//    Bound: latency, 5 dependent reads of device memory (or L2) a bin;
+//    the bytes it must move, ~640 a splitter, are no bound.  (The first
+//    version streamed every key through a binary search in shared memory:
+//    one read of 2^25 int32 keys, 0.040 ms at 3.35 TB/s.)
 //
 // Bound on the H100 (3.35 TB/s), 2^26 uint32 keys with int32 payloads, 8-bit
 // digits: the histogram reads the keys once (268 MB, 0.080 ms), each of the
@@ -315,65 +326,79 @@ int launch_pass(const void* kin, const void* vin, void* kout, void* vout,
 
 constexpr int kMaxBucketBins = 1024;          // kernels/radix_sort.py
                                               // MAX_BUCKET_BINS
-constexpr int kBucketLoads = 4;
+constexpr int kBucketWarps = 4;              // bins a CTA, one a warp
 
+// pos[q] = the number of the n ascending keys <= s[q] where need[q], for
+// both q at once (each a warp-wide 33-ary search; the two read their keys
+// in the same rounds)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bucket_hist_kernel(const T* __restrict__ keys, long long n,
-                   const T* __restrict__ split, int n_split,
-                   int* __restrict__ counts, int n_bins) {
-  __shared__ T s_split[kMaxBucketBins];
-  __shared__ int s_cnt[kMaxBucketBins];
-  for (int i = threadIdx.x; i < n_split; i += kThreads) s_split[i] = split[i];
-  for (int i = threadIdx.x; i < n_bins; i += kThreads) s_cnt[i] = 0;
-  __syncthreads();
+__device__ __forceinline__ void count_le2(const T* __restrict__ keys,
+                                          long long n, const T (&s)[2],
+                                          const bool (&need)[2],
+                                          long long (&pos)[2]) {
   const int lane = threadIdx.x & 31;
-  constexpr long long kChunk = static_cast<long long>(kThreads) * kBucketLoads;
-  // every lane of a warp runs the same iterations (the bound depends on
-  // the chunk only), so the whole warp takes part in each match
-  for (long long base = blockIdx.x * kChunk; base < n;
-       base += static_cast<long long>(gridDim.x) * kChunk) {
-    T k[kBucketLoads];
-    bool ok[kBucketLoads];
+  // the answer lies in [lo, hi]: keys below lo are <= s, keys[hi] > s
+  // (or hi = n); the hi - lo keys between are unread
+  long long lo[2] = {0, 0};
+  long long hi[2] = {need[0] ? n : 0, need[1] ? n : 0};
+  while (lo[0] < hi[0] || lo[1] < hi[1]) {
+    T k[2];
+    bool ok[2];
 #pragma unroll
-    for (int q = 0; q < kBucketLoads; ++q) {
-      const long long i = base + q * kThreads + threadIdx.x;
-      ok[q] = i < n;
+    for (int q = 0; q < 2; ++q) {
+      const long long len = hi[q] - lo[q];
+      // lane i reads p_i = lo + len (i + 1) / 33 (32 distinct keys while
+      // len >= 33), else key lo + i
+      const long long i = len > 32 ? lo[q] + len * (lane + 1) / 33
+                                   : lo[q] + lane;
+      ok[q] = len > 32 || lane < len;
       k[q] = ok[q] ? keys[i] : T(0);
     }
 #pragma unroll
-    for (int q = 0; q < kBucketLoads; ++q) {
-      // lower bound: the first splitter >= key (a key equal to a
-      // splitter goes to the lower bucket)
-      int lo = 0, hi = n_split;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (s_split[mid] < k[q]) lo = mid + 1; else hi = mid;
-      }
-      const int bin = ok[q] ? lo : -1;
-      const unsigned peers = __match_any_sync(0xffffffffu, bin);
-      if (bin >= 0 && lane == __ffs(peers) - 1) {
-        atomicAdd(&s_cnt[bin], __popc(peers));
+    for (int q = 0; q < 2; ++q) {
+      const long long len = hi[q] - lo[q];
+      const int c = __popc(__ballot_sync(0xffffffffu, ok[q] && k[q] <= s[q]));
+      if (len <= 32) {
+        lo[q] = hi[q] = lo[q] + c;
+      } else {
+        // keys p_0 .. p_{c-1} are <= s, p_c is not: (p_{c-1}, p_c]
+        const long long l0 = lo[q];
+        if (c > 0) lo[q] = l0 + len * c / 33 + 1;
+        if (c < 32) hi[q] = l0 + len * (c + 1) / 33;
       }
     }
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b < n_bins; b += kThreads) {
-    if (s_cnt[b] != 0) atomicAdd(&counts[b], s_cnt[b]);
+  pos[0] = lo[0];
+  pos[1] = lo[1];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBucketWarps * 32)
+bucket_search_kernel(const T* __restrict__ keys, long long n,
+                     const T* __restrict__ split, int n_split,
+                     int* __restrict__ counts) {
+  const int b = blockIdx.x * kBucketWarps + (threadIdx.x >> 5);
+  if (b > n_split) return;                  // whole warps leave
+  // pos[b] (n past the last splitter) and pos[b - 1] (0 before the first)
+  const bool need[2] = {b < n_split, b > 0};
+  const T s[2] = {need[0] ? split[b] : T(0), need[1] ? split[b - 1] : T(0)};
+  long long pos[2];
+  count_le2<T>(keys, n, s, need, pos);
+  const long long upper = need[0] ? pos[0] : n;
+  const long long lower = pos[1];             // 0 where not needed
+  if ((threadIdx.x & 31) == 0) {
+    counts[b] = static_cast<int>(upper - lower);
+    if (b == n_split) counts[b + 1] = 0;    // the pad bin
   }
 }
 
 template <typename T>
 int launch_bucket_hist(const void* keys, long long n, const void* split,
                        int n_split, void* counts, cudaStream_t stream) {
-  long long ctas = (n + kThreads * kBucketLoads - 1) /
-                   (kThreads * kBucketLoads);
-  if (ctas > kHistCtas) ctas = kHistCtas;
-  if (ctas < 1) ctas = 1;
-  bucket_hist_kernel<T><<<static_cast<unsigned>(ctas), kThreads, 0,
-                          stream>>>(
+  const int ctas = (n_split + 1 + kBucketWarps - 1) / kBucketWarps;
+  bucket_search_kernel<T><<<ctas, kBucketWarps * 32, 0, stream>>>(
       static_cast<const T*>(keys), n, static_cast<const T*>(split), n_split,
-      static_cast<int*>(counts), n_split + 2);
+      static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,10 +461,12 @@ extern "C" int radix_onesweep_pass(int key_bytes, const void* kin,
 #undef ONESWEEP_PASS
 }
 
-// counts[b] += the number of the n keys (signed carrier order: int8/16/32)
-// whose lower bound among the n_split ascending splitters is b, for
-// b in [0, n_split]; counts has n_split + 2 zeroed int32 bins, the last
-// the reference's pad bin (left 0).  n_split + 2 <= 1024.
+// counts[b] = the number of the n keys (signed carrier order: int8/16/32)
+// whose lower bound among the n_split splitters is b, for b in [0,
+// n_split], and counts[n_split + 1] = 0 (the reference's pad bin): every
+// bin written.  The keys and the splitters must be ascending (a sorted
+// shard); n_split + 2 <= 1024.  n == 0 launches nothing and writes
+// nothing.
 extern "C" int radix_bucket_hist(int key_bytes, const void* keys,
                                  long long n, const void* splitters,
                                  int n_split, void* counts, void* stream) {

@@ -154,16 +154,21 @@ def flash_rows(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
     ``K_BLOCK``-key slots below their causal bound), the plain version for
     CPU tensors.  Which kernel serves which H (``csrc/flash_attention.cu``):
 
-    * bf16 / fp16 at H = 64, 128, 192 and 256: warp-specialised, TMA into
-      a ring of K/V tiles, ``wgmma`` products.  The ring fits the 227 KB of
-      shared memory a CTA may have: 128-key tiles in 3 stages up to H = 128
+    * bf16 / fp16 at every H: warp-specialised, TMA into a ring of K/V
+      tiles, ``wgmma`` products.  The ring fits the 227 KB of shared
+      memory a CTA may have: 128-key tiles in 3 stages at H = 64 / 128
       (224 KB at 128); at 192 / 256 a 128-key stage alone is 96 / 128 KB
       beside a 48 / 64 KB Q tile, so 64-key tiles (two a slot) in 3 / 2
-      stages, 192 KB each.
-    * bf16 / fp16 at H = 16 and 32: ``mma.sync`` over 64-key tiles
-      (a row of 32 or 64 bytes fills no 128-byte swizzle region).
+      stages, 192 KB each; at 16 / 32 a row of 32 / 64 bytes is one
+      region in 32- / 64-byte swizzle, and two CTAs run on an SM, each
+      with 64-key tiles in 4 stages, to hide the latency of each
+      warpgroup's chain of products and softmax.
     * float32 at every H: plain FMA over 64-key tiles (TF32 tensor cores
-      would miss its 1e-4 limit)."""
+      would miss its 1e-4 limit).
+
+    The first version's ``mma.sync`` kernel (bf16 / fp16 at H = 16 / 32
+    until the wgmma kernel took them) is reached from no route; it is the
+    baseline of ``scripts/k6_ablation.py``'s ``mma_sync`` variant."""
     _check(q2, k2, v2, "flash_rows")
     return torch.ops.repro_torch.flash_rows(q2, k2, v2, _offset(q_offset),
                                             bool(causal), int(window))

@@ -22,7 +22,9 @@ On a CPU tensor the same loop runs the kernels' plain versions,
 :func:`bucket_hist` is the third entry, ``radix_bucket_hist``: the
 distributed sample sort's count of a sorted shard's keys by splitter
 interval (the reference runs ``_digit_stats`` with the interval id as the
-digit); its plain version :func:`bucket_hist_plain` is that formulation.  ``digit_stats``,
+digit).  On the card it searches the sorted shard for each splitter and
+takes differences, one launch; its plain version :func:`bucket_hist_plain`
+is the reference's formulation.  ``digit_stats``,
 ``global_pos``, ``digit_hist_plain``, ``digit_scatter_plain`` and
 ``tile_bases`` are the reference's per-tile functions in PyTorch, held
 against it by the tests; the plain pass ranks with ``digit_stats``.
@@ -421,20 +423,24 @@ def bucket_hist_plain(keys: torch.Tensor, splitters: torch.Tensor,
 def bucket_hist(keys: torch.Tensor, splitters: torch.Tensor
                 ) -> torch.Tensor:
     """(m,) signed-order keys (int8/16/32; the keycodec key with its sign
-    bit flipped) and D - 1 ascending splitters of the same dtype ->
-    (D + 1,) int32: ``counts[b]`` keys fall in bucket b (a key equal to a
-    splitter in the lower bucket), the last bin the reference's pad bin,
-    0.  One launch of ``radix_bucket_hist`` for a CUDA tensor (D + 1 <=
-    1024, checked here), the plain version for a CPU tensor."""
+    bit flipped) and D - 1 splitters of the same dtype -> (D + 1,) int32:
+    ``counts[b]`` keys fall in bucket b (a key equal to a splitter in the
+    lower bucket), the last bin the reference's pad bin, 0.  The keys must
+    be ascending (a sorted shard, as ``bucket_bounds`` has them) and the
+    splitters ascending: the kernel searches the shard for each splitter
+    and takes differences, so an unsorted shard gives wrong counts (the
+    plain version counts any shard).  One launch of ``radix_bucket_hist``
+    for a CUDA tensor (D + 1 <= 1024, checked here), the plain version for
+    a CPU tensor."""
     bins = _check_buckets(keys, splitters, "bucket_hist")
     if not keys.is_cuda:
         if keys.device.type != "cpu":
             raise ValueError(f"bucket_hist: unsupported device {keys.device}")
         return bucket_hist_plain(keys, splitters)
     keys, splitters = keys.contiguous(), splitters.contiguous()
-    counts = torch.zeros(bins, dtype=torch.int32, device=keys.device)
     if keys.numel() == 0:
-        return counts
+        return torch.zeros(bins, dtype=torch.int32, device=keys.device)
+    counts = torch.empty(bins, dtype=torch.int32, device=keys.device)
     with torch.cuda.device(keys.device):
         status = _lib().radix_bucket_hist(
             keys.element_size(), _build.ptr(keys), keys.shape[0],

@@ -17,6 +17,8 @@ from repro_torch.kernels import merge_path as mp
 from repro_torch.kernels import radix_select as sel
 from repro_torch.kernels import radix_sort as rsk
 
+from _bucket_cases import CASES, bucket_case
+
 # the condition is a string: evaluated when each test is set up, never
 # while the module is imported
 pytestmark = [pytest.mark.cuda,
@@ -793,7 +795,47 @@ def test_k6_wgmma_kernel_matches_plain(name, n, r, h, s, t, q_offset,
 
 
 @pytest.mark.parametrize("name", ["bfloat16", "float16"])
-@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("h", [16, 32])
+@pytest.mark.parametrize("n,r,s,t,q_offset,window", [
+    (8, 8, 1024, 1024, 0, 0),           # the kernel-table row's shape
+    (6, 2, 257, 257, 0, 0),             # one past a 256-key tile
+    (6, 2, 383, 383, 0, 0),             # a tile's upper slot not visited
+    (6, 2, 511, 511, 0, 0),             # ... and visited, one short
+    (6, 2, 200, 700, 500, 0),           # T > S from a q_offset
+    (6, 2, 300, 300, 0, 200),           # a window across a tile edge
+    (3, 1, 130, 900, 650, 100),         # a window and an offset
+    (2, 1, 70, 300, 400, 100),          # no key seen: 3 slots, 2 tiles
+    (2, 1, 150, 200, 300, 8),           # no key seen: 2 slots, 1 tile
+])
+def test_k6_narrow_heads_on_wgmma_match_plain(name, h, n, r, s, t, q_offset,
+                                              window):
+    """K6 at H = 16 and 32 on the TMA + wgmma kernel (32- / 64-byte
+    swizzle, 256-key tiles whose upper slot past the visited ones takes
+    no exp2): lengths off the tiles, T > S with an offset, windows across
+    a tile edge and queries that see no key (they average exactly the
+    reference's visited 128-key slots), one launch, within the limits."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(s + t + h + n)
+    dtype = getattr(torch, name)
+    q = torch.randn((n, s, h), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((r, t, h), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((r, t, h), generator=gen, device="cuda").to(dtype)
+    _build.reset_launches()
+    got = fa.flash_rows(q, k, v, q_offset, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_fwd": 1}
+    want = fa.flash_rows_plain(q, k, v, q_offset, causal=True,
+                               window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K6_ATOL[name], err
+    rel = _row_rel_err(got, want)
+    assert rel <= K6_ROW_REL[name], rel
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float16"])
+@pytest.mark.parametrize("h", [16, 32, 64, 128])
 def test_k6_wgmma_rows_that_see_no_key_match_plain(name, h):
     """The -1e30 arithmetic on the wgmma kernel: queries whose window holds
     no key average the values of the 128-key tiles they visit."""
@@ -1351,26 +1393,41 @@ def test_dry_run_peak_matches_the_cards_for_gemma():
 # the distributed tier: K3's bucket histogram and a sample sort on one card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("bins", [2, 9, 257, 1024])
+@pytest.mark.parametrize("bins,case", [(2, "random"), (9, "random"),
+                                       (257, "random"), (1024, "random")]
+                         + [(None, c) for c in CASES])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int16, torch.int8])
-def test_k3_bucket_hist_matches_plain(bins, dtype):
-    """``radix_bucket_hist`` against its plain version (the reference's
-    tiled one-hot histogram of the interval ids) on a sorted shard with
-    runs of ties on the splitters, at D + 1 bins; 1025 bins raise."""
+def test_k3_bucket_hist_matches_plain(bins, case, dtype):
+    """``radix_bucket_hist`` (a search of the sorted shard for each
+    splitter) against its plain version (the reference's tiled one-hot
+    histogram of the interval ids), bit for bit, one launch: on a sorted
+    shard with runs of ties on the splitters at D + 1 bins, and on the
+    search's edge cases (``tests/_bucket_cases.py``: one key, fewer than
+    33, all equal, splitters all below or above, repeated splitters, ties
+    ending at the first round's probes, 1022 splitters); 1025 bins
+    raise."""
     info = torch.iinfo(dtype)
-    g = torch.Generator(device="cuda").manual_seed(bins)
-    k = torch.randint(max(info.min, -300), min(info.max, 300) + 1,
-                      (1 << 20,), generator=g, device="cuda",
-                      dtype=torch.int32).sort().values.to(dtype)
-    sp = k[torch.randint(0, k.shape[0], (bins - 2,), generator=g,
-                         device="cuda")].sort().values
+    if case == "random":
+        g = torch.Generator(device="cuda").manual_seed(bins)
+        k = torch.randint(max(info.min, -300), min(info.max, 300) + 1,
+                          (1 << 20,), generator=g, device="cuda",
+                          dtype=torch.int32).sort().values.to(dtype)
+        sp = k[torch.randint(0, k.shape[0], (bins - 2,), generator=g,
+                             device="cuda")].sort().values
+    else:
+        kn, spn = bucket_case(case, 1 << 20, info.min, info.max, 5)
+        k = torch.from_numpy(kn).to(dtype).cuda()
+        sp = torch.from_numpy(spn).to(dtype).cuda()
+    _build.reset_launches()
     got = rsk.bucket_hist(k, sp)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"radix_bucket_hist": 1}
     want = rsk.bucket_hist_plain(k.cpu(), sp.cpu())
     assert torch.equal(got.cpu(), want)
     assert int(got.sum()) == k.shape[0] and int(got[-1]) == 0
     with pytest.raises(ValueError, match="1024"):
         rsk.bucket_hist(k, torch.cat([sp, sp[:1]]) if bins == 1024
-                        else k[:1023].sort().values)
+                        else k.new_zeros(1023))
 
 
 @pytest.mark.parametrize("shape", [(8,), (2, 4)])

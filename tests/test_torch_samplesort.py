@@ -24,6 +24,7 @@ from repro_torch.engine import samplesort as ss
 from repro_torch.kernels import radix_sort as rsk
 from repro_torch.obs import metrics, trace as obs
 
+from _bucket_cases import CASES, bucket_case
 from _torch_parity import assert_same, keys, to_numpy, to_torch
 
 DTYPES = ["float32", "bfloat16", "float16", "int32", "uint32", "int16",
@@ -76,6 +77,28 @@ def test_bucket_bounds_both_routes_match_reference(use_histogram, n_dev):
                            use_histogram=use_histogram)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("use_histogram", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_bucket_bounds_edge_cases_match_reference(use_histogram, case):
+    """The edge cases of K3's bucket search (``tests/_bucket_cases.py``:
+    one key, fewer than 33, all keys equal, splitters all below or above
+    the keys, runs of repeated splitters, ties ending at the search's
+    first-round probes, 1022 splitters) through both routes of
+    ``bucket_bounds`` against the reference's, int32 keys (the
+    reference's uint32 codes with the sign bit flipped)."""
+    info = np.iinfo(np.int32)
+    k, sp = bucket_case(case, 3000, info.min, info.max, 11)
+    flip = np.int64(1 << 31)
+    want = jss.bucket_bounds(jnp.asarray((k + flip).astype(np.uint32)),
+                             jnp.asarray((sp + flip).astype(np.uint32)),
+                             use_histogram=use_histogram, interpret=True)
+    got = ss.bucket_bounds(torch.from_numpy(k.astype(np.int32)),
+                           torch.from_numpy(sp.astype(np.int32)),
+                           use_histogram=use_histogram)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    assert got[-1] == k.shape[0]
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
