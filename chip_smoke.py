@@ -109,28 +109,42 @@ Phases, each printed as one JSON line:
             parameters in bf16, random weights from a seeded generator)
             through ``repro_torch.launch.serve.serve`` with the prefill's
             attention on K6: 16 requests in batches of 8, prompts up to
-            1023 tokens, 32 tokens each by top-k (k=50) sampling.  The
-            counts are set to 0 just before and read just after: K6 must
-            launch once a layer and prefill batch.  Then the same batches'
-            prefill logits with K6 against the einsum attention (within
+            1023 tokens, 32 tokens each by top-k (k=50) sampling, every
+            decode step a replay of the step captured as one CUDA graph
+            (``launch.steps.DecodeGraph``).  The counts are set to 0 just
+            before and read just after: K6 must launch once a layer and
+            prefill batch, the replays must number batches x 31, and K5's
+            sampling launches (counted through the replays) one a replay
+            and warm-up step (``check_decode_graph``).  Then the same
+            batches' prefill logits with K6 against the einsum attention
+            (within
             0.2, the argmax equal on most rows, the served first tokens
             replayed; a float32 einsum prefill as the control of what bf16
             alone moves), and K6 against its plain version at each served
             batch's shape; the ``[serve] length accounting`` groups against
-            a numpy count of the prompt lengths;
+            a numpy count of the prompt lengths; the time split of a
+            prefill; and ``decode_split``: the first served batch's decode
+            captured against the eager step from the same prefill state
+            under the same uniforms (logits within the eager path's own
+            spread, tokens equal), eager and captured ms a step beside the
+            bound, and one captured step's top kernels under
+            ``torch.profiler``;
 5b. moe_serve
             moonshot-v1-16b-a3b at full size (48 layers, 64 experts top-6
             + 2 shared, 28.4 B parameters in bf16, random weights from a
             seeded generator) through ``serve`` with the prefill's
             attention on K6: 16 requests in batches of 8, prompts up to 511
             tokens, ``max_len`` 2048, 32 tokens each by top-k (k=50).  The
-            counts are set to 0 just before and read just after: the
-            router's K5 (``topk_rows_short``) once a MoE layer a forward
-            (47 x (prefill batches + decode steps)), apart from the
-            sampling top-k's K5 (``topk_rows_stream``, once a decode step),
-            and K6 once a layer and prefill batch; prefill ms, decode
-            tokens/s, peak memory and the top-k plans are printed; then K6
-            against its plain version at (8, 1024) x 16/16 heads of 128;
+            counts are set to 0 just before and read just after: every
+            decode step a replay of the captured graph, the router's K5
+            (``topk_rows_short``) once a MoE layer a forward (47 x
+            (prefill batches + replays + warm-up steps)), apart from the
+            sampling top-k's K5 (``topk_rows_stream``, once a replay and
+            warm-up step), and K6 once a layer and prefill batch; prefill
+            ms, decode tokens/s, peak memory and the top-k plans are
+            printed; then ``decode_split`` of the first batch on the
+            weights rebuilt, and K6 against its plain version at (8, 1024)
+            x 16/16 heads of 128;
 5c. families
             the ssm, hybrid, encdec and vlm families and the dense configs
             this slice added, each at full width with random weights from
@@ -140,12 +154,15 @@ Phases, each printed as one JSON line:
             layers), recurrentgemma-2b (26), gemma-2b (18), whisper-tiny
             (4 + 4, frames (8, 1500, 384)), and cut in depth where the
             weights do not fit: qwen2-vl-72b 8 of 80 layers, deepseek-67b 8
-            of 95, nemotron-4-340b 2 of 96.  The counts are set to 0 just
-            before each serve and read just after: K6 once an attention
-            layer a prefill batch (head dim 256 for gemma and
-            recurrentgemma, 192 for nemotron; none for mamba2 and whisper),
-            K5's sampling launch once a decode step.  Then each family's
-            checks on the same weights: mamba2's float32 decode step at
+            of 95, nemotron-4-340b 2 of 96, and the MoE dbrx-132b 8 of 40
+            (``serve(config=...)``).  The counts are set to 0 just before
+            each serve and read just after: K6 once an attention layer a
+            prefill batch (head dim 256 for gemma and recurrentgemma, 192
+            for nemotron; none for mamba2 and whisper), every decode step
+            a replay, and K5's sampling and dbrx's router launches
+            counted through the replays.  Then, on the same weights,
+            ``decode_split`` of the first batch and each family's checks:
+            mamba2's float32 decode step at
             position 300 against a 301-token prefill; recurrentgemma's
             (1, 4096) prefill through K6 and through the einsum path (the
             2048-key window bites) and 8 decode steps across the ring
@@ -156,8 +173,9 @@ Phases, each printed as one JSON line:
             the long_500k shape for mamba2 and recurrentgemma (a
             524288-deep decode state no larger than a 4096-deep one, no
             cache past 2048 slots, 8 finite decode steps from position
-            524280).  One line a model: prefill ms, decode tokens/s, peak
-            GiB, the card's name and power limit;
+            524280).  One line a model: prefill ms, decode tokens/s, the
+            captured and eager ms a decode step, peak GiB, the card's name
+            and power limit;
 5d. train   moonshot at full width, depth cut to 3 (one dense prefix
             layer, a stacked body of two MoE layers, 1.93 B parameters),
             AdamW over ``SyntheticLM`` batches of 4 x 1024: one step's
@@ -194,9 +212,10 @@ Phases, each printed as one JSON line:
             a one-rank NCCL group on the card and a (1, 1) ``("data",
             "model")`` DeviceMesh: full-width minitron-4b served through
             ``launch.serve`` with a ``ShardingPolicy`` (bf16, 8 requests,
-            batch 8, 16 tokens), its tokens equal to the same serve without
-            a policy under the same uniforms and its K6 and K5 launches
-            equal; then K6's context-parallel decomposition (the per-rank
+            batch 8, 16 tokens; its decode steps replays of one captured
+            graph, as without a policy), its tokens equal to the same serve
+            without a policy under the same uniforms and its K6 and K5
+            launches equal; then K6's context-parallel decomposition (the per-rank
             work of ``_run_cp_flash``): at (8, 1024) and (1, 32768) x 24/8
             heads of 128, bf16, the queries cut into tp = 2, 4 and 8
             blocks at ``q_offset = i * S / tp`` against the whole K/V, the
@@ -265,6 +284,7 @@ It needs a card: without one it exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -310,6 +330,7 @@ K6_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # max |kernel - plain|
 # ~2^-4.5; float32: FMA order and expf, ~2^-20
 K6_ROW_REL = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -6}
 PREFILL_LOGITS_TOL = 0.2     # max |flash - einsum| of the served prefill
+GRAPH_CHECK_STEPS = 8        # decode steps of each captured-vs-eager check
 # the sharding phase: the policy serve (minitron-4b, full width), the
 # context-parallel block counts, the 2-layer train step
 SHARD_SERVE = dict(n_requests=8, batch_size=8, decode_steps=16, topk=50,
@@ -735,6 +756,33 @@ def check_k3_sorts(name, counts, passes) -> None:
     if hist == 0 or counts.get("radix_onesweep_pass", 0) != passes * hist:
         raise AssertionError(f"{name}: K3 launches {counts}, expected 1 "
                              f"histogram and {passes} passes a sort")
+
+
+def check_decode_graph(what, stats, counts, steps, n_moe=0) -> dict:
+    """Fail unless ``serve`` decoded through CUDA-graph replays, one a
+    decode step of every batch (batches x (steps - 1)), and K5 ran as the
+    replays count it: the sampling (``topk_rows_stream``) once a replay
+    and once a warm-up step before each capture, and each of ``n_moe``
+    routers (``topk_rows_short``) once a forward (the prefills, the
+    replays, the warm-up steps).  Returns the graph figures."""
+    replays, warm = stats["graph_replays"], stats["graph_warmup_steps"]
+    if stats["decode_route"] != "graph" or stats["graph_captures"] < 1 \
+            or replays != stats["batches"] * (steps - 1):
+        raise AssertionError(f"{what}: decode route {stats['decode_route']}"
+                             f", {stats['graph_captures']} captures, "
+                             f"{replays} replays; expected one replay a "
+                             f"decode step: {stats['batches']} x "
+                             f"{steps - 1}")
+    want = {"topk_rows_stream": replays + warm}
+    if n_moe:
+        want["topk_rows_short"] = n_moe * (stats["batches"] + replays + warm)
+    wrong = {k: counts.get(k, 0) for k, v in want.items()
+             if counts.get(k, 0) != v}
+    if wrong:
+        raise AssertionError(f"{what}: K5 launches {wrong}, expected {want} "
+                             f"(counts {counts})")
+    return {k: stats[k] for k in ("decode_route", "graph_captures",
+                                  "graph_replays", "graph_warmup_steps")}
 
 
 def trace_summary(fn, top: int = 8) -> dict:
@@ -1830,6 +1878,7 @@ def phase_serve() -> dict:
     check_k3_sorts("serve", counts,
                    4 if plan.method == "radix" or
                    counts.get("radix_onesweep_hist") else None)
+    graph = check_decode_graph("serve", stats, counts, steps)
     if len(done) != n_req or sorted(r.rid for r in done) != \
             list(range(n_req)):
         raise AssertionError(f"serve: {len(done)} of {n_req} answered")
@@ -1846,7 +1895,7 @@ def phase_serve() -> dict:
         raise AssertionError(f"serve: length accounting "
                              f"{stats['length_groups']}, expected {want}")
     emit({"phase": "serve", "requests": len(done),
-          "batches": stats["batches"], "launches": counts,
+          "batches": stats["batches"], "launches": counts, **graph,
           "prompt_lens": sorted(len(r.prompt) for r in done),
           "length_groups": stats["length_groups"],
           "padding_waste": stats["padding_waste"],
@@ -1921,7 +1970,8 @@ def phase_serve() -> dict:
                              f"first tokens replayed by the prefill")
     prefill_split(flash, params, toks)
     del state
-    decode_split(flash, params, toks, SERVE["max_len"])
+    decode_split(cfg.name, flash, params, first_batch(cfg, **SERVE),
+                 SERVE["max_len"], SERVE["topk"], trace=True)
     del params
     torch.cuda.synchronize()
     return counts
@@ -1972,41 +2022,229 @@ def prefill_split(model, params, toks) -> None:
           * cfg.n_layers / gemm / 1e9})
 
 
-def decode_split(model, params, toks, max_len) -> None:
-    """A decode step of the batch (its cache ``max_len`` deep, as served)
-    timed two ways: as served (eager, host clock over 10 synchronised
-    steps) and as one CUDA-graph replay of the same step (CUDA events), the
-    card's own time without the host's launch overhead.  Bound: the layer
-    and unembedding weights and the whole cache, each read once."""
+def clone_tree(tree):
+    """A copy of a decode state: dicts, lists and NamedTuples of tensors."""
     import torch
-    _, st = model.prefill(params, {"tokens": toks}, max_len=max_len)
-    tok = toks[:, -1:].contiguous()
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_tree(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree
+
+
+def first_batch(cfg, n_requests, batch_size, decode_steps, topk, max_len):
+    """The first batch ``serve`` prefills from the seed's request stream,
+    on the card: its left-padded tokens, and an encoder-decoder's frames
+    (drawn after the prompts, as ``serve`` draws them)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as srv
+    rng = np.random.default_rng(SEED)
+    sched = srv.LengthSortedScheduler(batch_size, method=cfg.sort_method,
+                                      device="cuda")
+    for r in srv.make_requests(cfg.vocab_size, n_requests, max_len,
+                               decode_steps, rng):
+        sched.submit(r)
+    batch = sched.next_batch()
+    feed = {"tokens": torch.from_numpy(srv.left_pad(batch)).cuda()}
+    if cfg.family == "encdec":
+        feed["frames"] = torch.from_numpy(rng.standard_normal(
+            (len(batch), cfg.enc_seq, cfg.d_model)) * 0.1).to(
+                device="cuda", dtype=torch.float32)
+    return feed
+
+
+@contextlib.contextmanager
+def routed_experts(out: list):
+    """Append the number of distinct experts each MoE layer routes to
+    (over the whole batch) to ``out`` while the block runs."""
+    import torch
+    from repro_torch.models import moe
+    orig = moe._route
+
+    def spy(params, x, cfg):
+        res = orig(params, x, cfg)
+        out.append(int(torch.unique(res[1]).numel()))
+        return res
+    moe._route = spy
+    try:
+        yield out
+    finally:
+        moe._route = orig
+
+
+def decode_bytes(params, state, t, batch, routed) -> int:
+    """Bytes a decode step of ``batch`` rows must move at position ``t``:
+    every parameter it reads, once (an input embedding table beside a
+    separate unembedding: its batch's rows only; a MoE layer's experts: the ``routed`` distinct
+    experts of each MoE layer; an encoder and the cross K/V projections,
+    which decode never runs: none), and the state it needs (a cache's
+    slots up to ``t``, a window ring whole, every recurrent state and the
+    frozen cross K/V whole)."""
+    import torch
+    from repro_torch.models.attention import KVCache
+
+    def nbytes(x):
+        return x.numel() * x.element_size()
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return []
+
+    dense, experts, per_layer = 0, 0, []
+
+    def walk(tree, key=""):
+        nonlocal dense, experts
+        if isinstance(tree, torch.Tensor):
+            dense += nbytes(tree)
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                if k in ("enc", "enc_ln") or (key == "cross_attn"
+                                              and k in ("wk", "wv")):
+                    continue
+                if k == "embed" and "unembed" in tree:
+                    dense += nbytes(v["embedding"][0]) * batch
+                elif "router" in tree and k in ("wi", "wg", "wo"):
+                    experts += nbytes(v)
+                    if k == "wi":       # ((layers,) experts, d, f)
+                        per_layer.extend([v.shape[-3]] * (
+                            v.shape[0] if v.dim() == 4 else 1))
+                else:
+                    walk(v, k)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v, key)
+    walk(params)
+    if per_layer:
+        if len(routed) != len(per_layer):
+            raise AssertionError(f"routing seen in {len(routed)} MoE layers, "
+                                 f"the model has {len(per_layer)}")
+        dense += experts * sum(routed) // sum(per_layer)
+
+    def needed(tree, key=""):
+        if isinstance(tree, KVCache) and key != "cross":
+            return sum(nbytes(x) * min(t + 1, x.shape[-3]) // x.shape[-3]
+                       for x in tree)
+        if isinstance(tree, dict):
+            return sum(needed(v, k) for k, v in tree.items())
+        if isinstance(tree, (list, tuple)) and not isinstance(tree, KVCache):
+            return sum(needed(v) for v in tree)
+        return sum(nbytes(x) for x in leaves(tree))
+    return dense + needed(state)
+
+
+def decode_split(arch, model, params, feed, max_len, topk,
+                 trace: bool = False) -> dict:
+    """One batch's decode as ``serve`` runs it (``steps.DecodeGraph``, a
+    CUDA graph) against the eager step (``make_serve_step``'s
+    ``decode_step`` and sampler, the logits kept) from the same prefill
+    state under the same uniforms, ``GRAPH_CHECK_STEPS`` steps, each run
+    fed the first eager run's tokens.  A second eager run first measures
+    the eager path's own spread of the logits; the captured step's logits
+    must lie within it (equal where it is 0) and its tokens equal the
+    eager ones wherever the sampled top-2 margin exceeds twice it
+    (everywhere where it is 0).  Times: the eager step (host clock, 8
+    synchronised steps), the captured step as served (host clock, with
+    its uniform draw and copies) and its device time (CUDA events over 20
+    calls); the bound: ``decode_bytes`` at the batch's first position over
+    the card's memory rate.  With ``trace`` one captured step under
+    ``torch.profiler``: its top kernels."""
+    import torch
+    from repro_torch import sort as sorting
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as steps_lib
+    b = feed["tokens"].shape[0]
+    n = GRAPH_CHECK_STEPS
+    graph = steps_lib.DecodeGraph(model, ShapeSpec("serve", max_len, b,
+                                                   "decode"),
+                                  sample_topk=topk)
+    sample = steps_lib.make_sampler(model, topk)
+    logits, st = graph.prefill(params, feed)
+    t0_pos = int(st["t"])
+    tok0 = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    u = torch.rand((n, b, topk), generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 28), device="cuda")
+    routed, inputs, runs = [], [tok0], []
+    for rep in range(2):
+        es = clone_tree(st)
+        toks, lgs = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            if rep == 1 and i == 0:     # the untimed run: what routes where
+                with routed_experts(routed):
+                    lg, es = model.decode_step(params, inputs[i], es)
+            else:
+                lg, es = model.decode_step(params, inputs[i], es)
+            nxt = sample(lg, u[i])
+            lgs.append(lg.float())
+            toks.append(nxt)
+            if rep == 0:
+                inputs.append(nxt)
+        torch.cuda.synchronize()
+        runs.append((toks, lgs, (time.perf_counter() - t0) * 1e3 / n))
+        del es
+    eager_ms = runs[0][2]
+    spread = max(float((a - c).abs().max())
+                 for a, c in zip(runs[0][1], runs[1][1]))
+    g_toks, g_lgs = [], []
+    for i in range(n):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out, st = graph(params, inputs[i], st, u[i])
+        g_toks.append(out)
+        g_lgs.append(graph.logits(b).float().clone())
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        model.decode_step(params, tok, st)
-    torch.cuda.synchronize()
-    host = (time.perf_counter() - t0) * 1e3 / 10
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            model.decode_step(params, tok, st)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        model.decode_step(params, tok, st)
-    device = cuda_ms(graph.replay, 20)[0]
-    del graph
-    nbytes = sum(v.numel() * v.element_size()
-                 for v in (params["body"]["mixer"] | params["body"]["ffn"])
-                 .values()) \
-        + params["unembed"]["unembedding"].numel() * 2 \
-        + 2 * st["body"].k.numel() * 2
-    emit({"phase": "serve", "decode_step_batch": list(toks.shape),
-          "cache_len": max_len, "eager_ms": host, "graph_replay_ms": device,
-          "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-          "eager_tok_s": toks.shape[0] / host * 1e3})
+    graph_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    if graph.captures != 1 or graph.replays != n:
+        raise AssertionError(f"{arch}: {graph.captures} captures and "
+                             f"{graph.replays} replays, expected 1 and {n}")
+    gdiff = max(float((a - c).abs().max())
+                for a, c in zip(g_lgs, runs[0][1]))
+    checked = 0
+    for i in range(n):
+        v, _ = sorting.topk(runs[0][1][i], topk,
+                            method=model.cfg.sort_method, device="cuda")
+        score = v + -torch.log(-torch.log(u[i] + 1e-9) + 1e-9)
+        top2 = score.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * spread
+        same = (g_toks[i] == runs[0][0][i])[:, 0]
+        if not bool(same[sure].all()):
+            raise AssertionError(f"{arch}: the captured step's tokens "
+                                 f"differ from the eager step's at step {i} "
+                                 f"where the margin exceeds 2 x {spread}")
+        checked += int(sure.sum())
+    if gdiff > spread:
+        raise AssertionError(f"{arch}: captured logits differ from the eager "
+                             f"ones by {gdiff}, the eager spread is {spread}")
+    tok = inputs[-1]
+    replay_ms = cuda_ms(lambda: graph(params, tok, st, u[0]), 20)[0]
+    nbytes = decode_bytes(params, st, t0_pos, b, routed)
+    row = {"model": arch, "decode_batch": [b, int(feed["tokens"].shape[1])],
+           "cache_len": max_len, "steps": n, "eager_ms": eager_ms,
+           "graph_ms": graph_ms, "graph_replay_ms": replay_ms,
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "eager_tok_s": b / eager_ms * 1e3,
+           "graph_tok_s": b / graph_ms * 1e3,
+           "eager_spread": spread, "graph_vs_eager_max_abs": gdiff,
+           "tokens_checked": checked, "tokens": n * b,
+           "moe_experts_routed": routed or None}
+    if trace:
+        row["replay_trace"] = trace_summary(
+            lambda: graph(params, tok, st, u[0]), top=12)
+    emit({"phase": "decode_split", **row})
+    del graph, st
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2049,6 +2287,7 @@ def phase_moe_serve() -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as srv
+    from repro_torch.models import model_zoo
 
     cfg = get_config(MOE_ARCH)
     n_moe = cfg.n_layers - cfg.moe.first_dense_layers
@@ -2082,14 +2321,14 @@ def phase_moe_serve() -> dict:
     seconds = time.perf_counter() - t0
     counts = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated()
-    forwards = stats["batches"] * steps      # a prefill + steps - 1 decodes
-    want = {"topk_rows_short": n_moe * forwards,
-            "topk_rows_stream": stats["batches"] * (steps - 1),
-            "flash_attention_fwd": cfg.n_layers * stats["batches"]}
-    wrong = {k: counts.get(k, 0) for k, v in want.items()
-             if counts.get(k, 0) != v}
-    if wrong:
-        raise AssertionError(f"moe_serve: launches {wrong}, expected {want} "
+    # the routers' K5 once a MoE layer a forward (a prefill a batch, a
+    # replay a decode step, the warm-up steps), the sampling's once a
+    # replay and warm-up step
+    graph = check_decode_graph("moe_serve", stats, counts, steps, n_moe)
+    k6 = counts.get("flash_attention_fwd", 0)
+    if k6 != cfg.n_layers * stats["batches"]:
+        raise AssertionError(f"moe_serve: K6 launched {k6} times, expected "
+                             f"{cfg.n_layers} x {stats['batches']} "
                              f"(counts {counts})")
     check_k3_sorts("moe_serve", counts, None)
     if len(done) != n_req or sorted(r.rid for r in done) != \
@@ -2106,7 +2345,7 @@ def phase_moe_serve() -> dict:
         raise AssertionError(f"moe_serve: length accounting "
                              f"{stats['length_groups']}")
     emit({"phase": "moe_serve", "requests": len(done),
-          "batches": stats["batches"], "launches": counts,
+          "batches": stats["batches"], "launches": counts, **graph,
           "router_k5_launches": counts.get("topk_rows_short", 0),
           "sampling_k5_launches": counts.get("topk_rows_stream", 0),
           "prompt_lens": sorted(len(r.prompt) for r in done),
@@ -2115,6 +2354,12 @@ def phase_moe_serve() -> dict:
           "peak_memory_gib": peak / 2 ** 30, "seconds": seconds,
           "nvidia_smi": card()})
     del done, stats
+    torch.cuda.empty_cache()
+    model = model_zoo.build(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    decode_split(MOE_ARCH, model, params, first_batch(cfg, **MOE_SERVE),
+                 MOE_SERVE["max_len"], MOE_SERVE["topk"])
+    del model, params
     torch.cuda.empty_cache()
     # K6 at moonshot's prefill shape: 16 query heads on 16 kv heads
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -2138,11 +2383,12 @@ FAMILY_SERVE = dict(n_requests=8, batch_size=8, decode_steps=16, topk=50,
 # (arch, layers served: None for the full depth; the depth cuts keep the
 # weights of the widest layers within the card's 80 GB with room for the
 # checks: 80 of qwen2-vl-72b's layers are 145 GB in bf16, deepseek-67b's 95
-# 125 GB, nemotron-4-340b's 96 632 GB)
+# 125 GB, nemotron-4-340b's 96 632 GB, dbrx-132b's 40 263 GB: 8 of its
+# layers and its embeddings are 55 GB)
 FAMILIES = (("mamba2-1.3b", None), ("recurrentgemma-2b", None),
             ("gemma-2b", None), ("whisper-tiny", None),
             ("qwen2-vl-72b", 8), ("deepseek-67b", 8),
-            ("nemotron-4-340b", 2))
+            ("nemotron-4-340b", 2), ("dbrx-132b", 8))
 # K6's head dim and kv heads where this phase asserts them: 256 with MQA
 # (gemma-2b), 256 (recurrentgemma-2b), 192 (nemotron-4-340b)
 K6_WIDE = {"gemma-2b": (256, 1), "recurrentgemma-2b": (256, 1),
@@ -2152,39 +2398,6 @@ WINDOW_PREFILL = (1, 4096)   # recurrentgemma: twice its 2048-key window
 VISION_PREFILL = (2, 2048)   # qwen2-vl: a 32 x 32 patch grid, then text
 VISION_GRID = 32
 DECODE_TOL = 1e-2   # float32: a decode step against a longer prefill
-
-
-def serve_cut(cfg, n_requests, batch_size, decode_steps, topk, max_len):
-    """``serve.serve``'s own steps for a config whose depth is cut (the
-    whole model does not fit the card): the model, its serve step, the
-    sampling noise, the scheduler and request stream from the seed, and
-    ``serve._serve_loop``.  Returns (requests done, stats) as ``serve``
-    does."""
-    import numpy as np
-    import torch
-    from repro_torch.configs.base import ShapeSpec
-    from repro_torch.launch import serve as srv
-    from repro_torch.launch import steps as steps_lib
-    from repro_torch.models import model_zoo
-    model = model_zoo.build(cfg, device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
-    step = steps_lib.make_serve_step(
-        model, ShapeSpec("serve", max_len, batch_size, "decode"),
-        sample_topk=topk)
-    noise = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    sched = srv.LengthSortedScheduler(batch_size, method=cfg.sort_method,
-                                      device="cuda")
-    rng = np.random.default_rng(SEED)
-    for r in srv.make_requests(cfg.vocab_size, n_requests, max_len,
-                               decode_steps, rng):
-        sched.submit(r)
-    done = []
-    stats = {"batches": 0, "padding_waste": [], "prefill_ms": [],
-             "decode_tps": []}
-    srv._serve_loop(sched, model, params, step, noise, decode_steps,
-                    max_len, done, stats, rng=rng)
-    stats["length_groups"] = srv.batch_accounting(done, device="cuda")
-    return done, stats
 
 
 def grid_positions(b, s, prefix, side):
@@ -2342,16 +2555,18 @@ def family_checks(arch, cfg, model, params) -> dict:
 
 def phase_families() -> dict:
     """The ssm (mamba2-1.3b), hybrid (recurrentgemma-2b), encdec
-    (whisper-tiny) and vlm (qwen2-vl-72b) families and the dense gemma-2b,
-    deepseek-67b and nemotron-4-340b, each at full width (the depth cut
-    where the weights do not fit, ``FAMILIES``), random weights from the
-    seed, with K6 on, through ``serve`` (through ``serve_cut``, its own
-    steps, where the depth is cut), one at a time and freed before the
-    next.  The counts are set to 0 just before each serve and read just
-    after: K6 once an attention layer a prefill batch (none for mamba2 and
-    whisper), K5's sampling (``topk_rows_stream``) once a decode step.
-    Then each family's own checks (``family_checks``).  Returns the
-    counts."""
+    (whisper-tiny) and vlm (qwen2-vl-72b) families, the dense gemma-2b,
+    deepseek-67b and nemotron-4-340b and the MoE dbrx-132b, each at full
+    width (the depth cut where the weights do not fit, ``FAMILIES``:
+    ``serve``'s ``config``), random weights from the seed, with K6 on,
+    through ``serve``, one at a time and freed before the next.  The
+    counts are set to 0 just before each serve and read just after: K6
+    once an attention layer a prefill batch (none for mamba2 and whisper),
+    every decode step a replay of the captured graph, and K5 as the
+    replays count it (``check_decode_graph``).  Then, on the same weights
+    rebuilt, the captured decode against the eager step
+    (``decode_split``) and each family's own checks
+    (``family_checks``).  Returns the counts."""
     import dataclasses
     import numpy as np
     import torch
@@ -2371,6 +2586,7 @@ def phase_families() -> dict:
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         encdec = cfg.family == "encdec"
+        n_moe = cfg.n_layers - cfg.moe.first_dense_layers if cfg.moe else 0
         n_attn = 0 if encdec else sum(cfg.layer_kind(i) == "attn"
                                       for i in range(cfg.n_layers))
         if arch in K6_WIDE and (cfg.resolved_head_dim,
@@ -2389,24 +2605,19 @@ def phase_families() -> dict:
         _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if layers is None:
-            done, stats = srv.serve(arch, smoke=False, seed=SEED,
-                                    device="cuda", flash_prefill=True,
-                                    **FAMILY_SERVE)
-        else:
-            done, stats = serve_cut(
-                dataclasses.replace(cfg, flash_prefill=True), **FAMILY_SERVE)
+        done, stats = srv.serve(arch, smoke=False, seed=SEED, device="cuda",
+                                flash_prefill=True, config=cfg,
+                                **FAMILY_SERVE)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = dict(_build.launches)
         peak = torch.cuda.max_memory_allocated()
-        want = {"flash_attention_fwd": n_attn * stats["batches"],
-                "topk_rows_stream": stats["batches"] * (steps - 1)}
-        wrong = {k: counts.get(k, 0) for k, v in want.items()
-                 if counts.get(k, 0) != v}
-        if wrong:
-            raise AssertionError(f"{arch}: launches {wrong}, expected "
-                                 f"{want} (counts {counts})")
+        k6 = counts.get("flash_attention_fwd", 0)
+        if k6 != n_attn * stats["batches"]:
+            raise AssertionError(f"{arch}: K6 launched {k6} times, expected "
+                                 f"{n_attn} x {stats['batches']} (counts "
+                                 f"{counts})")
+        graph = check_decode_graph(arch, stats, counts, steps, n_moe)
         check_k3_sorts(arch, counts, None)
         if sorted(r.rid for r in done) != list(range(n_req)):
             raise AssertionError(f"{arch}: {len(done)} of {n_req} answered")
@@ -2426,8 +2637,13 @@ def phase_families() -> dict:
         del done
         torch.cuda.empty_cache()
         tc = time.perf_counter()
-        model = model_zoo.build(cfg, device="cuda")
+        model = model_zoo.build(dataclasses.replace(cfg, flash_prefill=True),
+                                device="cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        split = decode_split(arch, model, params,
+                             first_batch(cfg, **FAMILY_SERVE),
+                             FAMILY_SERVE["max_len"], FAMILY_SERVE["topk"])
+        model = model_zoo.build(cfg, device="cuda")
         checks = family_checks(arch, cfg, model, params)
         del model, params
         torch.cuda.empty_cache()
@@ -2438,12 +2654,14 @@ def phase_families() -> dict:
               "k6_head_dim": cfg.resolved_head_dim if n_attn else None,
               "k6_launches": counts.get("flash_attention_fwd", 0),
               "sampling_k5_launches": counts.get("topk_rows_stream", 0),
-              "launches": counts, "batches": stats["batches"],
+              "router_k5_launches": counts.get("topk_rows_short", 0),
+              "launches": counts, "batches": stats["batches"], **graph,
               "prompt_lens": prompt_lens,
               "prefill_ms": stats["prefill_ms"],
               "decode_tok_s": stats["decode_tps"],
               "peak_memory_gib": peak / 2 ** 30, "serve_seconds": seconds,
-              "checks": checks, "checks_seconds": time.perf_counter() - tc,
+              "decode_split": split, "checks": checks,
+              "checks_seconds": time.perf_counter() - tc,
               "nvidia_smi": smi})
     return total
 
@@ -3090,8 +3308,10 @@ def phase_sharding() -> dict:
     """The sharding policy on the card (one rank): a one-rank NCCL group
     and a (1, 1) ``("data", "model")`` DeviceMesh.  Minitron-4b served at
     full width with and without a ``ShardingPolicy`` (the launch counts set
-    to 0 just before each serve and read just after): the same tokens
-    under the same uniforms, and the same K6 and K5 launches.  Then K6's
+    to 0 just before each serve and read just after), each decode step a
+    replay of its captured graph (the policy's DTensor dispatch runs at
+    capture only): the same tokens under the same uniforms, and the same
+    K6 and K5 launches.  Then K6's
     context-parallel blocks (``cp_blocks``), and two full-width
     minitron-4b train steps at 2 layers with and without the policy: the
     first losses equal, the rest within ``SHARD_LOSS_REL``.  The group is destroyed at the end.
@@ -3135,10 +3355,13 @@ def phase_sharding() -> dict:
             torch.cuda.synchronize()
             counts[name] = dict(_build.launches)
             add(counts[name])
+            graph = check_decode_graph(f"sharding {name} serve", stats,
+                                       counts[name],
+                                       SHARD_SERVE["decode_steps"])
             outs[name] = {r.rid: r.out.tolist() for r in done}
             emit({"phase": "sharding", "serve": name,
                   "requests": len(done), "batches": stats["batches"],
-                  "launches": counts[name],
+                  "launches": counts[name], **graph,
                   "prefill_ms": stats["prefill_ms"],
                   "decode_tok_s": stats["decode_tps"],
                   "seconds": time.perf_counter() - t0})

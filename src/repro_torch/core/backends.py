@@ -93,6 +93,12 @@ class TorchBackend(SortBackend):
                           self.argsort(keys, descending=descending))
 
     def topk(self, rows, k, *, plan=None):
+        if rows.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the 'torch' backend's top-k reads its row counts back to "
+                "the host (nonzero) and cannot run inside a CUDA graph "
+                "capture; plan 'cuda' (K5) or 'select' (K4) for a "
+                "captured step")
         key = _keycodec.total_order_key(rows)
         kth = torch.topk(key, k, dim=-1, sorted=False).values \
             .amin(-1, keepdim=True)

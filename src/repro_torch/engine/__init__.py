@@ -42,6 +42,7 @@ from repro_torch.engine.samplesort import sample_sort  # noqa: F401
 from repro_torch.engine.segmented import (  # noqa: F401
     group_tokens_by_expert, segment_ids_from_row_splits, segmented_argsort,
     segmented_sort, sort_padded_rows)
+from repro_torch.kernels import _build
 from repro_torch.kernels.ops import _from_rows, _to_rows
 from repro_torch.obs import trace as _obs
 
@@ -69,10 +70,7 @@ def _obs_finish(sp, op: str, plan: planner.Plan, n: int, batch: int,
     _tuning.maybe_refresh()
 
 
-def _capturing() -> bool:
-    """Is a CUDA graph being captured on the current stream?"""
-    return torch.cuda.is_available() \
-        and torch.cuda.is_current_stream_capturing()
+_capturing = _build.capturing
 
 
 def _spill_fallback(plan: planner.Plan) -> planner.Plan:

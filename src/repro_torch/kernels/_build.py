@@ -15,6 +15,7 @@ the package on machines with no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +24,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -50,14 +51,44 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show which kernels it went through
 launches: Dict[str, int] = {}
+# while a CUDA graph is captured (``capture_tally``) a wrapper's launch is
+# recorded into the graph's tally instead: nothing runs at capture, and
+# each replay adds the tally (``count_replay``)
+_tally: Optional[Dict[str, int]] = None
 
 
 def count_launch(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
+    counts = launches if _tally is None else _tally
+    counts[name] = counts.get(name, 0) + 1
 
 
 def reset_launches() -> None:
     launches.clear()
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Record the launches of the wrappers called in this block into a
+    fresh tally (yielded) instead of ``launches``: the block captures a
+    CUDA graph, whose kernels run only when it is replayed."""
+    global _tally
+    prev, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = prev
+
+
+def count_replay(tally: Dict[str, int]) -> None:
+    """Add one replay of a captured graph's ``tally`` to ``launches``."""
+    for name, n in tally.items():
+        launches[name] = launches.get(name, 0) + n
+
+
+def capturing() -> bool:
+    """Is a CUDA graph being captured on the current stream?"""
+    return torch.cuda.is_available() \
+        and torch.cuda.is_current_stream_capturing()
 
 
 def _nvcc() -> str:

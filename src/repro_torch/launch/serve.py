@@ -12,13 +12,19 @@ accounted by prompt length with one ``relational.group_by``
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
       --smoke --device cpu --requests 6 --batch-size 3 --decode-steps 8
 
-With a ``mesh`` (``core.mesh.Mesh``) the scheduler sorts a backlog of at
-least ``distributed_min`` requests over the mesh, and ``restore_state`` /
-``snapshot_state`` carry the mesh's topology beside the tuning profile.
-With a sharding ``policy`` (``sharding.partitioning.ShardingPolicy`` on a
-``DeviceMesh``, one process a rank) the model's weights are DTensors
-placed by its specs and every prefill and decode step runs sharded; the
-tokens come back whole on every rank.
+On the card every decode step is a replay of one CUDA graph a batch size
+(``steps.DecodeGraph``: the port's counterpart of the reference's jitted
+step; each prefill fills the graph's static state); on the CPU the same
+static step runs without a graph.  ``serve`` builds the host mesh (every
+card, ``launch.mesh.make_host_mesh``; one CPU entry on the CPU):
+``restore_state`` / ``snapshot_state`` carry its topology beside the
+tuning profile, and with ``distributed_queue`` (on by default where the
+mesh has more than one entry) the scheduler sorts a backlog of at least
+its ``distributed_min`` requests over it.  With a sharding ``policy``
+(``sharding.partitioning.ShardingPolicy`` on a ``DeviceMesh``, one
+process a rank) the model's weights are DTensors placed by its specs and
+every prefill and decode step runs sharded; the tokens come back whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -251,41 +257,71 @@ def batch_accounting(done: List[Request], *, device="cuda"):
     return [(int(k), int(c), float(m)) for k, c, m in zip(keys, cnt, mean)]
 
 
+def host_mesh(device):
+    """The serving mesh: every card of this machine as a 1-D ``data`` mesh
+    (``launch.mesh.make_host_mesh``), or one CPU entry on the CPU."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    if resolve_device(device).type == "cpu":
+        return make_mesh((1,), ("data",), "cpu")
+    return make_host_mesh()
+
+
 def serve(arch: str, smoke: bool = True, n_requests: int = 16,
           batch_size: int = 8, decode_steps: int = 32, topk: int = 50,
           seed: int = 0, max_len: int = 256,
+          distributed_queue: Optional[bool] = None,
           state_dir: Optional[str] = None, *, device="cuda",
-          flash_prefill: Optional[bool] = None, policy=None):
+          flash_prefill: Optional[bool] = None, policy=None, config=None):
     """Serve ``n_requests`` random requests of ``arch`` (``smoke``: its
-    reduced config) on ``device`` (default ``"cuda"``) with weights drawn
-    from ``seed``.  ``flash_prefill`` overrides the config's flag (K6 for
-    the prefill's attention).  ``state_dir`` (or
-    ``REPRO_TORCH_SERVE_STATE_DIR``) restores the snapshotted tuning profile
-    on startup and snapshots the active one on shutdown.  ``policy``
-    shards the model over its mesh (None: one device).
+    reduced config; ``config``: this ``ModelConfig`` instead, e.g. a depth
+    cut) on ``device`` (default ``"cuda"``) with weights drawn from
+    ``seed``.  ``flash_prefill`` overrides the config's flag (K6 for the
+    prefill's attention).  ``distributed_queue`` (default: on where the
+    host mesh, ``host_mesh(device)``, has more than one entry) sorts the
+    scheduler's backlog over the host mesh once it reaches the
+    scheduler's ``distributed_min``.  ``state_dir`` (or ``REPRO_TORCH_SERVE_STATE_DIR``)
+    restores the snapshotted tuning profile and the mesh's topology on
+    startup and snapshots the active ones on shutdown.  ``policy`` shards
+    the model over its mesh (None: one device).
+
+    Decode runs ``steps.DecodeGraph``: on the card each batch's steps
+    replay one captured CUDA graph (per batch size), also under a policy;
+    a capture that fails raises, and never falls back to the eager step.
+    On the CPU the same static step runs uncaptured.
 
     Returns (requests done, stats): ``batches``, per-batch
-    ``padding_waste``, ``prefill_ms`` and ``decode_tps``, and
-    ``length_groups`` (``batch_accounting``)."""
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    ``padding_waste``, ``prefill_ms`` and ``decode_tps``,
+    ``length_groups`` (``batch_accounting``), ``decode_route`` ("graph"
+    or "static"), ``graph_captures``, ``graph_replays`` (batches x
+    (decode_steps - 1) on the card), ``graph_warmup_steps``,
+    ``distributed_queue`` and ``mesh_sorts``."""
+    if config is not None:
+        cfg = config
+    else:
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if flash_prefill is not None:
         cfg = dataclasses.replace(cfg, flash_prefill=flash_prefill)
     dev = resolve_device(device)
+    mesh = host_mesh(dev)
     sdir = resolve_state_dir(state_dir)
     if sdir is not None:
-        got = restore_state(sdir)
+        got = restore_state(sdir, mesh)
         if got:
             print(f"[serve] restored {' + '.join(got)} from {sdir}")
+    if distributed_queue is None:
+        distributed_queue = mesh.size > 1
     model = build(cfg, device=dev, policy=policy)
     params = model.place(model.init(
         torch.Generator(device=dev).manual_seed(seed)))
     shape = ShapeSpec("serve", max_len, batch_size, "decode")
-    serve_step = steps_lib.make_serve_step(model, shape, sample_topk=topk)
+    serve_step = steps_lib.DecodeGraph(model, shape, sample_topk=topk)
     # the sampling noise: its own stream, not the weights'
     noise = torch.Generator(device=dev).manual_seed(seed + 1)
 
-    sched = LengthSortedScheduler(batch_size, method=cfg.sort_method,
-                                  device=dev)
+    sched = LengthSortedScheduler(
+        batch_size, method=cfg.sort_method,
+        mesh=mesh if distributed_queue else None, device=dev)
     # one numpy stream: the requests, then an encoder-decoder's frames
     rng = np.random.default_rng(seed)
     for req in make_requests(cfg.vocab_size, n_requests, max_len,
@@ -301,13 +337,26 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
     finally:
         # shutdown snapshot, also on an exception mid-run
         if sdir is not None:
-            for p in snapshot_state(sdir):
+            for p in snapshot_state(sdir, mesh):
                 print(f"[serve] state snapshot -> {p}")
+    stats.update(
+        decode_route="graph" if serve_step.capture else "static",
+        graph_captures=serve_step.captures,
+        graph_replays=serve_step.replays,
+        graph_warmup_steps=serve_step.warmup_steps,
+        distributed_queue=bool(distributed_queue),
+        mesh_sorts=sched.mesh_sorts)
     waste = float(np.mean(stats["padding_waste"]))
     print(f"[serve] {len(done)} requests in {stats['batches']} batches on "
           f"{dev}; mean padding waste {waste:.3f}; prefill "
           f"{np.mean(stats['prefill_ms']):.1f} ms a batch; decode "
           f"{np.mean(stats['decode_tps']):.1f} tok/s")
+    if serve_step.capture:
+        print(f"[serve] decode: {serve_step.replays} replays of "
+              f"{serve_step.captures} captured CUDA graph(s) (after "
+              f"{serve_step.warmup_steps} warm-up steps)")
+    else:
+        print("[serve] decode: the static step, uncaptured")
     acct = batch_accounting(done, device=dev)
     stats["length_groups"] = acct
     if acct:
@@ -324,7 +373,9 @@ def _serve_loop(sched, model, params, serve_step, noise, decode_steps,
                 max_len, done, stats, rng=None):
     """Prefill and decode the scheduler's batches until it is empty.  An
     encoder-decoder's batch gets frames (B, enc_seq, d_model) of standard
-    normals x 0.1 from ``rng`` (the reference's feed)."""
+    normals x 0.1 from ``rng`` (the reference's feed).  ``serve_step``: a
+    ``steps.DecodeGraph`` (each prefill fills its static state) or an
+    eager ``steps.make_serve_step``."""
     dev = model.device
     cfg = model.cfg
     while True:
@@ -347,7 +398,10 @@ def _serve_loop(sched, model, params, serve_step, noise, decode_steps,
                 (len(batch), cfg.enc_seq, cfg.d_model)) * 0.1).to(
                     device=dev, dtype=torch.float32)
         t0 = time.monotonic()
-        logits, state = model.prefill(params, feed, max_len=max_len)
+        if isinstance(serve_step, steps_lib.DecodeGraph):
+            logits, state = serve_step.prefill(params, feed)
+        else:
+            logits, state = model.prefill(params, feed, max_len=max_len)
         nxt = torch.argmax(full_tensor(logits), dim=-1)[:, None].to(
             torch.int32)
         if dev.type == "cuda":
@@ -390,14 +444,21 @@ def main():
                     action=argparse.BooleanOptionalAction,
                     help="prefill attention through K6 (default: the "
                          "config's flag)")
+    ap.add_argument("--distributed-queue", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="sort the request backlog over the host mesh "
+                         "(--no-distributed-queue forces the local path; "
+                         "default: on when the host mesh has more than one "
+                         "entry)")
     ap.add_argument("--state-dir", default=None,
-                    help="directory for the tuning snapshot restored on "
-                         "startup and written on shutdown "
+                    help="directory for the tuning and topology snapshot "
+                         "restored on startup and written on shutdown "
                          f"(default: ${SERVE_STATE_ENV} if set)")
     args = ap.parse_args()
     serve(args.arch, smoke=args.smoke, n_requests=args.requests,
           batch_size=args.batch_size, decode_steps=args.decode_steps,
-          topk=args.topk, state_dir=args.state_dir, device=args.device,
+          topk=args.topk, distributed_queue=args.distributed_queue,
+          state_dir=args.state_dir, device=args.device,
           flash_prefill=args.flash_prefill)
 
 

@@ -1,7 +1,9 @@
 """Step-function builders: train, prefill and one decode step.
 
 The port of the JAX package's ``launch/steps.py``.  PyTorch runs eagerly,
-so a step is a plain function.  The spec utilities are the reference's
+so a step is a plain function; the decode step that serving runs is
+``DecodeGraph``, the step at static addresses captured as one CUDA graph
+on the card (where the reference jits it).  The spec utilities are the reference's
 (``batch_specs``, ``decode_state_specs``, ``sanitize_specs``,
 ``shardings_of``), over ``sharding.partitioning.PartitionSpec`` leaves
 (``decode_state_specs`` lives in ``sharding.partitioning``, where the
@@ -17,13 +19,16 @@ returns them.
 """
 from __future__ import annotations
 
-from typing import Union
+import dataclasses
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as _tree
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.kernels import _build
+from repro_torch.models.attention import KVCache
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import sharded
 from repro_torch.optim import optimizers as opt_lib
@@ -215,23 +220,19 @@ def make_prefill_step(model: Model, shape: ShapeSpec):
     return prefill_step
 
 
-def make_serve_step(model: Model, shape: ShapeSpec, sample_topk: int = 0):
-    """One decode step: token -> logits -> (sampled) next token + new state.
-
-    With ``sample_topk > 0`` the next token comes from top-k sampling
-    through the port's ``repro_torch.sort.topk`` front door
-    (``cfg.sort_method``, default ``"auto"``, so the planner may route it to
-    K4's selection or K5's bitonic top-k), then the Gumbel-max trick over
-    the k candidates.  ``rng`` is a ``torch.Generator`` on the model's
-    device, or a tensor of uniforms of shape (B, k) for the noise; the
-    global RNG state is never read.  With ``sample_topk == 0`` the step is
-    greedy and ``rng`` is ignored.
-    """
+def make_sampler(model: Model, sample_topk: int = 0):
+    """``sample(logits, rng) -> (B, 1) int32``: the serve step's choice of
+    the next token.  With ``sample_topk > 0`` top-k sampling through the
+    port's ``repro_torch.sort.topk`` front door (``cfg.sort_method``,
+    default ``"auto"``, so the planner may route it to K4's selection or
+    K5's bitonic top-k), then the Gumbel-max trick over the k candidates;
+    ``rng`` is a ``torch.Generator`` on the model's device, or a tensor of
+    uniforms of shape (B, k).  With ``sample_topk == 0`` greedy, and
+    ``rng`` is ignored.  Under a placing policy each rank samples its
+    rows."""
     method = model.cfg.sort_method
 
-    def serve_step(params, token, state,
-                   rng: Union[torch.Generator, torch.Tensor, None] = None):
-        logits, new_state = model.decode_step(params, token, state)
+    def sample(logits, rng):
         pol = getattr(model, "policy", None)
         if pol is not None and pol.places:
             # the sampling runs on each rank's rows, with whole
@@ -242,13 +243,11 @@ def make_serve_step(model: Model, shape: ShapeSpec, sample_topk: int = 0):
                 rng = torch.rand((logits.shape[0], sample_topk),
                                  generator=rng, device=rng.device)
             if sample_topk and isinstance(rng, torch.Tensor):
-                nxt = pol.run_local(_sample, (logits, rng), (rows, rows),
-                                    rows)
-            else:
-                nxt = pol.run_local(lambda lg: _sample(lg, rng), (logits,),
-                                    (rows,), rows)
-            return nxt, new_state
-        return _sample(logits, rng), new_state
+                return pol.run_local(_sample, (logits, rng), (rows, rows),
+                                     rows)
+            return pol.run_local(lambda lg: _sample(lg, rng), (logits,),
+                                 (rows,), rows)
+        return _sample(logits, rng)
 
     def _sample(logits, rng):
         if sample_topk:
@@ -273,4 +272,185 @@ def make_serve_step(model: Model, shape: ShapeSpec, sample_topk: int = 0):
             nxt = torch.argmax(logits, dim=-1)[..., None]
         return nxt.to(torch.int32)
 
+    return sample
+
+
+def make_serve_step(model: Model, shape: ShapeSpec, sample_topk: int = 0):
+    """One decode step: token -> logits -> (sampled) next token + new state,
+    eagerly, on whatever tensors it is handed (``make_sampler`` says how
+    the next token is chosen; the global RNG state is never read).  The
+    served path runs ``DecodeGraph``, the same step at static addresses;
+    this one is its yardstick."""
+    del shape
+    sample = make_sampler(model, sample_topk)
+
+    def serve_step(params, token, state,
+                   rng: Union[torch.Generator, torch.Tensor, None] = None):
+        logits, new_state = model.decode_step(params, token, state)
+        return sample(logits, rng), new_state
+
     return serve_step
+
+
+# eager decode steps run on a side stream before a capture: they plan every
+# top-k of the step (so the capture meets only plan-cache hits), load the
+# kernels and settle the allocator
+GRAPH_WARMUP = 2
+
+
+@dataclasses.dataclass
+class _Slot:
+    """The static buffers of one batch size: the graph reads the token,
+    the state and the uniforms, and writes the state, the logits and the
+    next token, each at one address for the slot's life."""
+    state: Any
+    token: torch.Tensor                       # (B, 1) int32
+    uniforms: Optional[torch.Tensor]          # (B, k) float32
+    logits: Optional[torch.Tensor] = None
+    out: Optional[torch.Tensor] = None
+    params: Any = None                        # what the graph was captured on
+    graph: Any = None                         # torch.cuda.CUDAGraph
+    tally: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
+def _rewound_leaves(state) -> List[torch.Tensor]:
+    """The tensors of a decode state that one decode step changes in a way
+    the next step reads: ``t`` and every recurrent state.  Attention
+    caches are left out: a step writes slot ``t`` before it reads it."""
+    if isinstance(state, KVCache) or state is None:
+        return []
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, dict):
+        return [x for v in state.values() for x in _rewound_leaves(v)]
+    return [x for v in state for x in _rewound_leaves(v)]
+
+
+class DecodeGraph:
+    """The serve step at static addresses: on the card one CUDA graph a
+    batch size, the port's counterpart of the reference's
+    ``jax.jit(make_serve_step(...))``.
+
+    The graph holds the whole step: the embedding, every layer's mixer
+    and FFN with its state written in place (the MoE routers' K5 among
+    them), the final norm and the logits, the sampling top-k (K5, or the
+    backend the plan picks), the Gumbel-max choice and the advance of
+    ``t``.  :meth:`prefill` runs eagerly, into one decode state a batch
+    size (the first prefill's state; later ones fill it in place).
+    Calling the object is one decode step from that state: the token is
+    copied into the static token when it is another tensor, the (B, k)
+    uniforms are drawn from ``rng`` into a static buffer outside the
+    graph (the eager step's draws, in its order), and the graph is
+    replayed; the next token comes back as a copy, and the state advances
+    in place.  The first call at a batch size runs ``GRAPH_WARMUP`` eager
+    steps on a side stream (rewound: ``t`` and the recurrent states are
+    put back) and captures the step.  A failed capture raises, naming the
+    model and batch; it never falls back to the eager step.  A kernel
+    wrapper's launches inside the graph are counted once a replay
+    (``_build.count_replay``).
+
+    Off the card the same static step runs without a graph (``capture``
+    False).  ``captures``, ``replays`` and ``warmup_steps`` count what
+    ran."""
+
+    def __init__(self, model: Model, shape: ShapeSpec, sample_topk: int = 0):
+        self.model = model
+        self.max_len = shape.seq_len
+        self.sample_topk = sample_topk
+        self.capture = model.device.type == "cuda"
+        self._sample = make_sampler(model, sample_topk)
+        self._slots: Dict[int, _Slot] = {}
+        self.captures = self.replays = self.warmup_steps = 0
+
+    def prefill(self, params, batch):
+        """``model.prefill`` of ``batch`` into this batch size's static
+        state -> (last logits, the static state)."""
+        b = batch["tokens"].shape[0]
+        slot = self._slots.get(b)
+        if slot is not None:
+            return self.model.prefill(params, batch, max_len=self.max_len,
+                                      state=slot.state)
+        logits, state = self.model.prefill(params, batch,
+                                           max_len=self.max_len)
+        dev = self.model.device
+        self._slots[b] = _Slot(
+            state=state, token=torch.zeros((b, 1), dtype=torch.int32,
+                                           device=dev),
+            uniforms=torch.zeros((b, self.sample_topk), dtype=torch.float32,
+                                 device=dev) if self.sample_topk else None)
+        return logits, state
+
+    def logits(self, batch_size: int) -> torch.Tensor:
+        """The last step's logits at ``batch_size`` (a static buffer: the
+        next step overwrites it)."""
+        return self._slots[batch_size].logits
+
+    def __call__(self, params, token, state,
+                 rng: Union[torch.Generator, torch.Tensor, None] = None):
+        slot = self._slots.get(token.shape[0])
+        if slot is None or state is not slot.state:
+            raise ValueError("DecodeGraph: decode from the state its "
+                             "prefill returned for this batch size")
+        if token.data_ptr() != slot.token.data_ptr():
+            slot.token.copy_(token)
+        if self.sample_topk:
+            self._draw(slot, rng)
+        if not self.capture:
+            return self._step(params, slot), state
+        if slot.graph is None:
+            self._capture(params, slot)
+        elif params is not slot.params:
+            raise ValueError("DecodeGraph: the step was captured on other "
+                             "parameters")
+        slot.graph.replay()
+        _build.count_replay(slot.tally)
+        self.replays += 1
+        return slot.out.clone(), state
+
+    def _draw(self, slot: _Slot, rng) -> None:
+        u = slot.uniforms
+        if isinstance(rng, torch.Generator):
+            torch.rand(u.shape, generator=rng, device=u.device, out=u)
+        elif isinstance(rng, torch.Tensor):
+            if rng.shape != u.shape:
+                raise ValueError(f"serve_step: uniforms of shape "
+                                 f"{tuple(rng.shape)}, need "
+                                 f"{tuple(u.shape)}")
+            u.copy_(rng)
+        else:
+            raise TypeError("serve_step: sampling needs a torch.Generator "
+                            "or a tensor of uniforms")
+
+    def _step(self, params, slot: _Slot):
+        logits, new = self.model.decode_step(params, slot.token, slot.state)
+        slot.state["t"].copy_(new["t"])
+        slot.logits = logits
+        return self._sample(logits, slot.uniforms)
+
+    def _capture(self, params, slot: _Slot) -> None:
+        dev = self.model.device
+        rewind = _rewound_leaves(slot.state)
+        keep = [x.clone() for x in rewind]
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                self._step(params, slot)
+                for x, k in zip(rewind, keep):
+                    x.copy_(k)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.warmup_steps += GRAPH_WARMUP
+        del keep
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _build.capture_tally() as tally, \
+                    torch.cuda.graph(graph, stream=side):
+                out = self._step(params, slot)
+        except Exception as e:
+            raise RuntimeError(
+                f"DecodeGraph: capturing the decode step of "
+                f"{self.model.cfg.name} at batch {slot.token.shape[0]} "
+                f"failed: {e}") from e
+        slot.graph, slot.tally, slot.out, slot.params = \
+            graph, dict(tally), out, params
+        self.captures += 1

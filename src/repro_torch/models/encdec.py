@@ -215,14 +215,17 @@ class EncDecTransformer:
         return ce, {"ce_loss": ce}
 
     # ------------------------------------------------------ prefill / decode
-    def prefill(self, params, frames, tokens, max_len: int):
+    def prefill(self, params, frames, tokens, max_len: int, state=None):
         """Encode ``frames``, run the prompt through the decoder, and build
         the decode state: a ``max_len``-deep self-attention cache and the
-        frozen cross K/V a layer, ``t`` = the prompt's length."""
+        frozen cross K/V a layer, ``t`` = the prompt's length.
+        ``state``: a decode state of this batch and ``max_len`` to fill in
+        place instead (every tensor keeps its address; self-attention
+        slots past the prompt keep what they held, which decode masks)."""
         with sharded(self.policy):
-            return self._prefill(params, frames, tokens, max_len)
+            return self._prefill(params, frames, tokens, max_len, state)
 
-    def _prefill(self, params, frames, tokens, max_len: int):
+    def _prefill(self, params, frames, tokens, max_len: int, state=None):
         cfg = self.cfg
         b, s = tokens.shape
         if s > max_len:
@@ -231,14 +234,15 @@ class EncDecTransformer:
         enc_out = self.encode(params, frames)
         x = self._embed(params, tokens)
         states = []
-        for p in params["dec"]:
+        for i, p in enumerate(params["dec"]):
             h = layers.layernorm(p["ln1"], x)
             mix, kv = attention.apply(p["self_attn"], self.dec_attn, h,
                                       policy=self.policy)
             placed = self.policy is not None and self.policy.places
-            cache = place_state(self.policy, attention.init_cache(
-                self.dec_attn, b, max_len, kv.k.dtype,
-                "meta" if placed else self.device), self.device)
+            cache = state["layers"][i]["self"] if state is not None else \
+                place_state(self.policy, attention.init_cache(
+                    self.dec_attn, b, max_len, kv.k.dtype,
+                    "meta" if placed else self.device), self.device)
             for dst, src_ in ((cache.k, kv.k), (cache.v, kv.v)):
                 if is_dtensor(dst):
                     _fill_local(dst, src_, s, max_len)
@@ -249,12 +253,18 @@ class EncDecTransformer:
             cross, src = attention.apply(p["cross_attn"], self.cross_attn,
                                          hx, kv=enc_out, policy=self.policy)
             x = self._shard(self._tail(p, x, cross))
+            if state is not None:
+                frozen = state["layers"][i]["cross"]
+                frozen.k.copy_(src.k)
+                frozen.v.copy_(src.v)
             states.append({"self": cache, "cross": src})
         hidden = layers.layernorm(params["dec_ln"], x)
         logits = self._logits(params, hidden[:, -1:])
-        return logits[:, 0], {"layers": states,
-                              "t": torch.full((), s, dtype=torch.int32,
-                                              device=x.device)}
+        t = torch.full((), s, dtype=torch.int32, device=x.device)
+        if state is not None:
+            state["t"].copy_(t)
+            return logits[:, 0], state
+        return logits[:, 0], {"layers": states, "t": t}
 
     def decode_step(self, params, token, state):
         """One decode step. token: (B, 1) int32 -> (logits, state); the

@@ -330,7 +330,9 @@ def embed(params, tokens: torch.Tensor, scale: bool, d: int,
     else:
         x = table[tokens.long()]
     if scale:
-        x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+        # the scale rounded to x's dtype, made on x's device (a fill, no
+        # host copy: capturable in a CUDA graph)
+        x = x * torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
     return x
 
 

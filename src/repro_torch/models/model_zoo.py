@@ -6,7 +6,8 @@ what ``launch/`` and the tests need:
     model.init(generator)        -> params
     model.param_specs()          -> the reference's partition-spec tree
     model.loss(params, batch)    -> (scalar, aux)       [training]
-    model.prefill(params, batch, max_len) -> (last logits, decode state)
+    model.prefill(params, batch, max_len[, state]) -> (last logits,
+                                 decode state)
     model.decode_state(batch_size, max_len) -> empty decode state
     model.decode_step(params, token, state) -> (logits, state)
     model.input_specs(shape)     -> meta tensors standing in for each input
@@ -68,13 +69,16 @@ class Model:
     def loss(self, params, batch):
         return self.impl.loss(params, batch)
 
-    def prefill(self, params, batch, max_len: int):
+    def prefill(self, params, batch, max_len: int, state=None):
+        """(last logits, decode state); ``state``: a decode state of this
+        batch and ``max_len`` (an earlier prefill's) to fill in place."""
         if self.is_encdec:
             return self.impl.prefill(params, batch["frames"],
-                                     batch["tokens"], max_len)
+                                     batch["tokens"], max_len, state=state)
         return self.impl.prefill(params, batch["tokens"], max_len,
                                  positions=batch.get("positions"),
-                                 vision_embeds=batch.get("vision_embeds"))
+                                 vision_embeds=batch.get("vision_embeds"),
+                                 state=state)
 
     def decode_state(self, batch_size: int, max_len: int):
         if self.is_encdec:

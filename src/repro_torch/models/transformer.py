@@ -488,16 +488,19 @@ class Transformer:
         return logits[:, 0], new_state
 
     def prefill(self, params, tokens, max_len: int, positions=None,
-                vision_embeds=None):
+                vision_embeds=None, state=None):
         """Run the full prompt, build the decode state, return the last
         position's logits.  With ``cfg.flash_prefill`` the causal
         self-attention runs through K6; recurrent layers keep their final
-        states."""
+        states.  ``state``: a decode state of this batch and ``max_len``
+        to fill in place instead (every tensor keeps its address; cache
+        slots past the prompt keep what they held, which decode masks)."""
         with sharded(self.policy):
             return self._prefill(params, tokens, max_len, positions,
-                                 vision_embeds)
+                                 vision_embeds, state)
 
-    def _prefill(self, params, tokens, max_len, positions, vision_embeds):
+    def _prefill(self, params, tokens, max_len, positions, vision_embeds,
+                 state=None):
         cfg = self.cfg
         b, s = tokens.shape
         global_attn = not cfg.window and any(
@@ -508,7 +511,9 @@ class Transformer:
         x = self._embed(params, tokens, vision_embeds)
         if positions is None:
             positions = self._default_positions(tokens)
-        state = self.init_state(b, max_len)
+        given = state is not None
+        if not given:
+            state = self.init_state(b, max_len)
         for i, lp, st in self._layers(params, state):
             mix, new = self._mix(lp, self.norm(lp["ln1"], x), i, positions,
                                  use_flash=cfg.flash_prefill)
@@ -520,8 +525,11 @@ class Transformer:
         hidden = self.norm(params["final_ln"], x)
         logits = self.logits(params, hidden[:, -1:, :])
         t = torch.full((), s, dtype=torch.int32, device=self.device)
-        state["t"] = t if not is_dtensor(state["t"]) else \
-            self.policy.as_dtensor(t)
+        t = t if not is_dtensor(state["t"]) else self.policy.as_dtensor(t)
+        if given:
+            state["t"].copy_(t)
+        else:
+            state["t"] = t
         return logits[:, 0], state
 
     def _fill_cache(self, cache: attention.KVCache, kv: attention.KVCache):

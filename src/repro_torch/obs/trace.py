@@ -6,8 +6,9 @@ allocated or recorded.  Enabled, each span records its wall time, its depth
 and parent, and — when :meth:`Span.fence` is handed CUDA tensors — its
 device time, measured by a ``torch.cuda.Event`` pair on the current stream
 (recorded at entry and at the fence, which synchronises on the second
-event).  For CPU tensors there is no device clock, so ``device_ms`` stays
-``None`` and the engine records no cost observation.
+event).  For CPU tensors there is no device clock, and inside a CUDA
+graph capture no wait, so ``device_ms`` stays ``None`` and the engine
+records no cost observation.
 
 Events (``record_event``) are the structured side of the same log: the
 planner appends one ``plan_decision`` per cache miss, the engine one
@@ -24,6 +25,8 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels._build import capturing
 
 __all__ = [
     "enable", "disable", "enabled", "tracing", "trace", "Span",
@@ -103,9 +106,11 @@ class Span:
 
     def fence(self, value):
         """Wait until the CUDA work producing ``value`` is done and record
-        the span's device time; returns ``value`` unchanged."""
+        the span's device time; returns ``value`` unchanged.  Inside a
+        CUDA graph capture nothing runs and nothing may wait: the span
+        stays untimed (``device_ms`` None)."""
         leaves = _cuda_leaves(value)
-        if leaves and self._start is not None:
+        if leaves and self._start is not None and not capturing():
             end = torch.cuda.Event(enable_timing=True)
             end.record(torch.cuda.current_stream(leaves[0].device))
             end.synchronize()
@@ -117,7 +122,7 @@ class Span:
         self.depth = len(stack)
         self.parent = stack[-1].name if stack else None
         _STACK.set(stack + (self,))
-        if torch.cuda.is_available():
+        if torch.cuda.is_available() and not capturing():
             self._start = torch.cuda.Event(enable_timing=True)
             self._start.record()
         self._t0 = time.perf_counter()

@@ -176,6 +176,40 @@ def check_moe(mesh, out):
     out["moe_route_layers"] = n
 
 
+def check_static_decode(mesh, out):
+    """The serve's static decode step (``steps.DecodeGraph``, uncaptured
+    off the card) on the sharded model: two batches through one static
+    state of DTensors, the second shorter, each prefilled into it, against
+    the eager step without a policy under the same uniforms."""
+    cfg = _cfg("minitron-4b", n_kv_heads=1)
+    m0 = build(cfg, device="cpu")
+    m1 = build(cfg, device="cpu", policy=ShardingPolicy(mesh=mesh))
+    p = m0.init(torch.Generator().manual_seed(0))
+    ps = m1.place(p)
+    shape = ShapeSpec("serve", 64, 4, "decode")
+    graph = steps.DecodeGraph(m1, shape, sample_topk=5)
+    eager = steps.make_serve_step(m0, shape, sample_topk=5)
+    gen = torch.Generator().manual_seed(3)
+    errs, differ, states = [], 0, []
+    for s in (24, 9):
+        tok = _tokens(4, s, seed=s)
+        l0, s0 = m0.prefill(p, {"tokens": tok}, max_len=64)
+        l1, s1 = graph.prefill(ps, {"tokens": tok})
+        states.append(s1)
+        errs.append(_err(l0, l1))
+        n0 = n1 = torch.argmax(l0, dim=-1)[:, None].to(torch.int32)
+        for _ in range(4):
+            u = torch.rand((4, 5), generator=gen)
+            n0, s0 = eager(p, n0, s0, u)
+            n1, s1 = graph(ps, n1, s1, u)
+            n1 = full_tensor(n1)
+            differ += int((n0 != n1).sum())
+        out["static_decode_t"] = int(full_tensor(s1["t"]))
+    out["static_decode_prefill"] = max(errs)
+    out["static_decode_tokens_differ"] = differ
+    out["static_decode_state_reused"] = states[0] is states[1]
+
+
 def _state_errs(sa, sb):
     """(largest moment error against its leaf's largest entry, largest
     master error)."""
@@ -323,6 +357,7 @@ def main():
     mesh = make_host_device_mesh((2, 2), device="cpu")
     checks, errors = {}, {}
     for fn, args in ((check_dense, ()), (check_flash, ()), (check_moe, ()),
+                     (check_static_decode, ()),
                      (check_train, ("minitron-4b", "train_dense")),
                      (check_train, ("moonshot-v1-16b-a3b", "train_moe")),
                      (check_train, ("minitron-4b", "train_sp", True)),

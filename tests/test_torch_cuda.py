@@ -1477,3 +1477,158 @@ def test_k5_kernels_rank_nan_first_like_plain(n, k, share):
         assert torch.isnan(v[r, :first]).all()
         if first < k:
             assert torch.equal(i[r, first:].long(), want[r, first:k])
+
+
+# ---------------------------------------------------------------------------
+# the decode step as one CUDA graph (launch.steps.DecodeGraph)
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ("minitron-4b", "gemma-2b", "deepseek-67b", "nemotron-4-340b",
+               "moonshot-v1-16b-a3b", "dbrx-132b", "mamba2-1.3b",
+               "recurrentgemma-2b", "whisper-tiny", "qwen2-vl-72b")
+
+
+def _graph_feed(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    feed = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()}
+    if cfg.family == "encdec":
+        feed["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32) * 0.1).cuda()
+    return feed
+
+
+def _clone_state(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_state(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone_state(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_state(v) for v in tree)
+    return tree
+
+
+def _k5_launches():
+    return {k: v for k, v in _build.launches.items()
+            if k.startswith(("topk_rows", "bitonic_topk"))}
+
+
+def _graph_setup(arch, b=2, s=13, k=10, **over):
+    from repro_torch.configs import ShapeSpec, get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    model = model_zoo.build(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    shape = ShapeSpec("serve", 48, b, "decode")
+    return (model, params, steps.DecodeGraph(model, shape, sample_topk=k),
+            steps.make_serve_step(model, shape, sample_topk=k),
+            _graph_feed(cfg, b, s, len(arch)))
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_decode_graph_matches_the_eager_step(arch):
+    """The captured step against the eager ``make_serve_step`` from the
+    same prefill state under the same uniforms: equal tokens and logits,
+    and K5's launches counted through the replays (a step's launches,
+    times the replays and the warm-up steps)."""
+    from repro_torch.launch import steps
+    b, k, n = 2, 10, 6
+    model, params, graph, eager, feed = _graph_setup(arch, b=b, k=k)
+    logits, st = graph.prefill(params, feed)
+    est, lst = _clone_state(st), _clone_state(st)
+    u = torch.rand((n, b, k), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    _build.reset_launches()
+    eager(params, tok, _clone_state(st), u[0])
+    torch.cuda.synchronize()
+    per_step = _k5_launches()
+    assert per_step, f"{arch}: no K5 launch in a decode step"
+    want, want_logits, etok = [], [], tok
+    for i in range(n):
+        lg, lst = model.decode_step(params, etok, lst)
+        want_logits.append(lg)
+        etok, est = eager(params, etok, est, u[i])
+        want.append(etok)
+    _build.reset_launches()
+    gtok = tok
+    for i in range(n):
+        gtok, st = graph(params, gtok, st, u[i])
+        assert torch.equal(gtok, want[i]), (arch, i)
+        assert torch.equal(graph.logits(b), want_logits[i]), (arch, i)
+    torch.cuda.synchronize()
+    assert graph.captures == 1 and graph.replays == n
+    assert graph.warmup_steps == steps.GRAPH_WARMUP
+    assert _k5_launches() == {name: c * (n + steps.GRAPH_WARMUP)
+                              for name, c in per_step.items()}
+    assert int(st["t"]) == int(est["t"]) == 13 + n
+
+
+def test_decode_graph_refuses_a_host_reading_plan_by_name():
+    """The ``torch`` backend's top-k reads the host (``nonzero``): planned
+    for the sampling, the capture fails and names it; nothing falls back
+    to the eager step."""
+    b, k = 2, 10
+    model, params, graph, _, feed = _graph_setup("minitron-4b", b=b, k=k,
+                                                 sort_method="torch")
+    logits, st = graph.prefill(params, feed)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    u = torch.rand((b, k), device="cuda")
+    with pytest.raises(RuntimeError, match="'torch' backend's top-k reads"):
+        graph(params, tok, st, u)
+    assert graph.captures == 0 and graph.replays == 0
+
+
+def test_decode_graph_captures_with_tracing_on():
+    """With obs on, the spans of the captured step record no device time
+    and nothing synchronises inside the capture (a wait there would fail
+    it); the warm-up steps' spans are timed; the tokens equal the eager
+    step's."""
+    from repro_torch import obs
+    b, k, n = 2, 10, 4
+    model, params, graph, eager, feed = _graph_setup("moonshot-v1-16b-a3b",
+                                                     b=b, k=k)
+    obs.clear()
+    try:
+        with obs.tracing():
+            logits, st = graph.prefill(params, feed)
+            est = _clone_state(st)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            etok = tok
+            u = torch.rand((n, b, k), device="cuda")
+            for i in range(n):
+                tok, st = graph(params, tok, st, u[i])
+                etok, est = eager(params, etok, est, u[i])
+                assert torch.equal(tok, etok), i
+            topk = [sp for sp in obs.trace.spans()
+                    if sp["name"] == "engine.topk"]
+    finally:
+        obs.clear()
+    assert graph.captures == 1 and graph.replays == n
+    assert any(sp["device_ms"] is None for sp in topk)
+    assert any(sp["device_ms"] is not None for sp in topk)
+
+
+def test_serve_on_the_card_replays_one_graph_a_batch_size():
+    """``serve`` on the card: every decode step a replay (batches x
+    (steps - 1)), one capture a batch size (8 requests in batches of 3:
+    sizes 3 and 2), and K5's sampling launches = the replays plus the
+    warm-up steps."""
+    from repro_torch.launch import serve as srv
+    _build.reset_launches()
+    done, stats = srv.serve("minitron-4b", n_requests=8, batch_size=3,
+                            decode_steps=5, topk=10, max_len=64,
+                            device="cuda")
+    torch.cuda.synchronize()
+    assert stats["decode_route"] == "graph"
+    assert stats["graph_replays"] == stats["batches"] * 4 == 12
+    assert stats["graph_captures"] == 2
+    k5 = _build.launches.get("topk_rows_short", 0) \
+        + _build.launches.get("topk_rows_stream", 0)
+    assert k5 == stats["graph_replays"] + stats["graph_warmup_steps"]
+    assert sorted(r.rid for r in done) == list(range(8))
+    assert all(len(r.out) == 5 for r in done)

@@ -119,6 +119,16 @@ def test_moe_prefill_routes_alike(ranks, rank):
     assert _check(ranks, rank, "moe_routes_differ") == 0
 
 
+@pytest.mark.parametrize("rank", RANKS)
+def test_static_decode_step_under_the_policy(ranks, rank):
+    """Two batches decoded through one static state of DTensors (each
+    prefilled into it) give the unsharded eager step's tokens."""
+    assert _check(ranks, rank, "static_decode_prefill") <= LOGIT_TOL
+    assert _check(ranks, rank, "static_decode_tokens_differ") == 0
+    assert _check(ranks, rank, "static_decode_state_reused")
+    assert _check(ranks, rank, "static_decode_t") == 9 + 4
+
+
 @pytest.mark.parametrize("name", ["train_dense", "train_moe", "train_sp",
                                   "train_adafactor"])
 @pytest.mark.parametrize("rank", RANKS)
