@@ -185,20 +185,31 @@ Phases, each printed as one JSON line:
             the top-k codec (an eighth of each tensor), each step counted
             (the router's K5 twice a MoE layer: the forward and its remat
             recompute) with its loss, grad norm, ms, tokens/s and peak
-            memory; the loss finite and falling.
+            memory; the loss finite and falling; each of the two eagerly
+            and through ``launch.steps.TrainGraph`` (the codec inside the
+            captured step), the captured losses equal to the eager ones
+            (bit for bit, else within ``CAPTURED_LOSS_REL``), the codec's
+            share of a captured and of an eager step.
             Then the smoke model: one float32 step on the card against the
-            CPU (``SMOKE_TOL``), and ``launch.train`` saved, restored and
-            continued on the card (the step count carries on);
+            CPU (``SMOKE_TOL``), and ``launch.train`` (its steps through
+            ``TrainGraph``) saved, restored and continued on the card (the
+            step count carries on);
 5d2. families_train
             every architecture but nemotron-4-340b at full width, at the
             depth the one-card dry run (``launch.dryrun``, fake tensors)
             fits in 80% of the card's memory, built with remat from the
             seed: 5 steps of 4 x 1024 tokens (qwen2-vl 2 x 2048) with the
             plan's optimizer, frames and vision feeds where the family takes
-            them; each loss finite and falling; K5's router launches twice a
-            MoE layer and step, no kernel on a dense stack; one line a model
-            with the predicted and measured peak, step ms (CUDA events),
-            the roofline's bound and the MFU.  Then remat on against off
+            them, eagerly and then (the model freed and built again) through
+            ``launch.steps.TrainGraph``: two eager warm-up steps, a
+            capture, replays; each loss finite and falling, the captured
+            losses equal to the eager ones, the captured peak allocated
+            within 5% of the eager one; K5's router launches twice a MoE
+            layer and step in both (through the replays' tally), no kernel
+            on a dense stack; one line a model with both runs' losses,
+            peaks (allocated and reserved) beside the dry run's, step ms
+            (CUDA events, the steps after the capture), the capture's
+            seconds, the roofline's bound and both MFUs.  Then remat on against off
             (float32 gradients within 1e-6) for one architecture of each
             kind at smoke size, and nemotron-4-340b's dry-run record (it
             does not fit; no step);
@@ -221,9 +232,11 @@ Phases, each printed as one JSON line:
             blocks at ``q_offset = i * S / tp`` against the whole K/V, the
             blocks' concatenation equal bit for bit to the whole and each
             block within K6's limits of its plain version, each block
-            timed; then two full-width minitron-4b train steps at 2 layers
+            timed; then four full-width minitron-4b train steps at 2 layers
             under the policy: the first loss equal to the unsharded step's,
-            the second within 1e-4 relative;
+            the rest within 1e-4 relative; and the policy's steps once more
+            through ``TrainGraph`` (captured on the one-rank group), its
+            losses equal to the eager policy step's;
             the group is destroyed;
 5e. data    2^20 token rows of 128 with a tenth planted as copies:
             ``dedup_rows`` on ``method="radix"`` (its ``unique`` exactly
@@ -336,7 +349,7 @@ GRAPH_CHECK_STEPS = 8        # decode steps of each captured-vs-eager check
 SHARD_SERVE = dict(n_requests=8, batch_size=8, decode_steps=16, topk=50,
                    max_len=4096)
 CP_TPS = (2, 4, 8)
-SHARD_TRAIN = dict(layers=2, batch=4, seq=1024, steps=2)
+SHARD_TRAIN = dict(layers=2, batch=4, seq=1024, steps=4)
 # the (1, 1) policy step's losses against the unsharded step's: the first
 # (the same forward) equal; after an AdamW step within 1e-4 relative (the
 # sharded backward sums some products in another order, and an update's
@@ -2724,10 +2737,14 @@ def phase_train() -> dict:
     falling.  The model keeps only each layer's inputs through the
     forward (remat, the default while a gradient is taken), so a MoE
     layer's forward runs again in the backward and its router's K5
-    launches twice a gradient: in the forward and in the recompute.  Then the smoke
-    model: one step on the card against the CPU, and a save, restore and
-    continue of ``launch.train`` (the step count carries on).  Returns the
-    launches."""
+    launches twice a gradient: in the forward and in the recompute.  Each
+    of the two runs eagerly and through ``launch.steps.TrainGraph`` (the
+    codec inside the captured step), the captured losses equal to the
+    eager ones (``same_losses``); the codec's share of a step from the
+    mean ms of the steps after the capture.  Then the smoke model: one
+    step on the card against the CPU, and a save, restore and continue of
+    ``launch.train``, whose steps run through ``TrainGraph`` (the step
+    count carries on).  Returns the launches."""
     import contextlib
     import dataclasses
     import io
@@ -2792,52 +2809,81 @@ def phase_train() -> dict:
           "limit": TRAIN_GRAD_TOL})
     del params, ga, gb, ref, batch
 
+    after = steps_lib.GRAPH_WARMUP + 1       # steps timed: after the capture
+    step_ms, run_losses = {}, {}
     for codec in (None, "topk"):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
-        hook = None
-        if codec is not None:
-            cinit, hook = grad_compress.make_compressor(
-                grad_compress.CompressorConfig(
-                    codec=codec, topk_frac=TRAIN["topk_frac"]))
-        fn, opt = steps_lib.make_train_step(
-            model, cfg, ShapeSpec("train", s, b, "train"),
-            peak_lr=TRAIN["peak_lr"], total_steps=TRAIN["steps"],
-            grad_compressor=hook)
-        state = opt.init(params)
-        if codec is not None:
-            state.update(cinit(params))
-        losses = []
-        for step in range(TRAIN["steps"]):
-            batch = to_device(data.global_batch_at(step), "cuda")
-            _build.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, state, met = fn(params, state, step, batch)
-            loss = float(met["loss"])
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            counts = dict(_build.launches)
-            if counts.get("topk_rows_short", 0) != 2 * n_moe:
-                raise AssertionError(f"train: router K5 launches {counts}, "
-                                     f"expected {2 * n_moe} a step "
-                                     f"(forward + remat recompute)")
-            check_k3_sorts("train", counts, None)
-            for k, v in counts.items():
-                launches[k] = launches.get(k, 0) + v
-            losses.append(loss)
-            emit({"phase": "train", "codec": codec, "step": step,
-                  "loss": loss, "grad_norm": float(met["grad_norm"]),
-                  "lr": float(met["lr"]), "ms": ms,
-                  "tokens_s": b * s / ms * 1e3,
-                  "peak_memory_gib": torch.cuda.max_memory_allocated()
-                  / 2 ** 30, "launches": counts})
-        if not all(math.isfinite(x) for x in losses) or \
-                not losses[-1] < losses[0]:
-            raise AssertionError(f"train codec={codec}: losses {losses} "
-                                 f"not finite and falling")
-        del params, state, fn, opt, batch
+        for captured in (False, True):
+            how = "captured" if captured else "eager"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = model.init(torch.Generator(device="cuda")
+                                .manual_seed(SEED))
+            hook = None
+            if codec is not None:
+                cinit, hook = grad_compress.make_compressor(
+                    grad_compress.CompressorConfig(
+                        codec=codec, topk_frac=TRAIN["topk_frac"]))
+            fn, opt = steps_lib.make_train_step(
+                model, cfg, ShapeSpec("train", s, b, "train"),
+                peak_lr=TRAIN["peak_lr"], total_steps=TRAIN["steps"],
+                grad_compressor=hook)
+            state = opt.init(params)
+            if codec is not None:
+                state.update(cinit(params))
+            step_fn = steps_lib.TrainGraph(model, fn) if captured else fn
+            losses, ms = [], []
+            for step in range(TRAIN["steps"]):
+                batch = to_device(data.global_batch_at(step), "cuda")
+                _build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, met = step_fn(params, state, step, batch)
+                loss = float(met["loss"])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts = dict(_build.launches)
+                if counts.get("topk_rows_short", 0) != 2 * n_moe:
+                    raise AssertionError(
+                        f"train {how}: router K5 launches {counts}, "
+                        f"expected {2 * n_moe} a step (forward + remat "
+                        f"recompute)")
+                check_k3_sorts("train", counts, None)
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                losses.append(loss)
+                emit({"phase": "train", "codec": codec, "route": how,
+                      "step": step, "loss": loss,
+                      "grad_norm": float(met["grad_norm"]),
+                      "lr": float(met["lr"]), "ms": ms[-1],
+                      "tokens_s": b * s / ms[-1] * 1e3,
+                      "peak_memory_gib": torch.cuda.max_memory_allocated()
+                      / 2 ** 30, "launches": counts})
+            if not all(math.isfinite(x) for x in losses) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"train codec={codec} {how}: losses "
+                                     f"{losses} not finite and falling")
+            step_ms[codec, how] = sum(ms[after:]) / len(ms[after:])
+            run_losses[codec, how] = losses
+            if captured and step_fn.captures != 1:
+                raise AssertionError(f"train codec={codec}: "
+                                     f"{step_fn.captures} captures")
+            del params, state, fn, opt, batch, step_fn, met
+        agree = same_losses(run_losses[codec, "eager"],
+                            run_losses[codec, "captured"],
+                            f"train codec={codec}")
+        emit({"phase": "train", "codec": codec, "timed_steps": f"{after}..",
+              "eager_ms": step_ms[codec, "eager"],
+              "captured_ms": step_ms[codec, "captured"],
+              "captured_vs_eager": agree})
+    emit({"phase": "train", "check": "the codec's share of a step",
+          "captured_ms": {"none": step_ms[None, "captured"],
+                          "topk": step_ms["topk", "captured"]},
+          "eager_ms": {"none": step_ms[None, "eager"],
+                       "topk": step_ms["topk", "eager"]},
+          "codec_share_captured": 1 - step_ms[None, "captured"]
+          / step_ms["topk", "captured"],
+          "codec_share_eager": 1 - step_ms[None, "eager"]
+          / step_ms["topk", "eager"]})
     torch.cuda.empty_cache()
 
     smoke = _train_smoke_on_card_vs_cpu()
@@ -2888,6 +2934,13 @@ FIT_SHARE = 0.8
 REMAT_ARCHS = ("minitron-4b", "mamba2-1.3b", "recurrentgemma-2b",
                "whisper-tiny", "moonshot-v1-16b-a3b")
 REMAT_TOL = 1e-6          # float32 gradients, remat on against off
+# the captured train step (launch.steps.TrainGraph) against the eager one
+# on the same batches: the losses bit for bit where the eager step repeats
+# itself bit for bit, else within this relative limit; the captured peak
+# allocated within this share of the eager step's (the graph's pool holds
+# what the eager step allocates, plus the static batch and metrics)
+CAPTURED_LOSS_REL = 1e-3
+CAPTURED_PEAK_SHARE = 0.05
 
 
 def _remat_check() -> dict:
@@ -3091,6 +3144,18 @@ def settle_3e(model, cfg, shape, plan, batch, n_steps, device="cuda"
     return out
 
 
+def same_losses(eager, captured, what: str) -> dict:
+    """The captured step's losses against the eager step's over the same
+    batches: bit for bit, or (where the eager step itself sums in another
+    order from run to run) within ``CAPTURED_LOSS_REL``.  Returns the
+    largest relative difference and whether they are bit-equal."""
+    rel = max(abs(a - b) / abs(a) for a, b in zip(eager, captured))
+    if rel > CAPTURED_LOSS_REL:
+        raise AssertionError(f"{what}: captured losses {captured} against "
+                             f"eager {eager} (limit {CAPTURED_LOSS_REL})")
+    return {"bit_equal": eager == captured, "max_rel_diff": rel}
+
+
 def phase_families_train() -> dict:
     """Every architecture but nemotron-4-340b trained on the card at full
     width (``TRAIN_ARCHS``), one at a time and freed before the next.  For
@@ -3101,15 +3166,22 @@ def phase_families_train() -> dict:
     takes ``FAMILY_TRAIN["steps"]`` steps of 4 x 1024 tokens (qwen2-vl 2 x
     2048) with the plan's optimizer (AdamW; Adafactor for dbrx), the
     encoder-decoder's and the vlm's batches carrying their frame and
-    vision feeds (``launch.train.train_batch``).  The counts are set to 0
-    just before the steps and read just after: under remat a MoE router's
-    K5 (``topk_rows_short``) launches twice a MoE layer, microbatch and
-    step (the forward and its recompute in the backward), and a dense
-    stack launches no kernel.  Each loss finite, the last below the first.
-    One line a model: depth, predicted and measured peak, step ms (CUDA
-    events; the first step apart), the roofline's bound and the MFU.
-    Then the remat check (``_remat_check``) and nemotron-4-340b's dry-run
-    record, which does not fit (it takes no step).  Returns the launches."""
+    vision feeds (``launch.train.train_batch``): first the eager step,
+    then, with the model freed and built again, the same steps through
+    ``launch.steps.TrainGraph`` (``GRAPH_WARMUP`` eager steps, a capture,
+    replays).  The counts are set to 0 just before each run's steps and
+    read just after: under remat a MoE router's K5 (``topk_rows_short``)
+    launches twice a MoE layer, microbatch and step (the forward and its
+    recompute in the backward; a replay's through its graph's tally), and
+    a dense stack launches no kernel.  Each loss finite, the last below
+    the first; the captured losses equal the eager ones (``same_losses``)
+    and the captured peak allocated within ``CAPTURED_PEAK_SHARE`` of the
+    eager one.  One line a model: depth, both runs' losses, predicted and
+    measured peaks (allocated and reserved), step ms (CUDA events, the
+    mean of the steps after warm-up and capture), the capture's seconds,
+    the roofline's bound and both MFUs.  Then the remat check
+    (``_remat_check``) and nemotron-4-340b's dry-run record, which does
+    not fit (it takes no step).  Returns the launches."""
     import gc
     import math
     import torch
@@ -3126,6 +3198,7 @@ def phase_families_train() -> dict:
     capacity = torch.cuda.get_device_properties(0).total_memory
     limit = FIT_SHARE * capacity
     n_steps = FAMILY_TRAIN["steps"]
+    after = steps_lib.GRAPH_WARMUP + 1       # steps timed: after the capture
     launches: dict = {}
     for arch in TRAIN_ARCHS:
         full = get_config(arch)
@@ -3147,50 +3220,73 @@ def phase_families_train() -> dict:
                  if cfg.moe is not None else 0)
         want = ({"topk_rows_short": 2 * n_moe * plan.microbatch * n_steps}
                 if n_moe else {})
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        model = model_zoo.build(cfg, device="cuda")
-        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
-        fn, opt = steps_lib.make_train_step(
-            model, cfg, shape, optimizer_name=plan.optimizer,
-            microbatch=plan.microbatch,
-            accum_dtype=(torch.bfloat16 if plan.accum == "bfloat16"
-                         else torch.float32),
-            peak_lr=family_lr(cfg), total_steps=n_steps)
-        state = opt.init(params)
         data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
                                       global_batch=b, seed=SEED))
         batches = [to_device(train_lib.train_batch(data, cfg, i, SEED),
                              "cuda") for i in range(n_steps)]
-        losses, ms = [], []
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        for step in range(n_steps):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            params, state, met = fn(params, state, step, batches[step])
-            t1.record()
-            losses.append(float(met["loss"]))
+
+        def build():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = model_zoo.build(cfg, device="cuda")
+            fn, opt = steps_lib.make_train_step(
+                model, cfg, shape, optimizer_name=plan.optimizer,
+                microbatch=plan.microbatch,
+                accum_dtype=(torch.bfloat16 if plan.accum == "bfloat16"
+                             else torch.float32),
+                peak_lr=family_lr(cfg), total_steps=n_steps)
+            return model, fn, opt
+
+        def run(model, fn, opt, captured: bool) -> dict:
+            params = model.init(torch.Generator(device="cuda")
+                                .manual_seed(SEED))
+            state = opt.init(params)
+            step_fn = steps_lib.TrainGraph(model, fn) if captured else fn
+            losses, ms = [], []
             torch.cuda.synchronize()
-            ms.append(t0.elapsed_time(t1))
-        counts = dict(_build.launches)
-        peak = torch.cuda.max_memory_allocated()
-        if counts != want:
-            raise AssertionError(f"families_train {arch}: launches {counts}, "
-                                 f"expected {want}")
-        if not all(math.isfinite(x) for x in losses) or \
-                not losses[-1] < losses[0]:
-            raise AssertionError(f"families_train {arch}: losses {losses} "
-                                 f"not finite and falling")
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+            _build.reset_launches()
+            for step in range(n_steps):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                params, state, met = step_fn(params, state, step,
+                                             batches[step])
+                t1.record()
+                losses.append(float(met["loss"]))
+                torch.cuda.synchronize()
+                ms.append(t0.elapsed_time(t1))
+            counts = dict(_build.launches)
+            how = "captured" if captured else "eager"
+            if counts != want:
+                raise AssertionError(f"families_train {arch} {how}: launches "
+                                     f"{counts}, expected {want}")
+            if not all(math.isfinite(x) for x in losses) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"families_train {arch} {how}: losses "
+                                     f"{losses} not finite and falling")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            step_ms = sum(ms[after:]) / len(ms[after:])
+            out = {"losses": losses, "step_ms": step_ms, "steps_ms": ms,
+                   "tokens_s": b * s / step_ms * 1e3,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "peak_reserved_gib":
+                   torch.cuda.max_memory_reserved() / 2 ** 30,
+                   "mfu": roofline.mfu(row, step_ms / 1e3),
+                   "launches": counts}
+            if captured:
+                out.update(capture_s=step_fn.capture_seconds,
+                           captures=step_fn.captures,
+                           replays=step_fn.replays,
+                           warmup_steps=step_fn.warmup_steps)
+            return out
+
+        model, fn, opt = build()
+        eager = run(model, fn, opt, captured=False)
         if arch == FIXED_BATCH_ARCH:
             # the same steps again on one fixed batch: whether the losses'
             # rises above come from the batches (variance) or the steps
-            del params, state, met
-            torch.cuda.empty_cache()
             params = model.init(torch.Generator(device="cuda")
                                 .manual_seed(SEED))
             state = opt.init(params)
@@ -3202,33 +3298,38 @@ def phase_families_train() -> dict:
                   "fixed_batch_losses": fixed,
                   "falls_at_each_step": all(
                       b_ < a for a, b_ in zip(fixed, fixed[1:])),
-                  "varied_batch_losses": losses,
+                  "varied_batch_losses": eager["losses"],
                   "peak_lr": family_lr(cfg)})
             del params, state, met
             torch.cuda.empty_cache()
             settle_3e(model, cfg, shape, plan, batches[0], n_steps)
-            params = state = met = None
-        step_ms = sum(ms[1:]) / len(ms[1:])
+        del model, fn, opt
+        model, fn, opt = build()
+        captured = run(model, fn, opt, captured=True)
+        del model, fn, opt
+        agree = same_losses(eager["losses"], captured["losses"],
+                            f"families_train {arch}")
+        share = captured["peak_gib"] / eager["peak_gib"]
+        if abs(share - 1) > CAPTURED_PEAK_SHARE:
+            raise AssertionError(f"families_train {arch}: captured peak "
+                                 f"{captured['peak_gib']} GiB against eager "
+                                 f"{eager['peak_gib']} GiB")
         emit({"phase": "families_train", "model": arch,
               "family": cfg.family, "layers": cfg.n_layers,
               "reduced": None if cfg.n_layers == full.n_layers else
               f"depth {full.n_layers} -> {cfg.n_layers} layers (dry run)",
               "n_params": cfg.n_params(), "tokens_a_step": b * s,
               "optimizer": plan.optimizer, "microbatch": plan.microbatch,
-              "peak_lr": family_lr(cfg),
-              "losses": losses, "first_step_ms": ms[0], "step_ms": step_ms,
-              "steps_ms": ms, "tokens_s": b * s / step_ms * 1e3,
-              "peak_gib": peak / 2 ** 30,
-              "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+              "peak_lr": family_lr(cfg), "timed_steps": f"{after}..",
+              "eager": eager, "captured": captured,
+              "captured_vs_eager": {**agree, "peak_share": share,
+                                    "speedup": eager["step_ms"]
+                                    / captured["step_ms"]},
               "predicted_peak_gib": predicted / 2 ** 30,
-              "peak_over_predicted": peak / predicted,
               "bound_ms": row["t_bound_s"] * 1e3,
               "bound_by": row["dominant"],
-              "mfu_bound": row["mfu_bound"],
-              "mfu": roofline.mfu(row, step_ms / 1e3),
-              "launches": counts, "nvidia_smi": smi})
-        del model, params, state, fn, opt, met, batches
-        torch.cuda.empty_cache()
+              "mfu_bound": row["mfu_bound"], "nvidia_smi": smi})
+        del batches
 
     emit({"phase": "families_train", "check": "remat on vs off, float32",
           "max_abs_err": _remat_check(), "limit": REMAT_TOL})
@@ -3312,9 +3413,13 @@ def phase_sharding() -> dict:
     replay of its captured graph (the policy's DTensor dispatch runs at
     capture only): the same tokens under the same uniforms, and the same
     K6 and K5 launches.  Then K6's
-    context-parallel blocks (``cp_blocks``), and two full-width
-    minitron-4b train steps at 2 layers with and without the policy: the
-    first losses equal, the rest within ``SHARD_LOSS_REL``.  The group is destroyed at the end.
+    context-parallel blocks (``cp_blocks``), and ``SHARD_TRAIN["steps"]``
+    full-width minitron-4b train steps at 2 layers with and without the
+    policy: the first losses equal, the rest within ``SHARD_LOSS_REL``;
+    and the policy's steps once more through ``launch.steps.TrainGraph``
+    (its DTensor dispatch and gradient ``redistribute`` at capture, the
+    one-rank group's collectives in the graph), whose losses equal the
+    eager policy step's (``same_losses``).  The group is destroyed at the end.
     Returns the launches of the serves and the steps."""
     import dataclasses
     import math
@@ -3395,8 +3500,9 @@ def phase_sharding() -> dict:
         data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
                                       global_batch=b, seed=SEED))
         batch = to_device(train_lib.train_batch(data, cfg, 0, SEED), "cuda")
-        losses = {}
-        for name, pol in (("plain", None), ("policy", policy)):
+        losses, graphs = {}, {}
+        for name, pol in (("plain", None), ("policy", policy),
+                          ("policy_captured", policy)):
             model = model_zoo.build(cfg, device="cuda", policy=pol)
             fn, opt = steps_lib.make_train_step(
                 model, cfg, shape, peak_lr=family_lr(cfg),
@@ -3407,15 +3513,18 @@ def phase_sharding() -> dict:
             params, state = steps_lib.place_train_state(model, opt, params,
                                                         state)
             feed = steps_lib.place_batch(model, batch)
+            step_fn = fn
+            if name == "policy_captured":
+                step_fn = graphs[name] = steps_lib.TrainGraph(model, fn)
             torch.cuda.synchronize()
             _build.reset_launches()
             got = []
             for step in range(SHARD_TRAIN["steps"]):
-                params, state, met = fn(params, state, step, feed)
+                params, state, met = step_fn(params, state, step, feed)
                 got.append(float(full_tensor(met["loss"])))
             add(dict(_build.launches))
             losses[name] = got
-            del model, fn, opt, params, state, feed, met
+            del model, fn, opt, params, state, feed, met, step_fn
             torch.cuda.empty_cache()
         rel = max(abs(a - b_) / abs(a) for a, b_ in zip(losses["plain"],
                                                         losses["policy"]))
@@ -3423,10 +3532,20 @@ def phase_sharding() -> dict:
                 losses["plain"][0] != losses["policy"][0] or \
                 rel > SHARD_LOSS_REL:
             raise AssertionError(f"sharding: train losses {losses}")
+        g = graphs.pop("policy_captured")
+        if (g.captures, g.replays) != (
+                1, SHARD_TRAIN["steps"] - steps_lib.GRAPH_WARMUP):
+            raise AssertionError(f"sharding: the policy step captured "
+                                 f"{g.captures} times, replayed {g.replays}")
+        agree = same_losses(losses["policy"], losses["policy_captured"],
+                            "sharding: the captured policy step")
         emit({"phase": "sharding", "train": f"minitron-4b, "
               f"{SHARD_TRAIN['layers']} layers, {b} x {s} tokens",
               "losses": losses, "max_rel_diff": rel,
-              "limit": SHARD_LOSS_REL})
+              "limit": SHARD_LOSS_REL,
+              "captured_vs_eager_policy": agree,
+              "captured_replays": g.replays})
+        del g
     finally:
         dist.destroy_process_group()
     return launches

@@ -93,12 +93,6 @@ class TorchBackend(SortBackend):
                           self.argsort(keys, descending=descending))
 
     def topk(self, rows, k, *, plan=None):
-        if rows.is_cuda and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "the 'torch' backend's top-k reads its row counts back to "
-                "the host (nonzero) and cannot run inside a CUDA graph "
-                "capture; plan 'cuda' (K5) or 'select' (K4) for a "
-                "captured step")
         key = _keycodec.total_order_key(rows)
         kth = torch.topk(key, k, dim=-1, sorted=False).values \
             .amin(-1, keepdim=True)
@@ -106,8 +100,17 @@ class TorchBackend(SortBackend):
         tie = key == kth
         room = k - above.sum(-1, keepdim=True)
         take = above | (tie & (tie.cumsum(-1) <= room))
-        # exactly k a row, in ascending index order
-        idx = take.nonzero()[:, 1].view(rows.shape[0], k)
+        # exactly k a row, in ascending index order: each kept lane is
+        # scattered to its rank among the kept ones, every other lane to a
+        # spare column k that is cut off (static shapes, no host read, so
+        # the top-k runs inside a captured CUDA graph)
+        n = rows.shape[-1]
+        pos = torch.where(take, take.cumsum(-1) - 1, k)
+        idx = torch.zeros((rows.shape[0], k + 1), dtype=torch.int64,
+                          device=rows.device)
+        idx.scatter_(-1, pos, torch.arange(n, device=rows.device)
+                     .expand(rows.shape[0], n))
+        idx = idx[:, :k]
         order = torch.sort(key.gather(-1, idx), dim=-1, stable=True,
                            descending=True).indices
         idx = idx.gather(-1, order)

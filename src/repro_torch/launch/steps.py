@@ -1,15 +1,16 @@
 """Step-function builders: train, prefill and one decode step.
 
 The port of the JAX package's ``launch/steps.py``.  PyTorch runs eagerly,
-so a step is a plain function; the decode step that serving runs is
-``DecodeGraph``, the step at static addresses captured as one CUDA graph
-on the card (where the reference jits it).  The spec utilities are the reference's
-(``batch_specs``, ``decode_state_specs``, ``sanitize_specs``,
-``shardings_of``), over ``sharding.partitioning.PartitionSpec`` leaves
-(``decode_state_specs`` lives in ``sharding.partitioning``, where the
-models place their decode state, and is re-exported here); a
-model built with a policy runs its steps on DTensors placed by them
-(``place_batch``, ``place_train_state``, ``Model.place``).
+so a step is a plain function; the steps that serving and training run
+are ``DecodeGraph`` and ``TrainGraph``, each the step at static addresses
+captured as one CUDA graph on the card (where the reference jits it).
+The spec utilities are the reference's (``batch_specs``,
+``decode_state_specs``, ``sanitize_specs``, ``shardings_of``), over
+``sharding.partitioning.PartitionSpec`` leaves (``decode_state_specs``
+lives in ``sharding.partitioning``, where the models place their decode
+state, and is re-exported here); a model built with a policy runs its
+steps on DTensors placed by them (``place_batch``, ``place_train_state``,
+``Model.place``).
 
 train_step = gradient accumulation over microbatches in float32 (the
 reference's scan), the optional gradient codec, the optimizer update and
@@ -20,6 +21,7 @@ returns them.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -298,6 +300,19 @@ def make_serve_step(model: Model, shape: ShapeSpec, sample_topk: int = 0):
 GRAPH_WARMUP = 2
 
 
+_SIDE_STREAMS: Dict[torch.device, Any] = {}
+
+
+def _side_stream(device: torch.device):
+    """The one side stream of a device on which every captured step warms
+    up and is captured: cuBLAS keeps a workspace for each stream it has run
+    on for the process's life, and blocks cached on one stream serve no
+    other."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _SIDE_STREAMS[device]
+
+
 @dataclasses.dataclass
 class _Slot:
     """The static buffers of one batch size: the graph reads the token,
@@ -431,7 +446,7 @@ class DecodeGraph:
         dev = self.model.device
         rewind = _rewound_leaves(slot.state)
         keep = [x.clone() for x in rewind]
-        side = torch.cuda.Stream(device=dev)
+        side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(GRAPH_WARMUP):
@@ -441,16 +456,161 @@ class DecodeGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         self.warmup_steps += GRAPH_WARMUP
         del keep
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with _build.capture_tally() as tally, \
-                    torch.cuda.graph(graph, stream=side):
-                out = self._step(params, slot)
-        except Exception as e:
-            raise RuntimeError(
-                f"DecodeGraph: capturing the decode step of "
-                f"{self.model.cfg.name} at batch {slot.token.shape[0]} "
-                f"failed: {e}") from e
-        slot.graph, slot.tally, slot.out, slot.params = \
-            graph, dict(tally), out, params
+        slot.graph, slot.tally, slot.out = _captured(
+            side, lambda: self._step(params, slot),
+            f"DecodeGraph: capturing the decode step of "
+            f"{self.model.cfg.name} at batch {slot.token.shape[0]}")
+        slot.params = params
+        self.captures += 1
+
+
+def _captured(side, step, what: str):
+    """(graph, tally, out): ``step()`` captured as one CUDA graph on the
+    stream ``side``, the kernel wrappers' launches inside it counted into
+    the tally (``_build.capture_tally``), ``out`` what ``step`` returned
+    (static buffers).  A failed capture raises, naming ``what`` and the
+    cause; nothing falls back to running ``step`` eagerly."""
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with _build.capture_tally() as tally, \
+                torch.cuda.graph(graph, stream=side):
+            out = step()
+    except Exception as e:
+        raise RuntimeError(f"{what} failed: {e}") from e
+    return graph, dict(tally), out
+
+
+@dataclasses.dataclass
+class _TrainSlot:
+    """The static buffers of one batch shape: the graph reads the batch
+    and the step, updates the parameters and optimizer state in place and
+    writes the metrics, each at one address for the slot's life."""
+    batch: Dict[str, torch.Tensor]
+    step: torch.Tensor                        # () int64
+    leaves: List[torch.Tensor]                # the state it is bound to
+    warmed: int = 0                           # eager warm-up steps run
+    out: Optional[Dict[str, torch.Tensor]] = None
+    graph: Any = None                         # torch.cuda.CUDAGraph
+    tally: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
+def _state_leaves(params, opt_state) -> List[torch.Tensor]:
+    return _tree.leaves(params) + _tree.leaves(opt_state)
+
+
+class TrainGraph:
+    """The train step at static addresses: on the card one CUDA graph a
+    batch shape, the port's counterpart of the reference's
+    ``jax.jit(train_step, donate_argnums=(0, 1))``.
+
+    Called as the eager step is, ``(params, opt_state, step, batch) ->
+    (params, opt_state, metrics)``; ``train_step`` is what
+    ``build_train_step`` / ``make_train_step`` return, and stays the
+    eager yardstick.  Each batch entry is copied into a static buffer
+    keyed by the batch's names, shapes and dtypes (a new shape gets its
+    own slot and graph), and ``step`` is filled into a static int64
+    tensor before the step runs.  The parameters and the optimizer state
+    (the codec's ``_ef`` buffer among it) are updated in place, the
+    port's counterpart of donation: the graph holds the gradients (the
+    forward, the remat recompute and the backward, the MoE routers' K5
+    among them), the codec, the clip, the optimizer update and the
+    parameter refresh from the float32 master.  A slot is bound to the
+    parameter and state tensors of its first call, on the card and off
+    it; other tensors raise, naming the first leaf that differs.
+
+    At a new shape the first ``GRAPH_WARMUP`` calls are real steps, run
+    eagerly on the device's side stream (``_side_stream``; the cached
+    blocks of the current stream are given back first): they plan every
+    top-k (so the capture meets only plan-cache hits), load the kernels
+    and settle the allocator.
+    They are not rewound, which would take a copy of the whole optimizer
+    state.  The next call captures the step (``torch.cuda.graph`` frees
+    the cached eager blocks first; capture runs nothing) and replays it;
+    each later call is a replay.  A failed capture raises, naming the
+    model, the batch shapes and the cause; nothing falls back to the
+    eager step.  The metrics (``loss``, ``grad_norm``, ``lr``) live in
+    static buffers and come back as copies.  A kernel wrapper's launches
+    inside the graph are counted once a replay (``_build.count_replay``).
+
+    Off the card the same static step runs without a graph (``capture``
+    False).  ``captures``, ``replays``, ``warmup_steps`` and
+    ``capture_seconds`` count what ran."""
+
+    def __init__(self, model: Model, train_step):
+        self.model = model
+        self.train_step = train_step
+        self.capture = model.device.type == "cuda"
+        self._slots: Dict[tuple, _TrainSlot] = {}
+        self.captures = self.replays = self.warmup_steps = 0
+        self.capture_seconds = 0.0
+
+    def __call__(self, params, opt_state, step, batch):
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(batch.items()))
+        slot = self._slots.get(key)
+        if slot is None:
+            slot = self._slots[key] = _TrainSlot(
+                batch={k: v.clone() for k, v in batch.items()},
+                step=torch.zeros((), dtype=torch.int64,
+                                 device=self.model.device),
+                leaves=_state_leaves(params, opt_state))
+        else:
+            self._check_bound(params, opt_state, slot)
+            for k, v in batch.items():
+                if v is not slot.batch[k]:
+                    slot.batch[k].copy_(v)
+        slot.step.fill_(step)
+        if not self.capture:
+            return params, opt_state, self._step(params, opt_state, slot)
+        if slot.graph is None and slot.warmed < GRAPH_WARMUP:
+            return params, opt_state, self._warm_up(params, opt_state, slot)
+        if slot.graph is None:
+            self._capture(params, opt_state, slot)
+        slot.graph.replay()
+        _build.count_replay(slot.tally)
+        self.replays += 1
+        return params, opt_state, {k: v.clone() for k, v in slot.out.items()}
+
+    def _step(self, params, opt_state, slot: _TrainSlot):
+        return self.train_step(params, opt_state, slot.step, slot.batch)[2]
+
+    def _warm_up(self, params, opt_state, slot: _TrainSlot):
+        dev = self.model.device
+        if not slot.warmed:
+            # blocks the current stream cached (the optimizer's init
+            # temporaries) serve no other stream: give them back first
+            torch.cuda.empty_cache()
+        side = _side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            met = self._step(params, opt_state, slot)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        slot.warmed += 1
+        self.warmup_steps += 1
+        return met
+
+    def _check_bound(self, params, opt_state, slot: _TrainSlot) -> None:
+        got = _state_leaves(params, opt_state)
+        if len(got) == len(slot.leaves) and \
+                all(a is b for a, b in zip(got, slot.leaves)):
+            return
+        paths = ([f"params{p}" for p, _ in _tree.leaves_with_path(params)]
+                 + [f"opt_state{p}" for p, _ in
+                    _tree.leaves_with_path(opt_state)])
+        bad = next((p for p, a, b in zip(paths, got, slot.leaves)
+                    if a is not b), "the number of leaves")
+        raise ValueError(f"TrainGraph: the step is bound to other "
+                         f"parameters and optimizer state ({bad} differs)")
+
+    def _capture(self, params, opt_state, slot: _TrainSlot) -> None:
+        side = _side_stream(self.model.device)
+        side.wait_stream(torch.cuda.current_stream(self.model.device))
+        shapes = ", ".join(f"{k} {tuple(v.shape)}"
+                           for k, v in slot.batch.items())
+        t0 = time.perf_counter()
+        slot.graph, slot.tally, slot.out = _captured(
+            side, lambda: self._step(params, opt_state, slot),
+            f"TrainGraph: capturing the train step of {self.model.cfg.name} "
+            f"at batch {shapes}")
+        self.capture_seconds += time.perf_counter() - t0
         self.captures += 1

@@ -11,7 +11,13 @@ data pipeline -> async checkpointing -> fault-tolerance runtime
 Every architecture trains: the encoder-decoder's and the vlm's batches
 carry the reference's frame and vision feeds (``train_batch``), and the
 model keeps only each layer's inputs through the forward (remat).  Runs
-on the card unless ``--device cpu`` is given.
+on the card unless ``--device cpu`` is given.  Each step goes through
+``steps.TrainGraph``, as the reference's runs its jitted, donated step:
+on the card its first ``steps.GRAPH_WARMUP`` steps run eagerly and every
+later one is a replay of one captured CUDA graph; on the CPU the same
+static step runs uncaptured.  A checkpoint reads the parameters and
+state between steps, and a resumed run builds the graph after the
+restore.
 
 With a sharding ``policy`` (``sharding.partitioning.ShardingPolicy`` on a
 ``launch.mesh.make_host_device_mesh``; one process a rank) the parameters
@@ -118,6 +124,8 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
                                                     params, opt_state)
     writer = policy is None or not policy.places or \
         torch.distributed.get_rank() == 0
+    # the step at static addresses, bound to the (restored, placed) state
+    graph = steps_lib.TrainGraph(model, fn)
 
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=seed))
@@ -129,8 +137,8 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
             dev_batch = steps_lib.place_batch(
                 model, to_device(train_batch(data, cfg, step, seed), dev))
             watchdog.start()
-            params, opt_state, metrics = fn(params, opt_state, step,
-                                            dev_batch)
+            params, opt_state, metrics = graph(params, opt_state, step,
+                                               dev_batch)
             metrics = {k: full_tensor(v) for k, v in metrics.items()}
             loss = float(metrics["loss"])            # waits for the card
             dt = watchdog.stop(step)

@@ -72,9 +72,12 @@ def _global_norm(grads) -> torch.Tensor:
 
 def _clip_scale(grads, max_norm: float):
     norm = _global_norm(grads)
+    # the bound filled on the device (no host copy, so a captured step
+    # holds it), and divided as a tensor: a Python scalar numerator
+    # becomes a reciprocal times it, which can round differently
     scale = torch.minimum(torch.ones_like(norm),
-                          torch.as_tensor(max_norm, dtype=torch.float32,
-                                          device=norm.device) / (norm + 1e-9))
+                          torch.full((), max_norm, dtype=torch.float32,
+                                     device=norm.device) / (norm + 1e-9))
     return scale, norm
 
 
@@ -86,6 +89,9 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _step_terms(step, device):
+    """(the step as a tensor, t = step + 1 in float32).  A tensor step is
+    used as it is: ``launch.steps.TrainGraph`` hands in a static one on
+    the device, filled before each replay."""
     step = torch.as_tensor(step, device=device)
     return step, (step + 1).to(torch.float32)
 

@@ -210,6 +210,47 @@ def check_static_decode(mesh, out):
     out["static_decode_state_reused"] = states[0] is states[1]
 
 
+def check_static_train(mesh, out):
+    """The train step at static addresses (``steps.TrainGraph``, run
+    uncaptured off the card) on the MoE model under the policy against
+    the eager policy step: three steps, each on a batch of its own, every
+    metric and every parameter and optimizer-state leaf compared shard by
+    shard."""
+    cfg = _cfg("moonshot-v1-16b-a3b")
+    model = build(cfg, device="cpu", policy=ShardingPolicy(mesh=mesh))
+    p = model.init(torch.Generator().manual_seed(0))
+    opt = opt_lib.adamw(opt_lib.cosine_schedule(PEAK_LR, warmup=1,
+                                                total=10), clip_norm=CLIP)
+    fn = steps.build_train_step(model, opt, ShapeSpec("t", 32, 4, "train"))
+
+    def placed():
+        q = ttree.map(torch.clone, p)
+        return steps.place_train_state(model, opt, q, opt.init(q))
+
+    (pa, sa), (pb, sb) = placed(), placed()
+    graph = steps.TrainGraph(model, fn)
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    metrics_differ = 0
+    for step in range(3):
+        tok = _tokens(4, 32, seed=20 + step)
+        batch = steps.place_batch(model, {"tokens": tok,
+                                          "labels": torch.roll(tok, -1, 1)})
+        pa, sa, ma = fn(pa, sa, step, batch)
+        pb, sb, mb = graph(pb, sb, step, batch)
+        metrics_differ += sum(not torch.equal(local(ma[k]), local(mb[k]))
+                              for k in ma)
+    a = ttree.leaves(pa) + ttree.leaves(sa)
+    b = ttree.leaves(pb) + ttree.leaves(sb)
+    out["static_train_leaves"] = len(a)
+    out["static_train_leaves_differ"] = sum(
+        not torch.equal(local(x), local(y)) for x, y in zip(a, b))
+    out["static_train_metrics_differ"] = metrics_differ
+    out["static_train_placed"] = sum(hasattr(x, "to_local") for x in b)
+
+
 def _state_errs(sa, sb):
     """(largest moment error against its leaf's largest entry, largest
     master error)."""
@@ -358,6 +399,7 @@ def main():
     checks, errors = {}, {}
     for fn, args in ((check_dense, ()), (check_flash, ()), (check_moe, ()),
                      (check_static_decode, ()),
+                     (check_static_train, ()),
                      (check_train, ("minitron-4b", "train_dense")),
                      (check_train, ("moonshot-v1-16b-a3b", "train_moe")),
                      (check_train, ("minitron-4b", "train_sp", True)),

@@ -1568,19 +1568,60 @@ def test_decode_graph_matches_the_eager_step(arch):
     assert int(st["t"]) == int(est["t"]) == 13 + n
 
 
-def test_decode_graph_refuses_a_host_reading_plan_by_name():
-    """The ``torch`` backend's top-k reads the host (``nonzero``): planned
-    for the sampling, the capture fails and names it; nothing falls back
-    to the eager step."""
-    b, k = 2, 10
-    model, params, graph, _, feed = _graph_setup("minitron-4b", b=b, k=k,
-                                                 sort_method="torch")
+def test_decode_graph_captures_the_torch_topk_plan():
+    """The ``torch`` backend's top-k compacts its kept lanes with a
+    scatter of static shape (no ``nonzero``, no host read): planned for
+    the sampling, it is captured, and each replay gives the eager step's
+    tokens."""
+    b, k, n = 2, 10, 4
+    model, params, graph, eager, feed = _graph_setup("minitron-4b", b=b, k=k,
+                                                     sort_method="torch")
     logits, st = graph.prefill(params, feed)
-    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-    u = torch.rand((b, k), device="cuda")
-    with pytest.raises(RuntimeError, match="'torch' backend's top-k reads"):
-        graph(params, tok, st, u)
-    assert graph.captures == 0 and graph.replays == 0
+    est = _clone_state(st)
+    tok = etok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    u = torch.rand((n, b, k), generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    for i in range(n):
+        tok, st = graph(params, tok, st, u[i])
+        etok, est = eager(params, etok, est, u[i])
+        assert torch.equal(tok, etok), i
+    assert graph.captures == 1 and graph.replays == n
+
+
+@pytest.mark.parametrize("rows,n,k,ties", [(64, 4096, 50, False),
+                                         (8, 4096, 512, True),
+                                         (1, 1 << 22, 1 << 19, False)])
+def test_torch_topk_on_the_card_matches_topk_the_cpu_and_a_replay(rows, n,
+                                                                  k, ties):
+    """The ``torch`` backend's top-k on the card (its kept lanes
+    compacted by a scatter of static shape, no host read), at a router's,
+    a tied and a codec's shape: values bit for bit ``torch.topk``'s,
+    values and indices bit for bit the CPU's, and one CUDA graph of it
+    replays the eager result."""
+    from repro_torch.core.backends import TorchBackend
+    rng = np.random.default_rng(n + k)
+    x = (rng.integers(-50, 50, (rows, n)) if ties
+         else rng.standard_normal((rows, n))).astype(np.float32)
+    xc = torch.from_numpy(x)
+    xg = xc.cuda()
+    be = TorchBackend()
+    v, i = be.topk(xg, k)
+    cv, ci = be.topk(xc, k)
+    _same(v.cpu(), cv)
+    _same(i.cpu(), ci)
+    _same(v, torch.topk(xg, k, dim=-1).values)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        be.topk(xg, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gv, gi = be.topk(xg, k)
+    graph.replay()
+    torch.cuda.synchronize()
+    _same(gv, v)
+    _same(gi, i)
 
 
 def test_decode_graph_captures_with_tracing_on():
@@ -1632,3 +1673,147 @@ def test_serve_on_the_card_replays_one_graph_a_batch_size():
     assert k5 == stats["graph_replays"] + stats["graph_warmup_steps"]
     assert sorted(r.rid for r in done) == list(range(8))
     assert all(len(r.out) == 5 for r in done)
+
+
+# ---------------------------------------------------------------------------
+# the train step as one CUDA graph (launch.steps.TrainGraph)
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAPH_STEPS = 5
+TRAIN_GRAPH_REL = 1e-3
+
+
+def _train_runs(arch, graph, codec=None, sort_method="auto",
+                optimizer="adamw", microbatch=1):
+    """``TRAIN_GRAPH_STEPS`` steps of the float32 smoke model from seed 0,
+    each on the batch ``launch.train`` draws for it, eagerly or through
+    ``TrainGraph``: {"state": (params, optimizer state, metrics a step),
+    "k5": K5's launches, "graph", "cfg"}."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import grad_compress
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = model_zoo.build(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    hook = None
+    if codec is not None:
+        cinit, hook = grad_compress.make_compressor(
+            grad_compress.CompressorConfig(codec=codec,
+                                           sort_method=sort_method))
+    fn, opt = steps.make_train_step(
+        model, cfg, ShapeSpec("t", 32, 4, "train"), optimizer_name=optimizer,
+        microbatch=microbatch, peak_lr=1e-3, total_steps=10,
+        grad_compressor=hook)
+    state = opt.init(params)
+    if codec is not None:
+        state.update(cinit(params))
+    g = steps.TrainGraph(model, fn) if graph else None
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=4, seed=0))
+    mets = []
+    _build.reset_launches()
+    for step in range(TRAIN_GRAPH_STEPS):
+        batch = to_device(train.train_batch(data, cfg, step, 0), "cuda")
+        params, state, met = (g or fn)(params, state, step, batch)
+        mets.append({k: v.clone() for k, v in met.items()})
+    torch.cuda.synchronize()
+    return {"state": (params, state, mets), "k5": _k5_launches(),
+            "graph": g, "cfg": cfg}
+
+
+def _held_to_eager(a, b, got, what):
+    """The captured run ``got`` against the eager run ``a``: bit for bit
+    on every leaf where a second eager run ``b`` agrees with ``a`` bit for
+    bit; elsewhere (atomics summed in another order) within
+    ``TRAIN_GRAPH_REL`` of the leaf's largest entry."""
+    from repro_torch import tree
+    for (path, x), y, z in zip(tree.leaves_with_path(a["state"]),
+                               tree.leaves(b["state"]),
+                               tree.leaves(got["state"])):
+        if torch.equal(x, y):
+            assert torch.equal(x, z), (what, path)
+        else:
+            scale = x.float().abs().max().clamp(min=1e-30)
+            err = float((z.float() - x.float()).abs().max() / scale)
+            assert err <= TRAIN_GRAPH_REL, (what, path, err)
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_train_graph_matches_the_eager_step(arch):
+    """Five AdamW steps through ``TrainGraph`` (two eager warm-up steps on
+    its side stream, a capture, three replays) against two eager runs:
+    the metrics, parameters and optimizer state held by
+    ``_held_to_eager``; K5's launches counted through the replays' tally
+    equal the eager run's (a MoE model's routers launch in every step)."""
+    from repro_torch.launch import steps
+    a = _train_runs(arch, graph=False)
+    b = _train_runs(arch, graph=False)
+    got = _train_runs(arch, graph=True)
+    g = got["graph"]
+    assert (g.captures, g.replays, g.warmup_steps) == \
+        (1, TRAIN_GRAPH_STEPS - steps.GRAPH_WARMUP, steps.GRAPH_WARMUP)
+    _held_to_eager(a, b, got, arch)
+    assert got["k5"] == a["k5"]
+    assert bool(got["k5"]) == (got["cfg"].moe is not None), got["k5"]
+
+
+@pytest.mark.parametrize("method", ["auto", "torch", "select", "cuda"])
+def test_train_graph_holds_the_topk_codec(method):
+    """The top-k codec inside the captured step, its top-k planned on each
+    route (``torch`` compacts without a host read), under Adafactor and
+    two microbatches: held to two eager runs as above."""
+    kw = dict(codec="topk", sort_method=method, optimizer="adafactor",
+              microbatch=2)
+    a = _train_runs("moonshot-v1-16b-a3b", graph=False, **kw)
+    b = _train_runs("moonshot-v1-16b-a3b", graph=False, **kw)
+    got = _train_runs("moonshot-v1-16b-a3b", graph=True, **kw)
+    assert got["graph"].captures == 1
+    _held_to_eager(a, b, got, method)
+    assert got["k5"] == a["k5"]
+
+
+def test_train_graph_raises_a_failed_capture_by_name():
+    """A step that cannot be captured (here a loss that raises inside the
+    capture) raises ``RuntimeError`` naming the model, the batch shapes
+    and the cause, after its eager warm-up steps; nothing falls back to
+    the eager step, and other parameters raise by name."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo
+    cfg = dataclasses.replace(get_smoke_config("minitron-4b"),
+                              dtype="float32")
+    model = model_zoo.build(cfg, device="cuda")
+    real = model.loss
+
+    def loss(params, batch):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a host read inside the step")
+        return real(params, batch)
+
+    model.loss = loss
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    fn, opt = steps.make_train_step(model, cfg, ShapeSpec("t", 16, 2,
+                                                          "train"))
+    state = opt.init(params)
+    g = steps.TrainGraph(model, fn)
+    batch = _family_batch(cfg, 2, 16, "cuda")
+    for step in range(steps.GRAPH_WARMUP):
+        g(params, state, step, batch)
+    with pytest.raises(RuntimeError, match=r"TrainGraph: capturing the train "
+                       r"step of minitron-4b-smoke at batch tokens \(2, 16\), "
+                       r"labels \(2, 16\) failed: "
+                       r"a host read inside the step"):
+        g(params, state, steps.GRAPH_WARMUP, batch)
+    assert (g.captures, g.replays) == (0, 0)
+    import re
+    from repro_torch import tree
+    first = tree.leaves_with_path(params)[0][0]
+    with pytest.raises(ValueError, match=re.escape(f"params{first} differs")):
+        g(tree.map(torch.clone, params), state, 0, batch)

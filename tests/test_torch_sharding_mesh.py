@@ -28,7 +28,10 @@ in the two step-2 checkpoints every moment leaf within 1e-4 of its
 largest entry, and at most 1e-3 of the parameter and master entries more
 than 1e-3 lr apart (two steps at lr > 0: an entry whose gradient is near
 zero may move by up to about 2 lr a step either way; a lost or misplaced
-state moves nearly every entry).
+state moves nearly every entry).  The static train step
+(``launch.steps.TrainGraph``, uncaptured off the card) on the MoE model
+equals the eager policy step bit for bit, shard by shard: both run the
+same ops on the same shards.
 """
 import json
 import os
@@ -127,6 +130,18 @@ def test_static_decode_step_under_the_policy(ranks, rank):
     assert _check(ranks, rank, "static_decode_tokens_differ") == 0
     assert _check(ranks, rank, "static_decode_state_reused")
     assert _check(ranks, rank, "static_decode_t") == 9 + 4
+
+
+@pytest.mark.parametrize("rank", RANKS)
+def test_static_train_step_under_the_policy(ranks, rank):
+    """Three steps of the static train step (``TrainGraph`` off the card)
+    on the MoE model under the policy equal the eager policy step's, shard
+    by shard: every metric and every placed parameter and state leaf."""
+    assert _check(ranks, rank, "static_train_leaves") > 10
+    assert _check(ranks, rank, "static_train_placed") == \
+        _check(ranks, rank, "static_train_leaves")
+    assert _check(ranks, rank, "static_train_leaves_differ") == 0
+    assert _check(ranks, rank, "static_train_metrics_differ") == 0
 
 
 @pytest.mark.parametrize("name", ["train_dense", "train_moe", "train_sp",

@@ -335,3 +335,65 @@ def test_cuda_topk_ranks_nan_first_on_long_rows(share):
     _, li = jax.lax.top_k(jnp.asarray(x), 50)
     tv, ti = tsort.topk(torch.from_numpy(x), 50, method="cuda", device="cpu")
     np.testing.assert_array_equal(ti.numpy(), np.asarray(li))
+
+
+# ---------------------------------------------------------------------------
+# the ``torch`` backend's top-k: a compaction of static shape
+# ---------------------------------------------------------------------------
+
+def _nonzero_route(rows, k):
+    """The ``torch`` top-k as it compacted before: ``nonzero`` of the kept
+    lanes, which reads the row counts back to the host."""
+    from repro_torch.core import keycodec
+    key = keycodec.total_order_key(rows)
+    kth = torch.topk(key, k, dim=-1, sorted=False).values.amin(-1,
+                                                                keepdim=True)
+    above, tie = key > kth, key == kth
+    take = above | (tie & (tie.cumsum(-1) <= k - above.sum(-1, keepdim=True)))
+    idx = take.nonzero()[:, 1].view(rows.shape[0], k)
+    order = torch.sort(key.gather(-1, idx), dim=-1, stable=True,
+                       descending=True).indices
+    idx = idx.gather(-1, order)
+    return rows.gather(-1, idx), idx.to(torch.int32)
+
+
+def _compaction_case(case):
+    """(float32 rows, k) of each case."""
+    rng = np.random.default_rng(len(case))
+    if case == "ties_at_kth":        # the k-th key shared inside and out
+        x = rng.integers(-3, 4, (6, 97)).astype(np.float32)
+        return x, 20
+    if case == "all_equal":
+        return np.full((3, 64), 1.5, np.float32), 10
+    if case == "nan":
+        x = rng.standard_normal((4, 80)).astype(np.float32)
+        x[rng.random(x.shape) < 0.1] = np.nan
+        return x, 12
+    if case == "signed_zeros":
+        x = np.zeros((4, 50), np.float32)
+        x[:, 1::2] = -0.0
+        x[:, ::7] = rng.standard_normal((4, 8)).astype(np.float32)
+        return x, 25
+    x = rng.standard_normal((5, 33)).astype(np.float32)
+    return x, {"k1": 1, "kn": 33}[case]
+
+
+@pytest.mark.parametrize("case", ["ties_at_kth", "all_equal", "nan",
+                                  "signed_zeros", "k1", "kn"])
+def test_torch_topk_compaction_matches_lax_and_the_nonzero_route(case):
+    """The ``torch`` backend's top-k, whose kept lanes are scattered to
+    their ranks in a (B, k + 1) buffer (no ``nonzero``, no host read, so
+    it runs inside a captured CUDA graph): values and indices bit for bit
+    against ``jax.lax.top_k``, the reference's ``xla`` route and the
+    ``nonzero`` compaction it replaces; ties keep the lower index first,
+    NaN ranks above every number, +0.0 above -0.0."""
+    x, k = _compaction_case(case)
+    tv, ti = tsort.topk(torch.from_numpy(x), k, method="torch", device="cpu")
+    lv, li = jax.lax.top_k(jnp.asarray(x), k)
+    xv, xi = jsort.topk(jnp.asarray(x), k, method="xla")
+    nv, ni = _nonzero_route(torch.from_numpy(x), k)
+    for v, i, what in ((lv, li, "lax.top_k"), (xv, xi, "xla"),
+                       (nv, ni, "nonzero")):
+        assert_same(v, tv, f"{case} values vs {what}")
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(i),
+                                      err_msg=f"{case} indices vs {what}")
