@@ -258,6 +258,22 @@ Phases, each printed as one JSON line:
             runs by the merge's order), and printed with its spill- and
             merge-phase ms, overlap fraction and link bytes beside a plain
             pinned 1 GiB copy's rate;
+6b. examples
+            the six ``examples/torch/*.py`` as a user runs them, on the
+            card, in this process (``runpy``, each one's ``main`` with its
+            argv), each one's own assertions inside, the counts set to 0
+            just before each and read just after: ``quickstart``'s ``cuda``
+            sort K1's launches alone, its ``topk(5, cuda)`` K5's, the
+            ``torch`` and ``bitonic`` sorts none, the 2^20 ``merge`` sort
+            K1 and K2, ``radix`` K3 (1 + 4), the in-memory sort 6 K7 stage
+            launches; ``engine_sort_demo`` K1 and K2;
+            ``distributed_sort_demo`` (8 entries on cuda:0) K3's bucket
+            histogram and K2; ``serve_decode`` (gemma-2b smoke, 20
+            requests) every decode step a graph replay, K5's sampling
+            through the replays; ``train_lm`` (39 M parameters, 300 steps
+            of 8 x 256 through ``TrainGraph``) losses finite and falling,
+            its ms a step from CUDA events.  One line an example with its
+            seconds;
 7. calibrate
             ``planner.calibrate`` at (64, 2048) and (4096, 4096): constants,
             probes, sweeps; the plans the seed and both calibrated profiles
@@ -298,6 +314,7 @@ It needs a card: without one it exits 2 before doing anything.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -3633,6 +3650,143 @@ def phase_data(rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the six examples, as a user runs them
+# ---------------------------------------------------------------------------
+
+K1_NAMES = ("bitonic_sort_blocks", "bitonic_sort_kv_blocks")
+EXAMPLES = ("quickstart", "engine_sort_demo", "imc_sort_demo",
+            "distributed_sort_demo", "serve_decode", "train_lm")
+SERVE_DECODE_STEPS = 24      # serve_decode.py's decode_steps
+IMC_STAGES = 6               # network stages of the 8-input sort
+
+
+def _launched(counts, names) -> bool:
+    """Some launch, and every one of a kernel in ``names``."""
+    return bool(counts) and set(counts) <= set(names)
+
+
+def check_quickstart(calls, counts) -> None:
+    """The ``cuda`` sort is K1's launches alone, ``topk(5, cuda)`` K5's,
+    the plain-PyTorch backends launch nothing, the 2^20 merge sort runs
+    K1 and K2, the radix sort K3 (1 histogram + 4 passes), and the
+    in-memory sort one K7 stage launch a network stage."""
+    by = {(op, method): c for op, method, c in calls}
+    # the merge sorts: (4, 100), one K1 run a row; then 2^20, K1 runs and
+    # K2's merge tree
+    merges = [c for op, m, c in calls if m == "merge"]
+    checks = {("sort", "cuda"): _launched(by[("sort", "cuda")], K1_NAMES),
+              ("topk", "cuda"): _launched(by[("topk", "cuda")], K5_NAMES),
+              ("sort", "torch"): not by[("sort", "torch")],
+              ("sort", "bitonic"): not by[("sort", "bitonic")],
+              ("sort", "merge"): len(merges) == 2 and all(
+                  any(c.get(k) for k in K1_NAMES) for c in merges)
+              and all(merges[-1].get(k) for k in K2)}
+    bad = {k: by.get(k) if k[1] != "merge" else merges
+           for k, ok in checks.items() if not ok}
+    if bad:
+        raise AssertionError(f"quickstart: launches {bad}")
+    check_k3_sorts("quickstart radix", by[("sort", "radix")], 4)
+    if counts.get("bitserial_cas_stage") != IMC_STAGES:
+        raise AssertionError(f"quickstart: sort_in_memory launched "
+                             f"{counts.get('bitserial_cas_stage')} K7 stage "
+                             f"kernels, expected {IMC_STAGES}")
+
+
+def phase_examples() -> dict:
+    """Each of ``examples/torch/*.py`` run in this process on the card
+    (``runpy``, its ``main`` with its argv), the counts set to 0 just
+    before and read just after; its own assertions hold inside.  Beyond
+    them: ``quickstart``'s calls through the front door counted one by one
+    (``check_quickstart``; only there is the front door wrapped: its
+    count waits for the card, which no captured graph may do); ``engine_sort_demo`` on K1 and K2;
+    ``distributed_sort_demo``'s mesh sorts on K3's bucket histogram and
+    K2; ``serve_decode``'s decode steps replays of captured graphs with
+    K5's sampling launches (``check_decode_graph``); ``train_lm``'s losses
+    finite and falling, its step ms from CUDA events.  One JSON line an
+    example with its seconds.  Returns the launches."""
+    import math
+    import runpy
+    import tempfile
+    import torch
+    from repro_torch import sort as sorting
+    from repro_torch.kernels import _build
+
+    launches: dict = {}
+    calls: list = []
+
+    def counted(op, fn):
+        def call(*args, **kwargs):
+            before = dict(_build.launches)
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            after = dict(_build.launches)
+            calls.append((op, kwargs.get("method"),
+                          {k: v - before.get(k, 0) for k, v in after.items()
+                           if v != before.get(k, 0)}))
+            return out
+        return call
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name in EXAMPLES:
+            argv = ["--ckpt-dir", ckpt] if name == "train_lm" else []
+            main = runpy.run_path(os.path.join(
+                ROOT, "examples", "torch", f"{name}.py"))["main"]
+            calls.clear()
+            front = (sorting.sort, sorting.topk)
+            if name == "quickstart":     # its front-door calls one by one
+                sorting.sort = counted("sort", front[0])
+                sorting.topk = counted("topk", front[1])
+            try:
+                _build.reset_launches()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+            finally:
+                sorting.sort, sorting.topk = front
+            counts = dict(_build.launches)
+            check_k3_sorts(name, counts, None)
+            line = {"phase": "examples", "example": name, "argv": argv,
+                    "seconds": seconds, "launches": counts}
+            if name == "quickstart":
+                check_quickstart(calls, counts)
+            elif name == "engine_sort_demo":
+                if not (any(counts.get(k) for k in K1_NAMES)
+                        and all(counts.get(k) for k in K2)):
+                    raise AssertionError(f"{name}: K1 and K2 must launch "
+                                         f"(counts {counts})")
+                line["plans"] = res["plans"]
+            elif name == "distributed_sort_demo":
+                if not (counts.get("radix_bucket_hist")
+                        and counts.get("merge_path_partition")):
+                    raise AssertionError(f"{name}: K3's bucket histogram "
+                                         f"and K2 must launch ({counts})")
+                line["auto"] = res["plan"].strategy
+            elif name == "serve_decode":
+                stats = res["stats"]
+                line["graph"] = check_decode_graph(
+                    name, stats, counts, SERVE_DECODE_STEPS)
+                line["decode_tps"] = stats["decode_tps"]
+                line["prefill_ms"] = stats["prefill_ms"]
+            elif name == "train_lm":
+                losses = res["losses"]
+                if not (all(math.isfinite(x) for x in losses)
+                        and losses[-1] < losses[0]
+                        and res["step_ms"] is not None):
+                    raise AssertionError(f"{name}: losses {losses[:3]} ... "
+                                         f"{losses[-3:]}, step ms "
+                                         f"{res['step_ms']}")
+                line.update(steps=len(losses), first_loss=losses[0],
+                            last_loss=losses[-1], step_ms=res["step_ms"],
+                            nvidia_smi=card())
+            emit(line)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the spill tier, above the default threshold
 # ---------------------------------------------------------------------------
 
@@ -4916,6 +5070,16 @@ def main() -> int:
     emit({"phase": "spill", "total_launches": spill_launches,
           "seconds": time.perf_counter() - tp})
 
+    # the examples before calibrate: the timing phase follows calibrate,
+    # as it did before the examples phase existed
+    te = time.perf_counter()
+    torch.cuda.empty_cache()
+    example_launches = phase_examples()
+    gc.collect()                 # the examples' graphs and their pools
+    torch.cuda.empty_cache()
+    emit({"phase": "examples", "total_launches": example_launches,
+          "seconds": time.perf_counter() - te})
+
     tc = time.perf_counter()
     phase_calibrate(main_res["steps"], rel_ms)
     emit({"phase": "calibrate", "seconds": time.perf_counter() - tc})
@@ -4925,11 +5089,15 @@ def main() -> int:
     launches = dict(main_res["launches"])
     for counts in (rel_launches, dist_launches, serve_launches, moe_launches,
                    family_launches, train_launches, families_train_launches,
-                   sharding_launches, data_launches, spill_launches):
+                   sharding_launches, data_launches, spill_launches,
+                   example_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
     tt = time.perf_counter()
+    emit({"phase": "timing", "memory_allocated_gib":
+          torch.cuda.memory_allocated() / 2 ** 30, "memory_reserved_gib":
+          torch.cuda.memory_reserved() / 2 ** 30})
     rows = phase_timing(launches, prof.run_len, prof.radix_tile,
                         prof.digit_bits, k7_ops, k1_ops)
     emit({"phase": "timing", "seconds": time.perf_counter() - tt})

@@ -152,6 +152,11 @@ def validate_claims() -> PaperClaims:
 # ---- device-level cost model (engine auto-dispatch) --------------------------
 
 
+def _radix_digit_bits(digit_bits: Optional[int]) -> int:
+    return digit_bits if digit_bits is not None \
+        else _tuning.active().digit_bits
+
+
 def _log2(v: float) -> float:
     return math.log2(max(2.0, v))
 
@@ -238,11 +243,65 @@ def selection_cost_ns(n: int, k: int, key_bits: int = 32, batch: int = 1, *,
     over the row (K4's grid strides over the keys and pads nothing), plus
     the O(k log k) ordering of the k survivors (priced as a ``torch`` sort
     of k)."""
-    prof = _tuning.active()
-    c = consts or prof.constants
-    digit_bits = prof.digit_bits if digit_bits is None else digit_bits
-    passes = -(-key_bits // digit_bits)
+    c = consts or _tuning.active().constants
+    passes = -(-key_bits // _radix_digit_bits(digit_bits))
     return c.select * batch * n * passes + c.torch * batch * k * _log2(k)
+
+
+def bytes_moved(method: str, n: int, itemsize: int = 4, *,
+                key_bits: int = 32, k: Optional[int] = None,
+                run_len: Optional[int] = None,
+                digit_bits: Optional[int] = None,
+                plain: bool = False) -> int:
+    """Analytic bytes one backend moves through device memory sorting
+    ``n`` elements of ``itemsize`` bytes (with ``k``: taking their top k):
+    the paper's data-movement accounting (Tables I/II count temp-row COPY
+    cycles; this counts the software analogue, the element reads and
+    writes that leave the compute unit's resident tile).
+
+    The JAX package's formulas under the port's names: the merge family
+    (``merge``, and ``torch`` as a comparison sort) moves every element
+    once a level, ~log2 n levels; ``bitonic`` once a substage; ``cuda``
+    once in and once out (K1 holds a row in registers and shared memory,
+    as the reference's VMEM tile); ``radix`` once a digit pass;
+    ``select``'s counting passes read only, then write k values and k
+    indices; ``torch``'s top-k is one scan and the k pairs; every other
+    top-k is its sort plus a read of the k-prefix.
+
+    ``plain`` says the tensor lies on the CPU, where every method moves
+    what the reference's does.  On the card two methods move what the
+    port's pricing says they run (``device_sort_cost_ns`` and
+    ``cuda_topk_cost_ns``): a ``torch`` sort is ``torch.sort``'s radix
+    sort of 8-bit digits, each pass a read and a write of every element
+    (``2 n s ceil(key_bits / 8)``); and a ``cuda`` top-k with
+    ``k <= kernels.bitonic_topk.MAX_K`` is K5's one pass, a read of the
+    row and the k pairs written (``n s + 2 k s``), not a sort.  Methods
+    the model does not know (``imc``, ``distributed``, ``spill``) raise
+    ``ValueError``.
+    """
+    passes = -(-key_bits // _radix_digit_bits(digit_bits))
+    if k is not None:
+        from repro_torch.kernels.bitonic_topk import MAX_K
+        if method == "select":
+            return n * itemsize * passes + 2 * k * itemsize
+        if method == "torch" or (method == "cuda" and not plain
+                                 and k <= MAX_K):
+            return n * itemsize + 2 * k * itemsize      # one scan, k pairs
+        return bytes_moved(method, n, itemsize, key_bits=key_bits,
+                           run_len=run_len, digit_bits=digit_bits,
+                           plain=plain) + k * itemsize
+    lvl = _log2(n)
+    if method == "torch" and not plain:
+        return 2 * n * itemsize * -(-key_bits // 8)
+    if method in ("torch", "merge"):
+        return int(2 * n * itemsize * lvl)
+    if method == "bitonic":
+        return int(2 * n * itemsize * lvl * lvl)
+    if method == "cuda":
+        return 2 * n * itemsize
+    if method == "radix":
+        return 2 * n * itemsize * passes
+    raise ValueError(f"no bytes-moved model for method {method!r}")
 
 
 # ---- relational ops (repro_torch.relational auto-dispatch) -------------------

@@ -24,13 +24,43 @@ METHODS = ("torch", "bitonic", "cuda", "imc", "merge", "radix", "auto")
 _warned: set = set()
 
 
-def _deprecated(name: str) -> None:
+def _deprecated(name: str, instead: str = "") -> None:
     if name not in _warned:
         _warned.add(name)
         warnings.warn(
             f"repro_torch.core.sort_api.{name} is deprecated; use "
-            f"repro_torch.sort.{name} (SortSpec front door) instead",
-            DeprecationWarning, stacklevel=3)
+            f"{instead or 'repro_torch.sort.' + name} (SortSpec front door) "
+            f"instead", DeprecationWarning, stacklevel=3)
+
+
+def bitonic_sort(x, *, axis: int = -1, descending: bool = False,
+                 values=None, device="cuda"):
+    """The v1 word-parallel bitonic sort along ``axis``, optionally
+    carrying ``values`` sorted by the keys -> keys, or (keys, values).
+
+    Runs the ``bitonic`` backend's network (plain PyTorch ops on
+    ``device``, what the JAX package runs outside its kernel).  Rows are
+    padded to a power of two with keys that sort last and, with
+    ``values``, the payload ``n``: a pad key can tie a genuine extreme
+    key, and the key-value network breaks ties on ascending payload, so
+    the pads sort after every real entry."""
+    _deprecated("bitonic_sort",
+                "repro_torch.sort.sort / sort_kv with method='bitonic'")
+    from repro_torch.core.sortspec import next_pow2, resolve_device
+    from repro_torch.kernels import bitonic_sort as _bs
+    from repro_torch.kernels.ops import _from_rows, _to_rows, pad_rows, \
+        sentinel
+    dev = resolve_device(device)
+    rows, lead, ax = _to_rows(torch.as_tensor(x).to(dev), axis)
+    n = rows.shape[-1]
+    m = next_pow2(n)
+    keys = pad_rows(rows, m, sentinel(rows.dtype, descending))
+    if values is None:
+        return _from_rows(_bs.apply_network(keys, descending)[:, :n], lead,
+                          ax)
+    vals = _to_rows(torch.as_tensor(values).to(dev), axis)[0]
+    sk, sv = _bs.apply_network_kv(keys, pad_rows(vals, m, n), descending)
+    return _from_rows(sk[:, :n], lead, ax), _from_rows(sv[:, :n], lead, ax)
 
 
 def sort(x, *, axis: int = -1, method: str = "torch",

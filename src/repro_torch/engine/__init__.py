@@ -37,7 +37,8 @@ from repro_torch.engine.merge import merge_pairs, merge_runs  # noqa: F401
 from repro_torch.engine.merge import kway_merge, kway_merge_kv  # noqa: F401
 from repro_torch.engine.planner import (  # noqa: F401
     DistPlan, Plan, calibrate, choose, choose_cached, choose_distributed,
-    choose_distributed_cached, clear_plan_cache, reset_calibration)
+    choose_distributed_cached, choose_method, clear_plan_cache,
+    reset_calibration)
 from repro_torch.engine.samplesort import sample_sort  # noqa: F401
 from repro_torch.engine.segmented import (  # noqa: F401
     group_tokens_by_expert, segment_ids_from_row_splits, segmented_argsort,

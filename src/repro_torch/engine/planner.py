@@ -30,9 +30,14 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import BACKEND_NAMES
 from repro_torch.core import cost_model, keycodec, sortspec
 from repro_torch.core import tuning as _tuning
 from repro_torch.kernels.bitonic_sort import MAX_N as MAX_CUDA_N
+
+# the backends the port registers itself: calibrate lets none of them fail
+BUILT_IN_BACKENDS = frozenset(BACKEND_NAMES.values()) | {
+    "select", "distributed", "spill"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +54,13 @@ class Plan:
 def on_cuda(device) -> bool:
     """Does work on ``device`` run the CUDA kernels?"""
     return torch.device(device).type == "cuda"
+
+
+def constants() -> cost_model.DeviceSortConstants:
+    """The cost constants every plan is priced with: the active tuning
+    profile's (the seeds until ``calibrate()`` measures real ones or a
+    persisted profile matches the device fingerprint)."""
+    return _tuning.active().constants
 
 
 def _auto_candidates() -> Dict[str, sortspec.SortBackend]:
@@ -140,6 +152,12 @@ def _record_decision(plan: Plan, *, n: int, batch: int, dtype,
         run_len=plan.run_len, device=torch.device(device).type)
     from repro_torch.obs import metrics as _m
     _m.counter("planner.decisions").inc()
+
+
+def choose_method(n: int, batch: int = 1, dtype=torch.float32, *,
+                  device="cuda") -> str:
+    """Just the backend name: what the public "auto" resolves to."""
+    return choose(n, batch, dtype, device=device).method
 
 
 _PLAN_CACHE: Dict[tuple, Plan] = {}
@@ -382,7 +400,9 @@ def _probe_registered(x: torch.Tensor, sel_k: int, reps: int,
     auto-dispatchable backend at the calibration shape -> {probe: ns},
     the audit table a profile carries (``probe_ns``).  Without
     ``include_kernels`` the kernel backends (``cuda``, ``radix``) are not
-    timed: their plain versions say nothing of the kernels."""
+    timed: their plain versions say nothing of the kernels.  A third-party
+    backend that fails is left out of the table; a built-in one's failure
+    (a kernel that does not build or launch) raises, naming it."""
     n = x.shape[-1]
     skip = () if include_kernels else ("cuda", "radix")
     table: Dict[str, float] = {}
@@ -397,8 +417,10 @@ def _probe_registered(x: torch.Tensor, sel_k: int, reps: int,
             if caps.supports_topk and sel_k <= n:
                 table[f"{name}.topk.n{n}.k{sel_k}"] = _time_ns(
                     lambda b=be: b.topk(x, sel_k), reps, x.device)
-        except Exception:       # a broken third-party backend must not
-            continue            # sink the whole calibration
+        except Exception as e:  # a broken third-party backend must not
+            if name in BUILT_IN_BACKENDS:   # sink the whole calibration
+                raise RuntimeError(f"calibrate: the built-in {name!r} "
+                                   f"backend failed its probe") from e
     return table
 
 

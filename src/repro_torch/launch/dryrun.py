@@ -182,10 +182,9 @@ def make_policy(mesh, plan: CellPlan, shape: ShapeSpec):
         cp_layout=plan.layout == "cp")
 
 
-def param_specs(model, policy, plan: CellPlan):
-    """The model's parameter specs, the serve layouts' layer weights
-    transformed as the reference's dry run does."""
-    specs = model.param_specs()
+def param_specs(specs, policy, plan: CellPlan):
+    """The model's parameter specs ``specs``, the serve layouts' layer
+    weights transformed as the reference's dry run does."""
     if plan.layout in ("dp", "cp"):
         for sub in ("prefix", "body", "enc", "dec"):
             if sub in specs:
@@ -245,8 +244,9 @@ def _step(cfg: ModelConfig, shape: ShapeSpec, plan: CellPlan, mesh=None):
     if plan.flash:
         cfg = dataclasses.replace(cfg, flash_prefill=True)
     model = build(cfg, device="cpu", policy=policy)
-    params = model.init(torch.Generator().manual_seed(0))
-    specs = None if policy is None else param_specs(model, policy, plan)
+    params, specs = steps_lib.abstract_init(
+        model, torch.Generator().manual_seed(0))
+    specs = None if policy is None else param_specs(specs, policy, plan)
     if shape.kind == "train":
         accum = torch.bfloat16 if plan.accum == "bfloat16" else torch.float32
         fn, optimizer = steps_lib.make_train_step(

@@ -20,11 +20,14 @@ returns them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+from torch._guards import detect_fake_mode
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as _tree
@@ -74,6 +77,16 @@ def shardings_of(tree_specs, mesh):
     if mesh is None:
         return None
     return _tree.map(lambda s: placements_of(s, mesh), tree_specs)
+
+
+def abstract_init(model: Model, generator: torch.Generator):
+    """(params, partition specs) without allocating anything: the params
+    are fake tensors, with the shapes and dtypes ``model.init`` gives, of
+    the active ``FakeTensorMode`` (a fresh one where none is active)."""
+    active = detect_fake_mode() is not None
+    with contextlib.nullcontext() if active else FakeTensorMode():
+        params = model.init(generator)
+    return params, model.param_specs()
 
 
 def place_batch(model: Model, batch, shape: ShapeSpec = None):

@@ -17,7 +17,8 @@ on the card its first ``steps.GRAPH_WARMUP`` steps run eagerly and every
 later one is a replay of one captured CUDA graph; on the CPU the same
 static step runs uncaptured.  A checkpoint reads the parameters and
 state between steps, and a resumed run builds the graph after the
-restore.
+restore.  With tracing on (``repro_torch.obs``) each step is a
+``train.step`` span, timed on the card by CUDA events.
 
 With a sharding ``policy`` (``sharding.partitioning.ShardingPolicy`` on a
 ``launch.mesh.make_host_device_mesh``; one process a rank) the parameters
@@ -43,6 +44,7 @@ from repro_torch.core.sortspec import resolve_device
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model_zoo import build
+from repro_torch.obs import trace as _obs
 from repro_torch.runtime.fault_tolerance import (PreemptionHandler,
                                                  StepWatchdog)
 from repro_torch.sharding.partitioning import full_tensor, is_dtensor
@@ -137,9 +139,11 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
             dev_batch = steps_lib.place_batch(
                 model, to_device(train_batch(data, cfg, step, seed), dev))
             watchdog.start()
-            params, opt_state, metrics = graph(params, opt_state, step,
-                                               dev_batch)
-            metrics = {k: full_tensor(v) for k, v in metrics.items()}
+            with _obs.trace("train.step", step=step) as sp:
+                params, opt_state, metrics = graph(params, opt_state, step,
+                                                   dev_batch)
+                metrics = {k: full_tensor(v) for k, v in metrics.items()}
+                sp.fence(metrics["loss"])
             loss = float(metrics["loss"])            # waits for the card
             dt = watchdog.stop(step)
             losses.append(loss)

@@ -204,6 +204,58 @@ def test_calibrate_constants_are_finite_and_positive():
     assert set(planner.NOT_SWEPT) == {"radix_tile", "capacity_slack"}
 
 
+def test_calibrate_skips_a_broken_third_party_backend():
+    """A registered backend that is not the port's own and fails its
+    probe is left out of ``probe_ns``; the calibration goes on."""
+    from repro_torch.core import sortspec
+
+    @sortspec.register_backend
+    class Broken(sortspec.SortBackend):
+        name = "broken_third_party"
+
+        def sort(self, rows, *, descending=False, plan=None):
+            raise ValueError("broken")
+
+    try:
+        prof = planner.calibrate(tile_n=256, batch=4, reps=1,
+                                 sweep_params=False, device="cpu")
+    finally:
+        sortspec.unregister_backend(Broken.name)
+    assert not any(k.startswith(Broken.name) for k in prof.probe_ns)
+    assert any(k.startswith("torch.") for k in prof.probe_ns)
+
+
+@pytest.mark.parametrize("name", ["torch", "bitonic", "merge", "select"])
+def test_calibrate_raises_on_a_built_in_backend_s_failure(name, monkeypatch):
+    """A built-in backend that fails its probe (on the card: a kernel that
+    does not build or launch) stops the calibration, naming it."""
+    from repro_torch.core import sortspec
+    be = sortspec.get_backend(name)
+    assert name in planner.BUILT_IN_BACKENDS
+
+    def fail(*args, **kwargs):
+        raise ValueError("no kernel")
+
+    monkeypatch.setattr(be, "topk" if name == "select" else "sort", fail)
+    x = torch.randn((4, 256), generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match=f"built-in {name!r}") as err:
+        planner._probe_registered(x, 8, 1, include_kernels=False)
+    assert isinstance(err.value.__cause__, ValueError)
+    # calibrate's other timings may reach the backend first: either way
+    # the failure propagates
+    with pytest.raises((RuntimeError, ValueError), match="no kernel|built-in"):
+        planner.calibrate(tile_n=256, batch=4, reps=1, sweep_params=False,
+                          device="cpu")
+
+
+def test_built_in_backends_are_the_port_s_registrations():
+    import repro_torch
+    from repro_torch.core import sortspec
+    assert set(repro_torch.BACKEND_NAMES.values()) < \
+        planner.BUILT_IN_BACKENDS
+    assert set(sortspec.backend_names()) <= planner.BUILT_IN_BACKENDS
+
+
 def test_calibrate_refuses_a_device_the_fingerprint_does_not_name():
     if torch.cuda.is_available():
         pytest.skip("a card machine calibrates its card")

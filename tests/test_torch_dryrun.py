@@ -262,6 +262,9 @@ def test_new_launch_modules_import_neither_jax_nor_repro():
     code = ("import sys\n"
             "from repro_torch.launch import dryrun, hlo_analysis, "
             "roofline, report\n"
+            "from repro_torch.launch.steps import abstract_init\n"
+            "from repro_torch.core import bitonic_sort, cost_model\n"
+            "from repro_torch.engine import choose_method\n"
             "from repro_torch.configs.base import cell_is_supported\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "

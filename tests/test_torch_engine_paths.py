@@ -399,6 +399,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "from repro_torch.configs import gemma_2b, deepseek_67b, "
             "nemotron_4_340b, mamba2_13b, recurrentgemma_2b, whisper_tiny, "
             "qwen2_vl_72b\n"
+            "import glob, runpy\n"
+            "examples = sorted(glob.glob(sys.argv[1] + '/*.py'))\n"
+            "assert len(examples) == 6, examples\n"
+            "for path in examples:\n"
+            "    runpy.run_path(path)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -406,5 +411,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env["PYTHONPATH"] = os.path.abspath(src)
-    subprocess.run([sys.executable, "-c", code], check=True, env=env,
-                   timeout=120)
+    examples = os.path.join(os.path.dirname(__file__), os.pardir,
+                            "examples", "torch")
+    subprocess.run([sys.executable, "-c", code, examples], check=True,
+                   env=env, timeout=120)

@@ -99,8 +99,9 @@ _FAKE = FakeTensorMode()        # one mode: fake tensors of two don't mix
 def _torch_model(arch):
     model = tzoo.build(torch_config(arch), device="cpu")
     with _FAKE:
-        params = model.init(torch.Generator().manual_seed(0))
-    return model, params, model.param_specs()
+        params, specs = tsteps.abstract_init(
+            model, torch.Generator().manual_seed(0))
+    return model, params, specs
 
 
 # ---------------------------------------------------------------------------
