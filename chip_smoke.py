@@ -224,9 +224,18 @@ Phases, each printed as one JSON line:
             "model")`` DeviceMesh: full-width minitron-4b served through
             ``launch.serve`` with a ``ShardingPolicy`` (bf16, 8 requests,
             batch 8, 16 tokens; its decode steps replays of one captured
-            graph, as without a policy), its tokens equal to the same serve
-            without a policy under the same uniforms and its K6 and K5
-            launches equal; then K6's context-parallel decomposition (the per-rank
+            graph, as without a policy), and a third time under the DP-heavy
+            serve layout (``serve_layout=True``: the layer weights placed by
+            ``layout_param_specs``, DTensor caches filled from prompts
+            shorter than ``max_len``), each one's tokens equal to the same
+            serve without a policy under the same uniforms and its K6 and
+            K5 launches equal, the weights and caches of both policies
+            DTensors with ``Shard`` placements on the size-1 axes (one
+            card holds tp = 1, where the caches keep their sequence whole,
+            so the sequence-sharded fill is held by the CPU gloo tests and
+            run here once directly, ``check_seq_shard_fill``: a
+            ``Shard(1)`` cache at lo = 0, bit-equal to the plain fill);
+            then K6's context-parallel decomposition (the per-rank
             work of ``_run_cp_flash``): at (8, 1024) and (1, 32768) x 24/8
             heads of 128, bf16, the queries cut into tp = 2, 4 and 8
             blocks at ``q_offset = i * S / tp`` against the whole K/V, the
@@ -236,7 +245,11 @@ Phases, each printed as one JSON line:
             under the policy: the first loss equal to the unsharded step's,
             the rest within 1e-4 relative; and the policy's steps once more
             through ``TrainGraph`` (captured on the one-rank group), its
-            losses equal to the eager policy step's;
+            losses equal to the eager policy step's; last, once the
+            card's timed work is done, five spawned host processes (one
+            thread each) run the dry runs of the five serve-layout cells
+            on the 16 x 16 mesh (``SERVE_LAYOUT_CELLS``, fake tensors),
+            each ``ok`` with its per-device peak printed;
             the group is destroyed;
 5e. data    2^20 token rows of 128 with a tenth planted as copies:
             ``dedup_rows`` on ``method="radix"`` (its ``unique`` exactly
@@ -365,6 +378,15 @@ GRAPH_CHECK_STEPS = 8        # decode steps of each captured-vs-eager check
 # context-parallel block counts, the 2-layer train step
 SHARD_SERVE = dict(n_requests=8, batch_size=8, decode_steps=16, topk=50,
                    max_len=4096)
+# the serve layouts' dry-run cells on the 16 x 16 mesh, (arch, shape,
+# layout): a sequence-sharded cache filled by a prompt shorter than it or
+# past its window, and whisper's 1500 frames over 16 'model' ranks
+SERVE_LAYOUT_CELLS = (("recurrentgemma-2b", "prefill_32k", "dp"),
+                      ("recurrentgemma-2b", "prefill_32k", "cp"),
+                      ("whisper-tiny", "decode_32k", "dp"),
+                      ("whisper-tiny", "prefill_32k", "cp"),
+                      ("whisper-tiny", "decode_32k", "cp"))
+DRY_RUN_TIMEOUT_S = 300
 CP_TPS = (2, 4, 8)
 SHARD_TRAIN = dict(layers=2, batch=4, seq=1024, steps=4)
 # the (1, 1) policy step's losses against the unsharded step's: the first
@@ -3422,30 +3444,155 @@ def cp_blocks(gen) -> list:
     return rows
 
 
+def placement_records():
+    """(context in which ``Transformer._fill_cache`` records each fill as
+    (the cache's placements, None for a plain tensor; prompt length; cache
+    length) and ``ShardingPolicy.distribute`` each weight's placements,
+    the fill records, the weight records)."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding.partitioning import ShardingPolicy, is_dtensor
+    fills, weights = [], []
+    real_fill = transformer.Transformer._fill_cache
+    real_dist = ShardingPolicy.distribute
+
+    def spy_fill(self, cache, kv):
+        fills.append((tuple(cache.k.placements) if is_dtensor(cache.k)
+                      else None, kv.k.shape[1], cache.k.shape[1]))
+        return real_fill(self, cache, kv)
+
+    def spy_dist(pol, t, spec):
+        out = real_dist(pol, t, spec)
+        weights.append(tuple(out.placements))
+        return out
+
+    @contextlib.contextmanager
+    def recording():
+        fills.clear()
+        weights.clear()
+        transformer.Transformer._fill_cache = spy_fill
+        ShardingPolicy.distribute = spy_dist
+        try:
+            yield
+        finally:
+            transformer.Transformer._fill_cache = real_fill
+            ShardingPolicy.distribute = real_dist
+
+    return recording, fills, weights
+
+
+def check_seq_shard_fill(mesh) -> dict:
+    """A cache whose sequence is sharded (``Shard(1)`` on 'model'), filled
+    on the card through ``transformer._fill_local`` on the (1, 1) mesh:
+    its one rank holds slots [0, cap), so ``_fill_seq_shard`` runs with lo
+    = 0.  At minitron-4b's serve shapes (batch 8, cap ``max_len``, 8 kv
+    heads of 128, bf16): a prompt of 871 into a cache of random values
+    (the slots past it keep them) and one of cap + 5 (the rolled ring),
+    each equal, bit for bit, to the plain fill."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.models import transformer
+    b, cap, r, h = (SHARD_SERVE["batch_size"], SHARD_SERVE["max_len"], 8,
+                    128)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    calls = []
+    real = transformer._fill_seq_shard
+
+    def spy(*a):
+        calls.append(a[2])
+        return real(*a)
+
+    out = {}
+    transformer._fill_seq_shard = spy
+    try:
+        for s in (871, cap + 5):
+            held = torch.randn((b, cap, r, h), generator=g, device="cuda",
+                               dtype=torch.bfloat16)
+            src = torch.randn((b, s, r, h), generator=g, device="cuda",
+                              dtype=torch.bfloat16)
+            want = held.clone()
+            if s <= cap:
+                want[:, :s] = src
+            else:
+                want.copy_(torch.roll(src[:, -cap:], (s - cap) % cap,
+                                      dims=1))
+            dst = DTensor.from_local(held.clone(), mesh,
+                                     [Shard(0), Shard(1)], run_check=False)
+            transformer._fill_local(
+                dst, DTensor.from_local(src, mesh, [Shard(0), Replicate()],
+                                        run_check=False), s, cap)
+            torch.cuda.synchronize()
+            if not torch.equal(dst.to_local(), want):
+                raise AssertionError(f"sharding: the sequence-sharded fill "
+                                     f"of a {s}-token prompt into {cap} "
+                                     f"slots differs from the plain fill")
+            out[str(s)] = "equal"
+    finally:
+        transformer._fill_seq_shard = real
+    if len(calls) != 2:
+        raise AssertionError(f"sharding: _fill_seq_shard ran {len(calls)} "
+                             f"times, not 2")
+    return {"cap": cap, "prompts": out}
+
+
+def check_serve_layout_dry_runs(pending) -> list:
+    """The serve layouts' dry runs (``SERVE_LAYOUT_CELLS``, started in
+    ``pending``) each ``ok``; one line a cell with its per-device peak."""
+    recs = []
+    for (arch, shape, layout), job in zip(SERVE_LAYOUT_CELLS, pending):
+        rec = job.get(DRY_RUN_TIMEOUT_S)
+        if not rec.get("ok") or rec.get("skipped"):
+            raise AssertionError(f"sharding: the dry run of {arch} {shape} "
+                                 f"--layout {layout} on 16x16: "
+                                 f"{rec.get('reason') or rec}")
+        mem = rec["memory"]
+        recs.append({"arch": arch, "shape": shape, "layout": layout,
+                     "mesh": rec["mesh"], "ok": True,
+                     "peak_bytes": mem["peak_bytes"],
+                     "peak_gib": mem["peak_bytes"] / 2 ** 30,
+                     "argument_bytes": mem["argument_bytes"],
+                     "trace_s": rec["lower_s"] + rec["compile_s"]})
+        emit({"phase": "sharding", "dry_run": recs[-1]})
+    return recs
+
+
 def phase_sharding() -> dict:
     """The sharding policy on the card (one rank): a one-rank NCCL group
     and a (1, 1) ``("data", "model")`` DeviceMesh.  Minitron-4b served at
-    full width with and without a ``ShardingPolicy`` (the launch counts set
-    to 0 just before each serve and read just after), each decode step a
-    replay of its captured graph (the policy's DTensor dispatch runs at
-    capture only): the same tokens under the same uniforms, and the same
-    K6 and K5 launches.  Then K6's
+    full width with and without a ``ShardingPolicy`` and under the serve
+    layout (``serve_layout=True``: the layer weights placed by
+    ``layout_param_specs``, the caches DTensors filled from prompts shorter
+    than ``max_len``; the launch counts set to 0 just before each serve and
+    read just after), each decode step a replay of its captured graph (the
+    policy's DTensor dispatch runs at capture only): the same tokens under
+    the same uniforms, and the same K6 and K5 launches; both policies'
+    weights and caches DTensors with ``Shard`` placements on the size-1
+    axes, the serve layout's weights placed otherwise than the policy's.
+    One card cannot hold tp > 1 (NCCL takes no two ranks on one device),
+    and at tp = 1 ``decode_state_specs`` keeps a cache's sequence whole,
+    as the reference's does; so the sequence-sharded fill is held by the
+    CPU gloo tests (``tests/test_torch_sharding_mesh.py``) and run on the
+    card once directly (``check_seq_shard_fill``).  Then K6's
     context-parallel blocks (``cp_blocks``), and ``SHARD_TRAIN["steps"]``
     full-width minitron-4b train steps at 2 layers with and without the
     policy: the first losses equal, the rest within ``SHARD_LOSS_REL``;
     and the policy's steps once more through ``launch.steps.TrainGraph``
     (its DTensor dispatch and gradient ``redistribute`` at capture, the
     one-rank group's collectives in the graph), whose losses equal the
-    eager policy step's (``same_losses``).  The group is destroyed at the end.
+    eager policy step's (``same_losses``).  Last, after the card's timed
+    work, five spawned host processes trace the serve layouts' dry-run
+    cells on the 16 x 16 mesh (``check_serve_layout_dry_runs``).  The
+    group is destroyed and the host processes stopped at the end.
     Returns the launches of the serves and the steps."""
     import dataclasses
     import math
+    import multiprocessing
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
     from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve as srv
     from repro_torch.launch import steps as steps_lib
@@ -3461,19 +3608,38 @@ def phase_sharding() -> dict:
 
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
+    pool = None
     try:
         mesh = mesh_lib.make_host_device_mesh((1, 1), device="cuda")
         policy = ShardingPolicy(mesh=mesh)
+        layout = ShardingPolicy(mesh=mesh, serve_layout=True)
         emit({"phase": "sharding", "mesh": str(mesh),
               "backend": dist.get_backend()})
+        recording, fills, weights = placement_records()
+        placed = {}
+        specs = []
+        real_specs = ShardingPolicy.layout_param_specs
+
+        def spy_specs(pol, tree):
+            specs.append((tree, real_specs(pol, tree)))
+            return specs[-1][1]
+
         outs, counts = {}, {}
-        for name, pol in (("plain", None), ("policy", policy)):
+        for name, pol in (("plain", None), ("policy", policy),
+                          ("serve_layout", layout)):
             torch.cuda.synchronize()
             _build.reset_launches()
             t0 = time.perf_counter()
-            done, stats = srv.serve("minitron-4b", smoke=False, seed=SEED,
-                                    device="cuda", flash_prefill=True,
-                                    policy=pol, **SHARD_SERVE)
+            ShardingPolicy.layout_param_specs = spy_specs
+            try:
+                with recording():
+                    done, stats = srv.serve("minitron-4b", smoke=False,
+                                            seed=SEED, device="cuda",
+                                            flash_prefill=True, policy=pol,
+                                            **SHARD_SERVE)
+            finally:
+                ShardingPolicy.layout_param_specs = real_specs
+            placed[name] = (list(fills), list(weights))
             torch.cuda.synchronize()
             counts[name] = dict(_build.launches)
             add(counts[name])
@@ -3489,22 +3655,70 @@ def phase_sharding() -> dict:
                   "seconds": time.perf_counter() - t0})
             del done, stats
             torch.cuda.empty_cache()
-        if outs["plain"] != outs["policy"]:
-            bad = [rid for rid in outs["plain"]
-                   if outs["plain"][rid] != outs["policy"].get(rid)]
-            raise AssertionError(f"sharding: the policy serve's tokens "
-                                 f"differ for requests {bad}")
-        for names, what in ((K6_NAMES, "K6"), (K5_NAMES, "K5")):
-            a = {k: counts["plain"].get(k, 0) for k in names}
-            b = {k: counts["policy"].get(k, 0) for k in names}
-            if a != b or not sum(a.values()):
-                raise AssertionError(f"sharding: {what} launches {b} under "
-                                     f"the policy, {a} without")
+        for run in ("policy", "serve_layout"):
+            if outs["plain"] != outs[run]:
+                bad = [rid for rid in outs["plain"]
+                       if outs["plain"][rid] != outs[run].get(rid)]
+                raise AssertionError(f"sharding: the {run} serve's tokens "
+                                     f"differ for requests {bad}")
+            for names, what in ((K6_NAMES, "K6"), (K5_NAMES, "K5")):
+                a = {k: counts["plain"].get(k, 0) for k in names}
+                b = {k: counts[run].get(k, 0) for k in names}
+                if a != b or not sum(a.values()):
+                    raise AssertionError(f"sharding: {what} launches {b} "
+                                         f"under the {run} serve, {a} "
+                                         f"without")
+        # the serve layout's weights took its transform (the policy
+        # serve's did not), and its caches were DTensors filled from
+        # prompts shorter than max_len
+        if len(specs) != 2 or specs[0][0] != specs[0][1] or \
+                specs[1][0] == specs[1][1]:
+            raise AssertionError("sharding: the serve layout's weights did "
+                                 "not take layout_param_specs' transform")
+        # both policies' weights and caches are DTensors with Shard
+        # placements on the size-1 axes (the sharded paths run, each with
+        # its one-rank collectives), and the serve layout places its
+        # weights otherwise than the policy serve; one card holds tp = 1,
+        # where the caches keep their sequence whole (``decode_state_specs``)
+        def sharded(pls):
+            return any(p.is_shard() for pl in pls for p in pl)
+
+        for run in ("policy", "serve_layout"):
+            f, w = placed[run]
+            if not f or any(pl is None for pl, _, _ in f) or \
+                    not sharded(pl for pl, _, _ in f) or not sharded(w):
+                raise AssertionError(f"sharding: the {run} serve's caches "
+                                     f"{sorted({str(x[0]) for x in f})} or "
+                                     f"weights {sorted(set(map(str, w)))} "
+                                     f"are not sharded DTensors")
+        if set(placed["policy"][1]) == set(placed["serve_layout"][1]):
+            raise AssertionError("sharding: the serve layout placed its "
+                                 "weights as the policy serve did")
+        if placed["plain"][1] or any(pl for pl, _, _ in placed["plain"][0]):
+            raise AssertionError("sharding: the plain serve placed DTensors")
+        fills = placed["serve_layout"][0]
+        short = sum(s < cap for _, s, cap in fills)
+        if not short:
+            raise AssertionError(f"sharding: the serve layout's cache fills "
+                                 f"(placements, prompt, cache) {fills}")
         emit({"phase": "sharding", "tokens_equal": True,
-              "k6_launches": {k: counts["policy"].get(k, 0)
-                              for k in K6_NAMES},
-              "k5_launches": {k: counts["policy"].get(k, 0)
-                              for k in K5_NAMES}})
+              "placements": {run: {
+                  "caches": sorted({str(pl) for pl, _, _ in placed[run][0]}),
+                  "weights": sorted({str(pl) for pl in placed[run][1]})}
+                  for run in ("policy", "serve_layout")},
+              "serve_layout_fills": len(fills),
+              "serve_layout_short_prompts": short,
+              "serve_layout_max_prompt": max(s for _, s, _ in fills),
+              "k6_launches": {run: {k: counts[run].get(k, 0)
+                                    for k in K6_NAMES}
+                              for run in ("policy", "serve_layout")},
+              "k5_launches": {run: {k: counts[run].get(k, 0)
+                                    for k in K5_NAMES}
+                              for run in ("policy", "serve_layout")}})
+
+        emit({"phase": "sharding",
+              "seq_shard_fill": check_seq_shard_fill(mesh)})
+        torch.cuda.empty_cache()
 
         gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
         cp_blocks(gen)
@@ -3563,8 +3777,23 @@ def phase_sharding() -> dict:
               "captured_vs_eager_policy": agree,
               "captured_replays": g.replays})
         del g
+        # the dry runs on the host, once the card's timed work is done
+        td = time.perf_counter()
+        pool = multiprocessing.get_context("spawn").Pool(
+            len(SERVE_LAYOUT_CELLS), initializer=torch.set_num_threads,
+            initargs=(1,))
+        pending = [pool.apply_async(dryrun.lower_cell, (arch, shape),
+                                    dict(mesh="16x16", layout=layout,
+                                         verbose=False))
+                   for arch, shape, layout in SERVE_LAYOUT_CELLS]
+        check_serve_layout_dry_runs(pending)
+        emit({"phase": "sharding", "dry_runs_waited_s":
+              time.perf_counter() - td})
     finally:
         dist.destroy_process_group()
+        if pool is not None:
+            pool.terminate()
+            pool.join()
     return launches
 
 

@@ -33,7 +33,8 @@ import torch
 from repro_torch import BACKEND_NAMES
 from repro_torch.core import cost_model, keycodec, sortspec
 from repro_torch.core import tuning as _tuning
-from repro_torch.kernels.bitonic_sort import MAX_N as MAX_CUDA_N
+from repro_torch.core.backends import (  # noqa: F401
+    MAX_BITONIC_N, MAX_CUDA_N)
 
 # the backends the port registers itself: calibrate lets none of them fail
 BUILT_IN_BACKENDS = frozenset(BACKEND_NAMES.values()) | {

@@ -40,8 +40,15 @@ and whose flop formula counts the query-key pairs it sees.
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
   python -m repro_torch.launch.dryrun --arch nemotron-4-340b \
-      --shape train_4k --mesh 16x16
-  python -m repro_torch.launch.dryrun --all [--tag baseline]
+      --shape train_4k --mesh 16x16 [--seq-shard 0]
+  python -m repro_torch.launch.dryrun --arch whisper-tiny \
+      --shape decode_32k --both-meshes --layout dp
+  python -m repro_torch.launch.dryrun --all [--mesh 16x16] [--tag baseline]
+
+``--all`` sweeps every cell on the one ``--mesh`` given (one card by
+default), or on both production meshes with ``--both-meshes``; the
+reference's ``--all`` always takes both meshes, as it has no one-card
+mesh.
 """
 from __future__ import annotations
 
@@ -182,17 +189,6 @@ def make_policy(mesh, plan: CellPlan, shape: ShapeSpec):
         cp_layout=plan.layout == "cp")
 
 
-def param_specs(specs, policy, plan: CellPlan):
-    """The model's parameter specs ``specs``, the serve layouts' layer
-    weights transformed as the reference's dry run does."""
-    if plan.layout in ("dp", "cp"):
-        for sub in ("prefix", "body", "enc", "dec"):
-            if sub in specs:
-                specs[sub] = policy.serve_param_specs(
-                    specs[sub], keep_data=plan.layout == "cp")
-    return specs
-
-
 def depth_units(cfg: ModelConfig):
     """(units, cut): the repeating units of ``cfg``'s depth and
     ``cut(u)``, the config with ``u`` of them.  A unit is a layer after
@@ -246,7 +242,7 @@ def _step(cfg: ModelConfig, shape: ShapeSpec, plan: CellPlan, mesh=None):
     model = build(cfg, device="cpu", policy=policy)
     params, specs = steps_lib.abstract_init(
         model, torch.Generator().manual_seed(0))
-    specs = None if policy is None else param_specs(specs, policy, plan)
+    specs = None if policy is None else policy.layout_param_specs(specs)
     if shape.kind == "train":
         accum = torch.bfloat16 if plan.accum == "bfloat16" else torch.float32
         fn, optimizer = steps_lib.make_train_step(
@@ -375,7 +371,8 @@ def lower_cell(*args, mesh: str = MESH, **kw) -> dict:
 
 
 def _lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
-                microbatch=None, flash=None, *, cfg: ModelConfig = None,
+                seq_shard=None, microbatch=None, flash=None, *,
+                cfg: ModelConfig = None,
                 shape: ShapeSpec = None, capacity_bytes: float = H100_BYTES,
                 exact: bool = False, verbose: bool = True,
                 mesh: str = MESH, layout: Optional[str] = None) -> dict:
@@ -384,7 +381,8 @@ def _lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
     ``SHAPES[shape_name]``) size another model with the same code;
     ``capacity_bytes`` is the card's memory the peak is held to.
     ``mesh``: ``"1"`` (one card), ``"16x16"`` or ``"2x16x16"``;
-    ``layout`` overrides the plan's.
+    ``seq_shard``, ``microbatch``, ``flash`` and ``layout`` override the
+    plan's, as the reference's do.
 
     The scan correction (the reference's trip-count correction): a depth
     of more than 3 repeating units (``depth_units``) is traced at 2 and 3
@@ -402,6 +400,8 @@ def _lower_cell(arch: str, shape_name: str, plan: CellPlan = None,
                 "reason": why}
     plan = plan or (train_plan(arch, shape) if shape.kind == "train"
                     else CellPlan())
+    if seq_shard is not None:
+        plan = dataclasses.replace(plan, seq_shard=bool(seq_shard))
     if microbatch is not None:
         plan = dataclasses.replace(plan, microbatch=microbatch)
     if flash:
@@ -578,13 +578,20 @@ def main():
     ap.add_argument("--mesh", default=MESH, choices=list(MESHES),
                     help="1 (one card, default), 16x16 or 2x16x16 (the "
                          "production meshes over a fake process group)")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="run each cell on 16x16 and on 2x16x16 (in "
+                         "place of --mesh)")
+    ap.add_argument("--seq-shard", type=int, default=None, choices=(0, 1),
+                    help="override the plan's sequence parallelism")
     ap.add_argument("--layout", default=None, choices=("tp", "dp", "cp"),
                     help="the serve layout of a prefill or decode cell")
     ap.add_argument("--capacity-gb", type=float, default=H100_BYTES / 1e9,
                     help="device memory the peak is held to (default 80)")
     args = ap.parse_args()
 
-    kw = {"capacity_bytes": args.capacity_gb * 1e9, "mesh": args.mesh}
+    kw = {"capacity_bytes": args.capacity_gb * 1e9}
+    if args.seq_shard is not None:
+        kw["seq_shard"] = bool(args.seq_shard)
     if args.layout is not None:
         kw["layout"] = args.layout
     if args.microbatch is not None:
@@ -593,14 +600,16 @@ def main():
         kw["flash"] = True
     archs = ARCH_IDS if args.all or not args.arch else [arch_id(args.arch)]
     shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
+    meshes = ["16x16", "2x16x16"] if args.both_meshes else [args.mesh]
     failed = 0
     for a in archs:
         for s in shapes:
-            rec = run_cell(a, s, tag=args.tag, **kw)
-            if "error" in rec:
-                failed += 1
-    print(f"[dryrun] done: {len(archs) * len(shapes)} cells, {failed} "
-          f"failures")
+            for m in meshes:
+                rec = run_cell(a, s, tag=args.tag, mesh=m, **kw)
+                if "error" in rec:
+                    failed += 1
+    print(f"[dryrun] done: {len(archs) * len(shapes) * len(meshes)} cells, "
+          f"{failed} failures")
     sys.exit(1 if failed else 0)
 
 

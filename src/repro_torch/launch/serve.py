@@ -283,7 +283,9 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
     scheduler's ``distributed_min``.  ``state_dir`` (or ``REPRO_TORCH_SERVE_STATE_DIR``)
     restores the snapshotted tuning profile and the mesh's topology on
     startup and snapshots the active ones on shutdown.  ``policy`` shards
-    the model over its mesh (None: one device).
+    the model over its mesh (None: one device); a serve layout's places
+    the layer weights by ``layout_param_specs`` and fills its
+    sequence-sharded caches from prompts of any length.
 
     Decode runs ``steps.DecodeGraph``: on the card each batch's steps
     replay one captured CUDA graph (per batch size), also under a policy;
@@ -313,7 +315,9 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
         distributed_queue = mesh.size > 1
     model = build(cfg, device=dev, policy=policy)
     params = model.place(model.init(
-        torch.Generator(device=dev).manual_seed(seed)))
+        torch.Generator(device=dev).manual_seed(seed)),
+        None if policy is None else policy.layout_param_specs(
+            model.param_specs()))
     shape = ShapeSpec("serve", max_len, batch_size, "decode")
     serve_step = steps_lib.DecodeGraph(model, shape, sample_topk=topk)
     # the sampling noise: its own stream, not the weights'

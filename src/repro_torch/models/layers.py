@@ -29,8 +29,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.partitioning import (P, is_dtensor, partial_grads,
-                                               settle)
+from repro_torch.sharding.partitioning import (P, even_shards, is_dtensor,
+                                               partial_grads, settle)
 
 
 # elements a float32 draw covers at once: a larger leaf (a stacked expert
@@ -244,7 +244,7 @@ def matmul(x, w, local: bool = False):
     if not local and len({p.dim for p in lead}) < 2:
         return x @ w
     from torch.distributed.tensor.experimental import local_map
-    x = settle(x)                            # a partial sum, reduced
+    x = even_shards(settle(x))               # a partial sum, reduced
     w_pl, out_pl, x_grad = [], [], []
     for p, q in zip(x.placements, w.placements):
         if p == Shard(last):

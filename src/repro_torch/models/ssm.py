@@ -199,9 +199,16 @@ def init_state(dims: SSMDims, batch: int, dtype, device) -> SSMState:
                          device=device))
 
 
-def decode_step(params, x, dims: SSMDims, st: SSMState
+def decode_step(params, x, dims: SSMDims, st: SSMState, policy=None
                 ) -> Tuple[torch.Tensor, SSMState]:
-    """Single-token recurrent update. x: (B,1,D) -> (out, new state)."""
+    """Single-token recurrent update. x: (B,1,D) -> (out, new state).
+    With a policy on a mesh it runs on each rank's batch rows, as
+    ``apply`` does (``policy.run_rows``): DTensor's einsum over the state
+    whose head dimension a view left as a strided shard of 'model' fails
+    its propagation on fake tensors (the dry run)."""
+    if policy is not None and policy.places:
+        return policy.run_rows(lambda p, xl, s: decode_step(p, xl, dims, s),
+                               params, x, st, SSMState)
     bsz = x.shape[0]
     h, p, n = dims.n_heads, dims.head_dim, dims.d_state
     z, xbc, dt = _split(params, x, dims)

@@ -474,7 +474,7 @@ class Transformer:
             else:
                 if kind == "ssm":
                     mix, new = ssm.decode_step(lp["mixer"], h, self.ssm_dims,
-                                               st)
+                                               st, policy=self.policy)
                 else:
                     mix, new = rglru.decode_step(lp["mixer"], h,
                                                  self.rglru_width, cfg.rglru,
@@ -560,18 +560,47 @@ def _copy_state(dst, src) -> None:
 
 def _fill_local(dst, src, s: int, cap: int) -> None:
     """``_fill_cache`` of a DTensor cache, on each rank's shard: ``src``
-    placed as ``dst`` is; a cache that shards its sequence is filled
-    whole (s == cap) only."""
+    placed as ``dst`` is (a cache that shards its sequence:
+    ``_fill_seq_shard``)."""
     from torch.distributed.tensor import Shard
-    src = src.redistribute(dst.device_mesh, dst.placements).to_local()
+    pl = tuple(dst.placements)
+    if Shard(1) in pl:
+        _fill_seq_shard(dst, src, s, cap)
+        return
+    src = src.redistribute(dst.device_mesh, pl).to_local()
     local = dst.to_local()
-    if s != cap and any(p == Shard(1) for p in dst.placements):
-        raise NotImplementedError("a sequence-sharded cache is filled by a "
-                                  "prefill of its whole length only")
     if s <= cap:
         local[:, :s] = src
     else:
         local.copy_(torch.roll(src[:, -cap:], (s - cap) % cap, dims=1))
+
+
+def _fill_seq_shard(dst, src, s: int, cap: int) -> None:
+    """``_fill_local`` of a cache whose sequence is sharded: the rank
+    holding slots [lo, lo + n) of the ``cap`` writes prompt positions lo
+    .. min(s, lo + n) - 1 there (slots past s keep what they held); past
+    the window (s > cap) slot j takes the position p of the last ``cap``
+    with p % cap == j, the reference's rolled ring.  The prompt's K/V are
+    taken whole along the sequence on each rank, (B_local, s, R, H): the
+    serve layouts already hold them so (activations replicated over
+    'model'), so nothing moves; a sequence-sharded K/V would be gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.partitioning import shard_offset
+    mesh, pl = dst.device_mesh, tuple(dst.placements)
+    whole = tuple(Replicate() if p == Shard(1) else p for p in pl)
+    src = src.redistribute(mesh, whole).to_local()
+    local = dst.to_local()
+    n = local.shape[1]
+    lo = shard_offset(pl, 1, mesh, cap)
+    if s <= cap:
+        hi = min(s, lo + n)
+        if hi > lo:
+            local[:, :hi - lo] = src[:, lo:hi]
+        return
+    shift = (s - cap) % cap
+    pos = (torch.arange(lo, lo + n, device=src.device) - shift) % cap \
+        + (s - cap)
+    local.copy_(src.index_select(1, pos))
 
 
 def place_state(policy, state, device=None):

@@ -40,8 +40,9 @@ What the hooks do here:
     (a plain tensor enters as replicated), and the identity without a
     mesh.  The spec is sanitized against the tensor's shape first
     (``_sanitize``: axes the mesh lacks, or that do not divide the
-    dimension, are dropped), so no hook makes an uneven shard, which
-    DTensor would accept and the reference never makes.
+    dimension, are dropped, and so are those of a dimension of size 1),
+    so no hook makes an uneven shard, which DTensor would accept and the
+    reference never makes.
   * ``run_local`` is the port's ``shard_map``: the inputs are
     redistributed to their specs and ``fn`` runs on each rank's local
     tensors (``torch.distributed.tensor.experimental.local_map``); its
@@ -228,6 +229,29 @@ def splittable(x, dim: int, lead: int):
                 pl[i] = Replicate()
                 changed = True
     return x.redistribute(x.device_mesh, pl) if changed else x
+
+
+def even_shards(x):
+    """``x`` (a DTensor) with every dimension that its placements split
+    unevenly gathered there (its ``Shard`` placements of that dimension
+    made ``Replicate``), as ``_sanitize`` keeps a spec from making one:
+    a ``local_map`` region rebuilds each output's global shape as its
+    local shape times the mesh size, so an uneven shard (1500 frames over
+    16 ranks: 94 a rank) would come back 1504 long.  Anything else
+    unchanged."""
+    from torch.distributed.tensor import Replicate
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    pl = list(x.placements)
+    for d in {p.dim for p in pl if p.is_shard()}:
+        idx = [i for i, p in enumerate(pl) if p.is_shard(d)]
+        if x.shape[d] % math.prod(mesh.size(i) for i in idx):
+            for i in idx:
+                pl[i] = Replicate()
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(mesh, pl)
 
 
 def is_dtensor(x) -> bool:
@@ -513,7 +537,10 @@ class ShardingPolicy:
             size = 1
             for a in axes:
                 size *= axes_of[a]
-            ok = axes and shape[i] % size == 0
+            # a dimension of size 1 is never sharded, not even one way on
+            # a mesh axis of size 1: DTensor refuses a view that drops it
+            # (a batch of one on a (1, tp) mesh)
+            ok = axes and shape[i] > 1 and shape[i] % size == 0
             out.append((axes if len(axes) > 1 else axes[0]) if ok else None)
         return P(*out)
 
@@ -581,6 +608,18 @@ class ShardingPolicy:
             return P(*out)
 
         return _tree.map(tx, specs_tree)
+
+    def layout_param_specs(self, specs):
+        """A model's ``param_specs()`` tree as the serve layouts place it:
+        its layer subtrees (``prefix``, ``body``, ``enc``, ``dec``) through
+        ``serve_param_specs``, 'data' kept under ``cp_layout``, as the
+        reference's dry run transforms them; ``specs`` unchanged without
+        ``serve_layout``."""
+        if not self.serve_layout:
+            return specs
+        return {k: self.serve_param_specs(v, keep_data=self.cp_layout)
+                if k in ("prefix", "body", "enc", "dec") else v
+                for k, v in specs.items()}
 
     def param_sharding(self, specs_tree, params=None):
         """Without ``params``: the tree of DTensor placements of

@@ -27,6 +27,7 @@ from repro_torch import tree as ttree  # noqa: E402
 from repro_torch.configs import ShapeSpec, get_smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention as k6  # noqa: E402
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.mesh import make_host_device_mesh  # noqa: E402
@@ -92,11 +93,7 @@ def check_dense(mesh, out):
     # decoding from an empty state
     sv = ShardingPolicy(mesh=mesh, serve_layout=True)
     m2 = build(cfg, device="cpu", policy=sv)
-    specs = m2.param_specs()
-    for sub in ("prefix", "body"):
-        if sub in specs:
-            specs[sub] = sv.serve_param_specs(specs[sub])
-    p2 = m2.place(p, specs)
+    p2 = m2.place(p, sv.layout_param_specs(m2.param_specs()))
     s0, s2 = m0.decode_state(4, 64), m2.decode_state(4, 64)
     out["serve_cache_seq_sharded"] = any(
         pl.is_shard(1) for pl in s2["body"].k.placements)
@@ -108,6 +105,146 @@ def check_dense(mesh, out):
         nxt = torch.argmax(d0, dim=-1)[:, None].to(torch.int32)
     out["decode_serve"] = max(errs)
     out["decode_serve_cache"] = _err(s0["body"].k, s2["body"].k)
+
+
+def _tree_err(a, b):
+    """The largest entry difference of two states, leaf by leaf (``b``'s
+    DTensors reassembled; a cache of ``b`` whose kv heads a policy
+    repeated up to tp, ``kv_repeat``, against ``a``'s heads repeated
+    alike).  The two states must hold as many leaves, of equal shapes."""
+    la, lb = ttree.leaves(a), ttree.leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"states of {len(la)} and {len(lb)} leaves")
+    errs = []
+    for x, y in zip(la, lb):
+        if x.dim() >= 4 and x.shape[-2] != y.shape[-2]:
+            x = x.repeat_interleave(y.shape[-2] // x.shape[-2], dim=-2)
+        if tuple(x.shape) != tuple(y.shape):
+            raise AssertionError(f"a leaf of shape {tuple(y.shape)} against "
+                                 f"{tuple(x.shape)}")
+        errs.append(_err(x.float(), y.float()))
+    return max(errs)
+
+
+def _serve_pair(cfg, policy):
+    """(unsharded model, policy model, params, params placed by the
+    policy's layout: a serve layout's layer weights by
+    ``layout_param_specs``)."""
+    m0 = build(cfg, device="cpu")
+    m1 = build(cfg, device="cpu", policy=policy)
+    p = m0.init(torch.Generator().manual_seed(0))
+    return m0, m1, p, m1.place(p, policy.layout_param_specs(
+        m1.param_specs()))
+
+
+def _prefill_decode(out, name, models, params, batch, max_len, states=None,
+                    steps=3):
+    """Prefill ``batch`` on both models (into ``states`` in place when
+    given), then ``steps`` greedy decode steps; records the largest logit
+    error of the prefill and of the decode steps, and the reassembled
+    state's after the prefill and after the last step.  Returns the two
+    states."""
+    (m0, m1), (p0, p1) = models, params
+    s0, s1 = states if states is not None else (None, None)
+    l0, s0 = m0.prefill(p0, batch, max_len=max_len, state=s0)
+    l1, s1 = m1.prefill(p1, batch, max_len=max_len, state=s1)
+    out[f"{name}_prefill"] = _err(l0, l1)
+    out[f"{name}_prefill_state"] = _tree_err(s0, s1)
+    nxt, errs = torch.argmax(l0, dim=-1)[:, None].to(torch.int32), []
+    for _ in range(steps):
+        d0, s0 = m0.decode_step(p0, nxt, s0)
+        d1, s1 = m1.decode_step(p1, nxt, s1)
+        errs.append(_err(d0, d1))
+        nxt = torch.argmax(d0, dim=-1)[:, None].to(torch.int32)
+    if steps:
+        out[f"{name}_decode"] = max(errs)
+        out[f"{name}_decode_state"] = _tree_err(s0, s1)
+    return s0, s1
+
+
+def check_serve_layout_prefill(mesh, out):
+    """The DP-heavy serve layout (layer weights on (data x model), the KV
+    cache sequence-sharded over 'model') prefilled from prompts of any
+    length against the unsharded port, each followed by 3 decode steps:
+    shorter than the cache (16 and 15, the latter not divisible by tp);
+    as long as it (a window of 8 filled by 8; minitron's 64 into 64, which
+    leaves no slot to decode into); past the window (32 and 13: rolls of
+    0 and 5); a prefill into a state that already holds values.  Then
+    whisper under the cp layout with 15 encoder frames, which tp does not
+    divide (fault 3g's uneven sequence shard)."""
+    sv = ShardingPolicy(mesh=mesh, serve_layout=True)
+    m0, m1, p, ps = _serve_pair(_cfg("minitron-4b"), sv)
+    _prefill_decode(out, "serve_minitron_64", (m0, m1), (p, ps),
+                    {"tokens": _tokens(4, 64, 64)}, 64, steps=0)
+    for arch, prompts, again in (("minitron-4b", (16, 15), 15),
+                                 ("recurrentgemma-2b", (8, 32, 13), 13)):
+        m0, m1, p, ps = _serve_pair(_cfg(arch), sv)
+        key = arch.split("-")[0]
+        caches = [st for st in ttree.leaves(m1.decode_state(4, 64))
+                  if st.dim() >= 4]
+        out[f"serve_{key}_cache_seq_sharded"] = all(
+            any(pl.is_shard(st.dim() - 3) for pl in st.placements)
+            for st in caches) and bool(caches)
+        for s in prompts:
+            states = _prefill_decode(out, f"serve_{key}_{s}", (m0, m1),
+                                     (p, ps), {"tokens": _tokens(4, s, s)},
+                                     64)
+        # the last states hold a prompt and 3 decoded tokens: fill them in
+        # place with a shorter prompt (slots past it keep what they held)
+        _prefill_decode(out, f"serve_{key}_{again}_into", (m0, m1), (p, ps),
+                        {"tokens": _tokens(4, again, 7)}, 64, states)
+    # ``serve`` itself: its static decode state refilled batch after
+    # batch from prompts shorter than max_len, the layer weights placed
+    # by ``layout_param_specs``
+    kw = dict(config=_cfg("minitron-4b"), n_requests=4, batch_size=2,
+              decode_steps=3, topk=10, max_len=64, device="cpu",
+              distributed_queue=False)
+    toks = [{r.rid: r.out.tolist() for r in serve_lib.serve(
+        "minitron-4b", policy=pol, **kw)[0]} for pol in (None, sv)]
+    out["serve_layout_serve_requests"] = len(toks[1])
+    out["serve_layout_serve_tokens_differ"] = sum(
+        toks[0][rid] != toks[1].get(rid) for rid in toks[0])
+    cp = ShardingPolicy(mesh=mesh, seq_shard=True, serve_layout=True,
+                        cp_layout=True)
+    cfg = _cfg("whisper-tiny", enc_seq=15)
+    m0, m1, p, ps = _serve_pair(cfg, cp)
+    g = torch.Generator().manual_seed(5)
+    batch = {"tokens": _tokens(2, 8, 8),
+             "frames": torch.randn((2, 15, cfg.d_model), generator=g)}
+    _prefill_decode(out, "serve_whisper_cp", (m0, m1), (p, ps), batch, 64)
+
+
+def check_ssm_decode(mesh, out):
+    """mamba2's SSD mixer under tensor parallelism: a prefill and 3
+    decode steps, each step's recurrent update on each rank's batch rows
+    (``policy.run_rows``, as the prefill's)."""
+    m0, m1, p, ps = _serve_pair(_cfg("mamba2-1.3b"),
+                                ShardingPolicy(mesh=mesh))
+    _prefill_decode(out, "tp_mamba2", (m0, m1), (p, ps),
+                    {"tokens": _tokens(4, 13, 13)}, 64)
+
+
+def check_batch_of_one(mesh, out):
+    """A batch of one on a (1, 4) mesh, whose 'data' axis of size 1 once
+    placed it as a one-way shard that a view could not drop (fault 3h):
+    minitron under tensor parallelism and under the serve layout (its
+    cache sequence-sharded 4 ways, a 13-token prompt), whisper under the
+    serve layout; each a prefill and 3 decode steps."""
+    other = make_host_device_mesh((1, 4), device="cpu")
+    for name, arch, pol in (
+            ("minitron_tp", "minitron-4b", ShardingPolicy(mesh=other)),
+            ("minitron_dp", "minitron-4b",
+             ShardingPolicy(mesh=other, serve_layout=True)),
+            ("whisper_dp", "whisper-tiny",
+             ShardingPolicy(mesh=other, serve_layout=True))):
+        cfg = _cfg(arch)
+        m0, m1, p, ps = _serve_pair(cfg, pol)
+        batch = {"tokens": _tokens(1, 13, 13)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(
+                (1, cfg.enc_seq, cfg.d_model),
+                generator=torch.Generator().manual_seed(6))
+        _prefill_decode(out, f"one_{name}", (m0, m1), (p, ps), batch, 64)
 
 
 def check_flash(mesh, out):
@@ -135,14 +272,9 @@ def check_flash(mesh, out):
     cp = ShardingPolicy(mesh=mesh, seq_shard=True, serve_layout=True,
                         cp_layout=True)
 
-    def serve_specs(model):
-        specs = model.param_specs()
-        for sub in ("prefix", "body"):
-            specs[sub] = cp.serve_param_specs(specs[sub], keep_data=True)
-        return specs
-
-    (l0, _), (l1, _), _, _ = _prefill_pair(cfg, cp, tok, TOKENS,
-                                           serve_specs, spy_k6)
+    (l0, _), (l1, _), _, _ = _prefill_pair(
+        cfg, cp, tok, TOKENS, lambda m: cp.layout_param_specs(
+            m.param_specs()), spy_k6)
     out["prefill_cp"] = _err(l0, l1)
     out["cp_offsets"] = sorted(set(offsets))
 
@@ -397,7 +529,9 @@ def main():
                             rank=rank, world_size=world)
     mesh = make_host_device_mesh((2, 2), device="cpu")
     checks, errors = {}, {}
-    for fn, args in ((check_dense, ()), (check_flash, ()), (check_moe, ()),
+    for fn, args in ((check_dense, ()), (check_serve_layout_prefill, ()),
+                     (check_ssm_decode, ()), (check_batch_of_one, ()),
+                     (check_flash, ()), (check_moe, ()),
                      (check_static_decode, ()),
                      (check_static_train, ()),
                      (check_train, ("minitron-4b", "train_dense")),

@@ -137,6 +137,23 @@ def test_sanitize(mesh):
         == tuple(jp._sanitize(JP(("data",), "model", "data"), (32, 32)))
 
 
+@pytest.mark.parametrize("shape", [(1, 4), (1, 1)])
+def test_sanitize_on_a_mesh_axis_of_one(shape):
+    """A tensor dimension of size 1 is never sharded, not even one way on
+    a mesh axis of size 1 (DTensor refuses a view that drops it; the
+    reference's sharding takes it); every other shard on a size-1 axis
+    stays, so a (1, 1) mesh runs ``Shard`` placements."""
+    tm = TAbstractMesh.of(shape, ("data", "model"))
+    tp = TPolicy(mesh=tm, dp_axes=tdp_axes_of(tm))
+    assert tuple(tp._sanitize(TP("data", None), (1, 13))) == (None, None)
+    assert tuple(tp._sanitize(TP("data", None), (2, 13))) == ("data", None)
+    assert tuple(tp._sanitize(TP(None, "model"), (8, 1))) == (None, None)
+    assert tp.placements(TP("data", "model"), (8, 64)) == (Shard(0),
+                                                           Shard(1))
+    assert tp.placements(TP("data", "model"), (1, 64)) == (Replicate(),
+                                                           Shard(1))
+
+
 def test_spec_entries_normalise_as_the_reference():
     for entries in (((("data",), None)), (((), "model")),
                     ((("pod", "data"), None, "model"))):

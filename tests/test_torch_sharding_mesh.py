@@ -8,6 +8,12 @@ weights from seed 0): the unsharded port is held to the JAX package by the
 other test files, and the JAX package's own sharded paths do not run under
 jax 0.9.0.
 
+The serve layout (layer weights on (data x model), the KV cache
+sequence-sharded over 'model') is prefilled from prompts of every length
+class: shorter than the cache and not divisible by tp, as long as it,
+past a window (the rolled ring), and into a state that holds values; the
+cp layout runs whisper's encoder over a length tp does not divide.
+
 Tolerances: float32 logits within 1e-4 (a sharded product sums its
 partial products in another order: a few ulp of logits of order 1-10);
 losses within 1e-5 relative; gradients within 1e-4 of each leaf's largest
@@ -100,6 +106,53 @@ def test_dense_prefill_and_decode_tp(ranks, rank):
     assert _check(ranks, rank, "serve_cache_seq_sharded")
     assert _check(ranks, rank, "decode_serve") <= LOGIT_TOL
     assert _check(ranks, rank, "decode_serve_cache") <= LOGIT_TOL
+
+
+SERVE_CASES = ["minitron_64", "minitron_16", "minitron_15",
+               "minitron_15_into", "recurrentgemma_8", "recurrentgemma_32",
+               "recurrentgemma_13", "recurrentgemma_13_into", "whisper_cp"]
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+@pytest.mark.parametrize("rank", RANKS)
+def test_serve_layout_prefill_of_any_length(ranks, rank, case):
+    """The serve layout's sequence-sharded cache filled by a prefill of
+    any length (shorter than the cache, as long, past a window with rolls
+    of 0 and 5, into a state that holds values), and whisper's encoder
+    under the cp layout with a length tp does not divide: the logits, the
+    reassembled state and 3 decode steps after it (none after minitron's
+    64 into 64) as the unsharded port's."""
+    if not case.startswith("whisper"):
+        arch = case.split("_")[0]
+        assert _check(ranks, rank, f"serve_{arch}_cache_seq_sharded")
+    for what in ("prefill", "prefill_state", "decode", "decode_state"):
+        if case == "minitron_64" and what.startswith("decode"):
+            continue
+        assert _check(ranks, rank, f"serve_{case}_{what}") <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("rank", RANKS)
+def test_serve_under_the_serve_layout(ranks, rank):
+    """``launch.serve`` under the serve layout (two batches of prompts
+    shorter than ``max_len`` through one static state) gives the
+    unsharded serve's tokens."""
+    assert _check(ranks, rank, "serve_layout_serve_requests") == 4
+    assert _check(ranks, rank, "serve_layout_serve_tokens_differ") == 0
+
+
+@pytest.mark.parametrize("rank", RANKS)
+def test_ssm_decode_under_tensor_parallelism(ranks, rank):
+    for what in ("prefill", "prefill_state", "decode", "decode_state"):
+        assert _check(ranks, rank, f"tp_mamba2_{what}") <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("case", ["minitron_tp", "minitron_dp",
+                                  "whisper_dp"])
+@pytest.mark.parametrize("rank", RANKS)
+def test_a_batch_of_one_on_a_mesh_with_a_data_axis_of_one(ranks, rank,
+                                                          case):
+    for what in ("prefill", "prefill_state", "decode", "decode_state"):
+        assert _check(ranks, rank, f"one_{case}_{what}") <= LOGIT_TOL
 
 
 @pytest.mark.parametrize("rank", RANKS)

@@ -8,8 +8,12 @@ follow), ``planner.choose_method`` and ``planner.constants``,
 ``launch.steps.abstract_init`` (the leaves and specs of the reference's
 ``jax.eval_shape`` tree), the v1 ``sort_api.bitonic_sort`` shim (bit for
 bit), ``repro_torch.core``'s re-exports, and a name-by-name walk of every
-public top-level ``def`` / ``class`` of the JAX package, each found in
-its counterpart module or in the table of names the port gives another.
+public top-level ``def`` / ``class`` / module-level assignment of the JAX
+package, every name a package ``__init__`` re-exports from inside it and
+every constant a module imports from inside it, each found in its
+counterpart module or in the table of names the port gives another
+(``RENAMED``, whose entries must not name a counterpart under the same
+name).
 """
 import ast
 import importlib
@@ -274,14 +278,34 @@ def test_core_reexports_match_the_reference():
 RENAMED = {
     "core/backends.py": {"XlaBackend": ("core.backends", ["TorchBackend"]),
                          "PallasBackend": ("core.backends",
-                                           ["CudaBackend"])},
+                                           ["CudaBackend"]),
+                         "MAX_PALLAS_N": ("core.backends", ["MAX_CUDA_N"])},
     "core/cost_model.py": {"xla_topk_cost_ns": ("core.cost_model",
                                                 ["native_topk_cost_ns"])},
-    "engine/planner.py": {"on_tpu": ("engine.planner", ["on_cuda"])},
+    "core/topology.py": {
+        "TIER_ICI": ("core.topology", ["TIER_NVLINK"]),
+        "TIER_DCN": ("core.topology", ["TIER_NETWORK"]),
+        # the network tier is priced by its own link constants, not as
+        # the fast tier slowed down
+        "DCN_SLOWDOWN": ("core.tuning", ["LinkConstants",
+                                         "NETWORK_BYTES_PER_S"])},
+    "core/tuning.py": {"DEFAULT_RUN_LEN": ("core.tuning",
+                                           ["CUDA_RUN_LEN"])},
+    "engine/runs.py": {"DEFAULT_RUN_LEN": ("core.tuning",
+                                           ["CUDA_RUN_LEN",
+                                            "DEFAULT_CPU_RUN_LEN"])},
+    "kernels/merge_path.py": {"DEFAULT_CHUNK": ("kernels.merge_path",
+                                                ["KERNEL_TILE"])},
+    "launch/roofline.py": {"ICI_BW": ("launch.roofline", ["NVLINK_BW"])},
+    "engine/planner.py": {"on_tpu": ("engine.planner", ["on_cuda"]),
+                          "MAX_PALLAS_N": ("engine.planner",
+                                           ["MAX_CUDA_N"])},
     "launch/steps.py": {"TrainStep": ("launch.steps", ["TrainGraph"])},
     "launch/hlo_analysis.py": {
-        name: ("launch.hlo_analysis", ["OpTrace"])
-        for name in ("parse_hlo", "Computation", "shape_bytes")},
+        **{name: ("launch.hlo_analysis", ["OpTrace"])
+           for name in ("parse_hlo", "Computation", "shape_bytes")},
+        # XLA's collective op names -> torch's c10d ops, by the same kinds
+        "COLLECTIVE_OPS": ("launch.hlo_analysis", ["COLLECTIVES"])},
     "launch/dryrun.py": {"collect_collectives": ("launch.hlo_analysis",
                                                  ["OpTrace"])},
     "data/pipeline.py": {"device_put_batch": ("launch.steps",
@@ -296,12 +320,34 @@ RENAMED = {
 }
 
 
+def _from_repro(node) -> bool:
+    """Whether an ``import from`` takes its names from inside the
+    package (``repro.*`` or a relative import), not from a third party
+    (jax, numpy, typing)."""
+    return bool(node.level) or (node.module or "").split(".")[0] == "repro"
+
+
 def _top_level(path: pathlib.Path):
-    """(public def / class names, every top-level bound name) of a file."""
+    """(public names, every top-level bound name) of a file.  The public
+    names: its ``def`` / ``class`` names and module-level assignments not
+    starting with ``_``; the names a package ``__init__`` imports from
+    inside the package (its re-exports); and the constants (upper-case
+    names) any module imports from inside the package, as
+    ``engine/planner.py`` re-exports ``core/backends``'s caps."""
     body = ast.parse(path.read_text()).body
-    defs = {n.name for n in body
-            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
-            and not n.name.startswith("_")}
+    init = path.name == "__init__.py"
+    defs = set()
+    for n in body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            defs.add(n.name)
+        elif isinstance(n, ast.Assign):
+            defs |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+        elif isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name):
+            defs.add(n.target.id)
+        elif isinstance(n, ast.ImportFrom) and _from_repro(n):
+            defs |= {a.asname or a.name for a in n.names
+                     if init or (a.asname or a.name).isupper()}
+    defs = {d for d in defs if not d.startswith("_")}
     bound = set()
     for n in body:
         if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
@@ -331,3 +377,27 @@ def test_every_public_name_of_the_reference_has_a_counterpart():
             home = importlib.import_module(f"repro_torch.{mod}")
             assert all(hasattr(home, t) for t in targets), (rel, name)
     assert not missing, missing
+
+
+def test_renamed_names_have_no_counterpart_under_their_own_name():
+    """A ``RENAMED`` entry is for a name the port does not bind in its
+    counterpart module: one it binds there under its own name is no
+    rename."""
+    same = []
+    for rel, names in RENAMED.items():
+        port = ROOT / "src" / "repro_torch" / rel
+        bound = _top_level(port)[1] if port.exists() else set()
+        same += [f"{rel}:{n}" for n in names if n in bound]
+    assert not same, same
+
+
+def test_sharding_package_reexports_the_policy():
+    import repro.sharding as jsharding
+    import repro_torch.sharding as tsharding
+    from repro_torch.sharding import partitioning
+    for name in ("ShardingPolicy", "NO_SHARDING"):
+        assert hasattr(jsharding, name)
+        assert getattr(tsharding, name) is getattr(partitioning, name)
+    assert tsharding.NO_SHARDING.mesh is None
+    assert not tsharding.NO_SHARDING.places
+
