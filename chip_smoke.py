@@ -105,6 +105,25 @@ Phases, each printed as one JSON line:
             mesh-free scheduler; ``topology.calibrate`` and a state snapshot
             round trip.  One JSON line a call: plan, CUDA-event and host
             ms, bytes per tier, bucket skew, peak memory;
+4c. ranks   the same tier as one program a rank over
+            ``torch.distributed`` collectives (a ``DeviceMesh``, DTensors
+            placed ``Shard(0)``): (a) a one-rank NCCL group in this
+            process on a (1,) and a (1, 1) mesh; (b) four ranks spawned on
+            cuda:0 over gloo with CUDA tensors on (4,) and (2, 2) meshes;
+            (c) one NCCL rank a card where there are two cards or more.
+            At 2^28 float32 keys: sort, stable argsort and sort_kv both
+            ways, ``distributed_sort`` with each strategy, the two-level
+            sort with 4 slices and the int8 codec, the mesh top-k at k =
+            64 and 1024; each rank's shard bit for bit against
+            ``torch.sort`` / ``torch.topk`` of the whole array, each
+            rank's launches asserted (one ``radix_bucket_hist`` and K2's
+            merge tree over its D received runs a flat sort, K4 a top-k),
+            the ranks' counter bytes summed against the one-process path
+            over the same shards; (b) also SF10's unique and Q18 group_by
+            against the single-device call.  One JSON line a call and a
+            rank: CUDA-event and host ms, the exchange's ms (its
+            collectives' spans), peak memory.  gloo's times on one card
+            are host staging, not NVLink;
 5. serve    minitron-4b at full width and depth (32 layers, d=3072, 4.2 B
             parameters in bf16, random weights from a seeded generator)
             through ``repro_torch.launch.serve.serve`` with the prefill's
@@ -460,6 +479,8 @@ def same_bits(x, y, what: str) -> float:
     if x.shape != y.shape or x.dtype != y.dtype:
         raise AssertionError(f"{what}: {tuple(x.shape)} {x.dtype} vs "
                              f"{tuple(y.shape)} {y.dtype}")
+    if torch.equal(bits(x), bits(y)):
+        return 0.0
     eq = bits(x) == bits(y)
     err = 0.0 if x.numel() == 0 else torch.where(
         eq, 0.0, (_f64(x) - _f64(y)).abs()).max().item()
@@ -1761,7 +1782,9 @@ def phase_distributed(rng, cols) -> dict:
                 if e.device_type == DeviceType.CUDA
                 and getattr(e, "self_device_time_total", 0) > 0}
 
+    from repro_torch.engine import collectives as coll
     devs = ss._entries(flat, ("data",))
+    grp = coll.EntryGroup(devs, range(DIST_ENTRIES))
     m = DIST_N // DIST_ENTRIES
     _build.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1771,7 +1794,7 @@ def phase_distributed(rng, cols) -> dict:
                                 None, m, d * m, m, True, None, dev)
                  for d, dev in enumerate(devs)]
         starts, table = ss._cut(
-            pools, [m] * DIST_ENTRIES, DIST_ENTRIES,
+            grp, pools, [m] * DIST_ENTRIES, DIST_ENTRIES,
             ss.default_samples_per_shard(m, DIST_ENTRIES), True)
         torch.cuda.synchronize()
     p1 = dict(_build.launches)
@@ -1785,8 +1808,8 @@ def phase_distributed(rng, cols) -> dict:
     _build.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        merged = ss._exchange_merge(pools, starts, table, cap, None)
-        out = ss._rebalance(merged, [m] * DIST_ENTRIES, devs)
+        merged = ss._exchange_merge(grp, pools, starts, table, cap, None)
+        out = ss._rebalance(grp, merged, [m] * DIST_ENTRIES)
         torch.cuda.synchronize()
     p2 = dict(_build.launches)
     kernels = device_kernels(prof)
@@ -1883,6 +1906,395 @@ def phase_distributed(rng, cols) -> dict:
           "probe_ns": cal.probe_ns, "snapshot": [p.name for p in paths],
           "seconds": time.perf_counter() - t0,
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return launches
+
+
+RANKS_WORLD = 4            # gloo ranks spawned on cuda:0
+RANKS_TIMEOUT_S = 400
+RANK_COUNTERS = ("samplesort.alltoall_bytes", "samplesort.sorts",
+                 "collectives.nvlink_bytes", "collectives.network_bytes",
+                 "collectives.wire_bytes_saved")
+
+
+def rank_calls(x, pay, vf, x2, v2, flat, two):
+    """The ranks phase's calls on this rank's DTensors: ``(name, call,
+    check kind, launches a rank)`` in order.  ``launches`` maps a kernel
+    to its exact count a rank (the merge tree over this rank's received
+    runs, one ``radix_bucket_hist`` a bucket cut), or to None where it
+    must merely run; a one-rank mesh cuts no buckets and merges nothing."""
+    import repro_torch.sort as rsort
+    from repro_torch.core import distributed_sort as ds
+    from repro_torch.engine import samplesort as ss
+    d = ss._n_dev(flat, ("data",))
+    levels = (d - 1).bit_length()                # tree levels over d runs
+    k2 = {"radix_bucket_hist": 1 if d > 1 else 0,
+          "merge_path_partition": levels, "merge_pairs_kv_blocks": levels}
+    calls = []
+    for desc in (False, True):
+        w = "desc" if desc else "asc"
+        calls += [
+            (f"sort {w}", lambda desc=desc: rsort.sort(
+                x, mesh=flat, descending=desc), ("keys", desc), k2),
+            (f"argsort stable {w}", lambda desc=desc: rsort.argsort(
+                x, mesh=flat, descending=desc, stable=True),
+             ("order", desc), k2),
+            (f"sort_kv int32 {w}", lambda desc=desc: rsort.sort_kv(
+                x, pay, mesh=flat, descending=desc), ("kv", desc), k2)]
+    for s in ("sample", "oddeven", "auto"):
+        calls.append((f"distributed_sort {s}", lambda s=s: ds.distributed_sort(
+            x, flat, "data", strategy=s), ("keys", False),
+            k2 if s == "sample" else
+            {"merge_path_partition": None} if d > 1 else {}))
+    hier = {"radix_bucket_hist": None, "merge_path_partition": None} \
+        if d > 1 else {}
+    calls += [
+        ("two-level, chunks=4, int8 payload", lambda: ss.sample_sort(
+            x2, two, None, values=v2, pipeline_chunks=DIST_CHUNKS,
+            wire_codec="int8"), ("codec", False), hier),
+        ("distributed_sort hier", lambda: ds.distributed_sort(
+            x2, two, None, strategy="hier"), ("keys", False), hier)]
+    for k in DIST_TOPK:
+        calls += [(f"sample_topk k={k}", lambda k=k: ss.sample_topk(
+            x, k, flat, "data"), ("topk", k), {"select_digit_hist": None}),
+            (f"distributed_topk two k={k}", lambda k=k: ds.distributed_topk(
+                x2, k, two), ("topk", k), {"select_digit_hist": None})]
+    return calls
+
+
+def ranks_program(form: str, n: int, rel_check: bool, out) -> None:
+    """One rank's share of the ranks phase, on the initialised default
+    group: the (D,) and the two-axis DeviceMesh over its ranks, 2^28 (or
+    ``n``) float32 keys from the seed.  Each call of ``rank_calls`` runs
+    once, with obs on: its launches asserted, this rank's shard held bit
+    for bit against ``torch.sort`` / ``torch.topk`` of the whole array
+    (sliced at its offset), its CUDA-event and host ms, the exchange's ms
+    (the ``collectives.rank.*`` spans), this rank's counters (their sum
+    over the ranks held to the one-process path's over the same shards on
+    rank 0, for the flat sort and the two-level sort) and peak memory.
+    With more than one rank the whole arrays and the reference orders
+    stay in host memory (four ranks share one card), each rank holds its
+    shards on the card and brings an array there only to check a
+    result.  With ``rel_check`` SF10's unique and Q18 group_by over
+    the ranks against the single-device call.  Each JSON record goes to
+    ``out`` as it is made."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    import repro_torch.relational as rel
+    from repro_torch.core import keycodec
+    from repro_torch.core.mesh import make_mesh, rank_index
+    from repro_torch.engine import samplesort as ss
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_device_mesh
+    from repro_torch.obs import metrics, trace as obs
+
+    t_setup = time.perf_counter()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    two_shape = (2, world // 2) if world > 1 else (1, 1)
+    flat = make_host_device_mesh((world,), ("data",), device="cuda")
+    two = make_host_device_mesh(two_shape, ("host", "dev"), device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    # both meshes cut ceil(n / D) keys in rank order (the ranks of
+    # make_host_device_mesh are row-major): one slice serves both
+    me = rank_index(flat, ("data",))
+    if rank_index(two, ("host", "dev")) != me:
+        raise AssertionError(f"{form}: rank {rank} at {me} on the flat "
+                             f"mesh, elsewhere on the two-axis one")
+    m = -(-n // world)
+    lo, hi = min(me * m, n), min(me * m + m, n)
+    home = dev if world == 1 else torch.device("cpu")
+    rng = np.random.default_rng((SEED, 22))
+    xw = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(home)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    payw = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    payw = payw.to(home)
+    vfw = torch.randn(n, generator=gen, device=dev).to(home)
+    torch.cuda.empty_cache()
+
+    def shard(t, mesh):
+        return DTensor.from_local(t[lo:hi].to(dev), mesh,
+                                  [Shard(0)] * mesh.ndim, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    x, pay, vf = (shard(t, flat) for t in (xw, payw, vfw))
+    x2, v2 = shard(xw, two), shard(vfw, two)
+    orders = {}
+    for d in (False, True):
+        o = torch.sort(keycodec.encode(xw.to(dev), descending=d)
+                       ^ -(1 << 31), stable=True).indices
+        orders[d] = o[lo:hi].to(home)
+        del o
+        torch.cuda.empty_cache()
+
+    out({"phase": "ranks", "form": form, "rank": rank,
+         "setup_seconds": time.perf_counter() - t_setup})
+
+    def check(kind, arg, res, name):
+        if kind == "topk":
+            v, i = (t.to_local() for t in res)
+            key = keycodec.encode(xw.to(dev)) ^ -(1 << 31)
+            _, ti = torch.topk(key, arg)
+            kt = key[ti].cpu().numpy().astype(np.int64)
+            del key
+            torch.cuda.empty_cache()
+            ti = ti.cpu().numpy()
+            want = torch.from_numpy(ti[np.lexsort((ti, -kt))]
+                                    .astype(np.int32))
+            same_bits(i.cpu(), want, f"{form} {name} indices")
+            same_bits(v.to(home), xw[i.long().to(home)],
+                      f"{form} {name} values")
+            return
+        order = orders[arg].to(dev)
+        parts = res if isinstance(res, tuple) else (res,)
+        parts = [t.to_local() for t in parts]
+        if kind == "order":
+            same_bits(parts[0], order.to(torch.int32), f"{form} {name}")
+            return
+        same_bits(parts[0], xw.to(dev)[order], f"{form} {name} keys")
+        if kind == "kv":
+            same_bits(parts[1], payw.to(dev)[order],
+                      f"{form} {name} payload")
+        if kind == "codec":
+            vd = vfw.to(dev)
+            step = vd.abs().max() / 127
+            err = (parts[1] - vd[order]).abs().max().item() \
+                if parts[1].numel() else 0.0
+            if not err <= step.item() / 2 * (1 + 1e-6):
+                raise AssertionError(f"{form} {name}: |err| {err} over half "
+                                     f"a step {step.item() / 2}")
+
+    for name, fn, (kind, arg), exact in rank_calls(x, pay, vf, x2, v2,
+                                                      flat, two):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        metrics.reset()
+        obs.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        dist.barrier()
+        _build.reset_launches()
+        h0 = time.perf_counter()
+        with obs.tracing():
+            start.record()
+            res = fn()
+            end.record()
+            torch.cuda.synchronize()
+        host = (time.perf_counter() - h0) * 1e3
+        counts = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bad = {k: counts.get(k, 0) for k, v in exact.items()
+               if (counts.get(k, 0) != v if v is not None
+                   else counts.get(k, 0) == 0)}
+        if bad:
+            raise AssertionError(f"{form} rank {rank} {name}: launches "
+                                 f"{bad}, expected {exact} (counts "
+                                 f"{counts})")
+        tc = time.perf_counter()
+        check(kind, arg, res, name)
+        check_s = time.perf_counter() - tc
+        del res
+        exch = [sp for sp in obs.spans()
+                if sp["name"].startswith("collectives.rank.")]
+        snap = metrics.snapshot()
+        ctr = {k: v["value"] for k, v in snap.items()
+               if v["type"] == "counter" and k.startswith(
+                   ("samplesort.", "collectives.", "distsort."))}
+        rec = {"phase": "ranks", "form": form, "rank": rank, "call": name,
+               "n": n, "ms": start.elapsed_time(end), "host_ms": host,
+               "exchange_ms": sum(sp["wall_ms"] for sp in exch),
+               "exchanges": len(exch),
+               "exchange_bytes_sent": sum(sp["attrs"].get("bytes", 0)
+                                          for sp in exch),
+               "peak_gib": peak, "launches": counts, "counters": ctr,
+               "check_seconds": check_s}
+        obs.clear()
+        metrics.reset()
+        if name in ("sort asc", "distributed_sort hier") and world > 1:
+            # the ranks' counter bytes against the one-process path over
+            # the same shards (rank 0 runs it; the others wait)
+            keys = RANK_COUNTERS
+            t = torch.tensor([int(ctr.get(k, 0)) for k in keys],
+                             dtype=torch.int64, device=dev)
+            dist.all_reduce(t)
+            torch.cuda.empty_cache()
+            if rank == 0:
+                shape = (world,) if name == "sort asc" else two_shape
+                names = ("data",) if name == "sort asc" else ("host", "dev")
+                om = make_mesh(shape, names, dev)
+                with obs.tracing():
+                    ss.sample_sort(xw.to(dev), om, None,
+                                   hierarchical=name != "sort asc")
+                snap = metrics.snapshot()
+                one = {k: int(snap[k]["value"]) if k in snap else 0
+                       for k in keys}
+                got = dict(zip(keys, t.tolist()))
+                if got != one:
+                    raise AssertionError(f"{form} {name}: the ranks' "
+                                         f"counters sum to {got}, the "
+                                         f"one-process path's are {one}")
+                rec["counters_sum_equal_one_process"] = one
+                obs.clear()
+                metrics.reset()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        out(rec)
+    del x, pay, vf, x2, v2, orders, xw, vfw, payw
+    torch.cuda.empty_cache()
+
+    if rel_check:
+        # SF10's unique and Q18's group_by over the ranks against the
+        # single-device call (every rank holds the columns whole)
+        cols = tpch_columns(np.random.default_rng(SEED))
+        orders_c, lines, qty, _ = cols
+        for name, fn in (
+                ("unique l_orderkey", lambda **kw: rel.unique(
+                    lines, return_counts=True, device=dev, **kw)),
+                ("group_by l_orderkey, l_quantity (Q18)",
+                 lambda **kw: rel.group_by(
+                     lines, qty, agg=("sum", "count", "min", "max", "mean"),
+                     device=dev, **kw))):
+            want = fn()
+            dist.barrier()
+            _build.reset_launches()
+            h0 = time.perf_counter()
+            got = fn(mesh=flat)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - h0) * 1e3
+            counts = dict(_build.launches)
+            if world > 1 and not counts.get("radix_bucket_hist"):
+                raise AssertionError(f"{form} relational {name}: no bucket "
+                                     f"histogram ({counts})")
+            for i, (g, w) in enumerate(zip(got, want)):
+                for gg, ww in zip(*((g, w) if isinstance(g, tuple)
+                                    else ((g,), (w,)))):
+                    if gg is not None or ww is not None:
+                        same_bits(gg, ww, f"{form} {name} field {i}")
+            out({"phase": "ranks", "form": form, "rank": rank,
+                 "call": f"relational {name}", "host_ms": host,
+                 "launches": counts, "single_device_equal": True})
+            del got, want
+            torch.cuda.empty_cache()
+
+
+def _ranks_child(rank, world, port, backend, n, rel_check, out_dir):
+    """A spawned rank of the ranks phase: joins the group, runs
+    ``ranks_program``, its records a line each in ``rank<r>.jsonl`` as
+    they come, its traceback (if any) in ``rank<r>.err``."""
+    import traceback
+    # four ranks share one card: let each give back what it frees
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    with open(os.path.join(out_dir, f"rank{rank}.jsonl"), "w") as f:
+        def out(rec):
+            f.write(json.dumps(rec) + "\n")
+            f.flush()
+        try:
+            ranks_program(f"{backend} x {world}", n, rel_check, out)
+            out({"done": True})
+        except Exception:
+            with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as e:
+                e.write(traceback.format_exc())
+    try:
+        dist.destroy_process_group()
+    except Exception:
+        pass
+
+
+def spawn_ranks(world, backend, n, rel_check) -> list:
+    """``world`` spawned ranks of ``ranks_program``; their records, or,
+    when a rank failed, every record made and every rank's error
+    raised."""
+    import multiprocessing
+    import tempfile
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        procs = [ctx.Process(target=_ranks_child, args=(
+            r, world, port, backend, n, rel_check, tmp)) for r in
+            range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + RANKS_TIMEOUT_S
+        for p in procs:
+            p.join(max(1, deadline - time.time()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        records, errors = [], []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.jsonl")
+            lines = open(path).read().splitlines() \
+                if os.path.exists(path) else []
+            got = [json.loads(x) for x in lines]
+            records += [x for x in got if "done" not in x]
+            err = os.path.join(tmp, f"rank{r}.err")
+            if os.path.exists(err):
+                errors.append(f"rank {r}:\n{open(err).read()[-2500:]}")
+            elif not any("done" in x for x in got):
+                errors.append(f"rank {r}: no end (killed: {len(alive)})")
+    if errors:
+        for rec in records:
+            emit(rec)
+        raise AssertionError(f"ranks {backend} x {world}:\n"
+                             + "\n".join(errors))
+    return records
+
+
+def phase_ranks() -> dict:
+    """The mesh tier's rank form on the card: one program a rank over
+    ``torch.distributed`` collectives (the reference's ``shard_map``
+    programs).  (a) A one-rank NCCL group in this process, on a (1,) and
+    a (1, 1) ``("host", "dev")`` DeviceMesh; (b) four ranks spawned on
+    cuda:0 over gloo with CUDA tensors, on (4,) and (2, 2) meshes; (c)
+    one NCCL rank a card where the machine has two cards or more.  Each
+    runs ``rank_calls`` at ``DIST_N`` float32 keys (``ranks_program``):
+    sort, stable argsort and sort_kv both ways, ``distributed_sort`` with
+    each strategy, the two-level sort with 4 slices and the int8 codec,
+    the mesh top-k at k = 64 and 1024; each rank's launches asserted and
+    its shard held bit for bit against ``torch.sort`` / ``torch.topk``
+    of the whole array.  (b) adds SF10's unique and Q18 group_by against
+    the single-device call.  Times of gloo ranks on one card measure
+    staging through host memory, not NVLink.  Returns the launches of
+    (a) (this process's)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+
+    launches: dict = {}
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        def out(rec):
+            emit(rec)
+            for k, v in rec.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+        ranks_program("nccl x 1", DIST_N, False, out)
+    finally:
+        dist.destroy_process_group()
+    _build.reset_launches()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for rec in spawn_ranks(RANKS_WORLD, "gloo", DIST_N, True):
+        emit(rec)
+    emit({"phase": "ranks", "form": f"gloo x {RANKS_WORLD} on cuda:0",
+          "seconds": time.perf_counter() - t0,
+          "note": "gloo stages CUDA tensors through host memory: these "
+                  "times are host staging, not NVLink"})
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        for rec in spawn_ranks(cards, "nccl", DIST_N, False):
+            emit(rec)
+    else:
+        emit({"phase": "ranks", "form": "nccl, a rank a card",
+              "skipped": f"{cards} card on this machine"})
     return launches
 
 
@@ -5259,6 +5671,11 @@ def main() -> int:
     emit({"phase": "distributed", "total_launches": dist_launches,
           "seconds": time.perf_counter() - td})
 
+    tk = time.perf_counter()
+    rank_launches = phase_ranks()
+    emit({"phase": "ranks", "total_launches": rank_launches,
+          "seconds": time.perf_counter() - tk})
+
     ts = time.perf_counter()
     serve_launches = phase_serve()
     emit({"phase": "serve", "seconds": time.perf_counter() - ts})
@@ -5316,7 +5733,8 @@ def main() -> int:
         raise AssertionError("calibrate: the seed profile was not restored")
 
     launches = dict(main_res["launches"])
-    for counts in (rel_launches, dist_launches, serve_launches, moe_launches,
+    for counts in (rel_launches, dist_launches, rank_launches,
+                   serve_launches, moe_launches,
                    family_launches, train_launches, families_train_launches,
                    sharding_launches, data_launches, spill_launches,
                    example_launches):

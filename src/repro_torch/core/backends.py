@@ -379,7 +379,9 @@ class DistributedBackend(SortBackend):
 
     The natural entry is a spec with mesh fields (``SortSpec(mesh=...)``
     through ``repro_torch.sort``), which lands on :meth:`sort_mesh`,
-    :meth:`argsort_mesh` or :meth:`topk_mesh`.  The rows form sorts each
+    :meth:`argsort_mesh` or :meth:`topk_mesh`: on a one-process
+    ``core.mesh.Mesh``, or on a ``DeviceMesh`` as one program a rank
+    (DTensors in and out).  The rows form sorts each
     row over the host mesh of the rows' device: every card of the machine
     (``launch.mesh.make_host_mesh``) for a CUDA tensor, one CPU entry
     otherwise.  Never auto-dispatched by the single-device planner.

@@ -8,7 +8,10 @@ exchange is a copy between entries (``engine.collectives``).
 
 One entry point, three strategies (``strategy="auto"`` prices them with
 ``planner.choose_distributed``, on a two-axis mesh against its
-``core.topology.Topology``):
+``core.topology.Topology``), on either mesh form (``core.mesh``): a
+one-process ``Mesh`` (a tensor in, the sorted tensor on the first
+entry's device out) or a ``DeviceMesh``, one program a rank (a DTensor
+placed ``Shard(0)`` in, a DTensor of the same placement out):
 
   ``oddeven``  odd-even transposition: D rounds of a neighbour exchange
                and a merge-split.  Every shard moves D times; kept as the
@@ -67,15 +70,16 @@ def _round_permutation(n_dev: int, even_round: bool):
     return perm
 
 
-def distributed_sort(x: torch.Tensor, mesh, axis_name=None,
+def distributed_sort(x, mesh, axis_name=None,
                      local_method: Optional[str] = None, *,
                      strategy: str = "auto", descending: bool = False,
-                     values: Optional[torch.Tensor] = None,
-                     return_indices: bool = False):
+                     values=None, return_indices: bool = False):
     """Sort a 1-D tensor globally over ``axis_name`` of ``mesh`` (one
     axis, a tuple of axes, or None for the whole mesh) -> the sorted
     tensor on the mesh's first entry's device (``(keys, values)`` with a
-    payload, ``(keys, permutation)`` with ``return_indices``).
+    payload, ``(keys, permutation)`` with ``return_indices``); on a
+    ``DeviceMesh`` ``x`` (and ``values``) are DTensors placed
+    ``Shard(0)`` over the axes and so are the results.
 
     ``strategy``: ``"auto"`` (``planner.choose_distributed``; on a
     two-axis mesh priced against the topology's tier rates),
@@ -84,9 +88,12 @@ def distributed_sort(x: torch.Tensor, mesh, axis_name=None,
     a permutation) routes to the sample sort under ``auto`` and raises
     when odd-even is forced.  ``local_method`` is the backend of the
     shards' local sorts (None: ``auto``)."""
+    from repro_torch.core import mesh as _mesh
     from repro_torch.core import topology as _topology
     from repro_torch.engine import planner, samplesort
-    x = torch.as_tensor(x)
+    ranks = _mesh.is_device_mesh(mesh)
+    if not ranks:
+        x = torch.as_tensor(x)
     axes = samplesort._axes_tuple(mesh, axis_name)
     n_dev = samplesort._n_dev(mesh, axes)
     multi = len(axes) > 1
@@ -96,7 +103,7 @@ def distributed_sort(x: torch.Tensor, mesh, axis_name=None,
     if strategy == "auto":
         topo = _topology.for_mesh(mesh, axes) if multi else None
         plan = planner.choose_distributed_cached(n, n_dev, x.dtype,
-                                                 topology=topo)
+                                                 topology=topo, mesh=mesh)
         usable = {s: c for s, c in plan.costs.items()
                   if s != "oddeven" or not (needs_sample or multi)}
         strategy = min(usable, key=usable.__getitem__)
@@ -125,59 +132,87 @@ def distributed_sort(x: torch.Tensor, mesh, axis_name=None,
     return _oddeven(x, mesh, axes, local_method)
 
 
-def _oddeven(x, mesh, axes, local_method):
-    """D rounds of neighbour exchange + merge-split over the entries, on
-    signed-order keys (so the bits match the sample sort's).  Each round's
-    merge is K2 on a card (the merge backend ``samplesort`` picks), its
-    plain version elsewhere."""
-    from repro_torch import engine
-    from repro_torch.engine import collectives as coll
+def _merge_split(mine: torch.Tensor, other: torch.Tensor, i: int,
+                 partner: int, m: int) -> torch.Tensor:
+    """One odd-even step of entry ``i``: merge its run with its partner's
+    and keep the low half (the lower entry) or the high half.  K2 on a
+    card (the merge backend ``samplesort`` picks), its plain version
+    elsewhere."""
     from repro_torch.engine import samplesort as ss
     from repro_torch.engine.merge import merge_pairs
-    from repro_torch.obs import metrics as _metrics, trace as _obs
-    devs = ss._entries(mesh, axes)
-    n_dev = len(devs)
-    n = x.shape[0]
-    m = n // n_dev
+    lo, hi = (mine, other) if i < partner else (other, mine)
+    merged = merge_pairs(lo[None], hi[None], backend=ss._pick_merge_backend(
+        m, mine.device))[0]
+    return merged[:m] if i < partner else merged[m:]
+
+
+def _oddeven(x, mesh, axes, local_method):
+    """D rounds of neighbour exchange + merge-split over the entries, on
+    signed-order keys (so the bits match the sample sort's): a host loop
+    of copies on a one-process mesh, one pair exchange a round on a
+    rank."""
+    from repro_torch import engine
+    from repro_torch.core import mesh as _mesh
+    from repro_torch.engine import collectives as coll
+    from repro_torch.engine import samplesort as ss
+    from repro_torch.obs import trace as _obs
+    ranks = _mesh.is_device_mesh(mesh)
+    if ranks:
+        local = ss._dtensor_local(x, mesh, axes, "distributed_sort")
+        grp = ss._rank_top(mesh, axes, local)
+        lens = grp.lengths(local.shape[0])
+        if len(set(lens)) != 1:
+            raise ValueError(f"oddeven needs equal shards, the ranks hold "
+                             f"{lens}; use strategy='sample' or 'auto'")
+        m = lens[0]
+        shards = [local]
+    else:
+        devs = ss._entries(mesh, axes)
+        grp = coll.EntryGroup(devs, range(len(devs)))
+        m = x.shape[0] // grp.size
+        shards = [coll.copy_to(x[d * m:(d + 1) * m], dev)
+                  for d, dev in enumerate(devs)]
+    n_dev = grp.size
+    n = n_dev * m
     coll_bytes = 0
     if _obs.enabled():
         coll_bytes = n_dev * collective_bytes_per_device(
             n_dev, m, x.element_size())
-        _metrics.counter("distsort.oddeven_bytes").inc(coll_bytes)
-        _metrics.counter("distsort.oddeven_sorts").inc()
-        coll.record_exchange("nvlink", coll_bytes)
+        ss._record_bytes(grp, {"distsort.oddeven_bytes": coll_bytes,
+                               "distsort.oddeven_sorts": 1},
+                         {"nvlink": coll_bytes})
     sp = _obs.trace("distsort.oddeven", n=n, n_dev=n_dev, bytes=coll_bytes)
     with sp:
-        xs = []
-        for d, dev in enumerate(devs):
-            k = ss._to_order_keys(coll.copy_to(x[d * m:(d + 1) * m], dev),
-                                  False)
-            xs.append(engine.sort(k, method=local_method or "auto",
-                                  device=dev))
+        xs = [engine.sort(ss._to_order_keys(t, False),
+                          method=local_method or "auto",
+                          device=grp.dev(d))
+              for d, t in zip(grp.local, shards)]
         for r in range(n_dev):
             pairs = _round_permutation(n_dev, r % 2 == 0)
+            if ranks:
+                partner = pairs[grp.pos][1]
+                other = grp.exchange_pair(xs[0], partner)
+                if other is not None:
+                    xs = [_merge_split(xs[0], other, grp.pos, partner, m)]
+                continue
             theirs = [coll.copy_to(xs[p], devs[i]) if p != i else None
                       for i, p in pairs]
-            nxt = []
-            for (i, p), mine, other in zip(pairs, xs, theirs):
-                if p == i:
-                    nxt.append(mine)
-                    continue
-                lo, hi = (mine, other) if i < p else (other, mine)
-                merged = merge_pairs(lo[None], hi[None], backend=ss
-                                     ._pick_merge_backend(m, devs[i]))[0]
-                nxt.append(merged[:m] if i < p else merged[m:])
-            xs = nxt
-        first = devs[0]
-        out = torch.cat([coll.copy_to(t, first) for t in xs])
+            xs = [mine if p == i else _merge_split(mine, other, i, p, m)
+                  for (i, p), mine, other in zip(pairs, xs, theirs)]
+        if ranks:
+            out = xs[0]
+        else:
+            out = torch.cat([coll.copy_to(t, devs[0]) for t in xs])
         sp.fence(out)
-    return ss._from_order_keys(out, x.dtype, False)
+    out = ss._from_order_keys(out, x.dtype, False)
+    return ss._as_dtensor(out, x) if ranks else out
 
 
-def distributed_topk(x: torch.Tensor, k: int, mesh, axis_name=None):
+def distributed_topk(x, k: int, mesh, axis_name=None):
     """Mesh-global top-k -> ``(values, int32 indices)``, bit-exact with
     ``jax.lax.top_k``: local radix select a shard, ONE candidate
-    all-gather, a small merge (``samplesort.sample_topk``)."""
+    all-gather, a small merge (``samplesort.sample_topk``; replicated
+    DTensors on a ``DeviceMesh``)."""
     from repro_torch.engine import samplesort
     return samplesort.sample_topk(x, k, mesh, axis_name)
 

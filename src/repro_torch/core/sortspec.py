@@ -5,8 +5,11 @@ frozen :class:`SortSpec`, and every engine that can run one is a
 :class:`SortBackend` declaring what it can do in a :class:`Capabilities`
 record.  The planner derives eligibility from those records alone.
 
-A spec with a ``mesh`` (a :class:`~repro_torch.core.mesh.Mesh`) is a
-mesh-global sort of a flat tensor, run by the ``distributed`` backend.
+A spec with a ``mesh`` is a mesh-global sort of a flat tensor, run by
+the ``distributed`` backend: a one-process
+:class:`~repro_torch.core.mesh.Mesh` (a tensor in), or a
+``torch.distributed`` ``DeviceMesh``, one program a rank (a DTensor
+placed ``Shard(0)`` over the sort's axes in; ``core.mesh``).
 A backend of the JAX package without a port would stand in
 ``NOT_PORTED`` and fail here, loudly, with its ROADMAP item; every one is
 ported now.
@@ -320,12 +323,9 @@ class SortSpec:
         if axis_name is not None and self.mesh is None:
             raise ValueError("axis_name requires a mesh")
         if self.mesh is not None:
-            from repro_torch.core.mesh import Mesh
+            from repro_torch.core.mesh import check_mesh
             from repro_torch.engine.samplesort import _axes_tuple
-            if not isinstance(self.mesh, Mesh):
-                raise TypeError(
-                    f"mesh must be a repro_torch.core.mesh.Mesh, got "
-                    f"{type(self.mesh).__name__}")
+            check_mesh(self.mesh)
             axis_name = _axes_tuple(self.mesh, axis_name)
             if ndim != 1:
                 raise ValueError(
@@ -402,9 +402,11 @@ class SortSpec:
     def static_key(self, shape, dtype) -> tuple:
         """Hashable reduction of the spec to its statics and the operand's
         (shape, dtype): array fields count by presence; a mesh by its axis
-        layout and device list (``Mesh.key``), so two same-shaped meshes
-        over other devices differ."""
-        mesh_key = None if self.mesh is None else self.mesh.key()
+        layout and device list (``core.mesh.mesh_key``: a ``DeviceMesh``
+        by its ranks), so two same-shaped meshes over other devices
+        differ."""
+        from repro_torch.core.mesh import mesh_key as _mesh_key
+        mesh_key = None if self.mesh is None else _mesh_key(self.mesh)
         return (self.axis, self.descending, self.stable, self.k,
                 self.values is not None, self.indices,
                 self.segment_ids is not None, self.row_splits is not None,

@@ -15,10 +15,17 @@ the device fingerprint and the mesh signature and JSON-persistable like a
                stands as an NVLink rate.
 
 * ``from_mesh`` / ``for_mesh`` derive the default topology of a mesh
-  (outermost axis ``network`` on a multi-axis mesh, the rest ``nvlink``)
-  or resolve the active / persisted one matching its signature.
+  or resolve the active / persisted one matching its signature.  On a
+  one-process ``Mesh`` the outermost axis of a multi-axis mesh is
+  ``network`` and the rest ``nvlink``.  On a ``DeviceMesh`` (one program
+  a rank) an axis's tier is where its ranks are, from one gather of
+  every rank's host name and device: ``local`` where the ranks of each
+  of its groups share one device (gloo ranks on one card or on the CPU),
+  ``nvlink`` on distinct cards of one host, ``network`` across hosts.
 * ``calibrate`` times a two-size all-to-all over each axis and fits
-  (latency, bandwidth) per axis.
+  (latency, bandwidth) per axis; on a ``DeviceMesh`` the exchange is the
+  axis group's ``all_to_all_single`` and every rank keeps the slowest
+  rank's times, so all ranks plan alike.
 * The active topology and its generation counter feed the planner's
   distributed plan-cache keys, so swapping topologies re-plans.
 
@@ -199,25 +206,70 @@ def _default_rates(tier: str) -> Tuple[float, float]:
 
 
 def _mesh_signature(mesh, axis_names=None) -> Tuple[Tuple[str, int], ...]:
-    names = tuple(axis_names) if axis_names is not None \
-        else tuple(mesh.axis_names)
+    from repro_torch.core import mesh as _mesh
+    all_names = _mesh.axis_names(mesh)
+    names = tuple(axis_names) if axis_names is not None else all_names
     for nm in names:
-        if nm not in mesh.axis_names:
+        if nm not in all_names:
             raise TopologyError(f"axis {nm!r} not in mesh axes "
-                                f"{tuple(mesh.axis_names)}")
-    return tuple((nm, int(mesh.shape[nm])) for nm in names)
+                                f"{all_names}")
+    return tuple((nm, _mesh.axis_size(mesh, nm)) for nm in names)
+
+
+_PLACES: Dict[tuple, list] = {}
+
+
+def _rank_places(mesh) -> list:
+    """(host name, device) of every global rank of a ``DeviceMesh``: one
+    ``all_gather_object`` over the default group, made once a mesh
+    layout."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import mesh as _mesh
+    key = (_mesh.mesh_key(mesh), id(dist.group.WORLD))
+    hit = _PLACES.get(key)
+    if hit is None:
+        dev = f"cuda:{torch.cuda.current_device()}" \
+            if mesh.device_type == "cuda" else mesh.device_type
+        hit = [None] * dist.get_world_size()
+        dist.all_gather_object(hit, (socket.gethostname(), dev))
+        _PLACES[key] = hit
+    return hit
+
+
+def _rank_tier(mesh, name: str) -> str:
+    """The tier of axis ``name`` of a ``DeviceMesh`` from where the ranks
+    of each of its groups are."""
+    from repro_torch.core import mesh as _mesh
+    places = _rank_places(mesh)
+    groups = _mesh._rank_layout(mesh, (name,))
+    if all(len({places[r] for r in g}) == 1 for g in groups):
+        return TIER_LOCAL
+    if all(len({places[r][0] for r in g}) == 1 for g in groups):
+        return TIER_NVLINK
+    return TIER_NETWORK
 
 
 def from_mesh(mesh, axis_names: Optional[Sequence[str]] = None,
               *, fingerprint: Optional[str] = None) -> Topology:
-    """The default topology of ``mesh``: the outermost axis is the
-    network tier when the mesh has several axes, every inner axis NVLink;
-    a one-axis mesh is NVLink.  ``axis_names`` restricts / reorders to a
-    subset of the mesh's axes (outer first)."""
+    """The default topology of ``mesh``.  A one-process ``Mesh``: the
+    outermost axis is the network tier when the mesh has several axes,
+    every inner axis NVLink; a one-axis mesh is NVLink.  A ``DeviceMesh``:
+    each axis's tier is where its ranks are (``local`` / ``nvlink`` /
+    ``network``; a collective call of every rank).  ``axis_names``
+    restricts / reorders to a subset of the mesh's axes (outer first)."""
+    from repro_torch.core import mesh as _mesh
     sig = _mesh_signature(mesh, axis_names)
+    ranks = _mesh.is_device_mesh(mesh)
     axes = []
     for i, (nm, size) in enumerate(sig):
-        tier = TIER_NETWORK if (i == 0 and len(sig) > 1) else TIER_NVLINK
+        if ranks:
+            tier = _rank_tier(mesh, nm)
+        else:
+            tier = TIER_NETWORK if (i == 0 and len(sig) > 1) \
+                else TIER_NVLINK
         bw, lat = _default_rates(tier)
         axes.append(TopologyAxis(name=nm, size=size, tier=tier,
                                  bandwidth_bytes_per_s=bw, latency_ns=lat))
@@ -229,7 +281,10 @@ def for_mesh(mesh, axis_names: Optional[Sequence[str]] = None) -> Topology:
     """The topology to price ``mesh`` with: the active one when its
     signature matches, else a persisted file keyed by (fingerprint,
     signature), else the ``from_mesh`` default."""
+    from repro_torch.core import mesh as _mesh
     sig = _mesh_signature(mesh, axis_names)
+    if _mesh.is_device_mesh(mesh):
+        _rank_places(mesh)      # the gather every rank makes, whatever hits
     act = active()
     if act is not None and act.signature() == sig:
         return act
@@ -379,36 +434,57 @@ def calibrate(mesh, axis_names: Optional[Sequence[str]] = None, *,
     """Time an all-to-all over each mesh axis of more than one entry at
     a small and a large payload an entry, and fit (latency, bandwidth)
     per axis from the two points: the slope is ns a byte, the intercept
-    the launch latency.  The exchange is ``collectives.all_to_all`` over
-    every group of entries along the axis (the other axes fixed), as the
-    sample sort runs it.  An axis whose entries all share one device is
-    recorded as tier ``local``: its copies stay inside that device's
-    memory.  Size-1 axes keep the defaults; ``probe_ns`` keeps the raw
-    timings."""
+    the launch latency.  On a one-process ``Mesh`` the exchange is
+    ``collectives.all_to_all`` over every group of entries along the axis
+    (the other axes fixed), as the sample sort runs it, and an axis whose
+    entries all share one device is recorded as tier ``local``: its
+    copies stay inside that device's memory.  On a ``DeviceMesh`` it is
+    the axis group's ``all_to_all_single`` (a collective call of every
+    rank), the tier is ``from_mesh``'s and every rank keeps the slowest
+    rank's times.  Size-1 axes keep the defaults; ``probe_ns`` keeps the
+    raw timings."""
     import torch
+    from repro_torch.core import mesh as _mesh
     from repro_torch.engine import collectives as coll
     base = from_mesh(mesh, axis_names)
+    ranks = _mesh.is_device_mesh(mesh)
+    if ranks:
+        dev = torch.device(f"cuda:{torch.cuda.current_device()}"
+                           if mesh.device_type == "cuda" else "cpu")
+        world = coll.RankGroup(mesh, _mesh.axis_names(mesh), dev)
     probe: Dict[str, float] = {}
     axes_out = []
     for ax in base.axes:
         if ax.size <= 1:
             axes_out.append(ax)
             continue
-        groups = coll.axis_groups(mesh, ax.name)
-        local = all(len({str(mesh.devices.flat[i]) for i in g}) == 1
-                    for g in groups)
+        if ranks:
+            grp = coll.RankGroup(mesh, (ax.name,), dev)
 
-        def probe_bytes(nbytes: int, size=ax.size, groups=groups):
-            per_row = max(1, nbytes // (4 * size))
-            sends = [[torch.zeros((size, per_row), dtype=torch.float32,
-                                  device=mesh.devices.flat[i]) for i in g]
-                     for g in groups]
+            def probe_bytes(nbytes: int, size=ax.size, grp=grp):
+                per_row = max(1, nbytes // (4 * size))
+                send = torch.zeros((size, per_row), dtype=torch.float32,
+                                   device=dev)
+                t = _time_ns(lambda: grp.all_to_all([send]), [dev], reps)
+                return float(world.max_int(int(round(t)))), \
+                    4 * size * per_row
+            local = ax.tier == TIER_LOCAL
+        else:
+            groups = coll.axis_groups(mesh, ax.name)
+            local = all(len({str(mesh.devices.flat[i]) for i in g}) == 1
+                        for g in groups)
 
-            def run():
-                for g, s in zip(groups, sends):
-                    coll.all_to_all(s, [mesh.devices.flat[i] for i in g])
-            return _time_ns(run, list(mesh.devices.flat), reps), \
-                4 * size * per_row
+            def probe_bytes(nbytes: int, size=ax.size, groups=groups):
+                per_row = max(1, nbytes // (4 * size))
+                sends = [[torch.zeros((size, per_row), dtype=torch.float32,
+                                      device=mesh.devices.flat[i])
+                          for i in g] for g in groups]
+
+                def run():
+                    for g, s in zip(groups, sends):
+                        coll.all_to_all(s, [mesh.devices.flat[i] for i in g])
+                return _time_ns(run, list(mesh.devices.flat), reps), \
+                    4 * size * per_row
 
         (t0, b0), (t1, b1) = probe_bytes(small_bytes), \
             probe_bytes(large_bytes)
@@ -425,7 +501,9 @@ def calibrate(mesh, axis_names: Optional[Sequence[str]] = None, *,
     topo = dataclasses.replace(base, axes=tuple(axes_out),
                                source="calibrated", probe_ns=probe or None)
     if persist:
-        save(topo)
+        import torch.distributed as dist
+        if not ranks or dist.get_rank() == 0:    # one writer a topology
+            save(topo)
     if set_as_active:
         set_active(topo)
     return topo

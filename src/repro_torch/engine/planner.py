@@ -334,15 +334,19 @@ def choose_distributed(n: int, n_dev: int, dtype=torch.float32, *,
 
 
 def choose_distributed_cached(n: int, n_dev: int, dtype=torch.float32, *,
-                              topology=None) -> DistPlan:
+                              topology=None, mesh=None) -> DistPlan:
     """``choose_distributed`` memoized beside the single-device plans,
-    keyed also on the topology generation and every axis's tier and
-    rates: a calibration or a swapped topology re-plans."""
+    keyed also on the topology generation, every axis's tier and rates
+    and the mesh's layout (``core.mesh.mesh_key``: a one-process mesh's
+    devices, a ``DeviceMesh``'s ranks): a calibration, a swapped topology
+    or another mesh re-plans."""
+    from repro_torch.core import mesh as _mesh
     from repro_torch.core import topology as _topo
     tsig = None if topology is None else tuple(
         (a.name, a.size, a.tier, a.bandwidth_bytes_per_s, a.latency_ns)
         for a in topology.axes)
-    key = ("dist", n, n_dev, keycodec.dtype_name(dtype), tsig,
+    mkey = None if mesh is None else _mesh.mesh_key(mesh)
+    key = ("dist", n, n_dev, keycodec.dtype_name(dtype), tsig, mkey,
            _topo.generation(), _tuning.generation(),
            sortspec.registry_generation())
     plan = _PLAN_CACHE.get(key)

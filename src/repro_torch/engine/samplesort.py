@@ -52,11 +52,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import keycodec
+from repro_torch.core import mesh as _mesh
 from repro_torch.core import tuning as _tuning
 from repro_torch.engine import collectives as coll
 from repro_torch.obs import metrics, trace as _obs
 
 __all__ = ["sample_sort", "sample_sort_shards", "sample_topk",
+           "shard_of", "gather_shards",
            "select_splitters", "bucket_bounds", "default_samples_per_shard",
            "alltoall_bytes_per_device", "topk_candidate_bytes_per_device"]
 
@@ -116,9 +118,11 @@ def bucket_bounds(ks: torch.Tensor, splitters: torch.Tensor, *,
 
 def _axes_tuple(mesh, axis_name: AxisArg) -> Tuple[str, ...]:
     """Normalise ``axis_name`` to a validated tuple of mesh axis names
-    (``None`` -> every mesh axis, in mesh order)."""
+    (``None`` -> every mesh axis, in mesh order).  ``mesh`` is a
+    one-process ``Mesh`` or a ``DeviceMesh``."""
+    names = _mesh.axis_names(mesh)
     if axis_name is None:
-        axes = tuple(mesh.axis_names)
+        axes = names
     elif isinstance(axis_name, str):
         axes = (axis_name,)
     else:
@@ -128,9 +132,8 @@ def _axes_tuple(mesh, axis_name: AxisArg) -> Tuple[str, ...]:
     for a in axes:
         if not isinstance(a, str):
             raise TypeError(f"axis names must be strings, got {a!r}")
-        if a not in mesh.axis_names:
-            raise ValueError(f"axis {a!r} not in mesh axes "
-                             f"{tuple(mesh.axis_names)}")
+        if a not in names:
+            raise ValueError(f"axis {a!r} not in mesh axes {names}")
     if len(set(axes)) != len(axes):
         raise ValueError(f"duplicate axis names in {axes}")
     return axes
@@ -139,13 +142,14 @@ def _axes_tuple(mesh, axis_name: AxisArg) -> Tuple[str, ...]:
 def _n_dev(mesh, axes: Tuple[str, ...]) -> int:
     d = 1
     for a in axes:
-        d *= int(mesh.shape[a])
+        d *= _mesh.axis_size(mesh, a)
     return d
 
 
 def _lin_index(mesh, axes: Tuple[str, ...], flat: int) -> int:
     """Linear index of flat mesh entry ``flat`` row-major over ``axes``:
-    the order the sort shards by."""
+    the order the sort shards by (``core.mesh.rank_index`` is a rank's
+    own on a ``DeviceMesh``)."""
     coords = np.unravel_index(flat, mesh.devices.shape)
     idx = 0
     for a in axes:
@@ -253,31 +257,33 @@ def _samples(pool: _Pool, s: int, span: int) -> torch.Tensor:
     return padded[pos.clamp(max=k.shape[0])]
 
 
-def _cut(pools: Sequence[_Pool], spans: Sequence[int], p: int, s: int,
+def _cut(grp, pools: Sequence[Optional[_Pool]], spans, p: int, s: int,
          use_histogram: bool):
-    """Each pool's bucket starts and genuine counts against splitters
-    pooled from the group's samples: (starts list, (G, p) count table on
-    the host).  Sampling and splitters as the reference's phases do."""
-    devs = [pl.dev for pl in pools]
-    gathered = coll.all_gather([_samples(pl, s, sp)
-                                for pl, sp in zip(pools, spans)], devs)
-    starts, counts = [], []
-    for pl, g in zip(pools, gathered):
+    """Each local pool's bucket starts and genuine counts against
+    splitters pooled from the group's samples: (starts, the (size, p)
+    count table on the host).  ``pools`` and ``spans`` are aligned with
+    the group's positions (None where a position is not held here);
+    ``starts`` likewise.  Sampling and splitters as the reference's phases
+    do."""
+    loc = grp.local
+    gathered = grp.all_gather([_samples(pools[i], s, spans[i]) for i in loc])
+    starts: List = [None] * grp.size
+    counts = []
+    for i, g in zip(loc, gathered):
+        pl = pools[i]
         splitters = select_splitters(g, p)
         bounds = bucket_bounds(pl.k, splitters, use_histogram=use_histogram)
         vcnt = (torch.minimum(bounds[1:], torch.full_like(bounds[1:], pl.n))
                 - bounds[:-1]).clamp(min=0)
-        starts.append(bounds[:-1])
+        starts[i] = bounds[:-1]
         counts.append(vcnt)
-    table = np.stack([c.cpu().numpy() for c in counts]) if counts else \
-        np.zeros((0, p), np.int64)
-    return starts, table.astype(np.int64)
+    return starts, grp.table(counts)
 
 
-def _exchange_merge(pools: Sequence[_Pool], starts, table: np.ndarray,
-                    c: int, merge_backend: Optional[str], *,
-                    chunks: int = 1, wire_codec: Optional[str] = None
-                    ) -> List[_Pool]:
+def _exchange_merge(grp, pools: Sequence[Optional[_Pool]], starts,
+                    table: np.ndarray, c: int, merge_backend: Optional[str],
+                    *, chunks: int = 1, wire_codec: Optional[str] = None
+                    ) -> List[Optional[_Pool]]:
     """One bucket exchange inside a group of p entries plus the merge of
     each receiver's runs, then the compaction of its genuine keys.
 
@@ -289,14 +295,17 @@ def _exchange_merge(pools: Sequence[_Pool], starts, table: np.ndarray,
     receive slot) rides the merge; validity, global positions and the
     payload are gathered through it, so pads that tie genuine maximal
     keys change nothing.  The runs are merged in source order, so the
-    merge keeps equal keys in source order."""
+    merge keeps equal keys in source order.  Lists are aligned with the
+    group's positions, None where a position is not held here."""
     from repro_torch.engine.merge import merge_runs
-    p = len(pools)
-    devs = [pl.dev for pl in pools]
-    track = pools[0].p is not None
-    has_v = pools[0].v is not None
+    p = grp.size
+    loc = grp.local
+    track = pools[loc[0]].p is not None
+    has_v = pools[loc[0]].v is not None
+    vdtype = pools[loc[0]].v.dtype if has_v else None
     sends_k, sends_p, sends_v = [], [], []
-    for i, pl in enumerate(pools):
+    for i in loc:
+        pl = pools[i]
         ar = torch.arange(c, dtype=torch.int32, device=pl.dev)
         cnt = torch.as_tensor(table[i], device=pl.dev).to(torch.int32)
         within = ar[None, :] < cnt[:, None]
@@ -318,31 +327,29 @@ def _exchange_merge(pools: Sequence[_Pool], starts, table: np.ndarray,
             sends_v.append(torch.where(within, _take(vv, src),
                                        torch.zeros((), dtype=vv.dtype,
                                                    device=pl.dev)))
-    recv_k = coll.chunked_all_to_all(sends_k, devs, chunks=chunks)
-    recv_p = coll.chunked_all_to_all(sends_p, devs, chunks=chunks) \
-        if track else None
+    recv_k = grp.chunked_all_to_all(sends_k, chunks)
+    recv_p = grp.chunked_all_to_all(sends_p, chunks) if track else None
     del sends_k, sends_p
     recv_v = None
     if has_v:
         if wire_codec == "int8":
             enc = [coll.wire_encode_int8(sv) for sv in sends_v]
-            rq = coll.chunked_all_to_all([q for q, _ in enc], devs,
-                                         chunks=chunks)
-            rs = coll.all_to_all([sc for _, sc in enc], devs)
-            recv_v = [coll.wire_decode_int8(q.reshape(p, c), sc,
-                                            pools[0].v.dtype)
+            rq = grp.chunked_all_to_all([q for q, _ in enc], chunks)
+            rs = grp.all_to_all([sc for _, sc in enc])
+            recv_v = [coll.wire_decode_int8(q.reshape(p, c), sc, vdtype)
                       for q, sc in zip(rq, rs)]
         else:
-            recv_v = coll.chunked_all_to_all(sends_v, devs, chunks=chunks)
+            recv_v = grp.chunked_all_to_all(sends_v, chunks)
     del sends_v
 
     cp = c // chunks
     n_runs = p * chunks
     r_runs = next_pow2(n_runs)
-    out = []
-    for j, dev in enumerate(devs):
-        kdt = recv_k[j].dtype
-        runs = recv_k[j].reshape(n_runs, cp)
+    out: List[Optional[_Pool]] = [None] * p
+    for r, j in enumerate(loc):
+        dev = grp.dev(j)
+        kdt = recv_k[r].dtype
+        runs = recv_k[r].reshape(n_runs, cp)
         if r_runs != n_runs:
             runs = torch.cat([runs, torch.full((r_runs - n_runs, cp),
                                                _maxkey(kdt), dtype=kdt,
@@ -370,30 +377,35 @@ def _exchange_merge(pools: Sequence[_Pool], starts, table: np.ndarray,
         slots = mslot.to(torch.int64)[sel]
         k = mk[sel]
         del mk, mslot, mvalid, csum, sel, runs, slot
-        pp = recv_p[j].reshape(-1)[slots] if track else None
-        vv = _take(recv_v[j].reshape(-1), slots) if has_v else None
+        pp = recv_p[r].reshape(-1)[slots] if track else None
+        vv = _take(recv_v[r].reshape(-1), slots) if has_v else None
         # this receiver's buffers are spent: free them before the next
-        recv_k[j] = None
+        recv_k[r] = None
         if track:
-            recv_p[j] = None
+            recv_p[r] = None
         if has_v:
-            recv_v[j] = None
-        out.append(_Pool(k, pp, vv, total, dev))
+            recv_v[r] = None
+        out[j] = _Pool(k, pp, vv, total, dev)
     return out
 
 
-def _rebalance(pools: Sequence[_Pool], lengths: Sequence[int],
-               devices: Sequence) -> List[_Pool]:
-    """Rank-directed rebalance of a group's merged pools (in rank order)
-    into slices of ``lengths``: one copy for every overlap of a pool and
-    a slice (``collectives.redistribute``)."""
-    ks = coll.redistribute([pl.k for pl in pools], lengths, devices)
-    ps = coll.redistribute([pl.p for pl in pools], lengths, devices) \
-        if pools[0].p is not None else [None] * len(lengths)
-    vs = coll.redistribute([pl.v for pl in pools], lengths, devices) \
-        if pools[0].v is not None else [None] * len(lengths)
-    return [_Pool(k, p, v, int(n), d)
-            for k, p, v, n, d in zip(ks, ps, vs, lengths, devices)]
+def _rebalance(grp, pools: Sequence[Optional[_Pool]],
+               lengths: Sequence[int]) -> List[Optional[_Pool]]:
+    """Rank-directed rebalance of a group's merged pools (in position
+    order) into slices of ``lengths``: a copy for every overlap of a pool
+    and a slice (``collectives.redistribute``), or one
+    ``all_to_all_single`` with split sizes on a rank."""
+    loc = grp.local
+    first = pools[loc[0]]
+    ks = grp.redistribute([pools[i].k for i in loc], lengths)
+    ps = grp.redistribute([pools[i].p for i in loc], lengths) \
+        if first.p is not None else [None] * len(loc)
+    vs = grp.redistribute([pools[i].v for i in loc], lengths) \
+        if first.v is not None else [None] * len(loc)
+    out: List[Optional[_Pool]] = [None] * grp.size
+    for i, k, p, v in zip(loc, ks, ps, vs):
+        out[i] = _Pool(k, p, v, int(lengths[i]), grp.dev(i))
+    return out
 
 
 def _pad_pool(pl: _Pool, m: int) -> _Pool:
@@ -474,15 +486,37 @@ def _record_skew(table: np.ndarray, max_bucket: int) -> None:
     metrics.histogram("samplesort.bucket_fill_max").observe(max_bucket)
 
 
-def _flat(pools, devs, lens, mesh, axes, m, s, capacity, slack,
+def _record_bytes(grp, counts: dict, tiers: dict) -> None:
+    """Add the group's ``counts`` (metric name -> value) and ``tiers``
+    (tier -> bytes) to the counters: the whole of each on a one-process
+    mesh, this rank's share on a rank (the ranks' shares sum to it)."""
+    for name, v in counts.items():
+        v = grp.share(v)
+        if v > 0:
+            metrics.counter(name).inc(v)
+    for tier, b in tiers.items():
+        coll.record_exchange(tier, grp.share(b))
+
+
+def _add_tiers(*parts: dict) -> dict:
+    out: dict = {}
+    for d in parts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + int(v)
+    return out
+
+
+def _flat(top, pools, lens, mesh, axes, m, s, capacity, slack,
           use_histogram, merge_backend, pipeline_chunks, wire_codec,
           itemsize):
-    n_dev = len(pools)
+    n_dev = top.size
     n = sum(lens)
-    sp1 = _obs.trace("samplesort.phase1", n=n, n_dev=n_dev,
-                     kv=pools[0].p is not None, samples_per_shard=s)
+    track = pools[top.local[0]].p is not None
+    sp1 = _obs.trace("samplesort.phase1", n=n, n_dev=n_dev, kv=track,
+                     samples_per_shard=s)
     with sp1:
-        starts, table = _cut(pools, [m] * n_dev, n_dev, s, use_histogram)
+        starts, table = _cut(top, pools, [m] * n_dev, n_dev, s,
+                             use_histogram)
     max_bucket = int(table.max()) if table.size else 0
     if capacity is None:
         cap = _round_capacity(int(math.ceil(max_bucket * slack)), m)
@@ -498,107 +532,125 @@ def _flat(pools, devs, lens, mesh, axes, m, s, capacity, slack,
     total_bytes = n_dev * alltoall_bytes_per_device(n_dev, m, itemsize, cap)
     if _obs.enabled():
         _record_skew(table, max_bucket)
-        metrics.counter("samplesort.alltoall_bytes").inc(total_bytes)
-        metrics.counter("samplesort.sorts").inc()
         if len(axes) == 2:
-            coll.record_split_exchange(total_bytes, int(mesh.shape[axes[1]]),
-                                       int(mesh.shape[axes[0]]))
+            tiers = coll.split_bytes(total_bytes,
+                                     _mesh.axis_size(mesh, axes[1]),
+                                     _mesh.axis_size(mesh, axes[0]))
         else:
-            coll.record_exchange("nvlink", total_bytes)
+            tiers = {"nvlink": total_bytes}
+        _record_bytes(top, {"samplesort.alltoall_bytes": total_bytes,
+                            "samplesort.sorts": 1}, tiers)
     sp2 = _obs.trace("samplesort.phase2", n=n, n_dev=n_dev, capacity=cap,
                      bytes=total_bytes if _obs.enabled() else 0)
     with sp2:
-        merged = _exchange_merge(pools, starts, table, cap, merge_backend,
-                                 chunks=chunks, wire_codec=wire_codec)
+        merged = _exchange_merge(top, pools, starts, table, cap,
+                                 merge_backend, chunks=chunks,
+                                 wire_codec=wire_codec)
         pools[:] = [None] * n_dev          # the shards are spent
-        out = _rebalance(merged, lens, devs)
+        out = _rebalance(top, merged, lens)
         del merged
-        sp2.fence([pl.k for pl in out])
+        sp2.fence([out[i].k for i in top.local])
     return out
 
 
-def _hier(pools, devs, lens, mesh, axes, m, s, slack, use_histogram,
+def _hier(top, pools, lens, mesh, axes, m, s, slack, use_histogram,
           merge_backend, pipeline_chunks, wire_codec, itemsize):
+    """The two-level schedule over the group ``top`` of the (outer,
+    inner) axes.  On a one-process mesh every node and column runs here;
+    on a rank only the node and the column this rank belongs to, and the
+    maxima that size each exchange are agreed over ``top``."""
     outer_ax, inner_ax = axes
-    d_out, d_in = int(mesh.shape[outer_ax]), int(mesh.shape[inner_ax])
+    d_out = _mesh.axis_size(mesh, outer_ax)
+    d_in = _mesh.axis_size(mesh, inner_ax)
     n_dev = d_out * d_in
     n = sum(lens)
-    val_is = None if pools[0].v is None else pools[0].v.element_size()
+    first = pools[top.local[0]]
+    val_is = None if first.v is None else first.v.element_size()
     hosts = [list(range(g * d_in, (g + 1) * d_in)) for g in range(d_out)]
     cols = [[g * d_in + i for g in range(d_out)] for i in range(d_in)]
+    nodes = [(h, top.sub(h, inner_ax)) for h in hosts]
+    nodes = [(h, g) for h, g in nodes if g is not None]
+    columns = [(c, top.sub(c, outer_ax)) for c in cols]
+    columns = [(c, g) for c, g in columns if g is not None]
 
     # phase 1: local sort done; splitters inside each node
     with _obs.trace("samplesort.hier.phase1", n=n, n_dev=n_dev,
                     d_out=d_out, d_in=d_in, samples_per_shard=s):
-        cut1 = [_cut([pools[e] for e in h], [m] * d_in, d_in, s,
-                     use_histogram) for h in hosts]
-    max1 = max(int(t.max()) for _, t in cut1)
+        cut1 = [_cut(g, [pools[e] for e in h], [m] * d_in, d_in, s,
+                     use_histogram) for h, g in nodes]
+    max1 = top.max_int(max(int(t.max()) for _, t in cut1))
     c1 = _round_capacity(int(math.ceil(max1 * slack)), m)
 
     # phase 2: inner exchange + node rebalance + outer splitter prep
+    node: List[Optional[_Pool]] = [None] * n_dev
     with _obs.trace("samplesort.hier.phase2", n=n, capacity=c1):
-        node = []
-        for g, h in enumerate(hosts):
-            merged = _exchange_merge([pools[e] for e in h], cut1[g][0],
-                                     cut1[g][1], c1, merge_backend)
+        for (h, g), (st, tb) in zip(nodes, cut1):
+            merged = _exchange_merge(g, [pools[e] for e in h], st, tb, c1,
+                                     merge_backend)
             for e in h:
                 pools[e] = None
-            valid = sum(pl.n for pl in merged)
+            valid = int(tb.sum())
             node_lens = [min(max(valid - i * m, 0), m) for i in range(d_in)]
-            node += [_pad_pool(pl, m) for pl in _rebalance(
-                merged, node_lens, [devs[e] for e in h])]
-        starts2, table2 = _cut(node, [m] * n_dev, d_out, s, use_histogram)
+            for e, pl in zip(h, _rebalance(g, merged, node_lens)):
+                if pl is not None:
+                    node[e] = _pad_pool(pl, m)
+        starts2, table2 = _cut(top, node, [m] * n_dev, d_out, s,
+                               use_histogram)
     max2 = int(table2.max())
     c2 = _round_capacity(int(math.ceil(max2 * slack)), m)
     chunks = coll.pipeline_chunks(c2, pipeline_chunks)
 
     # phase 3: outer exchange (chunked, codec) + compaction + sub-splitters
+    pool3: List[Optional[_Pool]] = [None] * n_dev
     with _obs.trace("samplesort.hier.phase3", n=n, capacity=c2,
                     chunks=chunks, wire_codec=wire_codec or "none"):
-        pool3: List[Optional[_Pool]] = [None] * n_dev
-        for col in cols:
-            merged = _exchange_merge([node[e] for e in col],
+        for col, g in columns:
+            merged = _exchange_merge(g, [node[e] for e in col],
                                      [starts2[e] for e in col],
                                      table2[col], c2, merge_backend,
                                      chunks=chunks, wire_codec=wire_codec)
             for e, pl in zip(col, merged):
-                pool3[e] = pl
+                if pl is not None:
+                    pool3[e] = pl
                 node[e] = None
         L = next_pow2(d_out * chunks) * (c2 // chunks)
-        cut3 = [_cut([pool3[e] for e in h], [pool3[e].n for e in h], d_in,
-                     s, use_histogram) for h in hosts]
-    max3 = max(int(t.max()) for _, t in cut3)
+        cut3 = [_cut(g, [pool3[e] for e in h],
+                     [None if pool3[e] is None else pool3[e].n for e in h],
+                     d_in, s, use_histogram) for h, g in nodes]
+    max3 = top.max_int(max(int(t.max()) for _, t in cut3))
     c3 = _round_capacity(int(math.ceil(max3 * slack)), L)
 
     if _obs.enabled():
         ici = n_dev * alltoall_bytes_per_device(d_in, m, itemsize, c1)
         ici += n_dev * d_in * c3 * itemsize
         dcn = n_dev * d_out * c2 * itemsize
+        counts = {}
         if wire_codec == "int8":
             saved = n_dev * coll.wire_bytes_saved(d_out, c2, val_is)
             dcn -= saved
-            metrics.counter("collectives.wire_bytes_saved").inc(saved)
-        coll.record_exchange("nvlink", ici)
-        coll.record_exchange("network", dcn)
-        coll.record_split_exchange(n_dev * n_dev * m * itemsize, d_in, d_out)
-        metrics.counter("samplesort.alltoall_bytes").inc(
-            ici + dcn + n_dev * n_dev * m * itemsize)
-        metrics.counter("samplesort.sorts").inc()
+            counts["collectives.wire_bytes_saved"] = saved
+        flat = n_dev * n_dev * m * itemsize
+        counts["samplesort.alltoall_bytes"] = ici + dcn + flat
+        counts["samplesort.sorts"] = 1
+        _record_bytes(top, counts, _add_tiers(
+            {"nvlink": ici}, {"network": dcn},
+            coll.split_bytes(flat, d_in, d_out)))
         _record_skew(table2, max2)
 
     # phase 4: inner finalize exchange + global rebalance
     sp4 = _obs.trace("samplesort.hier.phase4", n=n, capacity=c3)
     with sp4:
-        final: List[_Pool] = []
-        for g, h in enumerate(hosts):
-            merged = _exchange_merge([pool3[e] for e in h], cut3[g][0],
-                                     cut3[g][1], c3, merge_backend)
-            for e in h:
+        final: List[Optional[_Pool]] = [None] * n_dev
+        for (h, g), (st, tb) in zip(nodes, cut3):
+            merged = _exchange_merge(g, [pool3[e] for e in h], st, tb, c3,
+                                     merge_backend)
+            for e, pl in zip(h, merged):
                 pool3[e] = None
-            final += [_repair_ties(pl) for pl in merged]
+                if pl is not None:
+                    final[e] = _repair_ties(pl)
             del merged
-        out = _rebalance(final, lens, devs)
-        sp4.fence([pl.k for pl in out])
+        out = _rebalance(top, final, lens)
+        sp4.fence([out[i].k for i in top.local])
     return out
 
 
@@ -617,16 +669,16 @@ def _check_codec(wire_codec, values):
             f"{keycodec.dtype_name(values[0].dtype)!r}")
 
 
-def _sort_shards(shards, mesh, axes, values, descending, return_indices,
-                 local_method, samples_per_shard, capacity, capacity_slack,
-                 use_histogram, merge_backend, hierarchical,
-                 pipeline_chunks, wire_codec):
-    """The engine under both entry points: shard tensors in, the sorted
-    array's pools out (cut like the input, each on its entry)."""
-    n_dev = _n_dev(mesh, axes)
-    if len(shards) != n_dev:
-        raise ValueError(f"{n_dev} mesh entries over {axes} need {n_dev} "
-                         f"shards, got {len(shards)}")
+def _sort_group(top, mesh, axes, shards, lens, values, descending,
+                return_indices, local_method, samples_per_shard, capacity,
+                capacity_slack, use_histogram, merge_backend, hierarchical,
+                pipeline_chunks, wire_codec):
+    """The engine under every entry point, over the group ``top`` of the
+    sort's entries: ``shards`` / ``values`` the local ones (aligned with
+    ``top.local``), ``lens`` every entry's length.  Returns the sorted
+    array's pools, cut like the input, aligned with the group's positions
+    (None where a position is not held here)."""
+    n_dev = top.size
     dtype = shards[0].dtype
     for t in shards:
         if t.dim() != 1 or t.dtype != dtype:
@@ -636,10 +688,11 @@ def _sort_shards(shards, mesh, axes, values, descending, return_indices,
             f"sample_sort needs a keycodec dtype {keycodec.SUPPORTED}, "
             f"got {keycodec.dtype_name(dtype)!r}")
     if values is not None:
-        if len(values) != n_dev or any(
+        if len(values) != len(shards) or any(
                 v.shape != t.shape for v, t in zip(values, shards)):
             raise ValueError("values must match the key shards one for one")
-    two_tier = len(axes) == 2 and all(int(mesh.shape[a]) > 1 for a in axes)
+    two_tier = len(axes) == 2 and all(_mesh.axis_size(mesh, a) > 1
+                                      for a in axes)
     if hierarchical and len(axes) != 2:
         raise ValueError(
             f"hierarchical sample_sort needs exactly two mesh axes "
@@ -651,11 +704,9 @@ def _sort_shards(shards, mesh, axes, values, descending, return_indices,
             "capacity= overrides the FLAT exchange capacity; the "
             "hierarchical path measures three per-phase capacities "
             "(pass hierarchical=False to pin the flat one)")
-    devs = _entries(mesh, axes)
-    lens = [int(t.shape[0]) for t in shards]
     m = max(1, max(lens))
     if use_histogram is None:
-        use_histogram = devs[0].type == "cuda"
+        use_histogram = top.dev(top.local[0]).type == "cuda"
     s = samples_per_shard or default_samples_per_shard(m, n_dev)
     slack = capacity_slack if capacity_slack is not None \
         else _tuning.active().capacity_slack
@@ -663,29 +714,27 @@ def _sort_shards(shards, mesh, axes, values, descending, return_indices,
     kc = keycodec.key_dtype(dtype)
     itemsize = torch.empty((), dtype=kc).element_size() + \
         (values[0].element_size() if values is not None else 0)
-    pools, off = [], 0
-    for d, (t, dev) in enumerate(zip(shards, devs)):
-        k = _to_order_keys(coll.copy_to(t, dev), descending)
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    pools: List[Optional[_Pool]] = [None] * n_dev
+    for r, d in enumerate(top.local):
+        dev = top.dev(d)
+        k = _to_order_keys(coll.copy_to(shards[r], dev), descending)
         v = None if values is None else \
-            keycodec.to_signed(coll.copy_to(values[d], dev))
-        pools.append(_local_sort(k, v, lens[d], off, m, track, local_method,
-                                 dev))
-        off += lens[d]
+            keycodec.to_signed(coll.copy_to(values[r], dev))
+        pools[d] = _local_sort(k, v, lens[d], int(offs[d]), m, track,
+                               local_method, dev)
     if n_dev == 1:
-        return [_Pool(pools[0].k[:lens[0]], None if not track
-                      else pools[0].p[:lens[0]],
-                      None if values is None else pools[0].v[:lens[0]],
-                      lens[0], devs[0])], dtype, \
-            None if values is None else values[0].dtype
+        pl = pools[0]
+        n0 = lens[0]
+        return [_Pool(pl.k[:n0], None if not track else pl.p[:n0],
+                      None if values is None else pl.v[:n0], n0, pl.dev)]
     if hier:
-        out = _hier(pools, devs, lens, mesh, axes, m, s, slack,
-                    use_histogram, merge_backend, pipeline_chunks,
-                    wire_codec, itemsize)
-    else:
-        out = _flat(pools, devs, lens, mesh, axes, m, s, capacity, slack,
-                    use_histogram, merge_backend, pipeline_chunks,
-                    wire_codec, itemsize)
-    return out, dtype, None if values is None else values[0].dtype
+        return _hier(top, pools, lens, mesh, axes, m, s, slack,
+                     use_histogram, merge_backend, pipeline_chunks,
+                     wire_codec, itemsize)
+    return _flat(top, pools, lens, mesh, axes, m, s, capacity, slack,
+                 use_histogram, merge_backend, pipeline_chunks, wire_codec,
+                 itemsize)
 
 
 def _results(pools, dtype, vdtype, descending, return_indices):
@@ -697,9 +746,20 @@ def _results(pools, dtype, vdtype, descending, return_indices):
     return keys
 
 
-def sample_sort_shards(shards: Sequence[torch.Tensor], mesh,
+def _rank_top(mesh, axes, t: torch.Tensor) -> "coll.RankGroup":
+    """This rank's group over ``axes`` of a ``DeviceMesh``; its shard
+    ``t`` must lie on the mesh's device type (no move, no fallback)."""
+    if t.device.type != mesh.device_type:
+        raise ValueError(
+            f"this rank's shard lies on {t.device}, off the DeviceMesh's "
+            f"device type {mesh.device_type!r}; the rank form moves no "
+            f"shard")
+    return coll.RankGroup(mesh, axes, t.device)
+
+
+def sample_sort_shards(shards, mesh,
                        axis_name: AxisArg = "data", *,
-                       values: Optional[Sequence[torch.Tensor]] = None,
+                       values=None,
                        descending: bool = False,
                        return_indices: bool = False,
                        local_method: Optional[str] = None,
@@ -711,25 +771,126 @@ def sample_sort_shards(shards: Sequence[torch.Tensor], mesh,
                        hierarchical: Optional[bool] = None,
                        pipeline_chunks: Optional[int] = None,
                        wire_codec: Optional[str] = None):
-    """The shard-level entry: one 1-D tensor per mesh entry over
-    ``axis_name``, in row-major (linear) order, the global array being
-    their concatenation.  Returns the globally sorted array cut into
-    shards of the same lengths, each on its entry's device (with
-    ``values``: ``(key shards, payload shards)``; with
+    """The shard-level entry.  On a one-process ``Mesh``: one 1-D tensor
+    per mesh entry over ``axis_name``, in row-major (linear) order, the
+    global array being their concatenation; returns the globally sorted
+    array cut into shards of the same lengths, each on its entry's device
+    (with ``values``: ``(key shards, payload shards)``; with
     ``return_indices``: ``(key shards, global position shards)``, the
-    stable permutation).  What a multi-card caller uses without gathering;
-    the options are :func:`sample_sort`'s."""
+    stable permutation).
+
+    On a ``DeviceMesh`` (one program a rank): ``shards`` is THIS rank's
+    1-D shard (``values`` its payload), the global array the shards'
+    concatenation in the order of ``core.mesh.rank_index``; returns this
+    rank's shard of the result, of its input's length, as the one-process
+    form cuts it.  Every rank of the sort's group makes the call.  The
+    options are :func:`sample_sort`'s."""
     axes = _axes_tuple(mesh, axis_name)
-    pools, dtype, vdtype = _sort_shards(
-        list(shards), mesh, axes, None if values is None else list(values),
-        descending, return_indices, local_method, samples_per_shard,
-        capacity, capacity_slack, use_histogram, merge_backend,
-        hierarchical, pipeline_chunks, wire_codec)
-    return _results(pools, dtype, vdtype, descending, return_indices)
+    if _mesh.is_device_mesh(mesh):
+        x = torch.as_tensor(shards)
+        top = _rank_top(mesh, axes, x)
+        vals = None if values is None else [torch.as_tensor(values)]
+        lens = top.lengths(x.shape[0] if x.dim() == 1 else -1)
+        if min(lens) < 0:               # every rank raises, none waits
+            raise ValueError("shards must be 1-D tensors of one dtype")
+        pools = _sort_group(
+            top, mesh, axes, [x], lens, vals, descending, return_indices,
+            local_method, samples_per_shard, capacity, capacity_slack,
+            use_histogram, merge_backend, hierarchical, pipeline_chunks,
+            wire_codec)
+        out = _results([pools[top.pos]], x.dtype,
+                       None if values is None else vals[0].dtype,
+                       descending, return_indices)
+        return tuple(o[0] for o in out) if isinstance(out, tuple) \
+            else out[0]
+    shards = list(shards)
+    n_dev = _n_dev(mesh, axes)
+    if len(shards) != n_dev:
+        raise ValueError(f"{n_dev} mesh entries over {axes} need {n_dev} "
+                         f"shards, got {len(shards)}")
+    top = coll.EntryGroup(_entries(mesh, axes), range(n_dev))
+    pools = _sort_group(
+        top, mesh, axes, shards, [int(t.shape[0]) for t in shards],
+        None if values is None else list(values), descending,
+        return_indices, local_method, samples_per_shard, capacity,
+        capacity_slack, use_histogram, merge_backend, hierarchical,
+        pipeline_chunks, wire_codec)
+    return _results(pools, shards[0].dtype,
+                    None if values is None else values[0].dtype,
+                    descending, return_indices)
 
 
-def sample_sort(x: torch.Tensor, mesh, axis_name: AxisArg = "data", *,
-                values: Optional[torch.Tensor] = None,
+# ---------------------------------------------------------------------------
+# DTensor in, DTensor out: the rank form's global-array entry points
+# ---------------------------------------------------------------------------
+
+def _dtensor_local(x, mesh, axes, what: str) -> torch.Tensor:
+    """This rank's shard of a DTensor placed ``Shard(0)`` over ``axes``
+    (in mesh order) and ``Replicate()`` over the other axes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        raise TypeError(
+            f"{what} on a DeviceMesh takes a DTensor placed Shard(0) over "
+            f"the sort's axes (got {type(x).__name__}); a rank's own shard "
+            f"goes through sample_sort_shards")
+    names = _mesh.axis_names(mesh)
+    if _mesh.mesh_key(x.device_mesh) != _mesh.mesh_key(mesh):
+        raise ValueError(f"{what}: the DTensor lies on another DeviceMesh")
+    if list(axes) != [a for a in names if a in axes]:
+        raise ValueError(f"{what}: a DTensor is cut over its mesh's axes "
+                         f"in mesh order {names}; got axes {axes}")
+    for name, pl in zip(names, x.placements):
+        want = Shard(0) if name in axes else Replicate()
+        if pl != want:
+            raise ValueError(
+                f"{what}: mesh axis {name!r} needs placement {want}, the "
+                f"DTensor has {pl}")
+    return x.to_local()
+
+
+def _as_dtensor(local: torch.Tensor, like):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def _replicated(t: torch.Tensor, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def shard_of(x: torch.Tensor, mesh, axis_name: AxisArg = None):
+    """A 1-D tensor every rank of a ``DeviceMesh`` holds whole, as a
+    DTensor placed ``Shard(0)`` over the axes (in mesh order), cut as the
+    one-process :func:`sample_sort` cuts it: ``ceil(n / D)`` elements a
+    rank in linear order.  No data moves."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    axes = _axes_tuple(mesh, axis_name)
+    n = x.shape[0]
+    d = _n_dev(mesh, axes)
+    m = -(-n // d) if n else 0
+    i = _mesh.rank_index(mesh, axes)
+    local = x[min(i * m, n):min(i * m + m, n)]
+    places = [Shard(0) if a in axes else Replicate()
+              for a in _mesh.axis_names(mesh)]
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def gather_shards(local: torch.Tensor, mesh, axis_name: AxisArg = None
+                  ) -> torch.Tensor:
+    """The whole 1-D array on every rank of a ``DeviceMesh``: this rank's
+    ``local`` shard and the others', concatenated in linear order over
+    the axes (padded to the longest shard, one ``all_gather``)."""
+    axes = _axes_tuple(mesh, axis_name)
+    top = _rank_top(mesh, axes, local)
+    return top.all_gather_v(local, top.lengths(local.shape[0]))
+
+
+def sample_sort(x, mesh, axis_name: AxisArg = "data", *,
+                values=None,
                 descending: bool = False,
                 return_indices: bool = False,
                 local_method: Optional[str] = None,
@@ -742,11 +903,14 @@ def sample_sort(x: torch.Tensor, mesh, axis_name: AxisArg = "data", *,
                 pipeline_chunks: Optional[int] = None,
                 wire_codec: Optional[str] = None):
     """Sort a 1-D tensor globally over ``axis_name`` (one mesh axis, a
-    tuple of axes, or None for the whole mesh).  The input is cut into
-    ``ceil(n / D)``-element shards, one an entry; the result is the
-    global sorted tensor on the mesh's first entry's device (with
-    ``values``: ``(keys, values)``; with ``return_indices``: ``(keys,
-    int32 permutation)``).  Ties keep ascending index order.
+    tuple of axes, or None for the whole mesh).  On a one-process
+    ``Mesh`` the input is cut into ``ceil(n / D)``-element shards, one an
+    entry, and the result is the global sorted tensor on the mesh's first
+    entry's device.  On a ``DeviceMesh`` ``x`` is a DTensor placed
+    ``Shard(0)`` over the axes (the reference's ``jax.Array`` with a
+    ``NamedSharding``) and the result a DTensor of the same placement.
+    With ``values``: ``(keys, values)``; with ``return_indices``:
+    ``(keys, int32 permutation)``.  Ties keep ascending index order.
 
     On a two-axis mesh the two-level schedule runs by default
     (``hierarchical=False`` pins the flat one; both give the same bits).
@@ -757,6 +921,28 @@ def sample_sort(x: torch.Tensor, mesh, axis_name: AxisArg = "data", *,
     int8 codec on the outer tier (keys travel wide, so the order stays
     exact).  ``use_histogram`` (default: on a card) counts the buckets
     with K3's bucket histogram rather than a binary search."""
+    opts = dict(descending=descending, return_indices=return_indices,
+                local_method=local_method,
+                samples_per_shard=samples_per_shard, capacity=capacity,
+                capacity_slack=capacity_slack, use_histogram=use_histogram,
+                merge_backend=merge_backend, hierarchical=hierarchical,
+                pipeline_chunks=pipeline_chunks, wire_codec=wire_codec)
+    if _mesh.is_device_mesh(mesh):
+        axes = _axes_tuple(mesh, axis_name)
+        local = _dtensor_local(x, mesh, axes, "sample_sort")
+        if x.dim() != 1:
+            raise ValueError(f"sample_sort sorts flat 1-D arrays, got "
+                             f"{tuple(x.shape)}")
+        vloc = None
+        if values is not None:
+            vloc = _dtensor_local(values, mesh, axes, "sample_sort values")
+            if values.shape != x.shape:
+                raise ValueError(f"values shape {tuple(values.shape)} must "
+                                 f"match keys shape {tuple(x.shape)}")
+        out = sample_sort_shards(local, mesh, axes, values=vloc, **opts)
+        if isinstance(out, tuple):
+            return tuple(_as_dtensor(o, x) for o in out)
+        return _as_dtensor(out, x)
     x = torch.as_tensor(x)
     if x.dim() != 1:
         raise ValueError(f"sample_sort sorts flat 1-D arrays, got "
@@ -778,13 +964,7 @@ def sample_sort(x: torch.Tensor, mesh, axis_name: AxisArg = "data", *,
     shards = [x[bounds[d]:bounds[d + 1]] for d in range(n_dev)]
     vshards = None if values is None else \
         [values[bounds[d]:bounds[d + 1]] for d in range(n_dev)]
-    out = sample_sort_shards(
-        shards, mesh, axes, values=vshards, descending=descending,
-        return_indices=return_indices, local_method=local_method,
-        samples_per_shard=samples_per_shard, capacity=capacity,
-        capacity_slack=capacity_slack, use_histogram=use_histogram,
-        merge_backend=merge_backend, hierarchical=hierarchical,
-        pipeline_chunks=pipeline_chunks, wire_codec=wire_codec)
+    out = sample_sort_shards(shards, mesh, axes, values=vshards, **opts)
     first = _entries(mesh, axes)[0]
 
     def cat(parts):
@@ -798,12 +978,51 @@ def sample_sort(x: torch.Tensor, mesh, axis_name: AxisArg = "data", *,
 # distributed top-k: local select -> ONE candidate all-gather -> tiny merge
 # ---------------------------------------------------------------------------
 
-def sample_topk(x: torch.Tensor, k: int, mesh,
-                axis_name: AxisArg = "data"):
+def _topk_candidates(shard: torch.Tensor, base: int, m: int, kc: int,
+                     n: int, bits: int) -> torch.Tensor:
+    """One entry's ``kc`` best (key, global index) pairs packed into int64
+    (the key's code above bit 31, the index below), its shard padded to
+    ``m`` slots with the maximal code: K4's radix select on a card."""
+    from repro_torch.kernels import radix_select as _sel
+    nv = shard.shape[0]
+    enc = keycodec.encode(shard, descending=True)
+    e = torch.full((m,), -1, dtype=enc.dtype, device=shard.device)
+    e[:nv] = enc                      # pads: the maximal code
+    le, li = _sel.select_topk_encoded(e[None], kc)
+    gi = torch.where(li[0] < nv, base + li[0], torch.full_like(li[0], n))
+    return ((le[0].to(torch.int64) & ((1 << bits) - 1)) << 31) \
+        | gi.to(torch.int64)
+
+
+def _topk_decode(top_: torch.Tensor, dtype, bits: int):
+    enc = top_ >> 31
+    enc = torch.where(enc >= 1 << (bits - 1), enc - (1 << bits), enc) \
+        .to(keycodec.key_dtype(dtype))
+    idx = (top_ & ((1 << 31) - 1)).to(torch.int32)
+    return keycodec.decode(enc, dtype, descending=True), idx
+
+
+def _topk_bytes(grp, mesh, axes, k, m, bits) -> int:
+    n_dev = grp.size
+    cand_bytes = n_dev * topk_candidate_bytes_per_device(n_dev, k, m,
+                                                         bits // 8)
+    if len(axes) == 2:
+        tiers = coll.split_bytes(cand_bytes, _mesh.axis_size(mesh, axes[1]),
+                                 _mesh.axis_size(mesh, axes[0]))
+    else:
+        tiers = {"nvlink": cand_bytes}
+    _record_bytes(grp, {"samplesort.topk_candidate_bytes": cand_bytes},
+                  tiers)
+    return cand_bytes
+
+
+def sample_topk(x, k: int, mesh, axis_name: AxisArg = "data"):
     """Mesh-global top-k of a flat tensor -> ``(values, int32 indices)``,
-    both ``(k,)`` on the mesh's first entry's device, bit-exact with
-    ``jax.lax.top_k`` on the whole array (values descending, +0.0 above
-    -0.0, ties the lowest global index first).
+    both ``(k,)``, bit-exact with ``jax.lax.top_k`` on the whole array
+    (values descending, +0.0 above -0.0, ties the lowest global index
+    first): on the mesh's first entry's device for a one-process ``Mesh``;
+    for a ``DeviceMesh`` ``x`` is a DTensor placed ``Shard(0)`` over the
+    axes and both results are DTensors replicated on every rank.
 
     Each entry selects its shard's ``min(k, m)`` candidates with K4's
     radix select (``select_topk_encoded``; the plain version on the CPU),
@@ -811,59 +1030,52 @@ def sample_topk(x: torch.Tensor, k: int, mesh,
     every entry sorts that small pool by (key, index).  A shard with g
     genuine keys offers ``min(k, g)`` of them, so the global top-k is in
     the pool whenever ``n >= k``."""
-    from repro_torch.kernels import radix_select as _sel
-    x = torch.as_tensor(x)
-    if x.dim() != 1:
+    if _mesh.is_device_mesh(mesh):
+        axes = _axes_tuple(mesh, axis_name)
+        local = _dtensor_local(x, mesh, axes, "sample_topk")
+        dtype, shape = x.dtype, tuple(x.shape)
+    else:
+        x = torch.as_tensor(x)
+        dtype, shape = x.dtype, tuple(x.shape)
+    if len(shape) != 1:
         raise ValueError(f"sample_topk selects over flat 1-D arrays, "
-                         f"got {tuple(x.shape)}")
-    if not keycodec.supports(x.dtype):
+                         f"got {shape}")
+    if not keycodec.supports(dtype):
         raise ValueError(
             f"sample_topk needs a keycodec dtype {keycodec.SUPPORTED}, "
-            f"got {keycodec.dtype_name(x.dtype)!r}")
-    n = x.shape[0]
+            f"got {keycodec.dtype_name(dtype)!r}")
+    n = shape[0]
     if not 1 <= k <= n:
         raise ValueError(
             f"topk k must satisfy 1 <= k <= n (n={n}); got k={k}")
-    axes = _axes_tuple(mesh, axis_name)
-    n_dev = _n_dev(mesh, axes)
-    devs = _entries(mesh, axes)
-    m = -(-n // n_dev)
+    bits = keycodec.key_bits(dtype)
+    if _mesh.is_device_mesh(mesh):
+        grp = _rank_top(mesh, axes, local)
+        lens = grp.lengths(local.shape[0])
+        m = max(lens)
+        bases = [int(sum(lens[:d])) for d in range(grp.size)]
+        shards = [local]
+    else:
+        axes = _axes_tuple(mesh, axis_name)
+        n_dev = _n_dev(mesh, axes)
+        devs = _entries(mesh, axes)
+        grp = coll.EntryGroup(devs, range(n_dev))
+        m = -(-n // n_dev)
+        bases = [d * m for d in range(n_dev)]
+        shards = [coll.copy_to(x[min(b, n):min(b + m, n)], dev)
+                  for b, dev in zip(bases, devs)]
     kc = min(k, m)
-    bits = keycodec.key_bits(x.dtype)
-    mask = (1 << bits) - 1
-    cand_bytes = 0
-    if _obs.enabled():
-        cand_bytes = n_dev * topk_candidate_bytes_per_device(
-            n_dev, k, m, bits // 8)
-        metrics.counter("samplesort.topk_candidate_bytes").inc(cand_bytes)
-        if len(axes) == 2:
-            coll.record_split_exchange(cand_bytes, int(mesh.shape[axes[1]]),
-                                       int(mesh.shape[axes[0]]))
-        else:
-            coll.record_exchange("nvlink", cand_bytes)
-    sp = _obs.trace("samplesort.topk", n=n, k=k, n_dev=n_dev,
+    cand_bytes = _topk_bytes(grp, mesh, axes, k, m, bits) \
+        if _obs.enabled() else 0
+    sp = _obs.trace("samplesort.topk", n=n, k=k, n_dev=grp.size,
                     bytes=cand_bytes)
     with sp:
-        cands = []
-        for d, dev in enumerate(devs):
-            base = d * m
-            shard = coll.copy_to(x[min(base, n):min(base + m, n)], dev)
-            nv = shard.shape[0]
-            enc = keycodec.encode(shard, descending=True)
-            e = torch.full((m,), -1, dtype=enc.dtype, device=dev)
-            e[:nv] = enc                      # pads: the maximal code
-            le, li = _sel.select_topk_encoded(e[None], kc)
-            gi = torch.where(li[0] < nv, base + li[0],
-                             torch.full_like(li[0], n))
-            comp = ((le[0].to(torch.int64) & mask) << 31) \
-                | gi.to(torch.int64)
-            cands.append(comp)
-        pools = coll.all_gather(cands, devs)
-        outs = [torch.sort(pl).values[:k] for pl in pools]
-        top = outs[0]
-        sp.fence(top)
-    enc = top >> 31
-    enc = torch.where(enc >= 1 << (bits - 1), enc - (1 << bits), enc) \
-        .to(keycodec.key_dtype(x.dtype))
-    idx = (top & ((1 << 31) - 1)).to(torch.int32)
-    return keycodec.decode(enc, x.dtype, descending=True), idx
+        cands = [_topk_candidates(t, bases[d], m, kc, n, bits)
+                 for d, t in zip(grp.local, shards)]
+        pools = grp.all_gather(cands)
+        top_ = [torch.sort(pl).values[:k] for pl in pools][0]
+        sp.fence(top_)
+    vals, idx = _topk_decode(top_, dtype, bits)
+    if _mesh.is_device_mesh(mesh):
+        return _replicated(vals, mesh), _replicated(idx, mesh)
+    return vals, idx

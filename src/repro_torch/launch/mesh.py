@@ -6,7 +6,8 @@ Two kinds of mesh live here.  ``make_host_mesh`` is the sort tier's
 single-controller ``core.mesh.Mesh`` (one process, an entry a card).
 ``make_host_device_mesh`` and ``make_production_mesh`` are
 ``torch.distributed`` ``DeviceMesh``es for the sharding policy
-(``sharding.partitioning``): one process a rank.  The production meshes
+(``sharding.partitioning``) and, the former, for the sort tier's rank
+form (``core.mesh``): one process a rank.  The production meshes
 stand on a ``fake`` process group, whose collectives carry no data: the
 dry run traces rank 0's local program on them and never a real tensor.
 """

@@ -26,8 +26,13 @@ PyTorch ops, as they are XLA ops in the JAX package.
 Static-shape contract: data-dependent result sizes (unique values, groups,
 join pairs, runs) come back as fixed-size padded tensors + a valid count.
 ``unique``, ``group_by`` and ``join`` take ``mesh``/``axis_name``: the
-sort backbone goes mesh-global (``engine.samplesort``) and the post-pass
-runs on the mesh's first entry's device, ``device`` aside.
+sort backbone goes mesh-global (``engine.samplesort``).  On a one-process
+``core.mesh.Mesh`` the post-pass runs on the mesh's first entry's device,
+``device`` aside.  On a ``DeviceMesh`` (one program a rank, every rank
+making the call) a column is a DTensor placed ``Shard(0)`` over the
+axes, or a tensor every rank holds whole, on the rank's device; the sort
+is the rank sort, every rank runs the post-pass on the gathered sorted
+columns, and the result is replicated on every rank.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.mesh import Mesh
+from repro_torch.core.mesh import Mesh, is_device_mesh
 from repro_torch.core.sortspec import resolve_device
 from repro_torch.relational.relspec import AGGS, OPS, RelSpec  # noqa: F401
 # module handles bound BEFORE the wrapper defs below shadow the submodule
@@ -67,16 +72,40 @@ def _on(t, dev: torch.device) -> Optional[torch.Tensor]:
     return None if t is None else torch.as_tensor(t).to(dev)
 
 
+def _whole(t, spec: RelSpec) -> Optional[torch.Tensor]:
+    """A column of a ``DeviceMesh`` op, whole on this rank: a DTensor's
+    shards gathered, or the tensor itself; on the rank's device, never
+    moved there."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.engine import samplesort as _ss
+    if t is None:
+        return None
+    axes = _ss._axes_tuple(spec.mesh, spec.axis_name)
+    if isinstance(t, DTensor):
+        return _ss.gather_shards(
+            _ss._dtensor_local(t, spec.mesh, axes, f"relational {spec.op}"),
+            spec.mesh, axes)
+    t = torch.as_tensor(t)
+    if t.device.type != spec.mesh.device_type:
+        raise ValueError(f"relational {spec.op}: a {t.device} column on a "
+                         f"{spec.mesh.device_type!r} DeviceMesh; the rank "
+                         f"form moves no column")
+    return t
+
+
 def run(spec: RelSpec, x, values=None, *, device="cuda"):
     """Execute ``spec`` on ``device``.  ``x`` is the (key) column;
     ``values`` is the payload column (group_by) or the right key column
     (join)."""
     # a mesh op's post-pass runs where the mesh sort returns: the first
-    # entry's device (``canonical`` refuses anything but a Mesh)
+    # entry's device of a one-process Mesh, every rank of a DeviceMesh
     if isinstance(spec.mesh, Mesh):
         device = spec.mesh.devices.flat[0]
-    dev = resolve_device(device)
-    x, values = _on(x, dev), _on(values, dev)
+    if is_device_mesh(spec.mesh):
+        x, values = (_whole(t, spec) for t in (x, values))
+    else:
+        dev = resolve_device(device)
+        x, values = _on(x, dev), _on(values, dev)
     spec = spec.canonical(x, values)
     if spec.op == "unique":
         return _unique_mod.run(spec, x)

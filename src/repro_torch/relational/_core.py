@@ -144,13 +144,34 @@ def finish(sp, spec: RelSpec, plan, n: int) -> None:
         measured_ns / predicted)
 
 
+def _rank_sort(fn, x: torch.Tensor, spec, values=None):
+    """A ``DeviceMesh`` op's sort backbone: the whole column ``x`` (every
+    rank holds it) cut into this rank's shard as the one-process mesh
+    sort cuts it, the rank sort through the front door ``fn``, and its
+    result's shards gathered whole on every rank."""
+    from repro_torch.engine import samplesort as ss
+    mesh, axes = spec.mesh, spec.axis_name
+    args = [ss.shard_of(x, mesh, axes)]
+    if values is not None:
+        args.append(ss.shard_of(values, mesh, axes))
+    out = fn(*args, mesh=mesh, axis_name=axes)
+    parts = out if isinstance(out, tuple) else (out,)
+    whole = tuple(ss.gather_shards(t.to_local(), mesh, axes) for t in parts)
+    return whole if isinstance(out, tuple) else whole[0]
+
+
 def sorted_column(x: torch.Tensor, method: Optional[str],
                   values: Optional[torch.Tensor] = None, spec=None):
     """The op's sort backbone on the column's device: the mesh-global
-    sample sort when ``spec`` has a mesh, else the planner-picked (or
-    pinned) backend; with ``values`` a stable key-value sort.  A ``spill``
-    result (a CPU tensor) comes back to the column's device."""
+    sample sort when ``spec`` has a mesh (the rank sort on a
+    ``DeviceMesh``), else the planner-picked (or pinned) backend; with
+    ``values`` a stable key-value sort.  A ``spill`` result (a CPU
+    tensor) comes back to the column's device."""
     import repro_torch.sort as rsort
+    from repro_torch.core.mesh import is_device_mesh
+    if spec is not None and is_device_mesh(spec.mesh):
+        return _rank_sort(rsort.sort if values is None else rsort.sort_kv,
+                          x, spec, values)
     if spec is not None and spec.mesh is not None:
         if values is not None:
             return tuple(t.to(x.device) for t in rsort.sort_kv(
@@ -170,6 +191,9 @@ def stable_order(x: torch.Tensor, method: Optional[str],
     runs the engine's stable merge pipeline instead, as
     ``cost_model.relational_cost_ns`` prices it."""
     import repro_torch.sort as rsort
+    from repro_torch.core.mesh import is_device_mesh
+    if spec is not None and is_device_mesh(spec.mesh):
+        return _rank_sort(rsort.argsort, x, spec)
     if spec is not None and spec.mesh is not None:
         return rsort.argsort(x, mesh=spec.mesh,
                              axis_name=spec.axis_name).to(x.device)

@@ -14,9 +14,11 @@ Static-shape contract, as in the JAX package: results whose true size
 depends on the data (unique values, groups, join pairs, runs) come back as
 fixed-size padded tensors plus a valid count.
 
-``mesh``/``axis_name`` run an op over a device mesh
-(``core.mesh.Mesh``): the op's sort backbone is the mesh-global sample
-sort and the post-pass runs on the mesh's first entry's device.  The JAX
+``mesh``/``axis_name`` run an op over a device mesh: the op's sort
+backbone is the mesh-global sample sort.  On a one-process
+``core.mesh.Mesh`` the post-pass runs on the mesh's first entry's
+device; on a ``DeviceMesh`` (one program a rank) every rank runs it on
+the gathered sorted columns and the result is replicated on every rank.  The JAX
 package composes unique and group_by over a mesh; the port also runs
 join there, whose backbone is a stable permutation, which the port's mesh
 sort gives (the reference's is not stable).  The Pallas ``interpret``
@@ -78,8 +80,9 @@ class RelSpec:
       num_bins / lo / hi      histogram shape
       qs                      quantile fractions in [0, 1]
       num_groups              group_ranks key domain (0 <= key < num_groups)
-      mesh / axis_name        run over a ``core.mesh.Mesh`` (unique,
-                              group_by, join; see the module docstring)
+      mesh / axis_name        run over a ``core.mesh.Mesh`` or a
+                              ``DeviceMesh`` (unique, group_by, join; see
+                              the module docstring)
       method                  sorting backend (None -> "auto")
     """
     op: str = "unique"
@@ -149,12 +152,9 @@ class RelSpec:
                 raise ValueError(
                     f"distributed relational variants exist for "
                     f"{tuple(sorted(MESH_OPS))}; op {op!r} has none")
-            from repro_torch.core.mesh import Mesh
+            from repro_torch.core.mesh import check_mesh
             from repro_torch.engine.samplesort import _axes_tuple
-            if not isinstance(self.mesh, Mesh):
-                raise TypeError(
-                    f"mesh must be a repro_torch.core.mesh.Mesh, got "
-                    f"{type(self.mesh).__name__}")
+            check_mesh(self.mesh)
             axis_name = _axes_tuple(self.mesh, axis_name)
             if method not in ("auto", "distributed"):
                 raise ValueError(
@@ -249,7 +249,8 @@ class RelSpec:
     def static_key(self, shape, dtype) -> tuple:
         """Hashable reduction to the statics an external cache may key on
         (mirrors the JAX package's ``RelSpec.static_key``)."""
-        mesh_key = None if self.mesh is None else self.mesh.key()
+        from repro_torch.core.mesh import mesh_key as _mesh_key
+        mesh_key = None if self.mesh is None else _mesh_key(self.mesh)
         return (self.op, self.agg, self.return_inverse, self.return_counts,
                 self.size, self.fill_value, self.assume_sorted,
                 self.num_bins, self.lo, self.hi, self.qs, self.num_groups,

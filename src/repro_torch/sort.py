@@ -22,8 +22,11 @@ Validation happens once, at the spec layer; execution is
 without a card raises ``RuntimeError``.  A sort planned onto the spill
 tier (``method="spill"``, or ``auto`` above the profile's
 ``spill_threshold_bytes``) leaves its input where it is and returns a CPU
-tensor.  A spec with ``mesh`` (``core.mesh.Mesh``) runs on the mesh's
-devices, whatever ``device`` says, and returns on its first entry's.
+tensor.  A spec with ``mesh`` runs on the mesh's devices, whatever
+``device`` says: on a one-process ``core.mesh.Mesh`` it returns on the
+first entry's device; on a ``DeviceMesh`` (one program a rank, every rank
+making the call) ``x`` is a DTensor placed ``Shard(0)`` over the sort's
+axes and the result a DTensor of the same placement (top-k: replicated).
 """
 from __future__ import annotations
 
@@ -70,7 +73,9 @@ def run(spec: SortSpec, x, *, device="cuda") -> Union[_T, Tuple[_T, _T]]:
     the result lies on the mesh's first entry's device.
     """
     from repro_torch import engine
-    x = torch.as_tensor(x)
+    from repro_torch.core.mesh import is_device_mesh
+    if not is_device_mesh(spec.mesh):
+        x = torch.as_tensor(x)
     spec = spec.canonical(x)
     if spec.mesh is not None:
         be = get_backend("distributed")
@@ -186,8 +191,11 @@ def sort_kv(keys, values, *, axis: int = -1, descending: bool = False,
     """Sort ``keys`` carrying ``values`` -> (sorted keys, permuted values);
     with ``mesh`` globally over the mesh (the payload rides the
     exchanges)."""
+    from repro_torch.core.mesh import is_device_mesh
+    if not is_device_mesh(mesh):
+        values = torch.as_tensor(values)
     return run(SortSpec(axis=axis, descending=descending, stable=stable,
-                        values=torch.as_tensor(values), method=method,
+                        values=values, method=method,
                         run_len=run_len, mesh=mesh, axis_name=axis_name),
                keys, device=device)
 

@@ -1817,3 +1817,40 @@ def test_train_graph_raises_a_failed_capture_by_name():
     first = tree.leaves_with_path(params)[0][0]
     with pytest.raises(ValueError, match=re.escape(f"params{first} differs")):
         g(tree.map(torch.clone, params), state, 0, batch)
+
+
+# ---------------------------------------------------------------------------
+# the mesh tier's rank form: two gloo ranks on cuda:0
+# ---------------------------------------------------------------------------
+
+def test_rank_form_on_two_gloo_ranks_of_one_card(tmp_path):
+    """Two ranks spawned on cuda:0 over gloo (``tests/_torch_ranks_worker.py
+    cuda``): a sample sort, a stable argsort and a top-k of 2^20 float32
+    keys, each rank's shard against ``torch.sort`` / ``torch.topk`` of the
+    whole array; each rank launches one K3 ``radix_bucket_hist`` and K2's
+    merge of its two received runs for a sort, and K4 for the top-k."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "_torch_ranks_worker.py"),
+         str(r), "2", str(port), str(tmp_path), "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for r in range(2):
+        path = tmp_path / f"rank{r}.json"
+        assert path.exists(), logs[r][-4000:]
+        got = json.loads(path.read_text())
+        assert not got["errors"], got["errors"]
+        for name in ("cuda/sort", "cuda/argsort"):
+            assert got["checks"][name] == {"equal": True, "hist": 1,
+                                           "k2": 1}, (r, name)
+        assert got["checks"]["cuda/topk"]["equal"]
+        assert got["checks"]["cuda/topk"]["select"] > 0

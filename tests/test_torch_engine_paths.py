@@ -314,19 +314,41 @@ def test_result_on_requested_device_from_numpy_input():
 
 @pytest.mark.parametrize("kwargs", [
     {"mesh": object()},
-    {"axis_name": "data"}, {"method": "distributed"}])
+    {"axis_name": "data"}, {"method": "distributed"},
+    {"mesh": "device_mesh"}])
 def test_fields_not_ported_fail_loudly(kwargs):
     """Every field of the JAX package's spec is carried now (the
-    distributed tier last): a mesh that is not a ``core.mesh.Mesh`` and an
-    ``axis_name`` without a mesh fail loudly, as the reference's do, and
-    ``method="distributed"`` sorts each row over the host mesh of its
-    device (one CPU entry here).  Nothing stands in ``NOT_PORTED``."""
+    distributed tier last): a mesh that is neither a ``core.mesh.Mesh``
+    nor a ``DeviceMesh`` and an ``axis_name`` without a mesh fail loudly,
+    as the reference's do; a ``DeviceMesh`` (here a one-rank gloo group)
+    runs the rank form, a DTensor in and out; ``method="distributed"``
+    sorts each row over the host mesh of its device (one CPU entry here).
+    Nothing stands in ``NOT_PORTED``."""
     from repro_torch.core import sortspec as tspec
     assert tspec.NOT_PORTED == {}
     x = np.array([[3.0, 1.0, 2.0, 0.5]], np.float32)
     if "method" in kwargs:
         out = tsort.sort(x, device="cpu", **kwargs)
         assert out.tolist() == [[0.5, 1.0, 2.0, 3.0]]
+        return
+    if kwargs.get("mesh") == "device_mesh":
+        import torch.distributed as dist
+        from repro_torch.engine import samplesort
+        from repro_torch.launch.mesh import make_host_device_mesh
+        assert not dist.is_initialized()
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            dm = make_host_device_mesh((1,), ("data",), device="cpu")
+            xd = samplesort.shard_of(torch.from_numpy(x[0]), dm)
+            tsort.SortSpec(mesh=dm).canonical(xd)
+            out = tsort.sort(xd, mesh=dm)
+            assert tuple(out.placements) == tuple(xd.placements)
+            assert out.to_local().tolist() == [0.5, 1.0, 2.0, 3.0]
+            with pytest.raises(TypeError, match="DTensor"):
+                tsort.sort(torch.from_numpy(x[0]), mesh=dm)
+        finally:
+            dist.destroy_process_group()
         return
     err = TypeError if "mesh" in kwargs else ValueError
     with pytest.raises(err, match="Mesh" if "mesh" in kwargs
@@ -394,6 +416,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "from repro_torch.obs import report\n"
             "from repro_torch.core import mesh, topology, distributed_sort\n"
             "from repro_torch.engine import samplesort, collectives\n"
+            "from repro_torch.relational import _core\n"
+            "from repro_torch.core import sortspec\n"
             "from repro_torch.launch import mesh as launch_mesh\n"
             "from repro_torch.models import ssm, rglru, encdec\n"
             "from repro_torch.configs import gemma_2b, deepseek_67b, "
