@@ -120,7 +120,12 @@ Phases, each printed as one JSON line:
             merge tree over its D received runs a flat sort, K4 a top-k),
             the ranks' counter bytes summed against the one-process path
             over the same shards; (b) also SF10's unique and Q18 group_by
-            against the single-device call.  One JSON line a call and a
+            against the single-device call, and the serve scheduler on
+            the (4,) ``data`` mesh at a backlog of 8191 prompts (uneven
+            shards): its first 4 batches bit-equal to a mesh-free
+            scheduler's, each rank's first mesh sort one
+            ``radix_bucket_hist`` and a K2 partition a merge level.  One
+            JSON line a call and a
             rank: CUDA-event and host ms, the exchange's ms (its
             collectives' spans), peak memory.  gloo's times on one card
             are host staging, not NVLink;
@@ -270,6 +275,25 @@ Phases, each printed as one JSON line:
             on the 16 x 16 mesh (``SERVE_LAYOUT_CELLS``, fake tensors),
             each ``ok`` with its per-device peak printed;
             the group is destroyed;
+5d4. launch
+            the CLIs as a user runs them over every card (``python -m
+            torch.distributed.run --standalone --nproc-per-node=N``, one
+            rank a card, the data-parallel policy on a ``(N,)``
+            ``("data",)`` DeviceMesh): (a) in this process on a one-rank
+            NCCL group, full-width minitron-4b served with the CLI's
+            arguments (16 requests, batch 8, 32 tokens, top-50, max_len
+            256) without a policy and under the data policy: the same
+            tokens and K6 / K5 launches; then ``repro_torch.launch.serve
+            --no-smoke --flash-prefill`` under torchrun on one rank: the
+            (1,) mesh named, its requests, batches, padding waste, decode
+            line and length accounting those of the in-process serve, its
+            K6 / K5 launches (counted in the child, its last line) equal;
+            (b) ``repro_torch.launch.train --full`` on mamba2-1.3b (AdamW,
+            5 steps) under torchrun on one rank with ``--ckpt-dir`` (one
+            checkpoint) and without torchrun: finite losses, the first
+            equal, the last within 1e-3 relative;
+            (d) both CLIs on one NCCL rank a card where there are two
+            cards or more (skipped by name on one card);
 5e. data    2^20 token rows of 128 with a tenth planted as copies:
             ``dedup_rows`` on ``method="radix"`` (its ``unique`` exactly
             one K3 histogram and 4 passes) and on ``auto``, and
@@ -313,6 +337,9 @@ Phases, each printed as one JSON line:
             ms of each candidate; the profile persisted, resolved by a
             fresh process (``source == "persisted"``), then
             ``reset_calibration()``: the timing phase runs on the seeds;
+            then the calibration CLI, ``scripts/torch/autotune.py --tile-n
+            2048 --batch 64 --reps 3 --out <tmp> --check``, in a fresh
+            process: exit 0, its fingerprint this card's;
 8. timing   each kernel at the main path's shapes: its output held against
             its plain version on the same inputs (the ``max_abs_err`` of the
             kernel table; bit for bit but for K6, which is held to the
@@ -349,7 +376,9 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2176,6 +2205,60 @@ def ranks_program(form: str, n: int, rel_check: bool, out) -> None:
                  "launches": counts, "single_device_equal": True})
             del got, want
             torch.cuda.empty_cache()
+        rank_scheduler(flat, dev, form, out)
+
+
+def rank_scheduler(flat, dev, form, out) -> None:
+    """The serve scheduler on the ``(D,)`` ``data`` DeviceMesh (the
+    launchers' mesh; fault 3i's repair): a backlog of ``DIST_BACKLOG - 1``
+    prompts, so that D = 4 cuts it unevenly, sorted over the ranks (each
+    its ``Shard(0)`` slice of the composite, the whole order gathered on
+    every rank); its first 4 batches bit-equal to a mesh-free
+    scheduler's, the first batch's mesh sort one ``radix_bucket_hist``
+    and a K2 partition a merge level on each rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as tserve
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    lens = np.random.default_rng((SEED, 33)).integers(4, 4096,
+                                                      DIST_BACKLOG - 1)
+    batches = {}
+    for label, kw in (("mesh", dict(mesh=flat, axis_name="data")),
+                      ("local", {})):
+        sch = tserve.LengthSortedScheduler(8, device=dev, **kw)
+        for i, n in enumerate(lens):
+            sch.submit(tserve.Request(rid=i, prompt=np.zeros(int(n),
+                                                             np.int32)))
+        torch.cuda.synchronize()
+        dist.barrier()
+        _build.reset_launches()
+        h0 = time.perf_counter()
+        first = [r.rid for r in sch.next_batch()]
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - h0) * 1e3
+        counts = dict(_build.launches)
+        rest = [[r.rid for r in sch.next_batch()] for _ in range(3)]
+        batches[label] = ([first] + rest, sch.mesh_sorts, counts, host)
+    got, sorts, counts, host = batches["mesh"]
+    levels = (world - 1).bit_length()
+    want = {"radix_bucket_hist": 1 if world > 1 else 0,
+            "merge_path_partition": levels}
+    seen = {k: counts.get(k, 0) for k in want}
+    if sorts != 4 or seen != want:
+        raise AssertionError(f"{form} scheduler: {sorts} mesh sorts of 4, "
+                             f"first batch's launches {counts}, expected "
+                             f"{want}")
+    if got != batches["local"][0]:
+        raise AssertionError(f"{form} scheduler: the mesh batches differ "
+                             f"from the mesh-free scheduler's")
+    out({"phase": "ranks", "form": form, "rank": rank,
+         "call": f"serve scheduler, backlog {DIST_BACKLOG - 1}",
+         "mesh_sorts": sorts, "first_batches_equal": True,
+         "host_ms": host, "mesh_free_host_ms": batches["local"][3],
+         "launches": counts})
 
 
 def _ranks_child(rank, world, port, backend, n, rel_check, out_dir):
@@ -4209,6 +4292,292 @@ def phase_sharding() -> dict:
     return launches
 
 
+# the launch phase: the CLIs as a user runs them, under torchrun (one rank
+# a card, the data policy on a (world,) ``data`` DeviceMesh).  The serve
+# CLI keeps the reference's flags, which set no max_len: serve's 256
+LAUNCH_SERVE = dict(n_requests=16, batch_size=8, decode_steps=32, topk=50)
+LAUNCH_MAX_LEN = 256
+LAUNCH_SERVE_ARGS = ("-m", "repro_torch.launch.serve", "--arch",
+                     "minitron-4b", "--no-smoke", "--flash-prefill",
+                     "--requests", "16", "--batch-size", "8",
+                     "--decode-steps", "32", "--topk", "50")
+LAUNCH_TRAIN_ARCH = "mamba2-1.3b"      # fits a card whole with AdamW
+LAUNCH_TRAIN_STEPS = 5
+LAUNCH_TIMEOUT_S = 400
+# a torchrun train's printed losses against the same CLI run without
+# torchrun: the first equal; the last within 1e-3 relative.  On one rank
+# the policy's backward sums some products in another order (the tied
+# embedding's local product among them; the sharding phase holds 1e-4
+# after 4 steps of minitron-4b at 2 layers): mamba2-1.3b's 48 layers
+# moved the 5th loss by 1.04e-4 (9.6115 against 9.6125 on an H100 80GB
+# HBM3 at 700 W); over several ranks each rank's gradient of an
+# FSDP-sharded bfloat16 weight is also a partial sum of its rows
+# (fault 3j)
+LAUNCH_LOSS_REL = 1e-3
+SERVE_LINE = re.compile(
+    r"^\[serve\] (\d+) requests in (\d+) batches on (\S+); mean padding "
+    r"waste ([\d.]+); prefill ([\d.]+) ms a batch; decode ([\d.]+) tok/s$",
+    re.M)
+LOSS_LINE = re.compile(r"^\[train\] step +(\d+) loss +(\S+) gnorm +(\S+) "
+                       r"lr +(\S+) +([\d.]+) ms$", re.M)
+
+
+def run_cli(what: str, args, nproc: int = 0,
+            timeout: float = LAUNCH_TIMEOUT_S) -> tuple:
+    """``(stdout, seconds)`` of ``python [-m torch.distributed.run
+    --standalone --nproc-per-node=nproc] args`` from the checkout's root,
+    in a session of its own: on a timeout the whole session is killed.
+    Fails on a non-zero exit, with the output's tail."""
+    import signal
+    cmd = [sys.executable]
+    if nproc:
+        cmd += ["-m", "torch.distributed.run", "--standalone",
+                f"--nproc-per-node={nproc}"]
+    cmd += list(args)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"launch {what}: no end in {timeout} s:\n"
+                             f"{out[-2000:]}\n{err[-2000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"launch {what}: exit {proc.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def _line(text: str, head: str, what: str) -> str:
+    got = [ln for ln in text.splitlines() if ln.startswith(head)]
+    if len(got) != 1:
+        raise AssertionError(f"launch {what}: {len(got)} lines start with "
+                             f"{head!r}:\n{text[-3000:]}")
+    return got[0]
+
+
+def serve_summary(text: str, what: str) -> dict:
+    """The serve CLI's printed summary: requests, batches, padding waste
+    (as printed), ms and tok/s, the decode line, the length accounting,
+    the torchrun mesh line and the kernel launches."""
+    m = SERVE_LINE.search(text)
+    if m is None:
+        raise AssertionError(f"launch {what}: no summary:\n{text[-3000:]}")
+    return {"requests": int(m.group(1)), "batches": int(m.group(2)),
+            "device": m.group(3), "padding_waste": m.group(4),
+            "prefill_ms": float(m.group(5)),
+            "decode_tok_s": float(m.group(6)),
+            "decode": _line(text, "[serve] decode:", what),
+            "accounting": _line(text, "[serve] length accounting:", what),
+            "mesh": _line(text, "[serve] torchrun:", what),
+            "launches": json.loads(_line(text, "[serve] kernel launches:",
+                                         what).split(": ", 1)[1])}
+
+
+def check_serve_cli(what, got, want, counts) -> None:
+    """A CLI serve's summary against an in-process serve's ``want`` (the
+    same requests and batches, printed alike) and its K6 / K5 launches
+    against ``counts``."""
+    for k in ("requests", "batches", "padding_waste", "decode",
+              "accounting"):
+        if got[k] != want[k]:
+            raise AssertionError(f"launch {what}: {k} {got[k]!r}, the "
+                                 f"in-process serve's {want[k]!r}")
+    for names, kernel in ((K6_NAMES, "K6"), (K5_NAMES, "K5")):
+        a = {k: counts.get(k, 0) for k in names}
+        b = {k: got["launches"].get(k, 0) for k in names}
+        if a != b or not sum(a.values()):
+            raise AssertionError(f"launch {what}: {kernel} launches {b}, "
+                                 f"the in-process serve's {a}")
+
+
+def train_losses(text: str, what: str) -> dict:
+    """``{step: (loss, ms)}`` of the train CLI's printed step lines."""
+    got = {int(m.group(1)): (float(m.group(2)), float(m.group(5)))
+           for m in LOSS_LINE.finditer(text)}
+    want = {0, LAUNCH_TRAIN_STEPS - 1}
+    if set(got) != want or not all(math.isfinite(v) for v, _ in
+                                   got.values()):
+        raise AssertionError(f"launch {what}: step lines {got}, expected "
+                             f"finite losses at steps {sorted(want)}:\n"
+                             f"{text[-3000:]}")
+    return got
+
+
+def phase_launch() -> dict:
+    """The entry points as a user runs them over every card: ``torchrun``
+    (``python -m torch.distributed.run --standalone``), one rank a card,
+    the CLIs serving and training under the data-parallel policy on a
+    ``(world,)`` ``("data",)`` DeviceMesh (the reference's host mesh).
+    (a) In this process, on a one-rank NCCL group: minitron-4b at full
+    width served with the CLI's arguments without a policy and under the
+    data policy on ``make_data_mesh``: the same tokens, the same K6 and K5
+    launches (the counts set to 0 just before each serve and read just
+    after).  Then the serve CLI under torchrun on one rank: the (1,) data
+    mesh named; its requests, batches, padding waste, decode line and
+    length accounting equal the in-process serve's, and its K6 and K5
+    launches (counted in the child, printed on its last line).  (b) The
+    train CLI on mamba2-1.3b at full width with AdamW, 5 steps, under
+    torchrun on one rank with ``--ckpt-dir`` (one checkpoint written) and
+    without torchrun: finite losses, the first equal, the last within
+    ``LAUNCH_LOSS_REL``.  (d) With two cards or more, both CLIs on one
+    NCCL rank a card, held to (a)'s in-process serve and (b)'s run
+    without torchrun; the tokens are not compared there (fault 3j).
+    Returns the in-process serves' launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as srv
+    from repro_torch.sharding.partitioning import ShardingPolicy
+
+    launches: dict = {}
+    cfg = get_config("minitron-4b")
+    steps = LAUNCH_SERVE["decode_steps"]
+    runs = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_data_mesh("cuda")
+        policy = ShardingPolicy(mesh=mesh, dp_axes=mesh_lib.dp_axes_of(mesh))
+        for name, pol in (("plain", None), ("data_policy", policy)):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            done, stats = srv.serve(
+                "minitron-4b", smoke=False, seed=SEED, device="cuda",
+                flash_prefill=True, max_len=LAUNCH_MAX_LEN, policy=pol,
+                **LAUNCH_SERVE)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(_build.launches)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            k6 = counts.get("flash_attention_fwd", 0)
+            if k6 != cfg.n_layers * stats["batches"]:
+                raise AssertionError(f"launch {name} serve: K6 launched "
+                                     f"{k6} times, expected {cfg.n_layers} "
+                                     f"x {stats['batches']} batches")
+            graph = check_decode_graph(f"launch {name} serve", stats,
+                                       counts, steps)
+            runs[name] = ({r.rid: r.out.tolist() for r in done}, stats,
+                          counts)
+            emit({"phase": "launch", "serve": name, "mesh": str(mesh)
+                  if pol is not None else None, "requests": len(done),
+                  "batches": stats["batches"], "launches": counts, **graph,
+                  "distributed_queue": stats["distributed_queue"],
+                  "prefill_ms": stats["prefill_ms"],
+                  "decode_tok_s": stats["decode_tps"], "seconds": secs})
+            del done
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    plain, pol_run = runs["plain"], runs["data_policy"]
+    if plain[0] != pol_run[0]:
+        bad = [rid for rid in plain[0] if plain[0][rid] != pol_run[0][rid]]
+        raise AssertionError(f"launch: the data policy's tokens differ for "
+                             f"requests {bad}")
+    for names, kernel in ((K6_NAMES, "K6"), (K5_NAMES, "K5")):
+        a = {k: plain[2].get(k, 0) for k in names}
+        b = {k: pol_run[2].get(k, 0) for k in names}
+        if a != b:
+            raise AssertionError(f"launch: {kernel} launches {b} under the "
+                                 f"data policy, {a} without")
+    st = plain[1]
+    want = {"requests": LAUNCH_SERVE["n_requests"],
+            "batches": st["batches"],
+            "padding_waste": f"{float(np.mean(st['padding_waste'])):.3f}",
+            "decode": f"[serve] decode: {st['graph_replays']} replays of "
+                      f"{st['graph_captures']} captured CUDA graph(s) (after "
+                      f"{st['graph_warmup_steps']} warm-up steps)",
+            "accounting": srv.accounting_line(st["length_groups"])}
+
+    def mesh_line(tool, n):
+        return (f"[{tool}] torchrun: {n} rank(s), the data policy on a "
+                f"DeviceMesh ({n},) ('data',) on cuda over nccl")
+
+    text, secs = run_cli("serve on one rank", LAUNCH_SERVE_ARGS, nproc=1)
+    got = serve_summary(text, "serve on one rank")
+    if got["mesh"] != mesh_line("serve", 1):
+        raise AssertionError(f"launch serve: {got['mesh']!r}")
+    check_serve_cli("serve on one rank", got, want, plain[2])
+    emit({"phase": "launch", "cli": "serve", "ranks": 1,
+          "mesh": got["mesh"], "summary_equal": True,
+          "launches": got["launches"], "prefill_ms": got["prefill_ms"],
+          "decode_tok_s": got["decode_tok_s"],
+          "in_process_prefill_ms": st["prefill_ms"],
+          "in_process_decode_tok_s": st["decode_tps"],
+          "seconds": secs})
+
+    tcfg = get_config(LAUNCH_TRAIN_ARCH)
+    targs = ("-m", "repro_torch.launch.train", "--arch", LAUNCH_TRAIN_ARCH,
+             "--full", "--steps", str(LAUNCH_TRAIN_STEPS), "--lr",
+             repr(family_lr(tcfg)))
+    last = f"step_{LAUNCH_TRAIN_STEPS:08d}"
+
+    def train_cli(what, nproc):
+        with tempfile.TemporaryDirectory() as ck:
+            text, secs = run_cli(what, targs + ("--ckpt-dir", ck),
+                                 nproc=nproc)
+            ckpts = sorted(os.listdir(ck))
+        if ckpts != [last]:
+            raise AssertionError(f"launch {what}: checkpoints {ckpts}, "
+                                 f"expected [{last!r}]")
+        if _line(text, "[train] torchrun:", what) != mesh_line("train",
+                                                              nproc):
+            raise AssertionError(f"launch {what}: no ({nproc},) data mesh "
+                                 f"named")
+        return train_losses(text, what), secs
+
+    one, secs1 = train_cli("train on one rank", 1)
+    text0, secs0 = run_cli("train without torchrun", targs)
+    if "torchrun" in text0:
+        raise AssertionError("launch: a run without torchrun named a mesh")
+    base = train_losses(text0, "train without torchrun")
+    a, b = base[LAUNCH_TRAIN_STEPS - 1][0], one[LAUNCH_TRAIN_STEPS - 1][0]
+    if one[0][0] != base[0][0] or abs(a - b) > LAUNCH_LOSS_REL * abs(a):
+        raise AssertionError(f"launch train: losses {one} under torchrun, "
+                             f"{base} without")
+    emit({"phase": "launch", "cli": "train", "arch": LAUNCH_TRAIN_ARCH,
+          "ranks": 1, "steps": LAUNCH_TRAIN_STEPS, "checkpoints": 1,
+          "torchrun_losses_ms": one, "plain_losses_ms": base,
+          "limit": LAUNCH_LOSS_REL,
+          "seconds": secs1, "plain_seconds": secs0})
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "launch", "form": "torchrun, one NCCL rank a card",
+              "skipped": f"{cards} card on this machine"})
+        return launches
+    what = f"serve on {cards} ranks"
+    text, secs = run_cli(what, LAUNCH_SERVE_ARGS, nproc=cards)
+    got = serve_summary(text, what)
+    if got["mesh"] != mesh_line("serve", cards):
+        raise AssertionError(f"launch {what}: {got['mesh']!r}")
+    check_serve_cli(what, got, want, plain[2])
+    emit({"phase": "launch", "cli": "serve", "ranks": cards,
+          "summary_equal": True, "launches": got["launches"],
+          "prefill_ms": got["prefill_ms"],
+          "decode_tok_s": got["decode_tok_s"], "seconds": secs})
+    many, secs = train_cli(f"train on {cards} ranks", cards)
+    b = many[LAUNCH_TRAIN_STEPS - 1][0]
+    if many[0][0] != base[0][0] or abs(a - b) > LAUNCH_LOSS_REL * abs(a):
+        raise AssertionError(f"launch train on {cards} ranks: losses "
+                             f"{many}, {base} without torchrun")
+    emit({"phase": "launch", "cli": "train", "ranks": cards,
+          "torchrun_losses_ms": many, "limit": LAUNCH_LOSS_REL,
+          "seconds": secs})
+    return launches
+
+
 def phase_data(rng) -> dict:
     """Dedup of 2^20 token rows of 128 with a tenth of the rows planted as
     copies of others: ``dedup_rows`` on K3 (``method="radix"``: its
@@ -4706,7 +5075,8 @@ def phase_calibrate(main_steps, rel_ms) -> None:
     phase 4); then the card-scale profile persisted to a temporary
     ``REPRO_TORCH_TUNING_DIR``, loaded by a fresh process (``source ==
     "persisted"``, the same fingerprint), and ``reset_calibration()``: the
-    later phases run on the seeds."""
+    later phases run on the seeds.  Last, the calibration CLI
+    (``scripts/torch/autotune.py ... --check``) in a fresh process."""
     import dataclasses
     import tempfile
     import torch
@@ -4821,6 +5191,23 @@ def phase_calibrate(main_steps, rel_ms) -> None:
             raise AssertionError(f"calibrate: a fresh process resolved "
                                  f"{got}, not the persisted {card.fingerprint}")
     planner.reset_calibration()
+
+    # the calibration CLI in a fresh process, its profile checked
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "profile.json")
+        text, secs = run_cli("autotune", (
+            os.path.join("scripts", "torch", "autotune.py"), "--tile-n",
+            "2048", "--batch", "64", "--reps", "3", "--out", path,
+            "--check"))
+        fp = _line(text, "[autotune] fingerprint", "autotune").split(
+            None, 2)[2]
+        if fp != tuning.device_fingerprint() or \
+                "[autotune] check OK" not in text:
+            raise AssertionError(f"calibrate: the CLI printed {fp!r} for "
+                                 f"{tuning.device_fingerprint()!r}:\n{text}")
+        emit({"phase": "calibrate", "autotune_cli": "--tile-n 2048 --batch "
+              "64 --reps 3 --check", "fingerprint": fp, "check": "OK",
+              "seconds": secs})
 
 
 # ---------------------------------------------------------------------------
@@ -5707,6 +6094,12 @@ def main() -> int:
           "seconds": time.perf_counter() - ts})
 
     ts = time.perf_counter()
+    torch.cuda.empty_cache()
+    launch_launches = phase_launch()
+    emit({"phase": "launch", "total_launches": launch_launches,
+          "seconds": time.perf_counter() - ts})
+
+    ts = time.perf_counter()
     data_launches = phase_data(rng)
     emit({"phase": "data", "total_launches": data_launches,
           "seconds": time.perf_counter() - ts})
@@ -5736,8 +6129,8 @@ def main() -> int:
     for counts in (rel_launches, dist_launches, rank_launches,
                    serve_launches, moe_launches,
                    family_launches, train_launches, families_train_launches,
-                   sharding_launches, data_launches, spill_launches,
-                   example_launches):
+                   sharding_launches, launch_launches, data_launches,
+                   spill_launches, example_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 

@@ -10,9 +10,15 @@ single-controller ``core.mesh.Mesh`` (one process, an entry a card).
 form (``core.mesh``): one process a rank.  The production meshes
 stand on a ``fake`` process group, whose collectives carry no data: the
 dry run traces rank 0's local program on them and never a real tensor.
+
+``make_data_mesh`` and ``torchrun_policy`` are the launchers' host mesh,
+the reference's ``make_host_mesh()`` + ``dp_axes_of``: under
+``torchrun --nproc-per-node=<cards>`` (one rank a card) every rank on one
+``("data",)`` axis, and the data-parallel ``ShardingPolicy`` on it.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -56,6 +62,56 @@ def make_host_device_mesh(shape: Optional[Sequence[int]] = None,
                                "a card; pass device='cpu'")
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(dev.type, shape, mesh_dim_names=axis_names)
+
+
+def make_data_mesh(device="cuda"):
+    """The reference's host mesh over the initialised group: a
+    ``DeviceMesh`` of shape ``(world,)`` on one ``("data",)`` axis (not
+    ``make_host_device_mesh``'s default, which puts every rank on
+    ``model``)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("make_data_mesh needs an initialised process "
+                           "group")
+    return make_host_device_mesh((dist.get_world_size(),), ("data",),
+                                 device=device)
+
+
+# what ``torchrun`` sets in each rank's environment: the rank, the world
+# and the rendezvous
+TORCHRUN_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def torchrun_policy(device="cuda"):
+    """``(policy, device)`` of a launcher.  Under ``torchrun``: joins the
+    group from its environment (``nccl`` on the card, the rank on
+    ``cuda:<LOCAL_RANK>``; ``gloo`` with ``device="cpu"``) and returns
+    the data-parallel ``ShardingPolicy`` on ``make_data_mesh`` and the
+    rank's device.  Outside it: ``(None, device)``, one process on one
+    device.  The caller destroys the group it joined."""
+    import torch.distributed as dist
+    from repro_torch.core.sortspec import resolve_device
+    from repro_torch.sharding.partitioning import ShardingPolicy
+    dev = resolve_device(device)
+    if not all(k in os.environ for k in TORCHRUN_ENV):
+        return None, dev
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    mesh = make_data_mesh(dev.type)
+    return ShardingPolicy(mesh=mesh, dp_axes=dp_axes_of(mesh)), dev
+
+
+def describe(mesh) -> str:
+    """``DeviceMesh (2,) ('data',) on cpu over gloo``: a DeviceMesh's
+    shape, axes, device type and backend, as the launchers print it."""
+    import torch.distributed as dist
+    return (f"DeviceMesh {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} "
+            f"on {mesh.device_type} over {dist.get_backend()}")
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -15,21 +15,31 @@ accounted by prompt length with one ``relational.group_by``
 On the card every decode step is a replay of one CUDA graph a batch size
 (``steps.DecodeGraph``: the port's counterpart of the reference's jitted
 step; each prefill fills the graph's static state); on the CPU the same
-static step runs without a graph.  ``serve`` builds the host mesh (every
-card, ``launch.mesh.make_host_mesh``; one CPU entry on the CPU):
-``restore_state`` / ``snapshot_state`` carry its topology beside the
-tuning profile, and with ``distributed_queue`` (on by default where the
-mesh has more than one entry) the scheduler sorts a backlog of at least
-its ``distributed_min`` requests over it.  With a sharding ``policy``
+static step runs without a graph.  With a sharding ``policy``
 (``sharding.partitioning.ShardingPolicy`` on a ``DeviceMesh``, one
 process a rank) the model's weights are DTensors placed by its specs and
 every prefill and decode step runs sharded; the tokens come back whole
-on every rank.
+on every rank.  The serving mesh is the policy's ``DeviceMesh``, else the
+host mesh (every card, ``launch.mesh.make_host_mesh``; one CPU entry on
+the CPU): ``restore_state`` / ``snapshot_state`` carry its topology
+beside the tuning profile, and with ``distributed_queue`` (on by default
+where its ``data`` axis has more than one entry, as the reference's
+``mesh.shape["data"] > 1``) the scheduler sorts a backlog of at least its
+``distributed_min`` requests over it (a ``DeviceMesh``: over its data
+axes, every rank making the sort).
+
+Over every card, as the reference's one controller serves on every
+device of its host: ``torchrun --nproc-per-node=<cards> -m
+repro_torch.launch.serve ...`` runs one rank a card, and ``main`` serves
+under the data-parallel policy on a ``(world,)`` ``("data",)``
+``DeviceMesh`` (``launch.mesh.torchrun_policy``).  Rank 0 prints and
+writes the state snapshot.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import pathlib
 import time
@@ -79,7 +89,13 @@ class LengthSortedScheduler:
     more than one entry and the backlog reaches ``distributed_min``: a
     packed (length, position) composite is value-sorted over the mesh
     (``axis_name`` as ``distributed_sort`` takes it), and its low bits are
-    the order.  ``mesh_sorts`` counts the sorts that took that path.
+    the order.  ``mesh_sorts`` counts the sorts that took that path.  On a
+    ``DeviceMesh`` (one program a rank; every rank of the sort's axes
+    holds the same queue and calls ``next_batch`` together) the ranks
+    agree the backlog, its longest prompt and ``distributed_min`` before
+    any other collective, each places its ``ceil(n / D)`` slice of the
+    composite as a ``Shard(0)`` DTensor, and the sorted shards are
+    gathered whole on every rank, so every rank forms the same batches.
     """
 
     def __init__(self, batch_size: int, method: str = "auto", *,
@@ -105,8 +121,31 @@ class LengthSortedScheduler:
         axes = samplesort._axes_tuple(self.mesh, self.axis_name)
         return samplesort._n_dev(self.mesh, axes)
 
+    def _agree(self, n: int, top: int) -> None:
+        """Every rank of the sort's axes holds the same backlog: one
+        all_reduce(MAX) of each value and its negation, so every rank sees
+        the same extremes and all raise together where they differ."""
+        import torch.distributed as dist
+        from repro_torch.core.mesh import rank_group
+        from repro_torch.engine import samplesort
+        axes = samplesort._axes_tuple(self.mesh, self.axis_name)
+        pg, _ = rank_group(self.mesh, axes)
+        mine = (n, top, self.distributed_min)
+        t = torch.tensor([v for x in mine for v in (x, -x)],
+                         dtype=torch.int64, device=_rank_device(self.mesh))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=pg)
+        hi, lo = t[0::2].tolist(), [-v for v in t[1::2].tolist()]
+        if hi != lo:
+            raise RuntimeError(
+                f"the ranks' schedulers disagree: (backlog, longest prompt, "
+                f"distributed_min) range from {tuple(lo)} to {tuple(hi)}")
+
     def _order(self, lens: np.ndarray) -> np.ndarray:
+        from repro_torch.core.mesh import is_device_mesh
         n = lens.shape[0]
+        ranks = is_device_mesh(self.mesh) and self._n_dev() > 1
+        if ranks:
+            self._agree(n, int(lens.max()))
         idx_bits = max(1, (n - 1).bit_length())
         distributed = (self._n_dev() > 1 and n >= self.distributed_min
                        and int(lens.max()) < (1 << (31 - idx_bits)))
@@ -115,10 +154,16 @@ class LengthSortedScheduler:
                                     method=self.method, device=self.device)
             return order.cpu().numpy()
         # the mesh path value-sorts a packed (length, position) composite
-        comp = (lens.astype(np.int32) << idx_bits) \
-            | np.arange(n, dtype=np.int32)
-        out = sorting.sort(torch.from_numpy(comp), mesh=self.mesh,
-                           axis_name=self.axis_name)
+        comp = torch.from_numpy((lens.astype(np.int32) << idx_bits)
+                                | np.arange(n, dtype=np.int32))
+        if ranks:
+            from repro_torch.engine import samplesort
+            comp = samplesort.shard_of(comp.to(_rank_device(self.mesh)),
+                                       self.mesh, self.axis_name)
+        out = sorting.sort(comp, mesh=self.mesh, axis_name=self.axis_name)
+        if ranks:
+            out = samplesort.gather_shards(out.to_local(), self.mesh,
+                                           self.axis_name)
         self.mesh_sorts += 1
         if _obs.enabled():
             _metrics.counter("serve.mesh_backlog_sorts").inc()
@@ -153,6 +198,14 @@ class LengthSortedScheduler:
             return 0.0
         lens = [len(r.prompt) for r in batch]
         return 1.0 - sum(lens) / (len(lens) * max(lens))
+
+
+def _rank_device(mesh) -> torch.device:
+    """This rank's device of a ``DeviceMesh``: its current card on a
+    ``cuda`` mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def left_pad(batch: List[Request]) -> np.ndarray:
@@ -224,17 +277,36 @@ def restore_state(state_dir: os.PathLike, mesh=None) -> List[str]:
     return restored
 
 
+def writes_state(mesh=None) -> bool:
+    """Whether this process writes the serve's snapshot and prints its
+    summary: always, but on a ``DeviceMesh`` rank 0 only."""
+    from repro_torch.core.mesh import is_device_mesh
+    if not is_device_mesh(mesh):
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
 def snapshot_state(state_dir: os.PathLike, mesh=None) -> List[pathlib.Path]:
     """Snapshot the active tuning profile (and, given the serving mesh,
     the topology resolved for it) into ``state_dir`` so the next run
-    starts from this run's calibration.  Returns the written paths."""
-    prof = _tuning.active()
-    paths = [_tuning.save(prof, _tuning.profile_path(state_dir,
-                                                     prof.fingerprint))]
-    if mesh is not None:
-        topo = _topology.for_mesh(mesh)
-        paths.append(_topology.save(
-            topo, _topology.topology_path(topo, directory=state_dir)))
+    starts from this run's calibration.  On a ``DeviceMesh`` every rank
+    makes the call (resolving its topology is a collective), rank 0
+    writes, and every rank returns once the files are written.  Returns
+    the paths this process wrote."""
+    from repro_torch.core.mesh import is_device_mesh
+    topo = _topology.for_mesh(mesh) if mesh is not None else None
+    paths = []
+    if writes_state(mesh):
+        prof = _tuning.active()
+        paths.append(_tuning.save(prof, _tuning.profile_path(
+            state_dir, prof.fingerprint)))
+        if topo is not None:
+            paths.append(_topology.save(
+                topo, _topology.topology_path(topo, directory=state_dir)))
+    if is_device_mesh(mesh):
+        import torch.distributed as dist
+        dist.barrier()
     return paths
 
 
@@ -257,14 +329,35 @@ def batch_accounting(done: List[Request], *, device="cuda"):
     return [(int(k), int(c), float(m)) for k, c, m in zip(keys, cnt, mean)]
 
 
+def accounting_line(acct) -> str:
+    """The printed line of ``batch_accounting``'s groups (the first 8)."""
+    head = ", ".join(f"len={k}: {c} req x {m:.0f} tok"
+                     for k, c, m in acct[:8])
+    more = "" if len(acct) <= 8 else f" (+{len(acct) - 8} more)"
+    return f"[serve] length accounting: {head}{more}"
+
+
 def host_mesh(device):
-    """The serving mesh: every card of this machine as a 1-D ``data`` mesh
-    (``launch.mesh.make_host_mesh``), or one CPU entry on the CPU."""
+    """The one-process serving mesh: every card of this machine as a 1-D
+    ``data`` mesh (``launch.mesh.make_host_mesh``), or one CPU entry on
+    the CPU."""
     from repro_torch.core.mesh import make_mesh
     from repro_torch.launch.mesh import make_host_mesh
     if resolve_device(device).type == "cpu":
         return make_mesh((1,), ("data",), "cpu")
     return make_host_mesh()
+
+
+def serving_mesh(device, policy=None):
+    """``(mesh, sort axes)`` of ``serve``: the policy's ``DeviceMesh`` and
+    its data axes when the policy places tensors (the reference sorts on
+    the mesh it serves on), else ``host_mesh(device)`` and its whole
+    mesh.  A ``DeviceMesh`` without a data axis gives no sort axes."""
+    if policy is not None and policy.places:
+        from repro_torch.sharding.partitioning import mesh_axes
+        axes = tuple(a for a in policy.dp_axes if a in mesh_axes(policy.mesh))
+        return policy.mesh, axes
+    return host_mesh(device), None
 
 
 def serve(arch: str, smoke: bool = True, n_requests: int = 16,
@@ -277,15 +370,18 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
     reduced config; ``config``: this ``ModelConfig`` instead, e.g. a depth
     cut) on ``device`` (default ``"cuda"``) with weights drawn from
     ``seed``.  ``flash_prefill`` overrides the config's flag (K6 for the
-    prefill's attention).  ``distributed_queue`` (default: on where the
-    host mesh, ``host_mesh(device)``, has more than one entry) sorts the
-    scheduler's backlog over the host mesh once it reaches the
-    scheduler's ``distributed_min``.  ``state_dir`` (or ``REPRO_TORCH_SERVE_STATE_DIR``)
-    restores the snapshotted tuning profile and the mesh's topology on
-    startup and snapshots the active ones on shutdown.  ``policy`` shards
-    the model over its mesh (None: one device); a serve layout's places
-    the layer weights by ``layout_param_specs`` and fills its
-    sequence-sharded caches from prompts of any length.
+    prefill's attention).  ``policy`` shards the model over its mesh
+    (None: one device); a serve layout's places the layer weights by
+    ``layout_param_specs`` and fills its sequence-sharded caches from
+    prompts of any length.  The serving mesh (``serving_mesh``) is a
+    placing policy's ``DeviceMesh``, else the host mesh.
+    ``distributed_queue`` (default: on where the serving mesh's ``data``
+    axis has more than one entry) sorts the scheduler's backlog over it
+    once it reaches the scheduler's ``distributed_min`` (on a
+    ``DeviceMesh``: over its data axes).  ``state_dir`` (or
+    ``REPRO_TORCH_SERVE_STATE_DIR``) restores the snapshotted tuning
+    profile and the mesh's topology on startup and snapshots the active
+    ones on shutdown (on a ``DeviceMesh``: rank 0 writes, and prints).
 
     Decode runs ``steps.DecodeGraph``: on the card each batch's steps
     replay one captured CUDA graph (per batch size), also under a policy;
@@ -305,14 +401,17 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
     if flash_prefill is not None:
         cfg = dataclasses.replace(cfg, flash_prefill=flash_prefill)
     dev = resolve_device(device)
-    mesh = host_mesh(dev)
+    mesh, sort_axes = serving_mesh(dev, policy)
+    say = print if writes_state(mesh) else (lambda *a, **k: None)
     sdir = resolve_state_dir(state_dir)
     if sdir is not None:
         got = restore_state(sdir, mesh)
         if got:
-            print(f"[serve] restored {' + '.join(got)} from {sdir}")
+            say(f"[serve] restored {' + '.join(got)} from {sdir}")
     if distributed_queue is None:
-        distributed_queue = mesh.size > 1
+        from repro_torch.core.mesh import axis_size, axis_names
+        distributed_queue = sort_axes != () and "data" in axis_names(mesh) \
+            and axis_size(mesh, "data") > 1
     model = build(cfg, device=dev, policy=policy)
     params = model.place(model.init(
         torch.Generator(device=dev).manual_seed(seed)),
@@ -325,7 +424,8 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
 
     sched = LengthSortedScheduler(
         batch_size, method=cfg.sort_method,
-        mesh=mesh if distributed_queue else None, device=dev)
+        mesh=mesh if distributed_queue else None,
+        axis_name=sort_axes if distributed_queue else None, device=dev)
     # one numpy stream: the requests, then an encoder-decoder's frames
     rng = np.random.default_rng(seed)
     for req in make_requests(cfg.vocab_size, n_requests, max_len,
@@ -342,7 +442,7 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
         # shutdown snapshot, also on an exception mid-run
         if sdir is not None:
             for p in snapshot_state(sdir, mesh):
-                print(f"[serve] state snapshot -> {p}")
+                say(f"[serve] state snapshot -> {p}")
     stats.update(
         decode_route="graph" if serve_step.capture else "static",
         graph_captures=serve_step.captures,
@@ -351,25 +451,22 @@ def serve(arch: str, smoke: bool = True, n_requests: int = 16,
         distributed_queue=bool(distributed_queue),
         mesh_sorts=sched.mesh_sorts)
     waste = float(np.mean(stats["padding_waste"]))
-    print(f"[serve] {len(done)} requests in {stats['batches']} batches on "
+    say(f"[serve] {len(done)} requests in {stats['batches']} batches on "
           f"{dev}; mean padding waste {waste:.3f}; prefill "
           f"{np.mean(stats['prefill_ms']):.1f} ms a batch; decode "
           f"{np.mean(stats['decode_tps']):.1f} tok/s")
     if serve_step.capture:
-        print(f"[serve] decode: {serve_step.replays} replays of "
+        say(f"[serve] decode: {serve_step.replays} replays of "
               f"{serve_step.captures} captured CUDA graph(s) (after "
               f"{serve_step.warmup_steps} warm-up steps)")
     else:
-        print("[serve] decode: the static step, uncaptured")
+        say("[serve] decode: the static step, uncaptured")
     acct = batch_accounting(done, device=dev)
     stats["length_groups"] = acct
     if acct:
-        head = ", ".join(f"len={k}: {c} req x {m:.0f} tok"
-                         for k, c, m in acct[:8])
-        more = "" if len(acct) <= 8 else f" (+{len(acct) - 8} more)"
-        print(f"[serve] length accounting: {head}{more}")
+        say(accounting_line(acct))
     if _obs.enabled():
-        print(_obs_report.slo_report())
+        say(_obs_report.slo_report())
     return done, stats
 
 
@@ -432,7 +529,14 @@ def _serve_loop(sched, model, params, serve_step, noise, decode_steps,
             _metrics.gauge("serve.decode_tps").set(stats["decode_tps"][-1])
 
 
-def main():
+def main(argv=None):
+    """The CLI.  Under ``torchrun`` (one rank a card; ``gloo`` ranks with
+    ``--device cpu``) it serves under the data-parallel policy on a
+    ``(world,)`` ``("data",)`` DeviceMesh, and rank 0 prints that mesh;
+    outside it, one process on one device.  On the card the last line
+    counts the kernels' launches.  Returns ``serve``'s (requests done,
+    stats)."""
+    from repro_torch.launch import mesh as mesh_lib
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", default=True,
@@ -458,12 +562,27 @@ def main():
                     help="directory for the tuning and topology snapshot "
                          "restored on startup and written on shutdown "
                          f"(default: ${SERVE_STATE_ENV} if set)")
-    args = ap.parse_args()
-    serve(args.arch, smoke=args.smoke, n_requests=args.requests,
-          batch_size=args.batch_size, decode_steps=args.decode_steps,
-          topk=args.topk, distributed_queue=args.distributed_queue,
-          state_dir=args.state_dir, device=args.device,
-          flash_prefill=args.flash_prefill)
+    args = ap.parse_args(argv)
+    policy, dev = mesh_lib.torchrun_policy(args.device)
+    try:
+        if policy is not None and writes_state(policy.mesh):
+            print(f"[serve] torchrun: {policy.mesh.size()} rank(s), the "
+                  f"data policy on a {mesh_lib.describe(policy.mesh)}")
+        out = serve(args.arch, smoke=args.smoke, n_requests=args.requests,
+                    batch_size=args.batch_size,
+                    decode_steps=args.decode_steps, topk=args.topk,
+                    distributed_queue=args.distributed_queue,
+                    state_dir=args.state_dir, device=dev,
+                    flash_prefill=args.flash_prefill, policy=policy)
+        if dev.type == "cuda" and writes_state(
+                None if policy is None else policy.mesh):
+            from repro_torch.kernels import _build
+            print(f"[serve] kernel launches: "
+                  f"{json.dumps(dict(sorted(_build.launches.items())))}")
+    finally:
+        if policy is not None:
+            torch.distributed.destroy_process_group()
+    return out
 
 
 if __name__ == "__main__":

@@ -28,6 +28,15 @@ checkpoint holds whole tensors (gathered a leaf at a time into host
 memory, written by rank 0: ``host_copies``) and is restored whole and
 placed by the specs: the reference's elastic path, so a run may resume on
 another mesh.
+
+Over every card, as the reference's one controller trains on every
+device of its host: ``torchrun --nproc-per-node=<cards> -m
+repro_torch.launch.train ...`` runs one rank a card, and ``main`` trains
+under the data-parallel policy on a ``(world,)`` ``("data",)``
+``DeviceMesh`` (``launch.mesh.torchrun_policy``): each global batch split
+over the ranks, the specs' ``model`` axes dropped (the mesh has none, as
+the reference's ``sanitize_specs`` drops them).  Rank 0 prints and
+writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -108,6 +117,10 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
         model, cfg, shape, optimizer_name=optimizer, microbatch=microbatch,
         peak_lr=lr, total_steps=steps)
 
+    # rank 0 prints and writes under a placing policy
+    writer = policy is None or not policy.places or \
+        torch.distributed.get_rank() == 0
+    say = print if writer else (lambda *a, **k: None)
     # init or resume
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     start_step = 0
@@ -120,12 +133,10 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
                 latest, {"params": params, "opt": opt_state}, device=dev)
             params, opt_state = restored["params"], restored["opt"]
             start_step = int(extra.get("next_step", latest))
-            print(f"[train] resumed from step {latest} "
-                  f"-> starting at {start_step}")
+            say(f"[train] resumed from step {latest} "
+                f"-> starting at {start_step}")
     params, opt_state = steps_lib.place_train_state(model, optimizer_obj,
                                                     params, opt_state)
-    writer = policy is None or not policy.places or \
-        torch.distributed.get_rank() == 0
     # the step at static addresses, bound to the (restored, placed) state
     graph = steps_lib.TrainGraph(model, fn)
 
@@ -147,7 +158,7 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
             loss = float(metrics["loss"])            # waits for the card
             dt = watchdog.stop(step)
             losses.append(loss)
-            if step % log_every == 0 or step == steps - 1:
+            if writer and (step % log_every == 0 or step == steps - 1):
                 print(f"[train] step {step:5d} loss {loss:8.4f} "
                       f"gnorm {float(metrics['grad_norm']):7.3f} "
                       f"lr {float(metrics['lr']):.2e} {dt*1e3:7.1f} ms")
@@ -161,7 +172,7 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
                     ckpt.save(step + 1, whole, extra={"next_step": step + 1})
                 del whole
             if preempt.preempted:
-                print(f"[train] preemption requested — saved at "
+                say(f"[train] preemption requested — saved at "
                       f"{step + 1}, exiting")
                 break
         if ckpt is not None:
@@ -171,7 +182,12 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     return losses
 
 
-def main():
+def main(argv=None) -> List[float]:
+    """The CLI.  Under ``torchrun`` (one rank a card; ``gloo`` ranks with
+    ``--device cpu``) it trains under the data-parallel policy on a
+    ``(world,)`` ``("data",)`` DeviceMesh, and rank 0 prints that mesh;
+    outside it, one process on one device.  Returns the losses."""
+    from repro_torch.launch import mesh as mesh_lib
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", default=True)
@@ -186,15 +202,25 @@ def main():
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
-    args = ap.parse_args()
-    losses = train(args.arch, smoke=args.smoke, steps=args.steps,
-                   batch=args.batch, seq=args.seq,
-                   microbatch=args.microbatch, lr=args.lr,
-                   ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                   optimizer=args.optimizer, device=args.device)
-    if losses:
-        print(f"[train] first loss {losses[0]:.4f} -> last "
-              f"{losses[-1]:.4f}")
+    args = ap.parse_args(argv)
+    policy, dev = mesh_lib.torchrun_policy(args.device)
+    try:
+        writer = policy is None or torch.distributed.get_rank() == 0
+        if policy is not None and writer:
+            print(f"[train] torchrun: {policy.mesh.size()} rank(s), the "
+                  f"data policy on a {mesh_lib.describe(policy.mesh)}")
+        losses = train(args.arch, smoke=args.smoke, steps=args.steps,
+                       batch=args.batch, seq=args.seq,
+                       microbatch=args.microbatch, lr=args.lr,
+                       ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                       optimizer=args.optimizer, device=dev, policy=policy)
+        if losses and writer:
+            print(f"[train] first loss {losses[0]:.4f} -> last "
+                  f"{losses[-1]:.4f}")
+    finally:
+        if policy is not None:
+            torch.distributed.destroy_process_group()
+    return losses
 
 
 if __name__ == "__main__":

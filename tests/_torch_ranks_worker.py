@@ -11,7 +11,9 @@ the mesh sort against the one-process ``core.mesh.Mesh`` path over the
 same shards (bit for bit, the counter bytes summed over the ranks
 included) and against numpy's stable order; rank 0 also writes the
 gathered results of the inputs in ``OUT_DIR/inputs.npz`` to
-``OUT_DIR/ranks.npz`` for the JAX package's results at D = 4.
+``OUT_DIR/ranks.npz`` for the JAX package's results at D = 4.  Then the
+launchers' data mesh on the ``(4,)`` mesh (``data_cases``): the serve
+scheduler, ``serve`` and the train step under the data policy.
 
 ``cuda`` (two ranks, every rank on ``cuda:0``): a sample sort, a stable
 argsort and a top-k of 2^20 float32 keys against ``torch.sort`` /
@@ -405,6 +407,145 @@ def reference_outputs(dm_flat, dm_two, inputs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the launchers' data mesh: the serve scheduler, serve, the train step
+# ---------------------------------------------------------------------------
+
+SCHED_BACKLOGS = (4097, 5000)     # over distributed_min (4096), uneven
+SCHED_BATCH = 8
+SCHED_REF_BATCHES = 4             # batches the reference runs at D = 4
+SERVE_KW = dict(n_requests=8, batch_size=4, decode_steps=4, topk=10,
+                max_len=64, device="cpu")
+
+
+def sched_lens(n: int) -> np.ndarray:
+    """The prompt lengths of a backlog of ``n`` (both packages')."""
+    return np.random.default_rng(n).integers(4, 4096, n)
+
+
+def sched_batches(sched, lens, count: int) -> list:
+    """The rids of ``sched``'s first ``count`` batches of ``lens``."""
+    from repro_torch.launch import serve as srv
+    for i, n in enumerate(lens):
+        sched.submit(srv.Request(rid=i, prompt=np.zeros(int(n), np.int32)))
+    return [[r.rid for r in sched.next_batch()] for _ in range(count)]
+
+
+def data_cases(run, dm, out_dir):
+    """(i) the serve scheduler on the (4,) data mesh at uneven backlogs
+    against the mesh-free scheduler and one on numpy's stable order;
+    (ii) ``serve`` under the data policy against the unsharded serve,
+    its scheduler on the mesh, the snapshot written by rank 0 and
+    restored on the mesh; (iii) the data policy's float32 loss and
+    gradients against the unsharded model's, no placement on ``model``."""
+    import dataclasses
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tuning
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import dp_axes_of
+    from repro_torch.models.model_zoo import build
+    from repro_torch.sharding.partitioning import ShardingPolicy, full_tensor
+
+    class NumpyOrder(srv.LengthSortedScheduler):
+        def _order(self, lens):
+            return np.argsort(lens, kind="stable")
+
+    for n in SCHED_BACKLOGS:
+        def scheduler(n=n):
+            lens = sched_lens(n)
+            # every batch whose backlog reaches distributed_min, then two
+            # (at least the reference's batches)
+            count = max(SCHED_REF_BATCHES, (n - 4096) // SCHED_BATCH + 3)
+            mesh = srv.LengthSortedScheduler(SCHED_BATCH, mesh=dm,
+                                             axis_name="data", device="cpu")
+            got = sched_batches(mesh, lens, count)
+            local = sched_batches(srv.LengthSortedScheduler(
+                SCHED_BATCH, device="cpu"), lens, count)
+            plain = sched_batches(NumpyOrder(SCHED_BATCH, device="cpu"),
+                                  lens, count)
+            return {"mesh_sorts": mesh.mesh_sorts, "batches": count,
+                    "equal_mesh_free": got == local,
+                    "equal_numpy": got == plain,
+                    "first": got[:SCHED_REF_BATCHES]}
+        run(f"data/scheduler/{n}", scheduler)
+
+    pol = ShardingPolicy(mesh=dm, dp_axes=dp_axes_of(dm))
+    state = os.path.join(out_dir, "serve_state")
+
+    def serve():
+        made, snaps = [], []
+        real_sched, real_snap = srv.LengthSortedScheduler, srv.snapshot_state
+
+        class Spy(real_sched):
+            """The serve's scheduler, recorded; its backlog of 8 reaches
+            a distributed_min of 4, so its first sorts go over the mesh."""
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.distributed_min = 4
+                made.append(self)
+
+        def spy_snap(*a, **kw):
+            snaps.append(real_snap(*a, **kw))
+            return snaps[-1]
+        # float32: in bfloat16 a contraction over FSDP-sharded weights
+        # sums per-rank partials, whose rounding flips close samples
+        cfg = dataclasses.replace(get_smoke_config("minitron-4b"),
+                                  dtype="float32")
+        want = srv.serve("minitron-4b", config=cfg, **SERVE_KW)[0]
+        srv.LengthSortedScheduler, srv.snapshot_state = Spy, spy_snap
+        try:
+            got, stats = srv.serve("minitron-4b", config=cfg, policy=pol,
+                                   state_dir=state, **SERVE_KW)
+        finally:
+            srv.LengthSortedScheduler, srv.snapshot_state = real_sched, \
+                real_snap
+        tuning.set_active(None)
+        topology.set_active(None)
+        restored = srv.restore_state(state, mesh=dm)
+        tuning.set_active(None)
+        topology.set_active(None)
+        return {"tokens_equal": {r.rid: r.out.tolist() for r in want}
+                == {r.rid: r.out.tolist() for r in got},
+                "requests": len(got),
+                "distributed_queue": stats["distributed_queue"],
+                "mesh_sorts": stats["mesh_sorts"],
+                "scheduler_on_the_mesh": len(made) == 1
+                and made[0].mesh is dm and made[0].axis_name == ("data",),
+                "snapshot_files": [len(x) for x in snaps],
+                "restored": restored}
+    run("data/serve", serve)
+
+    def gradients():
+        cfg = dataclasses.replace(get_smoke_config("moonshot-v1-16b-a3b"),
+                                  dtype="float32")
+        m0, m1 = build(cfg, device="cpu"), build(cfg, device="cpu",
+                                                 policy=pol)
+        p = m0.init(torch.Generator().manual_seed(0))
+        tok = torch.randint(0, 256, (8, 32), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+        loss0, _, g0 = steps.loss_and_grads(m0, p, batch)
+        placed = m1.place(p)
+        with steps.sharded(pol):
+            loss1, _, g1 = steps.loss_and_grads(
+                m1, placed, steps.place_batch(m1, batch))
+        pls = {str(pl) for t in ttree.leaves(placed)
+               for pl in getattr(t, "placements", ())}
+        return {"loss_rel": float(abs(loss0 - full_tensor(loss1))
+                                  / abs(loss0)),
+                "grad_rel": max(float(
+                    (a - full_tensor(b)).abs().max()
+                    / a.abs().max().clamp(min=1e-30))
+                    for a, b in zip(ttree.leaves(g0), ttree.leaves(g1))),
+                "placements": sorted(pls),
+                "sharded_leaves": sum(any(x.is_shard() for x in
+                                          t.placements)
+                                      for t in ttree.leaves(placed))}
+    run("data/gradients", gradients)
+
+
+# ---------------------------------------------------------------------------
 # the card: two gloo ranks on cuda:0
 # ---------------------------------------------------------------------------
 
@@ -473,6 +614,7 @@ def main():
             meshes[mname] = dm
             dtype_cases(run, dm, om, mname, names)
             option_cases(run, dm, om, mname, names)
+        data_cases(run, meshes["flat"], out_dir)
         inputs = os.path.join(out_dir, "inputs.npz")
         if os.path.exists(inputs):
             def ref():

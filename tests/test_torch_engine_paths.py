@@ -390,6 +390,9 @@ def test_tracing_records_spans_and_plan_events():
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
+    """Every module of the port, the examples and the calibration CLI
+    (``scripts/torch/autotune.py``) load without jax or the JAX
+    package."""
     code = ("import sys\n"
             "import repro_torch, repro_torch.sort, repro_torch.engine, "
             "repro_torch.convert, repro_torch.obs\n"
@@ -428,6 +431,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "assert len(examples) == 6, examples\n"
             "for path in examples:\n"
             "    runpy.run_path(path)\n"
+            "runpy.run_path(sys.argv[2])['main']\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -437,5 +441,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
     env["PYTHONPATH"] = os.path.abspath(src)
     examples = os.path.join(os.path.dirname(__file__), os.pardir,
                             "examples", "torch")
-    subprocess.run([sys.executable, "-c", code, examples], check=True,
-                   env=env, timeout=120)
+    autotune = os.path.join(os.path.dirname(__file__), os.pardir,
+                            "scripts", "torch", "autotune.py")
+    subprocess.run([sys.executable, "-c", code, examples, autotune],
+                   check=True, env=env, timeout=120)

@@ -17,6 +17,13 @@ and reports its checks.  Every case is held, bit for bit, to:
      on ``jax.make_mesh((4,))`` and ``(2, 2)``: sorts both ways, a
      key-value sort's keys, odd-even, the two-level and the flat sort on
      (2, 2), and top-k values and indices.
+
+Then the launchers' data mesh on the ``(4,)`` mesh: the serve scheduler
+at uneven backlogs (bit for bit against the mesh-free scheduler, one on
+numpy's stable order, and the reference's ``LengthSortedScheduler(mesh=)``
+at D = 4, which raises under jax 0.9.0 at a backlog that four does not
+divide: there numpy's order holds it), ``serve`` under the data policy,
+and the policy's gradients.
 """
 import json
 import os
@@ -33,7 +40,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
 
-from _torch_ranks_worker import DTYPES, KINDS, OPS, TOPK_K  # noqa: E402
+from _torch_ranks_worker import (DTYPES, KINDS, OPS,  # noqa: E402
+                                 SCHED_BACKLOGS, SCHED_BATCH,
+                                 SCHED_REF_BATCHES, TOPK_K)
 
 _REFERENCE = r"""
 import os, sys
@@ -43,6 +52,7 @@ from repro.engine import samplesort as ss
 from repro.core import distributed_sort as ds
 mesh = jax.make_mesh((4,), ("data",))
 m2 = jax.make_mesh((2, 2), ("host", "dev"))
+SCHED_BACKLOGS, SCHED_BATCH, SCHED_REF_BATCHES = %r, %d, %d
 inp = dict(np.load(sys.argv[1]))
 X, XI = jnp.asarray(inp["x"]), jnp.asarray(inp["xi"])
 out = {}
@@ -62,6 +72,19 @@ out["hier"] = np.asarray(ss.sample_sort(X, m2, None))
 out["flat2x2"] = np.asarray(ss.sample_sort(X, m2, None, hierarchical=False))
 tv, ti = ds.distributed_topk(X, 50, m2, None)
 out["topk2x2_v"], out["topk2x2_i"] = np.asarray(tv), np.asarray(ti)
+# the serve scheduler on the mesh: its first batches, or that it raised
+from repro.launch.serve import LengthSortedScheduler, Request
+for n in SCHED_BACKLOGS:
+    lens = np.random.default_rng(n).integers(4, 4096, n)
+    s = LengthSortedScheduler(SCHED_BATCH, mesh=mesh)
+    for i, l in enumerate(lens):
+        s.submit(Request(rid=i, prompt=np.zeros(int(l), np.int32)))
+    try:
+        out[f"sched{n}"] = np.asarray(
+            [[r.rid for r in s.next_batch()]
+             for _ in range(SCHED_REF_BATCHES)])
+    except Exception as e:
+        out[f"sched{n}_raised"] = np.asarray(type(e).__name__)
 np.savez(sys.argv[2], **out)
 print("REF4_OK")
 """
@@ -86,7 +109,9 @@ def ranks(tmp_path_factory):
                "JAX_PLATFORMS": "cpu"}
     ref_env.pop("XLA_FLAGS", None)
     ref = subprocess.Popen(
-        [sys.executable, "-c", _REFERENCE, str(out / "inputs.npz"),
+        [sys.executable, "-c", _REFERENCE % (SCHED_BACKLOGS, SCHED_BATCH,
+                                             SCHED_REF_BATCHES),
+         str(out / "inputs.npz"),
          str(out / "ref.npz")], env=ref_env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     port = _free_port()
@@ -222,3 +247,51 @@ def test_ranks_match_the_reference_at_d4(ranks, key):
     got, ref = ranks["got"][key], ranks["ref"][key]
     assert got.dtype == ref.dtype and got.shape == ref.shape
     np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
+
+
+@pytest.mark.parametrize("n", SCHED_BACKLOGS)
+def test_scheduler_on_the_data_mesh(ranks, n):
+    """The serve scheduler on the (4,) ``data`` DeviceMesh (fault 3i's
+    repair: the policy's mesh, every rank sorting its uneven slice of the
+    backlog): every batch whose backlog reaches ``distributed_min`` sorted
+    over the mesh, then two local ones, bit-equal on every rank to the
+    mesh-free scheduler's and to a scheduler on numpy's stable order; the
+    first batches equal the reference's at D = 4, or, where the reference
+    raises under jax 0.9.0 (a backlog four does not divide), numpy's."""
+    vals = _all(ranks, f"data/scheduler/{n}")
+    for r, v in enumerate(vals):
+        assert v["mesh_sorts"] == (n - 4096) // SCHED_BATCH + 1, (r, v)
+        assert v["equal_mesh_free"] and v["equal_numpy"], (r, v)
+        assert v["first"] == vals[0]["first"]
+    ref = ranks["ref"]
+    if f"sched{n}" in ref:
+        assert ref[f"sched{n}"].tolist() == vals[0]["first"]
+    else:
+        assert str(ref[f"sched{n}_raised"]) == "ShardingTypeError"
+        assert n % 4
+    assert len(vals[0]["first"]) == SCHED_REF_BATCHES
+
+
+def test_serve_under_the_data_policy(ranks):
+    """``serve`` of the float32 smoke minitron under the data policy on
+    the (4,) mesh: its tokens equal the unsharded serve's on every rank;
+    the distributed queue is on and its scheduler sorts over the policy's
+    DeviceMesh (``distributed_min`` cut to 4 so the backlog of 8 reaches
+    it); rank 0 alone writes the snapshot (profile and topology), which
+    every rank restores on the same mesh."""
+    for r, v in enumerate(_all(ranks, "data/serve")):
+        assert v["tokens_equal"] and v["requests"] == 8, (r, v)
+        assert v["distributed_queue"] is True and v["mesh_sorts"] == 2
+        assert v["scheduler_on_the_mesh"] is True
+        assert v["snapshot_files"] == ([2] if r == 0 else [0]), (r, v)
+        assert v["restored"] == ["tuning profile", "topology"], (r, v)
+
+
+def test_data_policy_gradients(ranks):
+    """The data policy on a mesh without a ``model`` axis: the specs'
+    ``model`` entries dropped (the reference's ``sanitize_specs``), the
+    FSDP ``data`` entries kept; the float32 smoke moonshot's loss and
+    gradients against the unsharded model's."""
+    for r, v in enumerate(_all(ranks, "data/gradients")):
+        assert v["loss_rel"] <= 1e-6 and v["grad_rel"] <= 2e-5, (r, v)
+        assert v["sharded_leaves"] > 0 and "R" in v["placements"], (r, v)
